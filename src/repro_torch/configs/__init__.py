@@ -1,0 +1,36 @@
+"""Architecture registry: ``--arch <id>`` -> (full config, smoke config).
+Reference: ``src/repro/configs/__init__.py``.
+
+Only the archs the port serves are listed; asking for any other raises a
+``KeyError`` that names the ported ones.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
+                                      SSMConfig)
+
+_ARCH_MODULES: Dict[str, str] = {
+    "qwen3-0.6b": "qwen3_0_6b",
+}
+
+
+def list_archs() -> List[str]:
+    return list(_ARCH_MODULES)
+
+
+def _module(arch: str):
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"arch {arch!r} is not ported to repro_torch yet; "
+                       f"ported: {list_archs()}")
+    return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).smoke_config()

@@ -1,0 +1,114 @@
+"""GQA attention: projections, masks, dense attention, int8 KV quantization.
+Reference: ``src/repro/models/attention.py`` (the GQA subset: ``gqa_init``,
+``_project_qkv``, ``_expand_kv``, ``_window_ok``, ``make_attention_mask``,
+``gqa_attend``, ``_quantize_kv``, ``_dequantize_kv``).
+
+Windows are per-layer Python ints here (the reference feeds them through
+``lax.scan`` as traced scalars); ``window <= 0`` means unlimited.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.models import common
+
+NEG_INF = -1e30
+
+
+def gqa_init(gen, cfg, dtype=torch.float32, device=None) -> nn.ModuleDict:
+    d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.resolved_head_dim)
+    p = {
+        "wq": common.dense_init(gen, d, h * hd, dtype, device,
+                                bias=cfg.use_bias),
+        "wk": common.dense_init(gen, d, kv * hd, dtype, device,
+                                bias=cfg.use_bias),
+        "wv": common.dense_init(gen, d, kv * hd, dtype, device,
+                                bias=cfg.use_bias),
+        "wo": common.dense_init(gen, h * hd, d, dtype, device,
+                                bias=cfg.use_bias,
+                                std=1.0 / math.sqrt(h * hd)),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = common.rmsnorm_init(hd, dtype, device)
+        p["k_norm"] = common.rmsnorm_init(hd, dtype, device)
+    return nn.ModuleDict(p)
+
+
+def _project_qkv(params, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """x: [B, S, d] -> q [B, S, H, hd], k/v [B, S, KV, hd]; qk-norm before
+    RoPE, as in the reference."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = common.dense(params["wq"], x).reshape(b, s, h, hd)
+    k = common.dense(params["wk"], x).reshape(b, s, kv, hd)
+    v = common.dense(params["wv"], x).reshape(b, s, kv, hd)
+    if cfg.qk_norm:
+        q = common.rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k = common.rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    q = common.apply_rope(q, positions, cfg.rope_theta)
+    k = common.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _expand_kv(k: torch.Tensor, q_per_kv: int) -> torch.Tensor:
+    if q_per_kv == 1:
+        return k
+    return torch.repeat_interleave(k, q_per_kv, dim=2)
+
+
+def _window_ok(diff: torch.Tensor, window: int) -> torch.Tensor:
+    """True where ``diff`` (q_pos - k_pos) is within the lookback window."""
+    if window > 0:
+        return diff < window
+    return torch.ones_like(diff, dtype=torch.bool)
+
+
+def make_attention_mask(s_q: int, s_kv: int, *, causal: bool = True,
+                        window: int = 0, q_offset: int = 0,
+                        device=None) -> torch.Tensor:
+    """[s_q, s_kv] boolean mask. window>0 limits lookback to `window` tokens."""
+    qpos = torch.arange(s_q, device=device) + q_offset
+    kpos = torch.arange(s_kv, device=device)
+    diff = qpos[:, None] - kpos[None, :]
+    mask = diff >= 0 if causal else torch.ones_like(diff, dtype=torch.bool)
+    return mask & _window_ok(diff, window)
+
+
+def gqa_attend(params, cfg, x: torch.Tensor, positions: torch.Tensor, *,
+               window: int = 0) -> torch.Tensor:
+    """Full-sequence dense attention. x: [B, S, d] -> [B, S, d]."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    k = _expand_kv(k, cfg.q_per_kv)
+    v = _expand_kv(v, cfg.q_per_kv)
+    hd = cfg.resolved_head_dim
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(hd)
+    scores = common.softcap(scores, cfg.attn_logit_softcap)
+    mask = make_attention_mask(s, s, window=window, device=x.device)
+    scores = scores.masked_fill(~mask[None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return common.dense(params["wo"], out.reshape(b, s, -1))
+
+
+def _quantize_kv(x: torch.Tensor):
+    """x: [..., kv, hd] -> (int8 payload, f16 per-(pos, head) scale).
+
+    The payload is rounded against the f32 scale but the f16 cast of that
+    scale is what is stored, and dequant multiplies by the f16 scale: the
+    reference's order, kept so the int8 pool's bits match."""
+    x32 = x.float()
+    scale = torch.amax(torch.abs(x32), dim=-1) / 127.0
+    scale = torch.clamp_min(scale, 1e-8)
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127).to(
+        torch.int8)
+    return q, scale.to(torch.float16)
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                   dtype) -> torch.Tensor:
+    return (q.float() * scale.float()[..., None]).to(dtype)

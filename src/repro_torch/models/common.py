@@ -1,0 +1,157 @@
+"""Shared building blocks: device choice, inits, norms, rope, dense layers.
+Reference: ``src/repro/models/common.py``.
+
+Parameters live in ``nn.ParameterDict``/``nn.ModuleDict`` containers whose
+keys are the reference pytree's (``{"w": [d_in, d_out], "b": [d_out]}``
+for a dense layer, ``{"scale": [d]}`` for a norm), so the layer functions
+below read like the reference's and a JAX param tree maps onto a module
+leaf for leaf (``models/convert.py``). Weights keep JAX's ``[d_in, d_out]``
+layout: ``dense`` is ``x @ w``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def resolve_device(device=None) -> torch.device:
+    """The port's entry points run on the card: ``None`` means ``cuda``.
+
+    Raises when CUDA is asked for (explicitly or by default) and absent;
+    the CPU is used only when the caller passes ``device="cpu"``.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available: repro_torch runs on the GPU unless "
+                "the caller passes device='cpu' (CLI: --device cpu)")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+
+def trunc_normal(gen: torch.Generator, shape, std: float,
+                 dtype=torch.float32, device=None) -> torch.Tensor:
+    """2-sigma truncated normal, the LM-standard init, drawn in f32 from
+    ``gen`` (which must live on ``device``). Same distribution as the
+    reference's ``jax.random.truncated_normal``; not the same numbers."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t.to(dtype) * std
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def dense_init(gen, d_in: int, d_out: int, dtype=torch.float32, device=None,
+               *, bias: bool = False,
+               std: Optional[float] = None) -> nn.ParameterDict:
+    std = std if std is not None else 1.0 / math.sqrt(d_in)
+    p = {"w": _param(trunc_normal(gen, (d_in, d_out), std, dtype, device))}
+    if bias:
+        p["b"] = _param(torch.zeros((d_out,), dtype=dtype, device=device))
+    return nn.ParameterDict(p)
+
+
+def dense(params, x: torch.Tensor) -> torch.Tensor:
+    y = x @ params["w"]
+    if "b" in params:
+        y = y + params["b"]
+    return y
+
+
+def embed_init(gen, vocab: int, d: int, dtype=torch.float32, device=None,
+               std: float = 0.02) -> nn.ParameterDict:
+    return nn.ParameterDict(
+        {"embedding": _param(trunc_normal(gen, (vocab, d), std, dtype,
+                                          device))})
+
+
+def embed(params, ids: torch.Tensor) -> torch.Tensor:
+    return F.embedding(ids, params["embedding"])
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_init(d: int, dtype=torch.float32, device=None) -> nn.ParameterDict:
+    return nn.ParameterDict(
+        {"scale": _param(torch.ones((d,), dtype=dtype, device=device))})
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., S, H, D]; positions: [..., S] (broadcastable). Split-halves
+    layout (not interleaved), angles in f32."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, device=x.device)          # [D/2]
+    angles = positions[..., :, None, None].float() * freqs       # [..., S, 1, D/2]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+
+def _relu_sq(x):
+    return torch.square(F.relu(x))
+
+
+def activation(name: str):
+    return {
+        # jax.nn.gelu defaults to the tanh approximation
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "silu": F.silu,
+        "relu": F.relu,
+        "relu_sq": _relu_sq,
+        "swiglu": F.silu,  # gate activation inside SwiGLU
+    }[name]
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap <= 0:
+        return x
+    return cap * torch.tanh(x / cap)

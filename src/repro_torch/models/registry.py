@@ -1,0 +1,19 @@
+"""Model registry: family -> model class. Reference:
+``src/repro/models/registry.py`` (``get_model``; dense family only)."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def get_model(cfg, *, device=None,
+              generator: Optional[torch.Generator] = None):
+    """Build and initialize the model for ``cfg`` on ``device`` (``None``
+    means ``cuda``)."""
+    if cfg.family == "dense":
+        from repro_torch.models import transformer
+        return transformer.make(cfg, device=device, generator=generator)
+    raise NotImplementedError(
+        f"model family {cfg.family!r} is not ported yet (the remaining model "
+        f"families slice); repro_torch serves the dense family")

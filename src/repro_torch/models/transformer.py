@@ -1,0 +1,137 @@
+"""Decoder-only transformer LM, dense family.
+Reference: ``src/repro/models/transformer.py`` (``segments``,
+``layer_windows_np``, ``block_init`` / ``block_apply`` and
+``TransformerLM``'s ``init``, ``_embed_inputs``, ``forward``, ``prefill``
+and ``_output_weights``).
+
+The reference scans stacked ``seg_dense`` leaves ``[L, ...]``; here the
+layers are an ``nn.ModuleList`` of per-layer ``nn.ModuleDict``s with the
+same keys (``ln1``, ``attn``, ``ln2``, ``mlp``). Weights are inference
+parameters (``requires_grad=False``): this slice serves, it does not train.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.models import attention, common, mlp
+
+
+def segments(cfg) -> List[Tuple[str, int, int]]:
+    """[(kind, count, first_layer_index)] — homogeneous layer groups."""
+    if cfg.moe.enabled:
+        raise NotImplementedError(
+            "MoE layers are not ported yet (the remaining model families "
+            "slice); repro_torch serves the dense family")
+    return [("dense", cfg.num_layers, 0)]
+
+
+def layer_windows_np(cfg) -> np.ndarray:
+    """Per-layer sliding window (0 = global), host-side config math."""
+    idx = np.arange(cfg.num_layers)
+    if cfg.sliding_window <= 0:
+        return np.zeros((cfg.num_layers,), np.int32)
+    if cfg.global_every > 0:
+        is_global = (idx + 1) % cfg.global_every == 0
+        return np.where(is_global, 0, cfg.sliding_window).astype(np.int32)
+    return np.full((cfg.num_layers,), cfg.sliding_window, np.int32)
+
+
+def block_init(gen, cfg, kind: str, dtype, device=None) -> nn.ModuleDict:
+    if kind != "dense" or cfg.attention_kind != "gqa":
+        raise NotImplementedError(
+            f"{kind}/{cfg.attention_kind} blocks are not ported yet (the "
+            f"remaining model families slice)")
+    return nn.ModuleDict({
+        "ln1": common.rmsnorm_init(cfg.d_model, dtype, device),
+        "attn": attention.gqa_init(gen, cfg, dtype, device),
+        "ln2": common.rmsnorm_init(cfg.d_model, dtype, device),
+        "mlp": mlp.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.hidden_act,
+                            dtype, device, bias=cfg.use_bias),
+    })
+
+
+def block_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor,
+                window: int) -> torch.Tensor:
+    """One pre-norm block over the full sequence (dense attention)."""
+    h = common.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    x = x + attention.gqa_attend(p["attn"], cfg, h, positions, window=window)
+    h = common.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp.mlp_apply(p["mlp"], h, cfg.hidden_act)
+
+
+class TransformerLM(nn.Module):
+    """Dense decoder LM. ``device=None`` means the card (``cuda``); pass
+    ``device="cpu"`` to run on the CPU. ``generator`` must live on that
+    device; ``None`` seeds a fresh one with 0."""
+
+    def __init__(self, cfg, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (the remaining "
+                f"model families slice); repro_torch serves the dense family")
+        self.cfg = cfg
+        self.dtype = common.dtype_of(cfg.dtype)
+        self.device = common.resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        self.init(generator)
+
+    # -- init ---------------------------------------------------------------
+
+    def init(self, gen: torch.Generator) -> "TransformerLM":
+        """(Re)draw every parameter from ``gen`` with the reference's
+        init scheme (truncated normals, unit norms)."""
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+        self.embed = common.embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                       dt, dev)
+        self.final_norm = common.rmsnorm_init(cfg.d_model, dt, dev)
+        if not cfg.tie_embeddings:
+            self.lm_head = common.dense_init(gen, cfg.d_model,
+                                             cfg.padded_vocab, dt, dev)
+        self.layers = nn.ModuleList(
+            block_init(gen, cfg, kind, dt, dev)
+            for kind, count, _ in segments(cfg) for _ in range(count))
+        self.windows = [int(w) for w in layer_windows_np(cfg)]
+        return self
+
+    # -- forward (prefill) ----------------------------------------------------
+
+    def _embed_inputs(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = common.embed(self.embed, tokens).to(self.dtype)
+        if self.cfg.embed_scale != 1.0:
+            x = x * self.cfg.embed_scale
+        return x
+
+    def _run_layers(self, x: torch.Tensor) -> torch.Tensor:
+        positions = torch.arange(x.shape[1], device=x.device).expand(
+            x.shape[:2])
+        for p, win in zip(self.layers, self.windows):
+            x = block_apply(p, self.cfg, x, positions, win)
+        return x
+
+    def _output_weights(self) -> torch.Tensor:
+        if self.cfg.tie_embeddings:
+            return self.embed["embedding"].T
+        return self.lm_head["w"]
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens: [B, S] -> logits [B, S, V_padded]."""
+        x = self._run_layers(self._embed_inputs(tokens))
+        x = common.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
+        return x @ self._output_weights()
+
+    def prefill(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Run the stack, return only the last position's logits [B, V]."""
+        x = self._run_layers(self._embed_inputs(tokens))
+        x = common.rmsnorm(self.final_norm, x[:, -1:], self.cfg.norm_eps)
+        return (x @ self._output_weights())[:, 0]
+
+
+def make(cfg, *, device=None, generator=None) -> TransformerLM:
+    return TransformerLM(cfg, device=device, generator=generator)

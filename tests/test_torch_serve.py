@@ -1,0 +1,264 @@
+"""The port's serve path against the JAX serve engine, and its CLI.
+
+* ``make_trace`` is bit-identical to the reference's (arrivals, lengths,
+  prompts), and the page pool's host bookkeeping replays identically.
+* Greedy tokens per request of the port's ``ServeEngine`` (device cpu,
+  virtual clock) equal the JAX ``ServeEngine``'s on the same smoke params
+  and trace, for the fp and int8 pools and the continuous and static
+  policies, and so do the scheduler's metrics (decode steps, pages,
+  virtual-clock latencies). A variant with sliding windows and a softcap
+  decodes past the window.
+* The CLI runs with ``--device cpu`` and raises without it when there is
+  no CUDA; paths not ported yet are refused by name.
+"""
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax
+
+from repro import configs as jconfigs
+from repro.models import get_model as jget_model
+from repro.serve import PagePool as JPagePool
+from repro.serve import PoolConfig as JPoolConfig
+from repro.serve import ServeEngine as JServeEngine
+from repro.serve import TraceConfig as JTraceConfig
+from repro.serve import make_trace as jmake_trace
+
+from repro_torch import configs as tconfigs
+from repro_torch.launch import serve as tcli
+from repro_torch.models import TransformerLM, load_jax_params
+from repro_torch.serve import (PagePool, PoolConfig, ServeEngine,
+                               StepSession, TraceConfig, make_trace,
+                               restore_params)
+
+ARCH = "qwen3-0.6b"
+ENGINE_KW = dict(num_slots=3, page_size=4, max_prompt_len=12, max_new_cap=8,
+                 clock="virtual")
+# wall-clock fields differ by nature; everything else must match
+WALL_KEYS = {"wall_time_s", "prefill_s", "decode_s"}
+
+VARIANTS = {
+    "qwen3_smoke": {},
+    "window_softcap": dict(sliding_window=3, global_every=2,
+                           attn_logit_softcap=20.0),
+}
+
+
+def _trace_kw(n, vocab, *, seed=0, rate=4.0, max_prompt=12, max_new=8,
+              min_new=2):
+    return dict(num_requests=n, rate=rate, prompt_len_min=2,
+                prompt_len_max=max_prompt, max_new_min=min_new,
+                max_new_max=max_new, vocab=vocab, seed=seed)
+
+
+def _pair(kw, seed=0):
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config(ARCH), **kw)
+    tcfg = dataclasses.replace(tconfigs.get_smoke_config(ARCH), **kw)
+    params = jget_model(jcfg).init(jax.random.PRNGKey(seed))
+    tmodel = load_jax_params(TransformerLM(tcfg, device="cpu"), params)
+    return jcfg, params, tcfg, tmodel
+
+
+@pytest.fixture(scope="module")
+def qwen():
+    return _pair({})
+
+
+# ---------------------------------------------------------------------------
+# Traces and pages (host numpy: bit for bit)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed,n,rate", [(0, 16, 8.0), (7, 33, 0.5)])
+def test_make_trace_bit_identical(seed, n, rate):
+    kw = _trace_kw(n, 151936, seed=seed, rate=rate, max_prompt=512,
+                   max_new=128)
+    j, t = jmake_trace(JTraceConfig(**kw)), make_trace(TraceConfig(**kw))
+    assert [(r.rid, r.arrival, r.max_new) for r in t] == \
+        [(r.rid, r.arrival, r.max_new) for r in j]
+    for a, b in zip(t, j):
+        assert a.prompt.dtype == b.prompt.dtype
+        np.testing.assert_array_equal(a.prompt, b.prompt)
+
+
+def test_page_pool_bookkeeping_replays_reference():
+    kw = dict(num_layers=2, kv_heads=2, head_dim=4, num_pages=9, page_size=4,
+              num_slots=3, max_pages_per_slot=4, quantized=True)
+    jp, tp = JPagePool(JPoolConfig(**kw)), PagePool(PoolConfig(**kw))
+    ops = [("alloc", 0, 3), ("alloc", 1, 4), ("free", 0), ("alloc", 2, 2),
+           ("try", 0, 4), ("alloc", 0, 1), ("free", 1), ("try", 1, 4)]
+    for op in ops:
+        for p in (jp, tp):
+            if op[0] == "alloc":
+                p.alloc(op[1], op[2])
+            elif op[0] == "try":
+                p.try_alloc(op[1], op[2])
+            else:
+                p.free_slot(op[1])
+            p.note_occupancy()
+        np.testing.assert_array_equal(tp.page_table, jp.page_table)
+        assert (tp.free_pages, tp.peak_pages, tp.mean_occupancy()) == \
+            (jp.free_pages, jp.peak_pages, jp.mean_occupancy())
+    assert {k: tuple(v.shape) for k, v in tp.buffers.items()} == \
+        {k: tuple(v.shape) for k, v in jp.buffers.items()}
+    assert tp.buffers["k"].dtype == torch.int8
+    assert tp.buffers["k_scale"].dtype == torch.float16
+    with pytest.raises(ValueError):
+        tp.alloc(2, 1)                      # slot already holds pages
+
+
+# ---------------------------------------------------------------------------
+# Engine token parity with the JAX engine
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def engines(qwen):
+    jcfg, params, tcfg, tmodel = qwen
+    out = {}
+    for int8 in (False, True):
+        out[int8] = (JServeEngine(jcfg, params, cache_int8=int8, **ENGINE_KW),
+                     ServeEngine(tcfg, tmodel, cache_int8=int8, device="cpu",
+                                 **ENGINE_KW))
+    return out
+
+
+def _assert_same_run(jeng, teng, trace_kw, policy):
+    jrep = jeng.run(jmake_trace(JTraceConfig(**trace_kw)), policy=policy)
+    trep = teng.run(make_trace(TraceConfig(**trace_kw)), policy=policy)
+    assert trep.metrics["completed"] + trep.metrics["rejected"] == \
+        trace_kw["num_requests"]
+    assert trep.tokens_by_rid() == jrep.tokens_by_rid()
+    assert trep.rejected == jrep.rejected
+    jm = {k: v for k, v in jrep.metrics.items() if k not in WALL_KEYS}
+    tm = {k: v for k, v in trep.metrics.items() if k not in WALL_KEYS}
+    assert tm == jm
+    assert set(trep.metrics) == set(jrep.metrics)
+    return trep
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("policy", ["continuous", "static"])
+def test_engine_tokens_match_jax(engines, qwen, int8, policy):
+    jeng, teng = engines[int8]
+    kw = _trace_kw(7, qwen[2].vocab_size, seed=1, rate=100.0)
+    rep = _assert_same_run(jeng, teng, kw, policy)
+    assert rep.metrics["prefill_compiles"] >= 1
+    assert rep.metrics["decode_compiles"] == 1
+
+
+def test_engine_window_softcap_matches_jax():
+    """Decode well past a 3-token window on alternating local/global
+    layers, with a logit softcap: paged masking matches the reference."""
+    jcfg, params, tcfg, tmodel = _pair(VARIANTS["window_softcap"], seed=2)
+    kw = dict(num_slots=2, page_size=4, max_prompt_len=8, max_new_cap=12,
+              clock="virtual")
+    _assert_same_run(JServeEngine(jcfg, params, **kw),
+                     ServeEngine(tcfg, tmodel, device="cpu", **kw),
+                     _trace_kw(3, tcfg.vocab_size, max_prompt=6, max_new=12,
+                               min_new=12), "continuous")
+
+
+def test_engine_rejections_match_jax(qwen):
+    """Undersized pool + bounded queue: the same structured rejections."""
+    jcfg, params, tcfg, tmodel = qwen
+    kw = dict(ENGINE_KW, num_pages=4, strict_capacity=False, max_queue=2)
+    trep = _assert_same_run(JServeEngine(jcfg, params, **kw),
+                            ServeEngine(tcfg, tmodel, device="cpu", **kw),
+                            _trace_kw(8, tcfg.vocab_size, seed=3,
+                                      rate=1000.0), "continuous")
+    assert trep.rejected
+
+
+def test_prefill_buckets_counted_once(qwen):
+    _, _, tcfg, tmodel = qwen
+    eng = ServeEngine(tcfg, tmodel, device="cpu", num_slots=2, page_size=8,
+                      max_prompt_len=16, max_new_cap=4, clock="virtual")
+    assert (eng.prefill_compiles, eng.decode_compiles) == (0, 0)
+    from repro_torch.serve import Request
+    rng = np.random.RandomState(0)
+    reqs = [Request(rid=i, arrival=0.0, max_new=3,
+                    prompt=rng.randint(0, 512, size=n).astype(np.int32))
+            for i, n in enumerate([3, 5, 8, 9, 12, 16])]   # buckets {8, 16}
+    for _ in range(2):
+        eng.run(reqs)
+        assert (eng.prefill_compiles, eng.decode_compiles) == (2, 1)
+
+
+def test_engine_validation(qwen):
+    _, _, tcfg, tmodel = qwen
+    eng = ServeEngine(tcfg, tmodel, device="cpu", **ENGINE_KW)
+    from repro_torch.serve import Request
+    with pytest.raises(ValueError, match="prompt_len"):
+        eng.run([Request(0, 0.0, np.zeros(99, np.int32), 2)])
+    with pytest.raises(ValueError, match="max_new"):
+        eng.run([Request(0, 0.0, np.zeros(4, np.int32), 999)])
+    with pytest.raises(ValueError, match="policy"):
+        eng.run([], policy="adaptive")
+    other = dataclasses.replace(tcfg, d_ff=64)
+    with pytest.raises(ValueError, match="another config"):
+        ServeEngine(other, tmodel, device="cpu", **ENGINE_KW)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(mesh_model=2), "distributed"), (dict(faults="slowdown@1"), "fault"),
+    (dict(slo=object()), "resilience"), (dict(metrics=object()), "telemetry")])
+def test_unported_engine_options_raise(qwen, kw, match):
+    _, _, tcfg, tmodel = qwen
+    with pytest.raises(NotImplementedError, match=match):
+        ServeEngine(tcfg, tmodel, device="cpu", **dict(ENGINE_KW, **kw))
+
+
+def test_unported_surfaces_raise(qwen):
+    _, _, tcfg, tmodel = qwen
+    eng = ServeEngine(tcfg, tmodel, device="cpu", **ENGINE_KW)
+    with pytest.raises(NotImplementedError, match="StepSession"):
+        StepSession(eng)
+    with pytest.raises(NotImplementedError, match="restore_params"):
+        restore_params("/nonexistent", tcfg)
+
+
+def test_engine_without_cuda_raises_unless_cpu(qwen, monkeypatch):
+    _, _, tcfg, tmodel = qwen
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(tcfg, tmodel, **ENGINE_KW)
+
+
+# ---------------------------------------------------------------------------
+# CLI
+# ---------------------------------------------------------------------------
+
+
+def test_cli_runs_on_cpu(capsys, tmp_path):
+    path = tmp_path / "trace.json"
+    tcli.main(["--device", "cpu", "--requests", "4", "--rate", "100",
+               "--cache-int8", "--trace", str(path)])
+    out = capsys.readouterr().out
+    assert "[serve] qwen3-0.6b policy=continuous slots=4" in out
+    assert "4 requests" in out and "compiles prefill=" in out
+    with open(path) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]}
+    assert {"serve/admit", "serve/prefill", "serve/decode"} <= names
+
+
+def test_cli_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tcli.main(["--requests", "2"])
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--toy"], "toy"), (["--replicas", "2"], "router"),
+    (["--restore", "ck"], "checkpoint"), (["--mesh-model", "2"], "distributed"),
+    (["--faults", "slowdown@1"], "fault"), (["--slo-p99-ms", "5"], "resilience"),
+    (["--metrics", "m.jsonl"], "telemetry"), (["--ema"], "--restore"),
+    (["--timeout", "3"], "--replicas")])
+def test_cli_refuses_unported_paths(argv, match):
+    with pytest.raises(SystemExit, match=match):
+        tcli.main(["--device", "cpu"] + argv)
