@@ -10,15 +10,15 @@ fails (non-zero exit, no result line) if any phase fails:
    (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``).
 2. Build: every kernel source under ``src/repro_torch/kernels/csrc/``,
    one ``nvcc`` each, all at once, into the git-ignored build directory.
-3. Kernel parity at the serve path's shapes: each kernel against its plain
-   PyTorch version on the same inputs (page gather bf16 and int8 -> bf16
-   bit-exact; flash attention on unit-variance q/k/v, the scale qk-norm
-   gives, so scores have std ~1: bf16 at atol 4e-3 / rtol 8e-3, one output
-   rounding, and f32 at atol 1e-4, S in {16, 64, 512}, plus a window 64 +
-   softcap 2 case where the cap binds), then device times
-   from CUDA events (median of repeats, calls queued behind a GPU sleep so
-   host overhead is excluded, inputs rotated past the 50 MB L2) of the
-   kernel, its plain version and the library yardstick.
+3. Kernel parity at the serve path's shapes: each kernel against its
+   plain PyTorch version on the same inputs (page gather bf16 and int8 ->
+   bf16 bit-exact; flash attention on unit-variance q/k/v, the scale
+   qk-norm gives, so scores have std ~1: bf16 at atol 4e-3 / rtol 8e-3,
+   one output rounding, and f32 at atol 1e-4, S in {16, 64, 512}, plus a
+   window 64 + softcap 2 case where the cap binds), then device times from
+   CUDA events (median of repeats, calls queued behind a GPU sleep so host
+   overhead is excluded, inputs rotated past the 50 MB L2) of the kernel,
+   its plain version and the library yardstick.
 4. Serve qwen3-0.6b at full width (28 layers, d_model 1024, bf16, seeded
    random weights) through ``ServeEngine`` on a 16-request trace, once with
    an fp pool and once with an int8 pool. Launch counters are set to 0
@@ -29,9 +29,24 @@ fails (non-zero exit, no result line) if any phase fails:
    short trace with ``use_kernel=True`` and ``use_kernel=False`` (fp and
    int8 pools), and the smoke model serves one on the card and one on the
    CPU; the greedy tokens must be identical.
-6. A JSON line of per-kernel numbers (``launches`` is the count of one
-   serve run of phase 4, named by ``launches_run``), then, as the last line,
-   ``{"ok": true, "device": {...}}``.
+6. Train qwen3-0.6b at full width (28 layers, bf16, remat full, tied
+   151,936-vocab head) through ``run_experiment``: backup 6 + 2 workers,
+   batch 2 per worker, seq 256, rmsprop_momentum, EMA 0.999, the spmd
+   backend at mesh 1 x 1, 3 steps. The backup_reduce counter is set to 0
+   just before and read just after: one launch per step. The same 3 steps
+   again with ``use_kernel=False``: the same masks and sim_time, losses
+   within rel 1e-3, and the first step's aggregated gradient bit-equal.
+   Then backup_reduce against its plain version, bit-exact, at the run's
+   [8, P] stack (P = 596,049,920 parameters) and at edge shapes W in
+   {2, 3, 8}, P in {1, 3, 4097, 65536}, all-zero / all-one / mixed masks,
+   aligned and unaligned bases, and its device times as in phase 3.
+7. At reduced depth (2 layers, full width, f32): the sim and the spmd
+   backends give the same parameters (atol 1e-5), and a checkpoint saved
+   at step 1, restored and continued for 2 steps equals 3 steps run
+   straight through.
+8. A JSON line of per-kernel numbers (``launches`` is the count of one
+   run of the path that launches the kernel, named by ``launches_run``),
+   then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero when ``torch.cuda.is_available()`` is false.
 """
@@ -39,10 +54,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -52,6 +69,9 @@ PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 GATHER_SHAPE = dict(b=8, ps=16, kv=8, hd=128)
 FLASH_HEADS = dict(h=16, kv=8, d=128)
+REDUCE_WORKERS = 8                 # backup 6 + 2
+REDUCE_EDGES = dict(w=(2, 3, 8), p=(1, 3, 4097, 65536),
+                    masks=("zeros", "ones", "mixed"))
 
 
 def _log(msg: str) -> None:
@@ -223,6 +243,77 @@ def _flash_phase(torch, flash_attention):
     return row
 
 
+def _reduce_mask(torch, w, kind):
+    vals = {"zeros": [0.0] * w, "ones": [1.0] * w,
+            "mixed": [float(i % 4 != 3) for i in range(w)]}[kind]
+    return torch.tensor(vals, device="cuda")
+
+
+def _reduce_phase(torch, backup_reduce, p_full: int):
+    """backup_reduce: bit-exact vs plain at the training stack and at the
+    edge shapes; device times at the training stack."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    n_edge = 0
+    for w in REDUCE_EDGES["w"]:
+        for p in REDUCE_EDGES["p"]:
+            g = torch.randn((w, p + 1), generator=gen, device="cuda")
+            for kind in REDUCE_EDGES["masks"]:
+                m = _reduce_mask(torch, w, kind)
+                # the aligned stack, then the same lanes 4 bytes off
+                for view in (g[:, :p].contiguous(), g[:, 1:]):
+                    got = backup_reduce.backup_reduce(view, m, 6)
+                    want = backup_reduce.backup_reduce_plain(view, m, 6)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"backup_reduce W={w} P={p} mask={kind}: kernel "
+                            f"differs from plain (max abs err "
+                            f"{(got - want).abs().max().item()})")
+                    n_edge += 1
+    _log(f"[kernels] backup_reduce edge shapes: {n_edge} cases (W "
+         f"{REDUCE_EDGES['w']}, P {REDUCE_EDGES['p']}, masks "
+         f"{REDUCE_EDGES['masks']}, aligned and 4-byte-offset bases) "
+         f"bit-exact vs plain")
+    w = REDUCE_WORKERS
+    g = torch.randn((w, p_full), generator=gen, device="cuda")
+    m = _reduce_mask(torch, w, "mixed")
+    n_agg = int(m.sum().item())
+    got = backup_reduce.backup_reduce(g, m, n_agg)
+    want = backup_reduce.backup_reduce_plain(g, m, n_agg)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not torch.equal(got, want):
+        raise AssertionError(f"backup_reduce W={w} P={p_full}: kernel "
+                             f"differs from plain (max abs err {err})")
+    vec4 = backup_reduce.uses_vec4(g, got)
+    del got, want
+    inv_n = backup_reduce.inv_n_f32(n_agg)
+    ms = _time_ms(torch, [lambda: backup_reduce.backup_reduce(g, m, n_agg)])
+    plain_ms = _time_ms(torch, [
+        lambda: backup_reduce.backup_reduce_plain(g, m, n_agg)], repeats=3,
+        iters=3)
+    library_ms = _time_ms(torch, [lambda: torch.matmul(m[None], g) * inv_n])
+    nbytes = 4 * w * p_full + 4 * p_full + 4 * w
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * w * p_full / PEAK_FLOPS["float32"] * 1e3
+    row = dict(
+        name="backup_reduce", route="cuda",
+        source="src/repro_torch/kernels/csrc/backup_reduce.cu",
+        replaces="src/repro/kernels/backup_reduce.py:44",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=library_ms)
+    _log(f"[kernels] backup_reduce W={w} P={p_full} f32 ({n_agg} of {w} "
+         f"selected, {'float4' if vec4 else 'scalar'} path): bit-exact vs "
+         f"plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+         f"(matmul, cuBLAS) {library_ms:.4f} ms, bound {row['bound_ms']:.4f} "
+         f"ms ({nbytes} bytes)")
+    del g
+    torch.cuda.empty_cache()
+    return row
+
+
 # ---------------------------------------------------------------------------
 # Phases 4 and 5: serving
 # ---------------------------------------------------------------------------
@@ -346,13 +437,159 @@ def _kernel_vs_plain_phase(torch):
          f"({sum(len(t) for t in on_cpu.values())} tokens)")
 
 
+# ---------------------------------------------------------------------------
+# Phases 6 and 7: training
+# ---------------------------------------------------------------------------
+
+
+def _train_phase(torch, backup_reduce):
+    """qwen3-0.6b at full width, 3 spmd steps through the kernel, then the
+    same 3 steps through the plain reduce. Returns the kernel run's row
+    numbers and its parameter count P."""
+    from unittest import mock
+    from repro_torch.core.straggler import PaperCalibrated
+    from repro_torch.distributed import spmd_engine
+    from repro_torch.launch.profile_train import train_config
+    from repro_torch.train.loop import run_experiment
+    first_grad, tags = {}, []
+    reduce = spmd_engine.reduce_then_psum
+
+    def keep_first(*args, **kw):           # each run's first [P] gradient
+        red, tail = reduce(*args, **kw)
+        if tags[-1] not in first_grad:
+            first_grad[tags[-1]] = red.clone()
+        return red, tail
+
+    runs = {}
+    with mock.patch.object(spmd_engine, "reduce_then_psum", keep_first):
+        for tag, use_kernel in (("kernel", None), ("plain", False)):
+            tags.append(tag)
+            cfg = train_config(use_kernel=use_kernel)
+            model = cfg.model
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            backup_reduce.launches = 0
+            res = run_experiment(cfg, latency=PaperCalibrated(),
+                                 device="cuda")
+            torch.cuda.synchronize()
+            launches = backup_reduce.launches
+            peak = torch.cuda.max_memory_allocated()
+            n_params = sum(v.numel() for v in res.params.values())
+            for m in res.metrics:
+                _log(f"[train {tag}] step {m['step']} loss {m['loss']:.6f} "
+                     f"sim_time {m['sim_time']:.6f} selected {m['selected']} "
+                     f"lr {m['lr']:.6f}")
+            tokens = cfg.shape.global_batch * cfg.shape.seq_len
+            ms = [1e3 * t for t in res.step_times_s]
+            _log(f"[train {tag}] {model.name}: {model.num_layers} layers, "
+                 f"d_model {model.d_model}, vocab {model.vocab_size}, "
+                 f"{n_params} params {model.dtype}, remat {model.remat}; "
+                 f"backup 6+2, {cfg.shape.global_batch} x "
+                 f"{cfg.shape.seq_len} tokens/step, spmd mesh 1x1: ms/step "
+                 f"{', '.join(f'{t:.1f}' for t in ms)} (steady "
+                 f"{statistics.mean(ms[1:]):.1f} ms, "
+                 f"{tokens / statistics.mean(ms[1:]) * 1e3:.0f} tokens/s) | "
+                 f"backup_reduce launches {launches} | peak device memory "
+                 f"{peak} bytes")
+            if not all(math.isfinite(m["loss"]) for m in res.metrics):
+                raise AssertionError(f"[train {tag}] non-finite loss")
+            if res.steps != 3 or len(res.metrics) != 3:
+                raise AssertionError(f"[train {tag}] ran {res.steps} steps")
+            want = 3 if use_kernel is None else 0
+            if launches != want:
+                raise AssertionError(f"[train {tag}] backup_reduce launches "
+                                     f"{launches}, expected {want}")
+            runs[tag] = dict(metrics=res.metrics, launches=launches,
+                             peak=peak, ms=ms, n_params=n_params)
+            del res
+            torch.cuda.empty_cache()
+    for a, b in zip(runs["kernel"]["metrics"], runs["plain"]["metrics"]):
+        if a["selected"] != b["selected"] or a["sim_time"] != b["sim_time"]:
+            raise AssertionError(f"step {a['step']}: kernel and plain runs "
+                                 f"planned different masks")
+        if abs(a["loss"] - b["loss"]) > 1e-3 * abs(b["loss"]):
+            raise AssertionError(f"step {a['step']}: loss {a['loss']} vs "
+                                 f"plain {b['loss']}")
+    gk, gp = first_grad["kernel"], first_grad["plain"]
+    if not torch.equal(gk, gp):
+        raise AssertionError(
+            f"first step's aggregated gradient differs between the kernel "
+            f"and the plain run (max abs {(gk - gp).abs().max().item()})")
+    _log(f"[train] kernel run == plain run: masks and sim_time equal, "
+         f"losses within rel 1e-3, first step's aggregated gradient "
+         f"({gk.numel()} lanes) bit-equal")
+    del gk, gp
+    first_grad.clear()
+    torch.cuda.empty_cache()
+    return runs["kernel"]
+
+
+def _parity_cfg(backend, *, directory="", every=0):
+    """The full-width run cut to 2 layers in f32, seq 64, momentum (as the
+    reference's own sim-vs-spmd test: the first RMSProp step divides by
+    sqrt(0.1 g^2 + 1e-8), which turns the two backends' different
+    summation orders near g = 0 into visible differences)."""
+    from repro_torch.configs import CheckpointConfig, OptimizerConfig
+    from repro_torch.launch.profile_train import train_config
+    cfg = train_config(backend=backend)
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, num_layers=2,
+                                       dtype="float32"),
+        shape=dataclasses.replace(cfg.shape, seq_len=64),
+        optimizer=OptimizerConfig(name="momentum", learning_rate=0.05,
+                                  scale_lr_with_workers=False,
+                                  ema_decay=0.99),
+        checkpoint=CheckpointConfig(directory=directory, every_steps=every))
+
+
+def _parity_phase(torch):
+    """2 layers at full width, f32: sim == spmd, and checkpoint save ->
+    restore -> continue == straight through."""
+    from repro_torch.train.loop import Trainer
+    out = {}
+    for backend in ("sim", "spmd"):
+        tr = Trainer(_parity_cfg(backend), device="cuda")
+        tr.init_state()
+        out[backend] = tr.run(3)
+    worst = 0.0
+    for name, v in out["sim"].params.items():
+        worst = max(worst, (v - out["spmd"].params[name]).abs().max().item())
+    if worst > 1e-5 or out["sim"].sim_time != out["spmd"].sim_time:
+        raise AssertionError(f"sim vs spmd: params differ by {worst}")
+    _log(f"[parity] 2-layer full-width f32, 3 steps: sim vs spmd params max "
+         f"abs diff {worst:.3g} (atol 1e-5), sim_time equal")
+    with tempfile.TemporaryDirectory() as d:
+        first = Trainer(_parity_cfg("spmd", directory=d, every=1),
+                        device="cuda")
+        first.init_state()
+        first.run(1)
+        resumed = Trainer(_parity_cfg("spmd", directory=d), device="cuda")
+        resumed.reset_optimizer_state()
+        resumed.restore_checkpoint()
+        res = resumed.run(2)
+    worst = 0.0
+    for part in ("params", "ema"):
+        a, b = getattr(res, part), getattr(out["spmd"], part)
+        for name, v in a.items():
+            worst = max(worst, (v - b[name]).abs().max().item())
+    if worst > 1e-6 or res.sim_time != out["spmd"].sim_time:
+        raise AssertionError(f"checkpoint resume: state differs by {worst}")
+    _log(f"[parity] checkpoint at step 1 -> restore -> 2 more steps vs 3 "
+         f"straight: params and EMA max abs diff {worst:.3g} (atol 1e-6), "
+         f"sim_time equal")
+
+
 def main() -> int:
+    # cuBLAS picks the same algorithms run to run (the kernel and plain
+    # training runs must compute the same first-step gradients)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    from repro_torch.kernels import _build, flash_attention, page_gather
+    from repro_torch.kernels import (_build, backup_reduce, flash_attention,
+                                     page_gather)
     from repro_torch.serve.pages import pages_for
     torch.backends.cuda.matmul.allow_tf32 = False     # f32 is full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -373,29 +610,41 @@ def main() -> int:
     _log(f"[build] {', '.join(f'{k}.cu {v:.1f} s' for k, v in secs.items())}"
          f" (wall {time.perf_counter() - t0:.1f} s, parallel nvcc, sm_90a)")
 
-    # 3. kernels at the serve run's shapes (maxp and pool from its config)
+    # 3. the serve kernels at the serve path's shapes (its maxp and pool)
     maxp = pages_for(512 + 128, GATHER_SHAPE["ps"])
     rows = _gather_phase(torch, page_gather, maxp,
                          num_pages=GATHER_SHAPE["b"] * maxp + 1, layers=28)
     rows.append(_flash_phase(torch, flash_attention))
 
-    # 4. serve at full width
-    runs = _serve_phase(torch, (page_gather, flash_attention))
+    # 4. serve at full width (no autograd graph: inference mode)
+    with torch.inference_mode():
+        runs = _serve_phase(torch, (page_gather, flash_attention))
     # each row's launches come from one serve run: the gather variants from
     # the run whose pool they read, flash from the fp run (the int8 run's
     # count is printed on its [serve int8] line)
     launch_run = {"page_gather": ("fp", "gather"),
                   "page_gather_dequant": ("int8", "gather"),
                   "flash_attention": ("fp", "flash")}
-    for row in rows:
+    for row in rows[:3]:
         run, counter = launch_run[row["name"]]
         row["launches"] = runs[run][counter]
         row["launches_run"] = f"serve {run}"
 
     # 5. kernel path == plain path, end to end
-    _kernel_vs_plain_phase(torch)
+    with torch.inference_mode():
+        _kernel_vs_plain_phase(torch)
 
-    # 6. results
+    # 6. train at full width through the backup_reduce kernel, then the
+    # kernel against its plain version at the run's [W, P] stack
+    train = _train_phase(torch, backup_reduce)
+    rows.append(_reduce_phase(torch, backup_reduce, train["n_params"]))
+    rows[3]["launches"] = train["launches"]
+    rows[3]["launches_run"] = "train spmd (3 steps)"
+
+    # 7. reduced depth: sim == spmd, checkpoint resume == straight run
+    _parity_phase(torch)
+
+    # 8. results
     keys = ("name", "route", "source", "replaces", "launches", "launches_run",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` -> (full config, smoke config).
 Reference: ``src/repro/configs/__init__.py``.
 
-Only the archs the port serves are listed; asking for any other raises a
+Only the archs the port runs are listed; asking for any other raises a
 ``KeyError`` that names the ported ones.
 """
 from __future__ import annotations
@@ -9,8 +9,10 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
-                                      SSMConfig)
+from repro_torch.configs.base import (  # noqa: F401
+    AggregationConfig, CheckpointConfig, ExecutionConfig, FaultConfig,
+    MLAConfig, ModelConfig, MoEConfig, OptimizerConfig, ShapeConfig,
+    SSMConfig, TrainConfig)
 
 _ARCH_MODULES: Dict[str, str] = {
     "qwen3-0.6b": "qwen3_0_6b",

@@ -1,13 +1,16 @@
-"""Model config dataclasses. Reference: ``src/repro/configs/base.py``.
+"""Config dataclasses for models, shapes, meshes and training.
+Reference: ``src/repro/configs/base.py``.
 
-Only the model description is ported in this slice: ``ModelConfig`` and
-the dataclasses its fields use (``MoEConfig``, ``MLAConfig``,
-``SSMConfig``). Field names, defaults and derived properties are the
-reference's, so a config converts across by ``dataclasses.asdict``.
+Field names, defaults and derived properties are the reference's, so a
+config converts across by ``dataclasses.asdict``. Which fields the port
+honours is decided where they are read: ``ExecutionConfig`` and
+``TrainConfig`` options of later slices are refused by the trainer
+(``repro_torch.train.loop``) with a message naming their queue item.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,3 +126,186 @@ class ModelConfig:
     @property
     def q_per_kv(self) -> int:
         return self.num_heads // max(self.num_kv_heads, 1)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                         # train | prefill | decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+
+# ---------------------------------------------------------------------------
+# Mesh / distribution configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Logical mesh description. axes are named; 'pod' optional."""
+
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+SINGLE_POD_MESH = MeshConfig((16, 16), ("data", "model"))
+
+
+# ---------------------------------------------------------------------------
+# Aggregation / training configuration (the paper's knobs)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AggregationConfig:
+    """The paper's Sync/Async/backup-worker policy knobs. The port builds
+    the mask strategies 'full_sync', 'backup' and 'timeout'
+    (``repro_torch.core.registry.get_strategy``)."""
+
+    strategy: str = "backup"
+    num_workers: int = 16             # N
+    backup_workers: int = 0           # b  (total launched = N + b)
+    deadline_s: float = 0.0           # timeout strategy
+    softsync_c: int = 1
+    dynamic_window: int = 32
+    dynamic_min_workers: int = 0
+    latency_source: str = "sim"
+    staleness_tau: int = 0
+    staleness_ramp_steps: int = 0
+    staleness_jitter: int = 0
+    compression: str = "none"
+    zero1: bool = False
+
+    @property
+    def total_workers(self) -> int:
+        return self.num_workers + self.backup_workers
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "rmsprop_momentum"    # paper's optimizer for Inception
+    learning_rate: float = 0.045
+    # paper's rule-of-thumb: lr scales linearly with N (A.3: 0.045*N)
+    scale_lr_with_workers: bool = True
+    decay: float = 0.9                # rmsprop decay
+    momentum: float = 0.9
+    eps: float = 1e-8
+    beta1: float = 0.9                # adam
+    beta2: float = 0.999
+    weight_decay: float = 0.0
+    # exponential schedule gamma0 * beta^(t*N/(2T)) (paper A.2/A.3)
+    lr_decay_rate: float = 0.94
+    steps_per_epoch: int = 0          # T = |X|/B; 0 disables the schedule
+    # linear anneal to 0 over [linear_anneal_from, linear_anneal_steps]
+    linear_anneal_steps: int = 0
+    linear_anneal_from: int = 0
+    warmup_steps: int = 0
+    clip_global_norm: float = 0.0     # >0 enables
+    ema_decay: float = 0.9999         # paper evaluates on EMA of params
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionConfig:
+    """How the W coordination workers are executed.
+
+    'sim'  — the mask-weighted loss over one global batch.
+    'spmd' — the engine (``repro_torch.distributed.spmd_engine``): each
+             worker's own gradient, written into one ``[W, P]`` f32 stack,
+             then the masked reduce. The port runs it at mesh 1 x 1 (one
+             card, ``grad_batch`` 1).
+
+    ``use_kernel``: None = the ``backup_reduce`` CUDA kernel on the card
+    and its plain twin on the CPU; True = the kernel (raises on the CPU);
+    False = the plain twin. ``interpret`` is Pallas-only: None or False.
+    """
+
+    backend: str = "sim"              # 'sim' | 'spmd'
+    mesh_data: int = 1                # 'data' axis size (devices); W % it == 0
+    mesh_model: int = 1               # 'model' (tensor-parallel) axis size
+    use_kernel: Optional[bool] = None
+    interpret: Optional[bool] = None
+    # per-worker gradient batching: 0 = all workers at once, 1 = one
+    # worker at a time, k = groups of k workers
+    grad_batch: int = 0
+    # lanes of the flattened gradient per bucket (0 = one bucket)
+    bucket_size: int = 0
+
+    @property
+    def num_devices(self) -> int:
+        return self.mesh_data * self.mesh_model
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointConfig:
+    directory: str = "checkpoints"
+    every_steps: int = 100
+    keep: int = 3
+    async_save: bool = False
+    write_retries: int = 3
+    retry_backoff_s: float = 0.01
+    retry_max_backoff_s: float = 0.25
+    retry_jitter: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultConfig:
+    """Seeded fault injection + recovery supervision (not ported yet:
+    a non-empty ``spec`` or ``supervise`` is refused by the trainer)."""
+
+    spec: str = ""
+    seed: int = 0
+    supervise: bool = False
+    max_restarts: int = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig = ModelConfig()
+    shape: ShapeConfig = SHAPES_BY_NAME["train_4k"]
+    mesh: MeshConfig = SINGLE_POD_MESH
+    aggregation: AggregationConfig = AggregationConfig()
+    optimizer: OptimizerConfig = OptimizerConfig()
+    checkpoint: CheckpointConfig = CheckpointConfig()
+    execution: ExecutionConfig = ExecutionConfig()
+    faults: FaultConfig = FaultConfig()
+    seed: int = 0
+    total_steps: int = 1000
+    log_every: int = 10
+    microbatch: int = 0               # 0 => derive from shape & mesh
+    # iterations per device dispatch: the port runs 1 (the per-step path)
+    chunk_size: int = 1
+    # 'host' (numpy straggler streams) is the port's only backend so far
+    straggler_backend: str = "host"
+    prefetch_depth: int = 1
+
+
+def replace(cfg, **kw):
+    """dataclasses.replace passthrough (ergonomic alias)."""
+    return dataclasses.replace(cfg, **kw)

@@ -1,19 +1,130 @@
-"""Discrete-event arrival queue. Reference: ``src/repro/core/coordination.py``
-(``encode_rng``, ``decode_rng`` and ``EventScheduler``, :387-464).
+"""Coordination strategies and the discrete-event arrival queue.
+Reference: ``src/repro/core/coordination.py`` (``CoordinationStrategy``,
+``MaskStrategy``, ``FullSync``, ``BackupWorkers``, ``Timeout``, :84-232;
+``encode_rng``, ``decode_rng`` and ``EventScheduler``, :387-464).
 
-Pure numpy, copied so the serve trace replays bit for bit: one
-``latency.sample(rng, (W,))`` draw at construction, then one
-``latency.sample(rng, (1,))`` draw per rescheduled source. The
-coordination strategies come with the training slice.
+Pure numpy, so masks, iteration times and the serve trace replay the
+reference bit for bit.
+
+* **Mask strategies** (``kind == "mask"``) turn one iteration's worker
+  arrival times into ``(mask over W workers, iteration wall time)``: the
+  mask is data to the train step, and dropped workers still compute, as
+  in the paper. ``FullSync`` waits for everyone, ``BackupWorkers(N, b)``
+  takes the first N arrivals (Alg. 3/4), ``Timeout(d)`` everything within
+  d of the first. Only the host ``select`` is ported: the traceable
+  ``select_jax`` and the batched ``select_batch`` serve the fused chunked
+  loop, which comes with a later slice.
+* ``EventScheduler``: one ``latency.sample(rng, (W,))`` draw at
+  construction, then one ``latency.sample(rng, (1,))`` draw per
+  rescheduled source (the serve trace's arrival process).
 """
 from __future__ import annotations
 
+import dataclasses
 import heapq
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.core.straggler import LatencyModel
+
+
+# ---------------------------------------------------------------------------
+# The protocol and the mask strategies
+# ---------------------------------------------------------------------------
+
+
+class CoordinationStrategy:
+    """Base of every coordination regime. ``kind`` selects the trainer's
+    execution mode; ``total_workers`` is the number of machines launched
+    (N + b for backup workers)."""
+
+    kind: str = ""
+    name: str = ""
+    total_workers: int
+
+
+class MaskStrategy(CoordinationStrategy):
+    """Synchronous regimes: arrival times -> (worker mask, step time)."""
+
+    kind = "mask"
+
+    def select(self, arrivals: np.ndarray) -> Tuple[np.ndarray, float]:
+        """arrivals: [W] seconds -> (mask bool [W], iteration_time)."""
+        raise NotImplementedError
+
+    def effective_n(self) -> int:
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class FullSync(MaskStrategy):
+    num_workers: int
+
+    name = "full_sync"
+
+    @property
+    def total_workers(self) -> int:
+        return self.num_workers
+
+    def select(self, arrivals):
+        mask = np.ones_like(arrivals, dtype=bool)
+        return mask, float(arrivals.max())
+
+    def effective_n(self) -> int:
+        return self.num_workers
+
+
+@dataclasses.dataclass(frozen=True)
+class BackupWorkers(MaskStrategy):
+    """Aggregate the first N of N+b arrivals (paper Alg. 3/4)."""
+
+    num_workers: int          # N
+    backups: int              # b
+
+    name = "backup"
+
+    @property
+    def total_workers(self) -> int:
+        return self.num_workers + self.backups
+
+    def select(self, arrivals):
+        n = self.num_workers
+        order = np.argsort(arrivals, kind="stable")
+        mask = np.zeros_like(arrivals, dtype=bool)
+        mask[order[:n]] = True
+        return mask, float(arrivals[order[n - 1]])
+
+    def effective_n(self) -> int:
+        return self.num_workers
+
+
+@dataclasses.dataclass(frozen=True)
+class Timeout(MaskStrategy):
+    """Aggregate all gradients arriving within `deadline_s` of the first."""
+
+    num_workers: int
+    deadline_s: float
+
+    name = "timeout"
+
+    @property
+    def total_workers(self) -> int:
+        return self.num_workers
+
+    def select(self, arrivals):
+        t0 = arrivals.min()
+        cutoff = t0 + self.deadline_s
+        mask = arrivals <= cutoff
+        return mask, float(min(arrivals.max(), cutoff))
+
+    def effective_n(self) -> int:
+        return self.num_workers     # varies per step; N is the upper bound
+
+
+# ---------------------------------------------------------------------------
+# The discrete-event queue
+# ---------------------------------------------------------------------------
 
 
 def encode_rng(rng: Optional[np.random.RandomState]) -> Optional[Dict]:

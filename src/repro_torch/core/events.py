@@ -1,0 +1,73 @@
+"""Per-step worker masks and iteration times for the mask strategies.
+Reference: ``src/repro/core/events.py`` (``StepEvent`` and
+``StragglerSimulator``, :20-126).
+
+Composes a latency model with a mask strategy: one ``StepEvent`` per
+training step, deterministic in ``(seed, step)`` — the replay contract
+that makes resume exact with no simulator state to persist. Masks,
+iteration times and arrivals equal the reference's bit for bit. The
+batched ``next_events`` comes with the fused chunked loop (ROADMAP Queue 1
+item 3), the latency spikes and revivals of fault injection with fault
+tolerance (item 7).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.core.coordination import MaskStrategy
+from repro_torch.core.straggler import LatencyModel, PaperCalibrated
+
+
+@dataclasses.dataclass
+class StepEvent:
+    step: int
+    mask: np.ndarray          # [W] bool — workers whose gradients count
+    iteration_time: float     # simulated seconds for this step
+    arrivals: np.ndarray      # [W] raw latencies
+
+
+class StragglerSimulator:
+    """Yields one StepEvent per training step; deterministic in seed.
+    ``dead`` workers never arrive (latency +inf)."""
+
+    def __init__(self, strategy: MaskStrategy,
+                 latency: Optional[LatencyModel] = None,
+                 seed: int = 0, start_step: int = 0):
+        self.strategy = strategy
+        self.latency = latency or PaperCalibrated()
+        self.seed = seed
+        self.dead = np.zeros(strategy.total_workers, dtype=bool)
+        self._step = start_step
+
+    def kill_worker(self, w: int) -> None:
+        self.dead[w] = True
+
+    @property
+    def step(self) -> int:
+        return self._step
+
+    def reset_to_step(self, step: int) -> None:
+        """Align the simulator with a restored trainer step."""
+        self._step = int(step)
+
+    @property
+    def alive(self) -> int:
+        return int((~self.dead).sum())
+
+    def _raw_arrivals(self, step: int) -> np.ndarray:
+        """Per-step latencies, deterministic in (seed, step)."""
+        rng = np.random.RandomState((self.seed * 1_000_003 + step)
+                                    % (2 ** 31 - 1))
+        return self.latency.sample(rng, (self.strategy.total_workers,))
+
+    def next_event(self) -> StepEvent:
+        arrivals = np.where(self.dead, np.inf,
+                            self._raw_arrivals(self._step))
+        mask, t = self.strategy.select(arrivals)
+        mask = mask & ~self.dead
+        ev = StepEvent(self._step, mask, t, arrivals)
+        self._step += 1
+        return ev

@@ -1,0 +1,98 @@
+"""Deterministic synthetic LM token pipeline.
+Reference: ``src/repro/data/synthetic_lm.py`` (the numpy parts, :25-158).
+
+A learnable token stream — an affine Markov chain over the vocab mixed
+with uniform noise — seeded per (worker, step), so every worker draws a
+disjoint shard and the stream replays exactly from (seed, step). Batches
+equal the reference's bit for bit. The device twin ``device_batch_fn``
+and the ``ChunkPrefetcher`` belong to the fused chunked loop, which comes
+with a later slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Dict, Optional
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticLMConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    num_workers: int = 1
+    seed: int = 0
+    noise: float = 0.1       # probability of a uniform-random token
+    order: int = 1           # Markov order of the deterministic skeleton
+
+
+def _transition(vocab: int, seed: int):
+    """A fixed permutation-like transition: next = (a*tok + b) % V."""
+    rng = np.random.RandomState(seed)
+    a = int(rng.randint(1, vocab - 1)) | 1      # odd => full cycle for pow2 V
+    b = int(rng.randint(0, vocab))
+    return a, b
+
+
+@functools.lru_cache(maxsize=64)
+def _chain_tables(vocab: int, seed: int, seq_len: int):
+    """Closed form of the affine chain: tok_t = (a^t*s0 + b*g_t) mod V with
+    g_t = sum_{i<t} a^i, precomputed per config."""
+    a, b = _transition(vocab, seed)
+    pow_a = np.empty(seq_len + 1, np.int64)
+    geo = np.empty(seq_len + 1, np.int64)
+    p, g = 1, 0
+    for t in range(seq_len + 1):
+        pow_a[t] = p
+        geo[t] = g
+        g = (g + p) % vocab
+        p = (p * a) % vocab
+    return pow_a, (b * geo) % vocab
+
+
+def worker_batch(cfg: SyntheticLMConfig, worker: int, step: int) -> Dict[str, np.ndarray]:
+    """The [B/W, S] shard of the global batch for `worker` at `step`."""
+    per_worker = cfg.global_batch // cfg.num_workers
+    pow_a, offset = _chain_tables(cfg.vocab_size, cfg.seed, cfg.seq_len)
+    rng = np.random.RandomState(
+        ((cfg.seed * 1_000_003 + step) * 4097 + worker) % (2 ** 32))
+    start = rng.randint(0, cfg.vocab_size, size=(per_worker, 1))
+    seq = (pow_a[None, :] * start + offset[None, :]) % cfg.vocab_size
+    noise_mask = rng.rand(per_worker, cfg.seq_len + 1) < cfg.noise
+    noise_toks = rng.randint(0, cfg.vocab_size, size=seq.shape)
+    seq = np.where(noise_mask, noise_toks, seq).astype(np.int32)
+    return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+
+
+def global_batch(cfg: SyntheticLMConfig, step: int) -> Dict[str, np.ndarray]:
+    """Concatenation of all workers' shards: worker w owns rows
+    [w*B/W, (w+1)*B/W), the blocking the backup mask indexes."""
+    shards = [worker_batch(cfg, w, step) for w in range(cfg.num_workers)]
+    return {k: np.concatenate([s[k] for s in shards], axis=0) for k in shards[0]}
+
+
+@dataclasses.dataclass
+class PipelineState:
+    step: int = 0
+
+    def save(self) -> Dict:
+        return {"step": self.step}
+
+    @staticmethod
+    def restore(d: Dict) -> "PipelineState":
+        return PipelineState(step=int(d["step"]))
+
+
+class SyntheticLMPipeline:
+    """Stateful iterator with save/restore (checkpointable)."""
+
+    def __init__(self, cfg: SyntheticLMConfig, state: Optional[PipelineState] = None):
+        self.cfg = cfg
+        self.state = state or PipelineState()
+
+    def next(self) -> Dict[str, np.ndarray]:
+        batch = global_batch(self.cfg, self.state.step)
+        self.state.step += 1
+        return batch

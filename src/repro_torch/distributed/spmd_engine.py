@@ -1,0 +1,275 @@
+"""The spmd execution engine at mesh 1 x 1: each worker's own gradient,
+then the masked reduce.
+Reference: ``src/repro/distributed/spmd_engine.py`` (``validate_layout``,
+``validate_grad_batch``, ``flatten_stacked`` / ``unflatten_vector``,
+``make_worker_loss``, ``build_spmd_step``; :109-389. The reference's
+``make_train_step`` wraps the step in ``jax.jit`` with shardings, which
+eager PyTorch has no counterpart of: the trainer calls
+``build_spmd_step``).
+
+On one card the mesh's ``'data'`` axis has size 1, so the card holds all
+W workers (``W_local = W``) and the ``backup_reduce`` kernel does the
+whole of the paper's Alg. 4 line 7 — the reference's ``psum`` over a
+1-device axis is the identity. Per step:
+
+1. the workers run one after another (the reference's ``grad_batch = 1``
+   ``lax.map``): worker w's gradient is the gradient of its own
+   mini-batch mean, written as f32 into row w of one preallocated
+   ``[W, P]`` stack (``flatten_into``; the stack is allocated once and
+   reused, and no more than one worker's gradients exist at a time);
+2. ``reduce_then_psum`` masked-reduces the stack, with the loss and aux
+   sums riding the last bucket;
+3. ``unflatten_vector`` casts the ``[P]`` result back to each parameter's
+   dtype (bf16 at full width);
+4. the ``loss`` metric over the selected workers, ``clip_by_global_norm``
+   when ``clip_norm > 0``, the optimizer and the EMA, in place.
+
+The three phases are ``torch.profiler`` ranges (``spmd/worker_grad``,
+``spmd/reduce``, ``spmd/update``), which ``launch/profile_train.py`` reads.
+
+Not ported yet, each refused with ``NotImplementedError`` naming ROADMAP
+Queue 1 item 5 (the multi-card engine): ``mesh_data > 1``,
+``mesh_model > 1`` (tensor parallelism) and batched worker gradients
+(``grad_batch`` 0 or k > 1, the reference's ``vmap`` paths).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from repro_torch.core import ema as ema_lib
+from repro_torch.kernels.bucketed_reduce import reduce_then_psum
+from repro_torch.optim import optimizers as opt_lib
+
+WORKER_AXIS = "data"
+_QUEUE5 = "the multi-card spmd engine, ROADMAP Queue 1 item 5"
+
+
+# ---------------------------------------------------------------------------
+# Layout validation
+# ---------------------------------------------------------------------------
+
+
+def check_mesh(mesh_data: int, mesh_model: int) -> None:
+    """The port runs the engine on one card: mesh 1 x 1."""
+    if mesh_data < 1 or mesh_model < 1:
+        raise ValueError(f"mesh axes must be >= 1 (got {mesh_data} x "
+                         f"{mesh_model})")
+    if mesh_data > 1 or mesh_model > 1:
+        raise NotImplementedError(
+            f"mesh_data={mesh_data} x mesh_model={mesh_model}: repro_torch "
+            f"runs the spmd engine at mesh 1 x 1 on one card; larger meshes "
+            f"come with {_QUEUE5}")
+
+
+def validate_layout(num_workers: int, global_batch: int,
+                    mesh_data: int) -> int:
+    """Checks W/B divisibility over the data axis; returns W_local."""
+    if mesh_data < 1:
+        raise ValueError(f"mesh_data must be >= 1 (got {mesh_data})")
+    if num_workers % mesh_data:
+        raise ValueError(
+            f"spmd engine maps workers onto the '{WORKER_AXIS}' axis: "
+            f"total_workers ({num_workers}) must be divisible by "
+            f"mesh_data ({mesh_data})")
+    if global_batch % num_workers:
+        raise ValueError(
+            f"global_batch ({global_batch}) must be divisible by "
+            f"total_workers ({num_workers})")
+    return num_workers // mesh_data
+
+
+def validate_grad_batch(grad_batch: int, w_local: int) -> int:
+    """Resolve ``ExecutionConfig.grad_batch`` against the local worker
+    count; returns the effective batch size (0 = all local workers)."""
+    if grad_batch < 0:
+        raise ValueError(
+            f"grad_batch: expected a non-negative worker-batch size, got "
+            f"{grad_batch} (0 = all local workers at once, 1 = one worker "
+            f"at a time, k = groups of k workers)")
+    if grad_batch and w_local % grad_batch:
+        divisors = [d for d in range(1, w_local + 1) if w_local % d == 0]
+        raise ValueError(
+            f"grad_batch: {grad_batch} does not divide the per-shard "
+            f"worker count W_local={w_local} (total_workers / mesh_data); "
+            f"valid values here: 0 (all) or one of {divisors}")
+    return grad_batch or w_local
+
+
+def resolve_use_kernel(use_kernel: Optional[bool], interpret: Optional[bool],
+                       device: torch.device) -> bool:
+    """``None``: the CUDA kernel on the card, the plain twin on the CPU.
+    ``True`` on the CPU and ``interpret=True`` (Pallas-only) raise."""
+    if interpret:
+        raise ValueError("interpret=True is Pallas interpret mode, which the "
+                         "CUDA port has no counterpart of; leave it None")
+    if use_kernel is None:
+        return device.type == "cuda"
+    if use_kernel and device.type != "cuda":
+        raise ValueError(f"use_kernel=True needs the card: the backup_reduce "
+                         f"kernel does not run on {device}")
+    return bool(use_kernel)
+
+
+# ---------------------------------------------------------------------------
+# The [W, P] stack: flatten / unflatten
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatSpec:
+    """Where each named tensor lives in a flat [P] vector."""
+
+    names: Tuple[str, ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[torch.dtype, ...]
+    offsets: Tuple[int, ...]          # len(names) + 1, offsets[-1] == P
+
+    @property
+    def total(self) -> int:
+        return self.offsets[-1]
+
+
+def flat_spec(named: Dict[str, torch.Tensor]) -> FlatSpec:
+    shapes = tuple(tuple(t.shape) for t in named.values())
+    sizes = [int(np.prod(s)) if s else 1 for s in shapes]
+    return FlatSpec(tuple(named), shapes,
+                    tuple(t.dtype for t in named.values()),
+                    tuple(int(o) for o in np.cumsum([0] + sizes)))
+
+
+def flatten_into(row: torch.Tensor, tensors: Sequence[torch.Tensor],
+                 spec: FlatSpec) -> None:
+    """Write ``tensors`` (in ``spec`` order) into the f32 [P] ``row``."""
+    for i, t in enumerate(tensors):
+        row[spec.offsets[i]:spec.offsets[i + 1]].copy_(t.reshape(-1))
+
+
+def flatten_stacked(stacked: Dict[str, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, FlatSpec]:
+    """``{name: [W, ...]}`` -> ([W, P] f32, spec of the per-worker shapes)."""
+    spec = flat_spec({k: v[0] for k, v in stacked.items()})
+    first = next(iter(stacked.values()))
+    flat = torch.empty((first.shape[0], spec.total), dtype=torch.float32,
+                       device=first.device)
+    for w in range(first.shape[0]):
+        flatten_into(flat[w], [v[w] for v in stacked.values()], spec)
+    return flat, spec
+
+
+def unflatten_vector(vec: torch.Tensor, spec: FlatSpec
+                     ) -> Dict[str, torch.Tensor]:
+    """[P] f32 -> ``{name: tensor}`` with the spec's shapes and dtypes."""
+    return {name: vec[spec.offsets[i]:spec.offsets[i + 1]]
+            .reshape(spec.shapes[i]).to(spec.dtypes[i])
+            for i, name in enumerate(spec.names)}
+
+
+# ---------------------------------------------------------------------------
+# Per-worker loss (paper semantics: each worker's own mini-batch mean)
+# ---------------------------------------------------------------------------
+
+
+def per_example_loss(model, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(per-example mean token loss [B], aux): invalid labels (< 0) carry
+    no weight."""
+    per_tok, aux = model.per_token_loss(batch)
+    labels = torch.as_tensor(batch["labels"], device=per_tok.device)
+    valid = (labels >= 0).float()
+    per_ex = (torch.sum(per_tok * valid, dim=-1)
+              / torch.clamp_min(torch.sum(valid, dim=-1), 1.0))
+    return per_ex, aux
+
+
+def make_worker_loss(model) -> Callable:
+    """loss(worker_batch) -> (scalar, mean_loss, aux): the gradient of the
+    scalar is the worker's own gradient, its aux loss included."""
+
+    def loss_fn(batch):
+        per_ex, aux = per_example_loss(model, batch)
+        mean_loss = torch.mean(per_ex)
+        return mean_loss + aux, mean_loss, aux
+
+    return loss_fn
+
+
+# ---------------------------------------------------------------------------
+# The engine step
+# ---------------------------------------------------------------------------
+
+
+def build_spmd_step(model, optimizer: opt_lib.Optimizer, *,
+                    num_workers: int, n_aggregate: int,
+                    ema_decay: float = 0.0, clip_norm: float = 0.0,
+                    use_kernel: Optional[bool] = None,
+                    interpret: Optional[bool] = None,
+                    grad_batch: int = 0, bucket_size: int = 0,
+                    mesh_data: int = 1, mesh_model: int = 1) -> Callable:
+    """Twin of ``train_step.build_train_step`` — same signature:
+
+        step(opt_state, ema, step, batch, mask) -> metrics
+
+    ``model`` holds the parameters; the step updates them, ``opt_state``
+    and ``ema`` in place. ``batch`` rows are worker-contiguous tensors on
+    the model's device, ``mask`` the host-planned [W] selection there."""
+    check_mesh(mesh_data, mesh_model)
+    if validate_grad_batch(grad_batch, num_workers) != 1:
+        raise NotImplementedError(
+            f"grad_batch={grad_batch}: batched worker gradients (the "
+            f"reference's vmap paths) come with {_QUEUE5}; the port runs "
+            f"one worker at a time (grad_batch=1)")
+    kernel = resolve_use_kernel(use_kernel, interpret, model.device)
+    worker_loss = make_worker_loss(model)
+    spec = flat_spec(dict(model.named_parameters()))
+    stack: List[torch.Tensor] = []        # the [W, P] f32 stack, made once
+
+    def step_fn(opt_state, ema_state, step, batch, mask):
+        # looked up per call: init_state / restore may replace the tensors
+        params = dict(model.named_parameters())
+        plist = list(params.values())
+        if not stack:
+            stack.append(torch.empty((num_workers, spec.total),
+                                     dtype=torch.float32,
+                                     device=model.device))
+        flat = stack[0]
+        per = next(iter(batch.values())).shape[0] // num_workers
+        losses, auxes = [], []
+        for w in range(num_workers):
+            shard = {k: v[w * per:(w + 1) * per] for k, v in batch.items()}
+            with record_function("spmd/worker_grad"):
+                total, mean_loss, aux = worker_loss(shard)
+                grads = torch.autograd.grad(total, plist)
+                with torch.no_grad():
+                    flatten_into(flat[w], grads, spec)
+            del grads                     # one worker's gradients at a time
+            losses.append(mean_loss.detach())
+            auxes.append(aux.detach())
+        with torch.no_grad(), record_function("spmd/reduce"):
+            mf = mask.float()
+            tail = torch.stack([torch.sum(torch.stack(losses) * mf),
+                                torch.sum(torch.stack(auxes))])
+            red, tail = reduce_then_psum(flat, mask, n_aggregate,
+                                         bucket=bucket_size, tail=tail,
+                                         use_kernel=kernel)
+            agg = unflatten_vector(red, spec)
+            del red
+        with torch.no_grad(), record_function("spmd/update"):
+            frac = torch.sum(mf) / n_aggregate
+            metrics = {"loss": (tail[0] / n_aggregate)
+                       / torch.clamp_min(frac, 1e-6),
+                       "aux_loss": tail[1] / num_workers}
+            if clip_norm > 0:
+                agg, gnorm = opt_lib.clip_by_global_norm(agg, clip_norm)
+                metrics["grad_norm"] = gnorm
+            metrics.update(optimizer.apply(params, agg, opt_state, step))
+            del agg
+            if ema_decay > 0:
+                ema_lib.update(ema_state, params.items(), ema_decay)
+        return metrics
+
+    return step_fn
+

@@ -16,7 +16,8 @@ card), the device's idle share of the profiled wall time, kernel launches
 per call, the kernels ranked by device time, the ops ranked by the device
 time of the kernels they launched (kernels launched through ctypes have no
 op above them and show only in the kernel list), and the ops ranked by
-self host time. Needs a card.
+self host time. Runs under ``torch.inference_mode`` (no autograd graph),
+as the serve path does. Needs a card.
 """
 from __future__ import annotations
 
@@ -40,16 +41,27 @@ _LAUNCH_API = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                "cuLaunchKernelEx")
 
 
-def _busy_us(events) -> float:
-    """Length of the union of the device intervals (kernels, copies)."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == DeviceType.CUDA)
+def _on_device(e) -> bool:
+    """A kernel or copy on the card (not the device span of a
+    ``record_function`` range, which the profiler also lists there)."""
+    return (e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False))
+
+
+def _union_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
     busy, end = 0.0, float("-inf")
-    for s, e in spans:
+    for s, e in sorted(spans):
         if e > end:
             busy += e - max(s, end)
             end = e
     return busy
+
+
+def _busy_us(events) -> float:
+    """Length of the union of the device intervals (kernels, copies)."""
+    return _union_us((e.time_range.start, e.time_range.end) for e in events
+                     if _on_device(e))
 
 
 def _top(title: str, rows, key, calls: int) -> None:
@@ -70,7 +82,7 @@ def _report(name: str, prof, wall_s: float, plain_wall_s: float,
           f"ms/call | device idle share (profiled window) "
           f"{1 - busy_ms / wall_ms:.3f} | kernel launch API calls "
           f"{launches / calls:.1f}/call")
-    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in avgs if _on_device(e)]
     ops = [e for e in avgs if e.device_type == DeviceType.CPU]
     _top("kernels by device time", kernels,
          lambda e: e.self_device_time_total, calls)
@@ -80,7 +92,9 @@ def _report(name: str, prof, wall_s: float, plain_wall_s: float,
          calls)
 
 
-def _profile(name: str, fn, calls: int) -> None:
+def _profile(name: str, fn, calls: int):
+    """Warm up, time ``calls`` calls unprofiled, then profile ``calls``
+    more and print the report; returns the profile."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -98,8 +112,10 @@ def _profile(name: str, fn, calls: int) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _report(name, prof, wall, plain_wall, calls)
+    return prof
 
 
+@torch.inference_mode()
 def main() -> None:
     dev = resolve_device("cuda")
     cfg = configs.get_config("qwen3-0.6b")

@@ -1,0 +1,87 @@
+"""Where the training step's time goes on the card: a torch.profiler window.
+
+    python -m repro_torch.launch.profile_train
+
+Builds the full-width training run (``train_config``, which
+``chip_smoke.py`` drives too: qwen3-0.6b, 28 layers, bf16, remat full;
+backup 6 + 2 workers, 2 x 256 tokens per worker, rmsprop_momentum, EMA
+0.999; the spmd backend at mesh 1 x 1, one worker at a time, the
+``backup_reduce`` kernel) and profiles two steady
+steps, printing what ``profile_serve`` prints for a serve phase (host wall
+per step, unprofiled and profiled; device busy per step; the device's
+idle share; kernel launches per step; kernels and ops ranked) and, for
+each of the engine's three phases (``spmd/worker_grad`` x 8,
+``spmd/reduce``, ``spmd/update``), its host wall time and the device busy
+time (the union of the kernel and copy intervals inside the phase's
+device span). Needs a card.
+"""
+from __future__ import annotations
+
+import torch
+from torch.autograd import DeviceType
+
+from repro_torch import configs
+from repro_torch.configs import (AggregationConfig, CheckpointConfig,
+                                 ExecutionConfig, OptimizerConfig,
+                                 ShapeConfig, TrainConfig)
+from repro_torch.launch.profile_serve import _on_device, _profile, _union_us
+from repro_torch.models.common import resolve_device
+from repro_torch.train.loop import Trainer
+
+STEPS = 2
+PHASES = ("spmd/worker_grad", "spmd/reduce", "spmd/update")
+
+
+def train_config(*, backend: str = "spmd", use_kernel=None,
+                 steps: int = 3) -> TrainConfig:
+    """The full-width training run (the one ``chip_smoke.py`` drives):
+    qwen3-0.6b at its published widths, backup 6 + 2 workers with 2
+    sequences of 256 tokens each, rmsprop_momentum lr 0.02 x N, EMA 0.999,
+    seed 0, ``steps`` steps, no checkpoint, one worker at a time and a
+    single reduce bucket on the ``backend``."""
+    return TrainConfig(
+        model=configs.get_config("qwen3-0.6b"),
+        shape=ShapeConfig("full", 256, 2 * 8, "train"),
+        aggregation=AggregationConfig(strategy="backup", num_workers=6,
+                                      backup_workers=2),
+        optimizer=OptimizerConfig(name="rmsprop_momentum",
+                                  learning_rate=0.02,
+                                  scale_lr_with_workers=True,
+                                  ema_decay=0.999),
+        checkpoint=CheckpointConfig(every_steps=0),
+        execution=ExecutionConfig(backend=backend, use_kernel=use_kernel,
+                                  grad_batch=1, bucket_size=0),
+        seed=0, total_steps=steps, log_every=1)
+
+
+def main() -> None:
+    dev = resolve_device("cuda")
+    cfg = train_config()
+    tr = Trainer(cfg, device=dev)
+    tr.init_state()
+    print(f"[profile] {torch.cuda.get_device_name(0)} torch "
+          f"{torch.__version__} | {cfg.model.name} {cfg.model.num_layers} "
+          f"layers {cfg.model.dtype}, backup 6+2, "
+          f"{cfg.shape.global_batch} x {cfg.shape.seq_len} tokens/step, "
+          f"spmd mesh 1x1")
+    prof = _profile("train step", lambda: tr.run(1), STEPS)
+    events = prof.events()
+    on_device = [(e.time_range.start, e.time_range.end) for e in events
+                 if _on_device(e)]
+    for name in PHASES:
+        host = [e for e in events if e.name == name
+                and e.device_type == DeviceType.CPU]
+        spans = [(e.time_range.start, e.time_range.end) for e in events
+                 if e.name == name and e.device_type == DeviceType.CUDA]
+        busy = _union_us((max(s, a), min(t, b)) for a, b in spans
+                         for s, t in on_device if s < b and t > a)
+        wall = sum(e.time_range.end - e.time_range.start for e in host)
+        print(f"    {name}: x{len(host) / STEPS:.0f} per step, host wall "
+              f"{wall / 1e3 / STEPS:.1f} ms/step, device busy "
+              f"{busy / 1e3 / STEPS:.1f} ms/step")
+    print(f"[profile] peak device memory {torch.cuda.max_memory_allocated()} "
+          f"bytes")
+
+
+if __name__ == "__main__":
+    main()

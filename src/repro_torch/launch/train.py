@@ -1,0 +1,219 @@
+"""Training launcher CLI of the port. Reference: ``src/repro/launch/train.py``.
+
+    python -m repro_torch.launch.train --arch qwen3-0.6b --smoke \\
+        --steps 50 --strategy backup --workers 6 --backups 2 [--resume] \\
+        [--execution spmd] [--device cpu]
+
+The reference's flags, plus ``--device``: the run is on the card unless
+``--device cpu`` is given (without a card it raises). Everything routes
+through ``repro_torch.train.loop.run_experiment`` with the paper's lr
+rule, EMA, atomic checkpoints and the reference's metric lines. On the
+card, ``--execution spmd`` aggregates through the ``backup_reduce``
+kernel. ``--grad-batch`` defaults to 1 here (one worker at a time), the
+only value the port runs.
+
+The reference's flags of later slices are refused by name, with the
+ROADMAP item that ports them: ``--chunk-size`` > 1, ``--prefetch-depth``,
+``--straggler-backend device``, the event strategies and
+``dynamic_backup`` (with ``--dynamic-window`` / ``--latency-source``),
+``--faults`` / ``--supervise`` (``--fault-seed``, ``--max-restarts``),
+``--trace`` / ``--metrics``, ``--platform``, ``--mesh-data`` /
+``--mesh-model`` > 1 and ``--grad-batch`` other than 1.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+
+from repro_torch import configs
+from repro_torch.configs.base import (AggregationConfig, CheckpointConfig,
+                                      ExecutionConfig, OptimizerConfig,
+                                      ShapeConfig, TrainConfig)
+from repro_torch.core.straggler import PaperCalibrated
+from repro_torch.train import checkpoint as ckpt_lib
+from repro_torch.train.loop import run_experiment
+
+MASK_STRATEGIES = ("backup", "full_sync", "timeout", "dynamic_backup")
+EVENT_STRATEGIES = ("async", "softsync")
+PORTED_STRATEGIES = ("backup", "full_sync", "timeout")
+
+_Q = "ROADMAP Queue 1 item"
+# flag -> (argparse dest, the ROADMAP item that ports it); refused when set
+DEFERRED_FLAGS = {
+    "--prefetch-depth": ("prefetch_depth", f"{_Q} 3, the fused chunked loop"),
+    "--dynamic-window": ("dynamic_window", f"{_Q} 7, dynamic_backup"),
+    "--softsync-c": ("softsync_c", f"{_Q} 6, event regimes"),
+    "--faults": ("faults", f"{_Q} 7, fault tolerance"),
+    "--fault-seed": ("fault_seed", f"{_Q} 7, fault tolerance"),
+    "--supervise": ("supervise", f"{_Q} 7, fault tolerance"),
+    "--max-restarts": ("max_restarts", f"{_Q} 7, fault tolerance"),
+    "--trace": ("trace", f"{_Q} 7, telemetry"),
+    "--metrics": ("metrics", f"{_Q} 7, telemetry"),
+    "--platform": ("platform", "none: PyTorch picks the card by --device"),
+}
+
+
+def _resolved_workers(args):
+    """(backups, total launched) after defaults."""
+    with_backups = args.strategy in ("backup", "dynamic_backup")
+    backups = args.backups if args.backups is not None else (
+        2 if with_backups else 0)
+    total = args.workers + (backups if with_backups else 0)
+    return backups, total
+
+
+def build_config(args) -> TrainConfig:
+    """args -> TrainConfig (the reference's mapping)."""
+    model_cfg = (configs.get_smoke_config(args.arch) if args.smoke
+                 else configs.get_config(args.arch))
+    backups, total = _resolved_workers(args)
+    deadline = args.deadline if args.deadline is not None else 2.0
+    return TrainConfig(
+        model=model_cfg,
+        shape=ShapeConfig("cli", args.seq, args.batch_per_worker * total,
+                          "train"),
+        aggregation=AggregationConfig(strategy=args.strategy,
+                                      num_workers=args.workers,
+                                      backup_workers=backups,
+                                      deadline_s=deadline),
+        optimizer=OptimizerConfig(name=args.optimizer,
+                                  learning_rate=args.lr,
+                                  scale_lr_with_workers=True,
+                                  ema_decay=0.999),
+        checkpoint=CheckpointConfig(directory=args.ckpt,
+                                    every_steps=args.ckpt_every),
+        execution=ExecutionConfig(backend=args.execution,
+                                  mesh_data=args.mesh_data or 1,
+                                  mesh_model=args.mesh_model or 1,
+                                  grad_batch=args.grad_batch,
+                                  bucket_size=args.bucket_size or 0),
+        seed=args.seed, total_steps=args.steps, log_every=10,
+        chunk_size=args.chunk_size,
+        straggler_backend=args.straggler_backend)
+
+
+def _validate(ap: argparse.ArgumentParser, args) -> None:
+    """Reject flags of later slices and combinations that would silently
+    do nothing."""
+    for flag, (dest, item) in DEFERRED_FLAGS.items():
+        if getattr(args, dest) not in (None, False):
+            ap.error(f"{flag} is not ported to repro_torch yet ({item})")
+    if args.strategy not in PORTED_STRATEGIES:
+        item = (f"{_Q} 7, dynamic_backup" if args.strategy == "dynamic_backup"
+                else f"{_Q} 6, event regimes")
+        ap.error(f"--strategy {args.strategy} is not ported to repro_torch "
+                 f"yet ({item}); ported: {', '.join(PORTED_STRATEGIES)}")
+    if args.latency_source != "sim":
+        ap.error(f"--latency-source {args.latency_source} is not ported to "
+                 f"repro_torch yet ({_Q} 7, dynamic_backup)")
+    if args.chunk_size != 1:
+        ap.error(f"--chunk-size {args.chunk_size}: the fused chunked loop is "
+                 f"not ported to repro_torch yet ({_Q} 3); use 1")
+    if args.straggler_backend != "host":
+        ap.error(f"--straggler-backend {args.straggler_backend} is not "
+                 f"ported to repro_torch yet ({_Q} 6)")
+    if args.backups is not None and args.strategy != "backup":
+        ap.error(f"--backups only applies to --strategy backup "
+                 f"(got --strategy {args.strategy})")
+    if args.deadline is not None and args.strategy != "timeout":
+        ap.error(f"--deadline only applies to --strategy timeout "
+                 f"(got --strategy {args.strategy})")
+    for flag, value in (("--mesh-data", args.mesh_data),
+                        ("--mesh-model", args.mesh_model),
+                        ("--bucket-size", args.bucket_size)):
+        if value is not None and args.execution != "spmd":
+            ap.error(f"{flag} only applies to --execution spmd")
+    if args.grad_batch != 1 and args.execution != "spmd":
+        ap.error("--grad-batch only applies to --execution spmd")
+    for flag, value in (("--mesh-data", args.mesh_data),
+                        ("--mesh-model", args.mesh_model)):
+        if value is not None and value > 1:
+            ap.error(f"{flag} {value}: repro_torch runs the spmd engine on "
+                     f"one card (mesh 1 x 1); larger meshes come with {_Q} 5")
+    if args.grad_batch != 1:
+        ap.error(f"--grad-batch {args.grad_batch}: batched worker gradients "
+                 f"come with {_Q} 5; the port runs one worker at a time (1)")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", choices=configs.list_archs(),
+                    default="qwen3-0.6b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-runnable)")
+    ap.add_argument("--device", default=None,
+                    help="torch device; default the card (cuda), which must "
+                         "be present unless 'cpu' is given")
+    ap.add_argument("--steps", type=int, default=50, help="training steps")
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--batch-per-worker", type=int, default=4)
+    ap.add_argument("--strategy", default="backup",
+                    choices=list(MASK_STRATEGIES) + list(EVENT_STRATEGIES))
+    ap.add_argument("--workers", type=int, default=6)
+    ap.add_argument("--backups", type=int, default=None,
+                    help="backup workers b (backup strategy only; default 2)")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="aggregation deadline s (timeout strategy only; "
+                         "default 2.0)")
+    ap.add_argument("--softsync-c", type=int, default=None)
+    ap.add_argument("--lr", type=float, default=0.02)
+    ap.add_argument("--optimizer", default="rmsprop_momentum")
+    ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(),
+                                                   "repro_torch_train_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--chunk-size", type=int, default=1,
+                    help="iterations per dispatch; the port runs 1")
+    ap.add_argument("--straggler-backend", choices=["host", "device"],
+                    default="host")
+    ap.add_argument("--execution", choices=["sim", "spmd"], default="sim",
+                    help="'spmd' computes each worker's own gradient and "
+                         "aggregates them with the backup_reduce kernel; "
+                         "'sim' differentiates the mask-weighted loss")
+    ap.add_argument("--mesh-data", type=int, default=None,
+                    help="'data' axis size (spmd only; the port runs 1)")
+    ap.add_argument("--mesh-model", type=int, default=None,
+                    help="'model' axis size (spmd only; the port runs 1)")
+    ap.add_argument("--grad-batch", type=int, default=1,
+                    help="workers whose gradients are computed together "
+                         "(spmd only). Default 1 here (one worker at a "
+                         "time), the only value the port runs; the "
+                         "reference's default is 0 (all workers)")
+    ap.add_argument("--bucket-size", type=int, default=None,
+                    help="lanes of the flattened gradient per reduce bucket "
+                         "(spmd only; 0 = one bucket)")
+    ap.add_argument("--platform", choices=["cpu", "gpu", "tpu"], default=None)
+    ap.add_argument("--prefetch-depth", type=int, default=None)
+    ap.add_argument("--dynamic-window", type=int, default=None)
+    ap.add_argument("--faults", default=None)
+    ap.add_argument("--fault-seed", type=int, default=None)
+    ap.add_argument("--supervise", action="store_true")
+    ap.add_argument("--max-restarts", type=int, default=None)
+    ap.add_argument("--latency-source", choices=["sim", "measured"],
+                    default="sim")
+    ap.add_argument("--trace", default=None, metavar="PATH")
+    ap.add_argument("--metrics", default=None, metavar="PATH")
+    args = ap.parse_args(argv)
+    _validate(ap, args)
+
+    cfg = build_config(args)
+    resume = args.resume and ckpt_lib.latest_step(args.ckpt) is not None
+    if resume:
+        print(f"[train] resumed at step {ckpt_lib.latest_step(args.ckpt)}")
+    res = run_experiment(cfg, latency=PaperCalibrated(), device=args.device,
+                         resume=resume, save_final=True)
+    for m in res.metrics:
+        print(f"[train] step {m['step']:5d} loss {m['loss']:.4f} "
+              f"sim {m['sim_time']:8.1f}s selected {m['selected']} "
+              f"staleness {m['staleness']:.1f}")
+    print(f"[train] done: {res.steps} steps, sim_time {res.sim_time:.0f}s, "
+          f"mean_selected {res.mean_selected:.2f}, "
+          f"mean_staleness {res.mean_staleness:.2f}, "
+          f"restarts {res.restarts}, checkpoint {args.ckpt}")
+    print(f"[train] wall {res.wall_time_s:.2f}s")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,5 @@
-"""Shared building blocks: device choice, inits, norms, rope, dense layers.
-Reference: ``src/repro/models/common.py``.
+"""Shared building blocks: device choice, inits, norms, rope, dense layers,
+cross entropy. Reference: ``src/repro/models/common.py``.
 
 Parameters live in ``nn.ParameterDict``/``nn.ModuleDict`` containers whose
 keys are the reference pytree's (``{"w": [d_in, d_out], "b": [d_out]}``
@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -58,7 +59,7 @@ def trunc_normal(gen: torch.Generator, shape, std: float,
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 def dense_init(gen, d_in: int, d_out: int, dtype=torch.float32, device=None,
@@ -155,3 +156,49 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if cap <= 0:
         return x
     return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          valid_vocab: Optional[int] = None) -> torch.Tensor:
+    """Per-position CE in f32, written as ``lse - label_logit`` with the
+    max held constant (the reference's ``stop_gradient``). Vocab padding
+    lanes at or past ``valid_vocab`` are masked out."""
+    logits = logits.float()
+    if valid_vocab is not None and valid_vocab < logits.shape[-1]:
+        pad_mask = torch.arange(logits.shape[-1],
+                                device=logits.device) >= valid_vocab
+        logits = logits.masked_fill(pad_mask, -1e30)
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    label_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return lse - label_logit
+
+
+def _chunk_ce(xc, out_embed, lc, valid_vocab):
+    return softmax_cross_entropy(xc @ out_embed, lc, valid_vocab)
+
+
+def chunked_cross_entropy(x: torch.Tensor, out_embed: torch.Tensor,
+                          labels: torch.Tensor, valid_vocab: int,
+                          chunk: int = 4096) -> torch.Tensor:
+    """CE over huge vocabs without materializing full [T, V] logits.
+
+    x: [T, d]; out_embed: [d, V]; labels: [T] -> per-token loss [T]. Each
+    chunk of ``chunk`` tokens computes its logits inside a checkpoint, so
+    backward recomputes them (the reference's ``jax.checkpoint`` scan
+    body). The reference zero-pads T up to a multiple of ``chunk``; here
+    the last chunk is ragged instead, which gives the same losses (rows
+    never mix) without the padded rows' logits.
+    """
+    out = []
+    for lo in range(0, x.shape[0], chunk):
+        args = (x[lo:lo + chunk], out_embed, labels[lo:lo + chunk],
+                valid_vocab)
+        out.append(checkpoint(_chunk_ce, *args, use_reentrant=False)
+                   if torch.is_grad_enabled() else _chunk_ce(*args))
+    return torch.cat(out)

@@ -1,4 +1,5 @@
-"""Carry weights across from the JAX reference (new; no reference module).
+"""Carry weights across between the JAX reference's trees and the port's
+modules (new; no reference module).
 
 ``load_jax_params(model, tree)`` takes the reference's param pytree
 (``repro.models.transformer.TransformerLM.init`` output, leaves as numpy
@@ -13,6 +14,12 @@ arrays or anything ``np.asarray`` accepts) and copies it into a
 Weights keep JAX's ``[d_in, d_out]`` layout on both sides (``common.dense``
 is ``x @ w``), so nothing is transposed. A missing or extra leaf, or a
 shape mismatch, raises ``ValueError`` naming every offender.
+
+``to_jax_tree(named)`` is the inverse mapping on any dict keyed by module
+parameter names (the parameters, and the optimizer's and the EMA's
+per-parameter dicts, which mirror them): ``layers.<i>.<path>`` leaves are
+restacked into ``seg_dense/<path>[L, ...]``, the rest nest by their dotted
+path. ``from_jax_tree`` flattens a reference tree to those names.
 """
 from __future__ import annotations
 
@@ -22,20 +29,21 @@ import numpy as np
 import torch
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
-    out: Dict[str, np.ndarray] = {}
+def _flatten(tree: Mapping, prefix: str = "") -> Dict:
+    out: Dict = {}
     for key, val in tree.items():
         path = f"{prefix}/{key}" if prefix else str(key)
         if isinstance(val, Mapping):
             out.update(_flatten(val, path))
         else:
-            out[path] = np.asarray(val)
+            out[path] = val if isinstance(val, torch.Tensor) else \
+                np.asarray(val)
     return out
 
 
-def _to_module_leaves(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+def _to_module_leaves(flat: Dict) -> Dict:
     """JAX paths -> state-dict names, unstacking ``seg_dense`` layers."""
-    out: Dict[str, np.ndarray] = {}
+    out: Dict = {}
     for path, arr in flat.items():
         head, _, rest = path.partition("/")
         if head.startswith("seg_"):
@@ -46,6 +54,45 @@ def _to_module_leaves(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         else:
             out[path.replace("/", ".")] = arr
     return out
+
+
+def from_jax_tree(tree: Mapping) -> Dict:
+    """A reference tree (params, or an optimizer / EMA tree mirroring
+    them; leaves numpy arrays or tensors) -> ``{module parameter name:
+    leaf}``, ``seg_dense`` leaves unstacked."""
+    return _to_module_leaves(_flatten(tree))
+
+
+def to_jax_tree(named: Mapping) -> Dict:
+    """``{module parameter name: leaf}`` (numpy arrays or tensors) -> the
+    reference's nested tree, per-layer leaves restacked into
+    ``seg_dense/<path>[L, ...]``."""
+    layers: Dict[str, Dict[int, np.ndarray]] = {}
+    tree: Dict = {}
+
+    def put(path, arr):
+        node = tree
+        *heads, last = path
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = arr
+
+    for name, arr in named.items():
+        head, _, rest = name.partition(".")
+        if head == "layers":
+            idx, _, leaf = rest.partition(".")
+            layers.setdefault(leaf, {})[int(idx)] = arr
+        else:
+            put(name.split("."), arr)
+    for leaf, by_layer in layers.items():
+        if sorted(by_layer) != list(range(len(by_layer))):
+            raise ValueError(f"layers.*.{leaf}: layers {sorted(by_layer)} "
+                             f"are not 0..L-1")
+        rows = [by_layer[i] for i in range(len(by_layer))]
+        put(["seg_dense"] + leaf.split("."),
+            torch.stack(rows) if isinstance(rows[0], torch.Tensor)
+            else np.stack(rows))
+    return tree
 
 
 @torch.no_grad()

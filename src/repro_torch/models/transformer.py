@@ -1,13 +1,13 @@
 """Decoder-only transformer LM, dense family.
 Reference: ``src/repro/models/transformer.py`` (``segments``,
-``layer_windows_np``, ``block_init`` / ``block_apply`` and
-``TransformerLM``'s ``init``, ``_embed_inputs``, ``forward``, ``prefill``
-and ``_output_weights``).
+``layer_windows_np``, ``block_init`` / ``block_apply``, ``_remat_wrap``
+and ``TransformerLM``'s ``init``, ``_embed_inputs``, ``forward``,
+``per_token_loss``, ``prefill`` and ``_output_weights``).
 
 The reference scans stacked ``seg_dense`` leaves ``[L, ...]``; here the
 layers are an ``nn.ModuleList`` of per-layer ``nn.ModuleDict``s with the
-same keys (``ln1``, ``attn``, ``ln2``, ``mlp``). Weights are inference
-parameters (``requires_grad=False``): this slice serves, it does not train.
+same keys (``ln1``, ``attn``, ``ln2``, ``mlp``). The weights are trainable
+parameters; the serve path runs under ``torch.inference_mode``.
 """
 from __future__ import annotations
 
@@ -16,8 +16,13 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, common, mlp
+
+# padded_vocab * seq above this: cross entropy chunked over tokens (the
+# reference's switch in ``per_token_loss``)
+CHUNKED_CE_THRESHOLD = 32_000_000
 
 
 def segments(cfg) -> List[Tuple[str, int, int]]:
@@ -63,6 +68,17 @@ def block_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor,
     return x + mlp.mlp_apply(p["mlp"], h, cfg.hidden_act)
 
 
+def _remat_layers(policy: str) -> bool:
+    """The reference's remat policy for training: 'none' runs the layers
+    as they are, 'full' recomputes each layer in backward."""
+    if policy not in ("none", "full"):
+        raise NotImplementedError(
+            f"remat={policy!r} is not ported yet: the 'dots' policy (save "
+            f"the matmul outputs) comes with a later slice (ROADMAP Queue 1 "
+            f"item 3); use 'full' or 'none'")
+    return policy == "full"
+
+
 class TransformerLM(nn.Module):
     """Dense decoder LM. ``device=None`` means the card (``cuda``); pass
     ``device="cpu"`` to run on the CPU. ``generator`` must live on that
@@ -100,7 +116,7 @@ class TransformerLM(nn.Module):
         self.windows = [int(w) for w in layer_windows_np(cfg)]
         return self
 
-    # -- forward (prefill) ----------------------------------------------------
+    # -- forward (train / prefill) --------------------------------------------
 
     def _embed_inputs(self, tokens: torch.Tensor) -> torch.Tensor:
         x = common.embed(self.embed, tokens).to(self.dtype)
@@ -108,11 +124,16 @@ class TransformerLM(nn.Module):
             x = x * self.cfg.embed_scale
         return x
 
-    def _run_layers(self, x: torch.Tensor) -> torch.Tensor:
+    def _run_layers(self, x: torch.Tensor, remat: bool = False
+                    ) -> torch.Tensor:
         positions = torch.arange(x.shape[1], device=x.device).expand(
             x.shape[:2])
         for p, win in zip(self.layers, self.windows):
-            x = block_apply(p, self.cfg, x, positions, win)
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(block_apply, p, self.cfg, x, positions, win,
+                               use_reentrant=False)
+            else:
+                x = block_apply(p, self.cfg, x, positions, win)
         return x
 
     def _output_weights(self) -> torch.Tensor:
@@ -125,6 +146,33 @@ class TransformerLM(nn.Module):
         x = self._run_layers(self._embed_inputs(tokens))
         x = common.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
         return x @ self._output_weights()
+
+    # -- loss ----------------------------------------------------------------
+
+    def per_token_loss(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """batch: tokens [B, S], labels [B, S] (-1 = masked) -> (per-token
+        loss [B, S] f32, aux loss 0-d f32; 0 for the dense family).
+
+        Big logits (``padded_vocab * S > CHUNKED_CE_THRESHOLD``) go
+        through ``chunked_cross_entropy``."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        x = self._run_layers(self._embed_inputs(tokens),
+                             remat=_remat_layers(cfg.remat))
+        x = common.rmsnorm(self.final_norm, x, cfg.norm_eps)
+        b, s, d = x.shape
+        out_w = self._output_weights()
+        safe_labels = torch.clamp_min(labels, 0)
+        if cfg.padded_vocab * s > CHUNKED_CE_THRESHOLD:
+            loss = common.chunked_cross_entropy(
+                x.reshape(b * s, d), out_w, safe_labels.reshape(b * s),
+                cfg.vocab_size).reshape(b, s)
+        else:
+            loss = common.softmax_cross_entropy(x @ out_w, safe_labels,
+                                                cfg.vocab_size)
+        loss = torch.where(labels >= 0, loss, torch.zeros_like(loss))
+        return loss, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def prefill(self, tokens: torch.Tensor) -> torch.Tensor:
         """Run the stack, return only the last position's logits [B, V]."""

@@ -244,8 +244,11 @@ class ServeEngine:
 
     # -- the serving loop -----------------------------------------------------
 
+    @torch.inference_mode()
     def run(self, trace: Sequence[trace_lib.Request],
             policy: str = "continuous") -> ServeReport:
+        """Serve ``trace`` to completion under ``torch.inference_mode``:
+        no autograd graph is recorded, though the weights are trainable."""
         if policy not in SERVE_POLICIES:
             raise ValueError(f"policy must be one of {SERVE_POLICIES}")
         for r in trace:

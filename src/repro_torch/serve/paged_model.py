@@ -111,7 +111,7 @@ def build_paged_decode(model, *, quantized: bool,
     page table. Greedy argmax happens on the device."""
     cfg = model.cfg
 
-    @torch.no_grad()
+    @torch.inference_mode()
     def decode(state: torch.Tensor, pool: Pool) -> torch.Tensor:
         tokens = state[:, 0:1].long()
         lens = state[:, 1].long()
@@ -146,7 +146,7 @@ def build_paged_prefill(model, *, quantized: bool,
     cfg = model.cfg
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
 
-    @torch.no_grad()
+    @torch.inference_mode()
     def prefill(packed: torch.Tensor, true_len: int, n_pages: int,
                 pool: Pool) -> torch.Tensor:
         page_ids = packed[1:1 + n_pages].long()

@@ -15,16 +15,32 @@ where only PyTorch is installed:
   launch.
 * The card's ``ServeEngine`` (kernels) gives the CPU port's greedy tokens
   (which ``tests/test_torch_serve.py`` holds to the JAX engine).
+* ``backup_reduce``: the kernel equals its plain version bit for bit over
+  W in {2, 3, 8}, P in {1, 3, 4097, 65536}, masks all-zero, all-one and
+  mixed, on both the float4 path and the scalar path (ragged P, a base
+  off 16 bytes, a bucket sliced out of a wider stack); it refuses CPU
+  tensors and counts one launch per call.
+* Two training steps of the smoke model on the card (spmd backend, the
+  kernel) against the same two steps of the CPU port: atol 1e-5 (f32).
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import dataclasses
+
+import numpy as np
+
 from repro_torch import configs
+from repro_torch.configs import (AggregationConfig, CheckpointConfig,
+                                 ExecutionConfig, OptimizerConfig,
+                                 ShapeConfig, TrainConfig)
+from repro_torch.kernels import backup_reduce as treduce
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import page_gather as tgather
 from repro_torch.models import TransformerLM
 from repro_torch.serve import ServeEngine, TraceConfig, make_trace
+from repro_torch.train.loop import Trainer
 from torch_parity import (cuda_device, qkv_inputs,  # noqa: F401 (fixture)
                           ragged_table, random_pool)
 
@@ -101,3 +117,79 @@ def test_card_engine_matches_cpu_engine(cuda_device):
                           **kw).run(make_trace(tc))
         assert gpu.tokens_by_rid() == cpu.tokens_by_rid()
         assert tgather.launches > before[0] and tflash.launches > before[1]
+
+
+def _stack(w, p, kind, seed, device):
+    rng = np.random.RandomState(seed)
+    g = torch.from_numpy(rng.randn(w, p).astype(np.float32)).to(device)
+    mask = {"zeros": np.zeros(w), "ones": np.ones(w),
+            "mixed": (np.arange(w) % 3 != 1)}[kind].astype(np.float32)
+    return g, torch.from_numpy(mask).to(device)
+
+
+@pytest.mark.parametrize("kind", ["zeros", "ones", "mixed"])
+@pytest.mark.parametrize("w", [2, 3, 8])
+@pytest.mark.parametrize("p", [1, 3, 4097, 65536])
+def test_backup_reduce_kernel_bit_equal_plain(cuda_device, w, p, kind):
+    g, m = _stack(w, p, kind, w * p, cuda_device)
+    before = treduce.launches
+    got = treduce.backup_reduce(g, m, 6)
+    want = treduce.backup_reduce_plain(g, m, 6)
+    torch.cuda.synchronize()
+    assert treduce.launches == before + 1
+    assert treduce.uses_vec4(g, got) == (p % 4 == 0)
+    assert torch.equal(got, want)
+
+
+def test_backup_reduce_scalar_path_on_unaligned_and_strided(cuda_device):
+    g, m = _stack(5, 4097, "mixed", 1, cuda_device)
+    off = g[:, 1:]                    # P = 4096 but the base is 4 bytes off
+    got = treduce.backup_reduce(off, m, 3)
+    assert not treduce.uses_vec4(off, got)
+    assert torch.equal(got, treduce.backup_reduce_plain(off, m, 3))
+    wide, _ = _stack(5, 4096 * 3, "ones", 2, cuda_device)
+    bucket = wide[:, 4096:8192]       # row stride 12288, aligned: float4
+    out = torch.empty(4096, device=cuda_device)
+    treduce.backup_reduce(bucket, m, 3, out=out)
+    assert treduce.uses_vec4(bucket, out)
+    assert torch.equal(out, treduce.backup_reduce_plain(bucket, m, 3))
+
+
+def test_backup_reduce_refuses_cpu(cuda_device):
+    g, m = _stack(3, 8, "ones", 0, "cpu")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        treduce.backup_reduce(g, m, 2)
+
+
+def _train_cfg():
+    model = dataclasses.replace(configs.get_smoke_config("qwen3-0.6b"),
+                                remat="full")
+    return TrainConfig(
+        model=model, shape=ShapeConfig("t", 16, 2 * 8, "train"),
+        aggregation=AggregationConfig(strategy="backup", num_workers=6,
+                                      backup_workers=2),
+        optimizer=OptimizerConfig(name="rmsprop_momentum",
+                                  learning_rate=0.005, eps=1e-3,
+                                  ema_decay=0.99),
+        checkpoint=CheckpointConfig(every_steps=0),
+        execution=ExecutionConfig(backend="spmd", grad_batch=1),
+        seed=0, total_steps=2, log_every=1)
+
+
+def test_train_steps_on_card_match_cpu(cuda_device):
+    cfg = _train_cfg()
+    cpu = Trainer(cfg, device="cpu")
+    cpu.init_state()
+    card = Trainer(cfg, device=cuda_device)
+    card.model.load_state_dict(cpu.model.state_dict())
+    card.reset_optimizer_state()
+    before = treduce.launches
+    rc, rg = cpu.run(2), card.run(2)
+    assert treduce.launches == before + 2
+    assert [m["selected"] for m in rg.metrics] == \
+        [m["selected"] for m in rc.metrics]
+    np.testing.assert_allclose([m["loss"] for m in rg.metrics],
+                               [m["loss"] for m in rc.metrics], rtol=1e-5)
+    for k, v in rc.params.items():
+        np.testing.assert_allclose(rg.params[k].detach().cpu().numpy(),
+                                   v.detach().numpy(), atol=1e-5, err_msg=k)

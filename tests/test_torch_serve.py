@@ -8,6 +8,8 @@
   policies, and so do the scheduler's metrics (decode steps, pages,
   virtual-clock latencies). A variant with sliding windows and a softcap
   decodes past the window.
+* The weights are trainable parameters, yet serving runs under
+  ``torch.inference_mode``: no activation of a run requires grad.
 * The CLI runs with ``--device cpu`` and raises without it when there is
   no CUDA; paths not ported yet are refused by name.
 """
@@ -188,6 +190,25 @@ def test_prefill_buckets_counted_once(qwen):
     for _ in range(2):
         eng.run(reqs)
         assert (eng.prefill_compiles, eng.decode_compiles) == (2, 1)
+
+
+def test_serving_records_no_autograd_graph(qwen, monkeypatch):
+    _, _, tcfg, tmodel = qwen
+    assert all(p.requires_grad for p in tmodel.parameters())
+    seen = []
+    embed = TransformerLM._embed_inputs
+
+    def spy(self, tokens):
+        x = embed(self, tokens)
+        seen.append((torch.is_inference_mode_enabled(), x.requires_grad,
+                     x.grad_fn))
+        return x
+
+    monkeypatch.setattr(TransformerLM, "_embed_inputs", spy)
+    eng = ServeEngine(tcfg, tmodel, device="cpu", **ENGINE_KW)
+    rep = eng.run(make_trace(TraceConfig(**_trace_kw(4, tcfg.vocab_size))))
+    assert rep.metrics["completed"] == 4 and len(seen) > 4
+    assert all(s == (True, False, None) for s in seen)
 
 
 def test_engine_validation(qwen):

@@ -77,3 +77,16 @@ def qkv_inputs(seed, b, s, h, kv, d, dtype=np.float32, scale=0.5):
     rng = np.random.RandomState(seed)
     return tuple((scale * rng.randn(b, s, n, d)).astype(dtype)
                  for n in (h, kv, kv))
+
+
+def port_config(obj):
+    """A JAX config dataclass (any nesting) -> the port's class of the same
+    name with the same field values, through the fields alone."""
+    import dataclasses
+    from repro_torch.configs import base as tbase
+    if dataclasses.is_dataclass(obj):
+        cls = getattr(tbase, type(obj).__name__)
+        return cls(**{f.name: port_config(getattr(obj, f.name))
+                      for f in dataclasses.fields(obj)})
+    return obj
+
