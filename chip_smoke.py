@@ -44,7 +44,30 @@ fails (non-zero exit, no result line) if any phase fails:
    backends give the same parameters (atol 1e-5), and a checkpoint saved
    at step 1, restored and continued for 2 steps equals 3 steps run
    straight through.
-8. A JSON line of per-kernel numbers (``launches`` is the count of one
+8. The wkv kernels (``rwkv6_scan.cu``, forward and backward) against the
+   plain twin at rwkv6-1.6b's training shape (B 2, S 256, H 32, D 64, bf16
+   r/k/v, f32 w/u) and at edge shapes (D in {16, 32, 64}, S in {1, 16,
+   40, 100}, f32 and bf16, with and without a final-state gradient): the
+   forward's f32 output within atol 1e-4 x max|out|, the backward's f32
+   gradients within rel 1e-4 of max|grad| (dw 5e-4: d log w / w amplifies
+   rounding where w is small); then the kernels' device times as in
+   phase 3, and the plain twin's device busy time per call from
+   torch.profiler (its hundreds of kernels per call overflow the launch
+   queue, so they cannot be queued behind a sleep).
+9. Train rwkv6-1.6b at full width (24 layers, d_model 2048, 32 wkv heads
+   of 64, d_ff 7168, vocab 65,536, bf16, remat full) through
+   ``run_experiment``: backup 3 + 1 workers (the most that fit: see
+   ``launch/profile_train.WORKERS``), batch 2 per worker, seq 256,
+   rmsprop_momentum, EMA 0.999, spmd at mesh 1 x 1, 3 steps. The counters
+   are set to 0 just before and read just after: 2 wkv forwards per layer
+   per worker per step (forward and remat recompute), 1 backward, 1
+   backup_reduce per step. The same 3 steps again with
+   ``model.use_kernel = False`` (the plain wkv, no wkv launch): the same
+   masks and sim_time, step 1's loss within rel 1e-3, every loss finite.
+10. At 2 layers, full width, f32: the kernel run against the plain run,
+   step 1's loss within rel 1e-5 and the first aggregated gradient within
+   rel L2 1e-4.
+11. A JSON line of per-kernel numbers (``launches`` is the count of one
    run of the path that launches the kernel, named by ``launches_run``),
    then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -72,6 +95,10 @@ FLASH_HEADS = dict(h=16, kv=8, d=128)
 REDUCE_WORKERS = 8                 # backup 6 + 2
 REDUCE_EDGES = dict(w=(2, 3, 8), p=(1, 3, 4097, 65536),
                     masks=("zeros", "ones", "mixed"))
+WKV_SHAPE = dict(b=2, s=256, h=32, d=64)    # rwkv6-1.6b's training call
+WKV_EDGES = dict(d=(16, 32, 64), s=(1, 16, 40, 100))
+WKV_TOL = dict(dr=1e-4, dk=1e-4, dv=1e-4, dw=5e-4, du=1e-4)
+RWKV_PARAMS = 1_584_095_232        # repro.models.registry.param_count
 
 
 def _log(msg: str) -> None:
@@ -108,6 +135,25 @@ def _time_ms(torch, fns, repeats: int = 7, iters: int = 10) -> float:
             continue
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def _busy_ms(torch, fns, calls: int = 3) -> float:
+    """Device busy ms of one call, from torch.profiler: the union of the
+    card's kernel and copy intervals over ``calls`` calls, divided by
+    ``calls``. For a function of more kernels than the launch queue holds
+    (the wkv's plain twin: hundreds per call), which ``_time_ms`` cannot
+    queue behind a sleep; gaps between its kernels are not counted."""
+    from repro_torch.launch.profile_serve import _busy_us
+    for fn in fns[:2]:
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(calls):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    return _busy_us(prof.events()) / 1e3 / calls
 
 
 # ---------------------------------------------------------------------------
@@ -579,6 +625,271 @@ def _parity_phase(torch):
          f"sim_time equal")
 
 
+# ---------------------------------------------------------------------------
+# Phases 8-10: the wkv kernels and rwkv6-1.6b training
+# ---------------------------------------------------------------------------
+
+
+def _wkv_inputs(torch, b, s, h, d, dtype, gen):
+    """r/k/v ~ 0.5 N(0, 1) in ``dtype``; w = exp(-exp(clip(N - 1, -8,
+    1.6))), the model's decay range, f32; u ~ 0.5 N(0, 1) f32."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    r, k, v = (0.5 * randn(b, s, h, d) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.clamp(randn(b, s, h, d) - 1.0, -8.0,
+                                         1.6)))
+    return r.to(dtype), k.to(dtype), v.to(dtype), w, 0.5 * randn(h, d)
+
+
+def _wkv_check(torch, rwkv6_scan, args, gen, with_dfinal):
+    """Kernel forward and backward against the plain twin's forward and
+    autograd (on f32 copies of the same values). Returns the errors."""
+    out, final, states = rwkv6_scan.wkv6_forward(*args)
+    dout = torch.randn(out.shape, generator=gen, device="cuda")
+    dfinal = (torch.randn(final.shape, generator=gen, device="cuda")
+              if with_dfinal else None)
+    grads = rwkv6_scan.wkv6_backward(*args, states, dout, dfinal)
+    leaves = [a.float().requires_grad_() for a in args]
+    pout, pfinal = rwkv6_scan.wkv6_plain(*leaves)
+    loss = (pout * dout).sum()
+    if with_dfinal:
+        loss = loss + (pfinal * dfinal).sum()
+    want = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    errs = {"out": (out - pout.detach()).abs().max().item(),
+            "out_scale": pout.detach().abs().max().item()}
+    if errs["out"] > 1e-4 * errs["out_scale"]:
+        raise AssertionError(f"wkv6 forward: max abs err {errs['out']} > "
+                             f"1e-4 x {errs['out_scale']}")
+    for name, got, ref in zip(WKV_TOL, grads, want):
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        errs[name] = err / max(scale, 1e-30)
+        errs["grad_abs"] = max(errs.get("grad_abs", 0.0), err)
+        if err > WKV_TOL[name] * scale:
+            raise AssertionError(f"wkv6 backward {name}: max abs err {err} "
+                                 f"> {WKV_TOL[name]} x {scale}")
+    return errs
+
+
+def _wkv_phase(torch, rwkv6_scan):
+    """The wkv kernels: parity at the training shape and the edge shapes,
+    then device times at the training shape. Returns their two rows."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n_edge = 0
+    for d in WKV_EDGES["d"]:
+        for s in WKV_EDGES["s"]:
+            for dt in (torch.float32, torch.bfloat16):
+                args = _wkv_inputs(torch, 2, s, 3, d, dt, gen)
+                _wkv_check(torch, rwkv6_scan, args, gen, n_edge % 2 == 1)
+                n_edge += 1
+    _log(f"[kernels] wkv6 edge shapes: {n_edge} cases (D {WKV_EDGES['d']}, "
+         f"S {WKV_EDGES['s']}, f32 and bf16, half with a final-state "
+         f"gradient) within atol 1e-4 x max|out| and {WKV_TOL} x max|grad| "
+         f"of the plain twin")
+    sh = WKV_SHAPE
+    b, s, h, d = sh["b"], sh["s"], sh["h"], sh["d"]
+    args = _wkv_inputs(torch, b, s, h, d, torch.bfloat16, gen)
+    errs = _wkv_check(torch, rwkv6_scan, args, gen, False)
+    _log(f"[kernels] wkv6 B={b} S={s} H={h} D={d} bf16 r/k/v: forward max "
+         f"abs err {errs['out']:.3g} (max|out| {errs['out_scale']:.3g}); "
+         f"backward rel errs " + ", ".join(
+             f"{n} {errs[n]:.3g}" for n in WKV_TOL))
+    # six input sets (~10 MB each) rotate the timed calls past the L2
+    ins = [_wkv_inputs(torch, b, s, h, d, torch.bfloat16, gen)
+           for _ in range(6)]
+    fwd = [rwkv6_scan.wkv6_forward(*a) for a in ins]
+    douts = [torch.randn((b, s, h, d), generator=gen, device="cuda")
+             for _ in ins]
+    ms_f = _time_ms(torch, [(lambda a=a: rwkv6_scan.wkv6_forward(*a))
+                            for a in ins])
+    # the forward that saves no chunk states (as under no_grad)
+    ms_f_bare = _time_ms(torch, [
+        (lambda a=a: rwkv6_scan.wkv6_forward(*a, save_states=False))
+        for a in ins])
+    ms_b = _time_ms(torch, [
+        (lambda a=a, f=f, g=g: rwkv6_scan.wkv6_backward(*a, f[2], g))
+        for a, f, g in zip(ins, fwd, douts)])
+    del fwd
+    plain_f = _busy_ms(torch, [
+        (lambda a=a: rwkv6_scan.wkv6_plain(*a)) for a in ins])
+    graphs = []
+    for a in ins:
+        leaves = [t.float().requires_grad_() for t in a]
+        graphs.append((rwkv6_scan.wkv6_plain(*leaves)[0], leaves))
+    plain_b = _busy_ms(torch, [
+        (lambda o=o, lv=lv, g=g: torch.autograd.grad(o, lv, g,
+                                                     retain_graph=True))
+        for (o, lv), g in zip(graphs, douts)])
+    del graphs
+    # Bounds of the function alone: its inputs read once, its outputs
+    # written once, and the f32 products it needs. The chunk states the
+    # forward saves for the backward are this port's design, not the
+    # function's, and are left out (the backward recomputes them instead:
+    # 2CD^2 more per chunk).
+    c, nc = rwkv6_scan.CHUNK, -(-s // rwkv6_scan.CHUNK)
+    bhd = b * s * h * d
+    state_bytes = 4 * b * h * nc * d * d
+    in_bytes = 3 * 2 * bhd + 4 * bhd + 4 * h * d   # bf16 r/k/v, f32 w, u
+    works = {
+        # out f32, the final state
+        "fwd": (in_bytes + 4 * bhd + 4 * b * h * d * d,
+                (4 * c * c * d + 4 * c * d * d) * nc * b * h),
+        # + dout; dr/dk/dv/dw f32, du
+        "bwd": (in_bytes + 4 * bhd + 4 * 4 * bhd + 4 * h * d,
+                (10 * c * c * d + 10 * c * d * d) * nc * b * h)}
+    rows = []
+    for name, ms, plain_ms, err in (
+            ("fwd", ms_f, plain_f, errs["out"]),
+            ("bwd", ms_b, plain_b, errs["grad_abs"])):
+        nbytes, flops = works[name]
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+        rows.append(dict(
+            name=f"rwkv6_wkv_{name}", route="cuda",
+            source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+            replaces="src/repro/kernels/rwkv6_scan.py:75",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None))
+        _log(f"[kernels] wkv6 {name} B={b} S={s} H={h} D={d} bf16: kernel "
+             f"{ms:.4f} ms, plain {plain_ms:.4f} ms (device busy), library "
+             f"none, bound "
+             f"{rows[-1]['bound_ms']:.5f} ms ({rows[-1]['bound_by']}: "
+             f"{nbytes} bytes, {flops} f32 flop)")
+    _log(f"[kernels] wkv6 fwd without saving the chunk states: "
+         f"{ms_f_bare:.4f} ms (the states are {state_bytes} bytes, written "
+         f"by the forward and read by the backward, outside the bounds)")
+    del ins
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _rwkv_train_phase(torch, rwkv6_scan, backup_reduce):
+    """rwkv6-1.6b at full width, 3 spmd steps through the wkv kernels
+    (``run_experiment``), then the same steps through the plain twin."""
+    import gc
+    from repro_torch.core.straggler import PaperCalibrated
+    from repro_torch.launch.profile_train import train_config
+    from repro_torch.train.loop import Trainer, run_experiment
+    counters = ((rwkv6_scan, "launches_fwd"), (rwkv6_scan, "launches_bwd"),
+                (backup_reduce, "launches"))
+    cfg = train_config("rwkv6-1.6b")
+    model, agg = cfg.model, cfg.aggregation
+    w = agg.total_workers
+    steps = cfg.total_steps
+    runs = {}
+    for tag in ("kernel", "plain"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if tag == "kernel":
+            for m, a in counters:
+                setattr(m, a, 0)
+            res = run_experiment(cfg, latency=PaperCalibrated(),
+                                 device="cuda")
+        else:
+            tr = Trainer(cfg, latency=PaperCalibrated(), device="cuda")
+            tr.model.use_kernel = False
+            tr.init_state()
+            for m, a in counters:
+                setattr(m, a, 0)
+            res = tr.run(steps)
+        torch.cuda.synchronize()
+        n_fwd, n_bwd, n_red = (getattr(m, a) for m, a in counters)
+        peak = torch.cuda.max_memory_allocated()
+        n_params = sum(v.numel() for v in res.params.values())
+        for m in res.metrics:
+            _log(f"[train rwkv {tag}] step {m['step']} loss {m['loss']:.6f} "
+                 f"sim_time {m['sim_time']:.6f} selected {m['selected']} "
+                 f"lr {m['lr']:.6f}")
+        tokens = cfg.shape.global_batch * cfg.shape.seq_len
+        ms = [1e3 * t for t in res.step_times_s]
+        steady = statistics.mean(ms[1:])
+        _log(f"[train rwkv {tag}] {model.name}: {model.num_layers} layers, "
+             f"d_model {model.d_model}, {model.d_model // model.rwkv_head_dim}"
+             f" wkv heads of {model.rwkv_head_dim}, d_ff {model.d_ff}, vocab "
+             f"{model.vocab_size}, {n_params} params {model.dtype}, remat "
+             f"{model.remat}; backup {agg.num_workers}+{agg.backup_workers}, "
+             f"{cfg.shape.global_batch} x {cfg.shape.seq_len} tokens/step, "
+             f"spmd mesh 1x1: ms/step {', '.join(f'{t:.1f}' for t in ms)} "
+             f"(steady {steady:.1f} ms, {tokens / steady * 1e3:.0f} "
+             f"tokens/s) | launches wkv6 fwd {n_fwd} bwd {n_bwd} "
+             f"backup_reduce {n_red} | peak device memory {peak} bytes")
+        if n_params != RWKV_PARAMS:
+            raise AssertionError(f"{n_params} params, the reference counts "
+                                 f"{RWKV_PARAMS}")
+        if not all(math.isfinite(m["loss"]) for m in res.metrics):
+            raise AssertionError(f"[train rwkv {tag}] non-finite loss")
+        if res.steps != steps or len(res.metrics) != steps:
+            raise AssertionError(f"[train rwkv {tag}] ran {res.steps} steps")
+        per_step = 2 * model.num_layers * w if tag == "kernel" else 0
+        want = (per_step * steps, per_step // 2 * steps, steps)
+        if (n_fwd, n_bwd, n_red) != want:
+            raise AssertionError(
+                f"[train rwkv {tag}] launches wkv6 fwd/bwd, backup_reduce "
+                f"{(n_fwd, n_bwd, n_red)}, expected {want}")
+        runs[tag] = dict(metrics=res.metrics, launches=(n_fwd, n_bwd),
+                         peak=peak, ms=ms)
+        del res
+        if tag == "plain":
+            del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    for a, b in zip(runs["kernel"]["metrics"], runs["plain"]["metrics"]):
+        if a["selected"] != b["selected"] or a["sim_time"] != b["sim_time"]:
+            raise AssertionError(f"rwkv step {a['step']}: kernel and plain "
+                                 f"runs planned different masks")
+    la, lb = runs["kernel"]["metrics"][0]["loss"], \
+        runs["plain"]["metrics"][0]["loss"]
+    if abs(la - lb) > 1e-3 * abs(lb):
+        raise AssertionError(f"rwkv step 1: loss {la} vs plain {lb}")
+    _log(f"[train rwkv] kernel run vs plain run: masks and sim_time equal, "
+         f"step 1 loss {la:.6f} vs {lb:.6f} (rel "
+         f"{abs(la - lb) / abs(lb):.3g}, limit 1e-3)")
+    return runs["kernel"]
+
+
+def _rwkv_parity_phase(torch):
+    """2 layers at full width, f32, one step: the wkv kernels against the
+    plain twin, the loss and the first aggregated gradient."""
+    from unittest import mock
+    from repro_torch.core.straggler import PaperCalibrated
+    from repro_torch.distributed import spmd_engine
+    from repro_torch.launch.profile_train import train_config
+    from repro_torch.train.loop import Trainer
+    cfg = train_config("rwkv6-1.6b", steps=1)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, num_layers=2, dtype="float32"))
+    reduce = spmd_engine.reduce_then_psum
+    out = {}
+    for tag, use_kernel in (("kernel", True), ("plain", False)):
+        def keep(*args, _tag=tag, **kw):
+            red, tail = reduce(*args, **kw)
+            out.setdefault(_tag, red.clone())
+            return red, tail
+        with mock.patch.object(spmd_engine, "reduce_then_psum", keep):
+            tr = Trainer(cfg, latency=PaperCalibrated(), device="cuda")
+            tr.model.use_kernel = use_kernel
+            tr.init_state()
+            out[tag + "_loss"] = tr.run(1).metrics[0]["loss"]
+            del tr
+    la, lb = out["kernel_loss"], out["plain_loss"]
+    gk, gp = out["kernel"], out["plain"]
+    rel_l2 = (torch.linalg.vector_norm(gk - gp)
+              / torch.linalg.vector_norm(gp)).item()
+    if abs(la - lb) > 1e-5 * abs(lb) or not rel_l2 <= 1e-4:
+        raise AssertionError(f"rwkv 2-layer f32: loss {la} vs {lb}, first "
+                             f"aggregated gradient rel L2 {rel_l2}")
+    _log(f"[parity rwkv] 2-layer full-width f32, step 1: loss kernel "
+         f"{la:.7f} vs plain {lb:.7f} (rel {abs(la - lb) / abs(lb):.3g}, "
+         f"limit 1e-5); first aggregated gradient ({gk.numel()} lanes) rel "
+         f"L2 {rel_l2:.3g} (limit 1e-4)")
+    del gk, gp
+    out.clear()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     # cuBLAS picks the same algorithms run to run (the kernel and plain
     # training runs must compute the same first-step gradients)
@@ -589,7 +900,7 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     from repro_torch.kernels import (_build, backup_reduce, flash_attention,
-                                     page_gather)
+                                     page_gather, rwkv6_scan)
     from repro_torch.serve.pages import pages_for
     torch.backends.cuda.matmul.allow_tf32 = False     # f32 is full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -644,7 +955,20 @@ def main() -> int:
     # 7. reduced depth: sim == spmd, checkpoint resume == straight run
     _parity_phase(torch)
 
-    # 8. results
+    # 8. the wkv kernels at rwkv6-1.6b's training shape and edge shapes
+    wkv_rows = _wkv_phase(torch, rwkv6_scan)
+
+    # 9. train rwkv6-1.6b at full width through the wkv kernels, then plain
+    rwkv = _rwkv_train_phase(torch, rwkv6_scan, backup_reduce)
+    for row, n in zip(wkv_rows, rwkv["launches"]):
+        row["launches"] = n
+        row["launches_run"] = "train rwkv6-1.6b spmd (3 steps)"
+    rows += wkv_rows
+
+    # 10. reduced depth: wkv kernels == plain twin through a training step
+    _rwkv_parity_phase(torch)
+
+    # 11. results
     keys = ("name", "route", "source", "replaces", "launches", "launches_run",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -16,6 +16,7 @@ from repro_torch.configs.base import (  # noqa: F401
 
 _ARCH_MODULES: Dict[str, str] = {
     "qwen3-0.6b": "qwen3_0_6b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
 }
 
 

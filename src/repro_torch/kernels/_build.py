@@ -29,7 +29,7 @@ from typing import Dict, Iterable, Tuple
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNELS = ("page_gather", "flash_attention", "backup_reduce")
+KERNELS = ("page_gather", "flash_attention", "backup_reduce", "rwkv6_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,0 +1,225 @@
+"""Chunked RWKV-6 wkv recurrence (data-dependent decay), forward and backward.
+Reference: ``src/repro/kernels/rwkv6_scan.py`` (``wkv6_chunked`` /
+``_wkv_kernel``, the TPU kernel this module's CUDA kernels replace), as the
+reference model runs it: through its jnp twin
+``src/repro/models/rwkv6.py`` (``wkv_chunked``), differentiated by XLA.
+Oracle: ``kernels/ref.reference_wkv6``.
+
+``wkv6(r, k, v, w, u)`` with r/k/v/w ``[B, S, H, D]`` and u ``[H, D]``
+returns ``(out [B, S, H, D] f32, final state [B, H, D, D] f32)`` from a
+zero state, in chunks of 16:
+
+* :func:`wkv6` runs the hand-written kernels ``csrc/rwkv6_scan.cu``
+  (head dims 16, 32, 64; r/k/v f32 or bf16; w and u f32; any S, a ragged
+  last chunk masked) on CUDA tensors and raises on anything else:
+  :func:`wkv6_forward` and :func:`wkv6_backward` launch one kernel each,
+  and :class:`WKV6` binds them as an ``autograd.Function``.
+* :func:`wkv6_plain` is the same chunked form in plain PyTorch (autograd
+  gives its backward), which the kernels are held to on the card.
+
+The model's ``rwkv6.wkv_chunked`` chooses between the two: the plain
+version for CPU tensors or ``use_kernel=False``, else the kernels.
+
+``launches_fwd`` and ``launches_bwd`` count kernel launches (and nothing
+else).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+
+CHUNK = 16
+HEAD_DIMS = (16, 32, 64)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+launches_fwd = 0
+launches_bwd = 0
+_lib = None
+
+
+def wkv6_plain(r, k, v, w, u, state: Optional[torch.Tensor] = None,
+               chunk: int = CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch, f32: the reference's ``wkv_chunked`` (intra-chunk
+    attention form + inter-chunk state; S padded to a whole chunk with
+    r = k = v = 0, w = 1). Returns (out [B, S, H, D], final state)."""
+    b, s, h, d = r.shape
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    u = u.float()
+    if state is None:
+        state = torch.zeros((b, h, d, d), dtype=torch.float32,
+                            device=r.device)
+    n = -(-s // chunk)
+    pad = n * chunk - s
+    if pad:
+        r, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (r, k, v))
+        w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
+
+    def chunks(t):                                   # [n, B, H, C, D]
+        return t.reshape(b, n, chunk, h, d).permute(1, 0, 3, 2, 4)
+
+    rs, ks, vs, ws = (chunks(t) for t in (r, k, v, w))
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=r.device), -1)
+    outs = []
+    for i in range(n):
+        rc, kc, vc, wc = rs[i], ks[i], vs[i], ws[i]
+        logw = torch.log(torch.clamp_min(wc, 1e-30))
+        acc = torch.cumsum(logw, dim=2)                      # inclusive
+        acc_ex = acc - logw                                  # exclusive
+        ri = rc * torch.exp(acc_ex)
+        kj = kc * torch.exp(-acc)
+        scores = torch.einsum("bhtd,bhjd->bhtj", ri, kj)
+        scores = torch.where(tri, scores, torch.zeros_like(scores))
+        bonus = torch.einsum("bhtd,bhtd->bht", rc * u[None, :, None, :], kc)
+        out = torch.einsum("bhtj,bhjd->bhtd", scores, vc)
+        out = out + bonus[..., None] * vc
+        out = out + torch.einsum("bhtd,bhde->bhte", ri, state)
+        a_all = torch.exp(acc[:, :, -1:, :])
+        k_dec = kc * torch.exp(acc[:, :, -1:, :] - acc)
+        state = (a_all[:, :, 0, :, None] * state
+                 + torch.einsum("bhjd,bhje->bhde", k_dec, vc))
+        outs.append(out)
+    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, n * chunk, h, d)
+    return out[:, :s], state
+
+
+def _check(r, k, v, w, u) -> None:
+    if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, w)):
+        raise ValueError(f"r/k/v/w must share one [B, S, H, D] shape, got "
+                         f"{[tuple(t.shape) for t in (r, k, v, w)]}")
+    if tuple(u.shape) != tuple(r.shape[2:]):
+        raise ValueError(f"u must be [H, D] = {tuple(r.shape[2:])}, got "
+                         f"{tuple(u.shape)}")
+    if len({t.device for t in (r, k, v, w, u)}) != 1:
+        raise ValueError("r, k, v, w and u must be on one device")
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = _build.load("rwkv6_scan")
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.wkv6_fwd.argtypes = [i32] + [vp] * 9 + [i32] * 4 + [vp]
+        lib.wkv6_fwd.restype = i32
+        lib.wkv6_bwd.argtypes = [i32] + [vp] * 14 + [i32] * 4 + [vp]
+        lib.wkv6_bwd.restype = i32
+        lib.wkv6_error_string.argtypes = [i32]
+        lib.wkv6_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _kernel_args(r, k, v, w, u):
+    """Validate CUDA inputs for the kernels; returns (dtype code, strides)."""
+    if r.device.type != "cuda":
+        raise ValueError(f"the wkv6 kernels run on CUDA tensors, not "
+                         f"{r.device}; the CPU takes wkv6_plain")
+    d = r.shape[3]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not built; the kernels take "
+                         f"{HEAD_DIMS}")
+    if not (r.dtype == k.dtype == v.dtype) or r.dtype not in _DTYPE_CODE:
+        raise ValueError(f"r/k/v must share one of {list(_DTYPE_CODE)}, got "
+                         f"{r.dtype}, {k.dtype}, {v.dtype}")
+    if w.dtype != torch.float32 or u.dtype != torch.float32:
+        raise ValueError(f"w and u must be f32, got {w.dtype}, {u.dtype}")
+    if any(t.stride(3) != 1 for t in (r, k, v, w)) or not u.is_contiguous():
+        raise ValueError("r/k/v/w need a unit-stride head_dim axis and u "
+                         "must be contiguous")
+    strides = (ctypes.c_longlong * 12)(
+        *[t.stride(i) for t in (r, k, v, w) for i in range(3)])
+    return _DTYPE_CODE[r.dtype], strides
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.wkv6_error_string(err).decode()}")
+
+
+def wkv6_forward(r, k, v, w, u, *, save_states: bool = True):
+    """Launch the forward kernel on CUDA tensors: (out [B, S, H, D] f32,
+    final state [B, H, D, D] f32, every chunk's incoming state
+    [B, H, n_chunks, D, D] f32 or None when ``save_states`` is false)."""
+    global launches_fwd
+    _check(r, k, v, w, u)
+    code, strides = _kernel_args(r, k, v, w, u)
+    b, s, h, d = r.shape
+    dev = r.device
+    out = torch.empty((b, s, h, d), dtype=torch.float32, device=dev)
+    final = torch.empty((b, h, d, d), dtype=torch.float32, device=dev)
+    states = torch.empty((b, h, -(-s // CHUNK), d, d), dtype=torch.float32,
+                         device=dev) if save_states else None
+    if b * s * h == 0:
+        return out, final.zero_(), states
+    lib = _load()
+    err = lib.wkv6_fwd(code, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       w.data_ptr(), u.data_ptr(), strides, out.data_ptr(),
+                       None if states is None else states.data_ptr(),
+                       final.data_ptr(), b, s, h, d, _build.stream_ptr(dev))
+    _raise_on(lib, err, "wkv6 forward")
+    launches_fwd += 1
+    return out, final, states
+
+
+def wkv6_backward(r, k, v, w, u, states, dout, dfinal=None):
+    """Launch the backward kernel: from the forward's inputs and ``states``
+    and the output's (and, when given, the final state's) gradient, the f32
+    gradients (dr, dk, dv, dw [B, S, H, D], du [H, D])."""
+    global launches_bwd
+    code, strides = _kernel_args(r, k, v, w, u)
+    b, s, h, d = r.shape
+    dev = r.device
+    grads = [torch.empty((b, s, h, d), dtype=torch.float32, device=dev)
+             for _ in range(4)]
+    du_part = torch.empty((b, h, d), dtype=torch.float32, device=dev)
+    if b * s * h == 0:
+        return (*grads, du_part.zero_().sum(dim=0))
+    dout = dout.float().contiguous()
+    if dfinal is not None:
+        dfinal = dfinal.float().contiguous()
+    lib = _load()
+    err = lib.wkv6_bwd(code, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       w.data_ptr(), u.data_ptr(), strides, dout.data_ptr(),
+                       None if dfinal is None else dfinal.data_ptr(),
+                       states.data_ptr(), *(g.data_ptr() for g in grads),
+                       du_part.data_ptr(), b, s, h, d, _build.stream_ptr(dev))
+    _raise_on(lib, err, "wkv6 backward")
+    launches_bwd += 1
+    # summed over B in a fixed order: deterministic
+    return (*grads, du_part.sum(dim=0))
+
+
+class WKV6(torch.autograd.Function):
+    """The kernels as an autograd op: forward saves r/k/v/w/u and every
+    chunk's incoming state (when a gradient is needed); backward is the
+    reverse-chunk kernel, its f32 gradients cast to the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        save = any(ctx.needs_input_grad)
+        out, final, states = wkv6_forward(r, k, v, w, u, save_states=save)
+        ctx.set_materialize_grads(False)
+        if save:
+            ctx.save_for_backward(r, k, v, w, u, states)
+        return out, final
+
+    @staticmethod
+    def backward(ctx, dout, dfinal):
+        r, k, v, w, u, states = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        dr, dk, dv, dw, du = wkv6_backward(r, k, v, w, u, states, dout,
+                                           dfinal)
+        return dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw, du
+
+
+def wkv6(r, k, v, w, u) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' wkv from a zero state: r/k/v/w [B, S, H, D], u [H, D]
+    on CUDA -> (out [B, S, H, D] f32, final state [B, H, D, D] f32)."""
+    return WKV6.apply(r, k, v, w, u)

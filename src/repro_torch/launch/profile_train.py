@@ -1,21 +1,26 @@
 """Where the training step's time goes on the card: a torch.profiler window.
 
-    python -m repro_torch.launch.profile_train
+    python -m repro_torch.launch.profile_train [--arch rwkv6-1.6b]
 
-Builds the full-width training run (``train_config``, which
-``chip_smoke.py`` drives too: qwen3-0.6b, 28 layers, bf16, remat full;
-backup 6 + 2 workers, 2 x 256 tokens per worker, rmsprop_momentum, EMA
-0.999; the spmd backend at mesh 1 x 1, one worker at a time, the
-``backup_reduce`` kernel) and profiles two steady
-steps, printing what ``profile_serve`` prints for a serve phase (host wall
-per step, unprofiled and profiled; device busy per step; the device's
-idle share; kernel launches per step; kernels and ops ranked) and, for
-each of the engine's three phases (``spmd/worker_grad`` x 8,
+Builds a full-width training run (``train_config``, which
+``chip_smoke.py`` drives too): qwen3-0.6b (28 layers, bf16, remat full;
+backup 6 + 2 workers) or rwkv6-1.6b (24 layers, bf16, remat full, every
+layer's wkv through the ``rwkv6_scan`` kernels; backup 3 + 1 workers, the
+most whose [W, P] f32 gradient stack and optimizer state fit the card's
+80 GB), each with 2 x 256 tokens per worker, rmsprop_momentum, EMA 0.999,
+the spmd backend at mesh 1 x 1, one worker at a time, the
+``backup_reduce`` kernel. It profiles two steady steps, printing what
+``profile_serve`` prints for a serve phase (host wall per step,
+unprofiled and profiled; device busy per step; the device's idle share;
+kernel launches per step; kernels and ops ranked) and, for each of the
+engine's three phases (``spmd/worker_grad`` once per worker,
 ``spmd/reduce``, ``spmd/update``), its host wall time and the device busy
 time (the union of the kernel and copy intervals inside the phase's
 device span). Needs a card.
 """
 from __future__ import annotations
+
+import argparse
 
 import torch
 from torch.autograd import DeviceType
@@ -30,20 +35,25 @@ from repro_torch.train.loop import Trainer
 
 STEPS = 2
 PHASES = ("spmd/worker_grad", "spmd/reduce", "spmd/update")
+# arch -> backup (N, b). rwkv6-1.6b: P = 1,584,095,232, so the [W, P] f32
+# stack is 6.34 GB per worker beside 12.67 GB of rmsprop_momentum state and
+# 6.34 GB each of EMA and f32 aggregate: W = 4 needs ~65 GB, W = 8 ~91 GB.
+WORKERS = {"qwen3-0.6b": (6, 2), "rwkv6-1.6b": (3, 1)}
 
 
-def train_config(*, backend: str = "spmd", use_kernel=None,
-                 steps: int = 3) -> TrainConfig:
-    """The full-width training run (the one ``chip_smoke.py`` drives):
-    qwen3-0.6b at its published widths, backup 6 + 2 workers with 2
-    sequences of 256 tokens each, rmsprop_momentum lr 0.02 x N, EMA 0.999,
-    seed 0, ``steps`` steps, no checkpoint, one worker at a time and a
-    single reduce bucket on the ``backend``."""
+def train_config(arch: str = "qwen3-0.6b", *, backend: str = "spmd",
+                 use_kernel=None, steps: int = 3) -> TrainConfig:
+    """A full-width training run (the ones ``chip_smoke.py`` drives):
+    ``arch`` at its published widths, backup ``WORKERS[arch]`` workers with
+    2 sequences of 256 tokens each, rmsprop_momentum lr 0.02 x N, EMA
+    0.999, seed 0, ``steps`` steps, no checkpoint, one worker at a time and
+    a single reduce bucket on the ``backend``."""
+    n, b = WORKERS[arch]
     return TrainConfig(
-        model=configs.get_config("qwen3-0.6b"),
-        shape=ShapeConfig("full", 256, 2 * 8, "train"),
-        aggregation=AggregationConfig(strategy="backup", num_workers=6,
-                                      backup_workers=2),
+        model=configs.get_config(arch),
+        shape=ShapeConfig("full", 256, 2 * (n + b), "train"),
+        aggregation=AggregationConfig(strategy="backup", num_workers=n,
+                                      backup_workers=b),
         optimizer=OptimizerConfig(name="rmsprop_momentum",
                                   learning_rate=0.02,
                                   scale_lr_with_workers=True,
@@ -54,16 +64,20 @@ def train_config(*, backend: str = "spmd", use_kernel=None,
         seed=0, total_steps=steps, log_every=1)
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", choices=sorted(WORKERS), default="qwen3-0.6b")
+    args = ap.parse_args(argv)
     dev = resolve_device("cuda")
-    cfg = train_config()
+    cfg = train_config(args.arch)
     tr = Trainer(cfg, device=dev)
     tr.init_state()
+    agg = cfg.aggregation
     print(f"[profile] {torch.cuda.get_device_name(0)} torch "
           f"{torch.__version__} | {cfg.model.name} {cfg.model.num_layers} "
-          f"layers {cfg.model.dtype}, backup 6+2, "
-          f"{cfg.shape.global_batch} x {cfg.shape.seq_len} tokens/step, "
-          f"spmd mesh 1x1")
+          f"layers {cfg.model.dtype}, backup {agg.num_workers}+"
+          f"{agg.backup_workers}, {cfg.shape.global_batch} x "
+          f"{cfg.shape.seq_len} tokens/step, spmd mesh 1x1")
     prof = _profile("train step", lambda: tr.run(1), STEPS)
     events = prof.events()
     on_device = [(e.time_range.start, e.time_range.end) for e in events

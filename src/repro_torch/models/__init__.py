@@ -1,9 +1,10 @@
-"""Model zoo of the port (dense transformer family so far).
+"""Model zoo of the port (the dense transformer and RWKV-6 families so far).
 Reference: ``src/repro/models/``."""
 from repro_torch.models.convert import (from_jax_tree, load_jax_params,
                                         to_jax_tree)
 from repro_torch.models.registry import get_model
+from repro_torch.models.rwkv_lm import RWKVLM
 from repro_torch.models.transformer import TransformerLM
 
-__all__ = ["TransformerLM", "from_jax_tree", "get_model", "load_jax_params",
-           "to_jax_tree"]
+__all__ = ["RWKVLM", "TransformerLM", "from_jax_tree", "get_model",
+           "load_jax_params", "to_jax_tree"]

@@ -62,6 +62,24 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t)
 
 
+class ParamTree(nn.Module):
+    """A node of the reference's param tree holding both bare tensors and
+    subtrees (``nn.ModuleDict`` holds only modules, ``nn.ParameterDict``
+    only tensors): ``params[key]`` reads either, and the parameter names
+    are the reference's paths (``att.w_base``, ``att.mu.r``)."""
+
+    def __init__(self, items):
+        super().__init__()
+        for key, val in items.items():
+            if isinstance(val, nn.Module):
+                self.add_module(key, val)
+            else:
+                self.register_parameter(key, _param(val))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+
 def dense_init(gen, d_in: int, d_out: int, dtype=torch.float32, device=None,
                *, bias: bool = False,
                std: Optional[float] = None) -> nn.ParameterDict:
@@ -106,6 +124,22 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(dt)
+
+
+def layernorm_init(d: int, dtype=torch.float32,
+                   device=None) -> nn.ParameterDict:
+    return nn.ParameterDict({
+        "scale": _param(torch.ones((d,), dtype=dtype, device=device)),
+        "bias": _param(torch.zeros((d,), dtype=dtype, device=device))})
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float() + params["bias"].float()).to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -2,12 +2,13 @@
 modules (new; no reference module).
 
 ``load_jax_params(model, tree)`` takes the reference's param pytree
-(``repro.models.transformer.TransformerLM.init`` output, leaves as numpy
-arrays or anything ``np.asarray`` accepts) and copies it into a
-:class:`~repro_torch.models.transformer.TransformerLM`:
+(``TransformerLM.init`` or ``RWKVLM.init`` output of ``repro.models``,
+leaves as numpy arrays or anything ``np.asarray`` accepts) and copies it
+into the port's model of the same family:
 
-* stacked ``seg_dense/<path>[L, ...]`` leaves are unstacked into
-  ``layers.<i>.<path>``;
+* stacked per-layer leaves are unstacked into the model's module list:
+  ``seg_dense/<path>[L, ...]`` into ``layers.<i>.<path>`` (dense family),
+  ``blocks/<path>[L, ...]`` into ``blocks.<i>.<path>`` (RWKV);
 * every other leaf maps to the module parameter of the same path
   (``embed/embedding`` -> ``embed.embedding``).
 
@@ -18,8 +19,9 @@ shape mismatch, raises ``ValueError`` naming every offender.
 ``to_jax_tree(named)`` is the inverse mapping on any dict keyed by module
 parameter names (the parameters, and the optimizer's and the EMA's
 per-parameter dicts, which mirror them): ``layers.<i>.<path>`` leaves are
-restacked into ``seg_dense/<path>[L, ...]``, the rest nest by their dotted
-path. ``from_jax_tree`` flattens a reference tree to those names.
+restacked into ``seg_dense/<path>[L, ...]`` and ``blocks.<i>.<path>``
+into ``blocks/<path>[L, ...]``, the rest nest by their dotted path.
+``from_jax_tree`` flattens a reference tree to those names.
 """
 from __future__ import annotations
 
@@ -41,16 +43,22 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict:
     return out
 
 
+# the reference's stacked root -> the port's module list, and back
+_STACKED = {"seg_dense": "layers", "blocks": "blocks"}
+_RESTACKED = {v: k for k, v in _STACKED.items()}
+
+
 def _to_module_leaves(flat: Dict) -> Dict:
-    """JAX paths -> state-dict names, unstacking ``seg_dense`` layers."""
+    """JAX paths -> state-dict names, unstacking per-layer leaves."""
     out: Dict = {}
     for path, arr in flat.items():
         head, _, rest = path.partition("/")
-        if head.startswith("seg_"):
-            if head != "seg_dense":
-                raise ValueError(f"{path}: only the dense family is ported")
+        if head in _STACKED:
             for i in range(arr.shape[0]):
-                out[f"layers.{i}.{rest.replace('/', '.')}"] = arr[i]
+                out[f"{_STACKED[head]}.{i}.{rest.replace('/', '.')}"] = arr[i]
+        elif head.startswith("seg_"):
+            raise ValueError(f"{path}: only the dense segment (seg_dense) is "
+                             f"ported")
         else:
             out[path.replace("/", ".")] = arr
     return out
@@ -59,15 +67,15 @@ def _to_module_leaves(flat: Dict) -> Dict:
 def from_jax_tree(tree: Mapping) -> Dict:
     """A reference tree (params, or an optimizer / EMA tree mirroring
     them; leaves numpy arrays or tensors) -> ``{module parameter name:
-    leaf}``, ``seg_dense`` leaves unstacked."""
+    leaf}``, per-layer leaves unstacked."""
     return _to_module_leaves(_flatten(tree))
 
 
 def to_jax_tree(named: Mapping) -> Dict:
     """``{module parameter name: leaf}`` (numpy arrays or tensors) -> the
     reference's nested tree, per-layer leaves restacked into
-    ``seg_dense/<path>[L, ...]``."""
-    layers: Dict[str, Dict[int, np.ndarray]] = {}
+    ``seg_dense/<path>[L, ...]`` or ``blocks/<path>[L, ...]``."""
+    layers: Dict[tuple, Dict[int, np.ndarray]] = {}
     tree: Dict = {}
 
     def put(path, arr):
@@ -79,17 +87,17 @@ def to_jax_tree(named: Mapping) -> Dict:
 
     for name, arr in named.items():
         head, _, rest = name.partition(".")
-        if head == "layers":
+        if head in _RESTACKED:
             idx, _, leaf = rest.partition(".")
-            layers.setdefault(leaf, {})[int(idx)] = arr
+            layers.setdefault((head, leaf), {})[int(idx)] = arr
         else:
             put(name.split("."), arr)
-    for leaf, by_layer in layers.items():
+    for (head, leaf), by_layer in layers.items():
         if sorted(by_layer) != list(range(len(by_layer))):
-            raise ValueError(f"layers.*.{leaf}: layers {sorted(by_layer)} "
+            raise ValueError(f"{head}.*.{leaf}: layers {sorted(by_layer)} "
                              f"are not 0..L-1")
         rows = [by_layer[i] for i in range(len(by_layer))]
-        put(["seg_dense"] + leaf.split("."),
+        put([_RESTACKED[head]] + leaf.split("."),
             torch.stack(rows) if isinstance(rows[0], torch.Tensor)
             else np.stack(rows))
     return tree

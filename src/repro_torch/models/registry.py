@@ -1,5 +1,6 @@
 """Model registry: family -> model class. Reference:
-``src/repro/models/registry.py`` (``get_model``; dense family only)."""
+``src/repro/models/registry.py`` (``get_model``; the dense and ssm
+families)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -14,6 +15,10 @@ def get_model(cfg, *, device=None,
     if cfg.family == "dense":
         from repro_torch.models import transformer
         return transformer.make(cfg, device=device, generator=generator)
+    if cfg.family == "ssm":
+        from repro_torch.models import rwkv_lm
+        return rwkv_lm.make(cfg, device=device, generator=generator)
     raise NotImplementedError(
         f"model family {cfg.family!r} is not ported yet (the remaining model "
-        f"families slice); repro_torch serves the dense family")
+        f"families slice, ROADMAP Queue 1 item 9); repro_torch runs the "
+        f"dense and ssm (rwkv6) families")

@@ -1,0 +1,113 @@
+"""RWKV-6 language model: embed -> rwkv blocks -> head, the ``ssm`` family.
+Reference: ``src/repro/models/rwkv_lm.py`` (``RWKVLM``'s ``init``,
+``_fresh_states``, ``forward`` and ``per_token_loss``).
+
+The reference scans stacked ``blocks/<path>[L, ...]`` leaves; here
+``blocks`` is an ``nn.ModuleList`` of per-layer blocks with the same keys
+(``ln1``, ``att``, ``ln2``, ``ffn``). Each block sees a fresh zero state.
+Every layer's wkv runs through the hand-written kernels on the card
+(``use_kernel=True``, the default) or their plain twin
+(``use_kernel=False``, and always on the CPU).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models import common, rwkv6
+from repro_torch.models.transformer import _remat_layers
+
+_SERVE = ("RWKV decode and prefill are not ported yet: they come with the "
+          "toy serve path (ROADMAP Queue 1 item 8)")
+
+
+def _block(p, cfg, x, state, use_kernel: bool) -> torch.Tensor:
+    return rwkv6.rwkv_block_apply(p, cfg, x, state, chunked=True,
+                                  use_kernel=use_kernel)[0]
+
+
+class RWKVLM(nn.Module):
+    """``device=None`` means the card (``cuda``); pass ``device="cpu"`` to
+    run on the CPU. ``generator`` must live on that device; ``None`` seeds
+    a fresh one with 0. ``use_kernel=False`` runs the wkv's plain twin on
+    the card too."""
+
+    def __init__(self, cfg, *, device=None,
+                 generator: Optional[torch.Generator] = None,
+                 use_kernel: bool = True):
+        super().__init__()
+        if cfg.family != "ssm":
+            raise ValueError(f"RWKVLM takes the ssm family, not "
+                             f"{cfg.family!r}")
+        self.cfg = cfg
+        self.dtype = common.dtype_of(cfg.dtype)
+        self.device = common.resolve_device(device)
+        self.use_kernel = use_kernel
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        self.init(generator)
+
+    def init(self, gen: torch.Generator) -> "RWKVLM":
+        """(Re)draw every parameter from ``gen`` with the reference's init
+        scheme."""
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+        self.embed = common.embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                       dt, dev)
+        self.ln_in = common.layernorm_init(cfg.d_model, dt, dev)
+        self.blocks = nn.ModuleList(
+            rwkv6.rwkv_block_init(gen, cfg, dt, dev)
+            for _ in range(cfg.num_layers))
+        self.ln_out = common.layernorm_init(cfg.d_model, dt, dev)
+        self.head = common.dense_init(gen, cfg.d_model, cfg.padded_vocab,
+                                      dt, dev)
+        return self
+
+    def _fresh_states(self, batch: int):
+        """The zero block state; ``att_s`` None is the zero wkv state the
+        kernels start from."""
+        zeros = torch.zeros((batch, self.cfg.d_model), dtype=self.dtype,
+                            device=self.device)
+        return {"att_x": zeros, "att_s": None, "ffn_x": zeros}
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens: [B, S] -> logits [B, S, V_padded]. Under remat ``full``
+        (with autograd on) each block recomputes in backward."""
+        remat = _remat_layers(self.cfg.remat) and torch.is_grad_enabled()
+        x = common.embed(self.embed, tokens).to(self.dtype)
+        x = common.layernorm(self.ln_in, x, 1e-5)
+        zero_state = self._fresh_states(tokens.shape[0])
+        for p in self.blocks:
+            if remat:
+                x = checkpoint(_block, p, self.cfg, x, zero_state,
+                               self.use_kernel, use_reentrant=False)
+            else:
+                x = _block(p, self.cfg, x, zero_state, self.use_kernel)
+        x = common.layernorm(self.ln_out, x, 1e-5)
+        return common.dense(self.head, x)
+
+    def per_token_loss(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """batch: tokens [B, S], labels [B, S] (-1 = masked) -> (per-token
+        loss [B, S] f32 over the full logits, aux loss 0-d f32 = 0)."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        logits = self.forward(tokens)
+        loss = common.softmax_cross_entropy(
+            logits, torch.clamp_min(labels, 0), self.cfg.vocab_size)
+        loss = torch.where(labels >= 0, loss, torch.zeros_like(loss))
+        return loss, torch.zeros((), dtype=torch.float32, device=self.device)
+
+    def init_cache(self, batch: int, max_len: int, dtype=None):
+        raise NotImplementedError(_SERVE)
+
+    def decode_step(self, token, cache):
+        raise NotImplementedError(_SERVE)
+
+    def prefill(self, tokens):
+        raise NotImplementedError(_SERVE)
+
+
+def make(cfg, *, device=None, generator=None) -> RWKVLM:
+    return RWKVLM(cfg, device=device, generator=generator)

@@ -22,6 +22,17 @@ where only PyTorch is installed:
   tensors and counts one launch per call.
 * Two training steps of the smoke model on the card (spmd backend, the
   kernel) against the same two steps of the CPU port: atol 1e-5 (f32).
+* The wkv6 kernels (``rwkv6_scan``) against the plain twin on the same
+  CUDA tensors, D in {16, 32, 64}, S in {1, 16, 40, 256}, f32 and bf16
+  r/k/v: the forward's f32 output within atol 1e-4 x max|out|; the
+  backward's f32 gradients (dr, dk, dv, dw, du; with a final-state
+  gradient too) against the plain twin's autograd within 1e-4 x max|grad|
+  (dw 5e-4: d log w / w amplifies rounding where w is small); through
+  autograd one forward and one backward launch, gradients in the inputs'
+  dtypes; a CUDA call the kernels cannot take raises.
+* ``RWKVLM`` (rwkv6 smoke, f32) on the card, through the kernels, against
+  the CPU port: logits and per-token loss within atol 1e-5, gradients
+  within atol 1e-5, with remat "full" (2 forward launches per layer).
 """
 import pytest
 
@@ -38,7 +49,8 @@ from repro_torch.configs import (AggregationConfig, CheckpointConfig,
 from repro_torch.kernels import backup_reduce as treduce
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import page_gather as tgather
-from repro_torch.models import TransformerLM
+from repro_torch.kernels import rwkv6_scan as twkv
+from repro_torch.models import RWKVLM, TransformerLM
 from repro_torch.serve import ServeEngine, TraceConfig, make_trace
 from repro_torch.train.loop import Trainer
 from torch_parity import (cuda_device, qkv_inputs,  # noqa: F401 (fixture)
@@ -193,3 +205,106 @@ def test_train_steps_on_card_match_cpu(cuda_device):
     for k, v in rc.params.items():
         np.testing.assert_allclose(rg.params[k].detach().cpu().numpy(),
                                    v.detach().numpy(), atol=1e-5, err_msg=k)
+
+
+def _wkv_inputs(b, s, h, d, dtype, device, seed=0):
+    rng = np.random.RandomState(seed)
+    r, k, v = ((0.5 * rng.randn(b, s, h, d)).astype(np.float32)
+               for _ in range(3))
+    w = np.exp(-np.exp(np.clip(rng.randn(b, s, h, d) - 1.0, -8.0, 1.6)))
+    u = 0.5 * rng.randn(h, d)
+    return ([torch.from_numpy(t).to(device, dtype) for t in (r, k, v)]
+            + [torch.from_numpy(t.astype(np.float32)).to(device)
+               for t in (w, u)])
+
+
+WKV_TOL = dict(dr=1e-4, dk=1e-4, dv=1e-4, dw=5e-4, du=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 16, 40, 256])
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_wkv_forward_matches_plain(cuda_device, d, s, dtype):
+    args = _wkv_inputs(2, s, 3, d, dtype, cuda_device, seed=s + d)
+    before = twkv.launches_fwd
+    out, final, states = twkv.wkv6_forward(*args)
+    want, want_final = twkv.wkv6_plain(*args)
+    torch.cuda.synchronize()
+    assert twkv.launches_fwd == before + 1
+    assert out.dtype == torch.float32 and states.shape == (2, 3, -(-s // 16),
+                                                           d, d)
+    for got, ref in ((out, want), (final, want_final)):
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-4 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,d,dfinal", [(1, 64, False), (16, 16, True),
+                                        (40, 32, False), (256, 64, True)])
+def test_wkv_backward_matches_plain_autograd(cuda_device, s, d, dfinal,
+                                             dtype):
+    args = _wkv_inputs(2, s, 3, d, dtype, cuda_device, seed=s)
+    rng = np.random.RandomState(1)
+    dout = torch.from_numpy(rng.randn(2, s, 3, d).astype(np.float32)).to(
+        cuda_device)
+    dfin = torch.from_numpy(rng.randn(2, 3, d, d).astype(np.float32)).to(
+        cuda_device) if dfinal else None
+    _, _, states = twkv.wkv6_forward(*args)
+    before = twkv.launches_bwd
+    got = twkv.wkv6_backward(*args, states, dout, dfin)
+    assert twkv.launches_bwd == before + 1
+    leaves = [a.float().requires_grad_() for a in args]
+    out, final = twkv.wkv6_plain(*leaves)
+    loss = (out * dout).sum() + ((final * dfin).sum() if dfinal else 0.0)
+    want = torch.autograd.grad(loss, leaves)
+    for (name, tol), g, ref in zip(WKV_TOL.items(), got, want):
+        torch.testing.assert_close(g, ref, rtol=0,
+                                   atol=tol * ref.abs().max().item(),
+                                   msg=name)
+
+
+def test_wkv_autograd_launches_and_dtypes(cuda_device):
+    args = [a.requires_grad_() for a in
+            _wkv_inputs(1, 40, 2, 32, torch.bfloat16, cuda_device)]
+    before = (twkv.launches_fwd, twkv.launches_bwd)
+    out, _ = twkv.wkv6(*args)
+    out.sum().backward()
+    assert (twkv.launches_fwd, twkv.launches_bwd) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert [a.grad.dtype for a in args] == [torch.bfloat16] * 3 + \
+        [torch.float32] * 2
+    with pytest.raises(ValueError, match="head dim"):
+        twkv.wkv6(*_wkv_inputs(1, 8, 1, 8, torch.float32, cuda_device))
+    with pytest.raises(ValueError, match="w and u must be f32"):
+        a = _wkv_inputs(1, 8, 1, 16, torch.float32, cuda_device)
+        twkv.wkv6(*a[:3], a[3].double(), a[4])
+
+
+def test_rwkv_model_on_card_matches_cpu(cuda_device):
+    cfg = dataclasses.replace(configs.get_smoke_config("rwkv6-1.6b"),
+                              remat="full")
+    cpu = RWKVLM(cfg, device="cpu", generator=torch.Generator().manual_seed(2))
+    card = RWKVLM(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(3)
+    batch = {"tokens": rng.randint(0, cfg.vocab_size, (2, 40)),
+             "labels": rng.randint(0, cfg.vocab_size, (2, 40))}
+    with torch.no_grad():
+        np.testing.assert_allclose(
+            card(torch.from_numpy(batch["tokens"]).to(cuda_device)).cpu(),
+            cpu(torch.from_numpy(batch["tokens"])), atol=1e-5)
+    before = (twkv.launches_fwd, twkv.launches_bwd)
+    losses = {}
+    for tag, model in (("cpu", cpu), ("card", card)):
+        per_tok, _ = model.per_token_loss(batch)
+        per_tok.mean().backward()
+        losses[tag] = per_tok.detach().cpu().numpy()
+    layers = cfg.num_layers
+    assert (twkv.launches_fwd, twkv.launches_bwd) == (before[0] + 2 * layers,
+                                                      before[1] + layers)
+    np.testing.assert_allclose(losses["card"], losses["cpu"], atol=1e-5)
+    grads = dict(cpu.named_parameters())
+    for name, p in card.named_parameters():
+        np.testing.assert_allclose(p.grad.cpu().numpy(),
+                                   grads[name].grad.numpy(), atol=1e-5,
+                                   err_msg=name)

@@ -63,7 +63,7 @@ def test_configs_match_reference(getter):
 
 
 def test_unported_arch_is_a_clear_key_error():
-    assert tconfigs.list_archs() == ["qwen3-0.6b"]
+    assert tconfigs.list_archs() == ["qwen3-0.6b", "rwkv6-1.6b"]
     with pytest.raises(KeyError, match="not ported"):
         tconfigs.get_config("gemma3-1b")
 
