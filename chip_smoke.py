@@ -18,7 +18,8 @@ fails (non-zero exit, no result line) if any phase fails:
    window 64 + softcap 2 case where the cap binds), then device times from
    CUDA events (median of repeats, calls queued behind a GPU sleep so host
    overhead is excluded, inputs rotated past the 50 MB L2) of the kernel,
-   its plain version and the library yardstick.
+   its plain version and the library yardstick (flash also at S 128 against
+   SDPA, printed only).
 4. Serve qwen3-0.6b at full width (28 layers, d_model 1024, bf16, seeded
    random weights) through ``ServeEngine`` on a 16-request trace, once with
    an fp pool and once with an int8 pool. Launch counters are set to 0
@@ -51,8 +52,9 @@ fails (non-zero exit, no result line) if any phase fails:
    forward's f32 output within atol 1e-4 x max|out|, the backward's f32
    gradients within rel 1e-4 of max|grad| (dw 5e-4: d log w / w amplifies
    rounding where w is small); then the kernels' device times as in
-   phase 3, and the plain twin's device busy time per call from
-   torch.profiler (its hundreds of kernels per call overflow the launch
+   phase 3 (the backward also pass by pass: the dS scan and the
+   chunk-local gradients), and the plain twin's device busy time per call
+   from torch.profiler (its hundreds of kernels per call overflow the launch
    queue, so they cannot be queued behind a sleep).
 9. Train rwkv6-1.6b at full width (24 layers, d_model 2048, 32 wkv heads
    of 64, d_ff 7168, vocab 65,536, bf16, remat full) through
@@ -92,6 +94,7 @@ PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 GATHER_SHAPE = dict(b=8, ps=16, kv=8, hd=128)
 FLASH_HEADS = dict(h=16, kv=8, d=128)
+FLASH_SHORT_S = 128                # a short prompt of the serve trace
 REDUCE_WORKERS = 8                 # backup 6 + 2
 REDUCE_EDGES = dict(w=(2, 3, 8), p=(1, 3, 4097, 65536),
                     masks=("zeros", "ones", "mixed"))
@@ -286,6 +289,16 @@ def _flash_phase(torch, flash_attention):
          f"ms, library (sdpa) {library_ms:.4f} ms, bound "
          f"{row['bound_ms']:.5f} ms ({row['bound_by']}: {flops} flop, "
          f"{nbytes} bytes)")
+    # a short prompt from the serve trace's range (64-512), printed only
+    ins = _flash_inputs(torch, FLASH_SHORT_S, dt, 16, gen)
+    ms_short = _time_ms(torch, [
+        (lambda a=a: flash_attention.flash_attention(*a)) for a in ins])
+    sdpa_short = _time_ms(torch, [
+        (lambda a=a: F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in a), is_causal=True,
+            enable_gqa=True)) for a in ins])
+    _log(f"[kernels] flash_attention B=1 S={FLASH_SHORT_S} bf16 causal: "
+         f"kernel {ms_short:.4f} ms, library (sdpa) {sdpa_short:.4f} ms")
     return row
 
 
@@ -710,7 +723,14 @@ def _wkv_phase(torch, rwkv6_scan):
     ms_b = _time_ms(torch, [
         (lambda a=a, f=f, g=g: rwkv6_scan.wkv6_backward(*a, f[2], g))
         for a, f, g in zip(ins, fwd, douts)])
-    del fwd
+    # the backward's two kernels alone: the dS scan, the chunk-local pass
+    passes = [rwkv6_scan.backward_passes(*a, f[2], g)
+              for a, f, g in zip(ins, fwd, douts)]
+    for scan, _, _ in passes:
+        scan()                               # pass 2 reads pass 1's dS
+    ms_scan = _time_ms(torch, [p[0] for p in passes])
+    ms_chunks = _time_ms(torch, [p[1] for p in passes])
+    del fwd, passes
     plain_f = _busy_ms(torch, [
         (lambda a=a: rwkv6_scan.wkv6_plain(*a)) for a in ins])
     graphs = []
@@ -758,6 +778,9 @@ def _wkv_phase(torch, rwkv6_scan):
              f"none, bound "
              f"{rows[-1]['bound_ms']:.5f} ms ({rows[-1]['bound_by']}: "
              f"{nbytes} bytes, {flops} f32 flop)")
+    _log(f"[kernels] wkv6 bwd by pass: dS scan {ms_scan:.4f} ms, "
+         f"chunk-local gradients {ms_chunks:.4f} ms (whole call "
+         f"{ms_b:.4f} ms)")
     _log(f"[kernels] wkv6 fwd without saving the chunk states: "
          f"{ms_f_bare:.4f} ms (the states are {state_bytes} bytes, written "
          f"by the forward and read by the backward, outside the bounds)")

@@ -10,8 +10,10 @@ returns ``[B, S, H, D]`` in q's dtype: softmax over keys of
 and ``qpos - kpos < window`` (window > 0), KV head ``h // (H // KV)``,
 f32 accumulation. Prefill routes every layer's attention through it.
 
-* CUDA tensors go to the hand-written kernel ``csrc/flash_attention.cu``
-  (f32 and bf16; head dims 16, 32, 64, 128; any S) or raise.
+* CUDA tensors go to the hand-written kernels ``csrc/flash_attention.cu``
+  (head dims 16, 32, 64, 128; any S) or raise: bf16 to the tensor-core
+  kernel, which reads 16-byte rows (base pointers and the b, s, h strides
+  of q, k and v must be multiples of 8 elements), f32 to the f32 one.
 * CPU tensors go to :func:`flash_attention_plain`, the same function in
   plain PyTorch (full f32 softmax), which the kernel is held to on the card.
 * ``use_kernel=False`` selects the plain version on either device.
@@ -117,6 +119,12 @@ def _flash_cuda(q, k, v, causal: bool, window: int,
                          f"{_HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q/k/v need a contiguous last (head_dim) axis")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3))
+            for t in (q, k, v)):
+        raise ValueError("the bf16 flash kernel reads 16-byte rows: the base "
+                         "pointers of q, k and v must be 16-byte aligned and "
+                         "their b, s and h strides multiples of 8 elements")
     if b > _GRID_YZ_MAX or h > _GRID_YZ_MAX:
         raise ValueError(f"batch {b} / heads {h} exceed the kernel grid's "
                          f"{_GRID_YZ_MAX}")

@@ -12,16 +12,18 @@ zero state, in chunks of 16:
 * :func:`wkv6` runs the hand-written kernels ``csrc/rwkv6_scan.cu``
   (head dims 16, 32, 64; r/k/v f32 or bf16; w and u f32; any S, a ragged
   last chunk masked) on CUDA tensors and raises on anything else:
-  :func:`wkv6_forward` and :func:`wkv6_backward` launch one kernel each,
-  and :class:`WKV6` binds them as an ``autograd.Function``.
+  :func:`wkv6_forward` launches one kernel, :func:`wkv6_backward` two
+  (the dS scan, then the chunk-local gradients), and :class:`WKV6` binds
+  them as an ``autograd.Function``.
 * :func:`wkv6_plain` is the same chunked form in plain PyTorch (autograd
   gives its backward), which the kernels are held to on the card.
 
 The model's ``rwkv6.wkv_chunked`` chooses between the two: the plain
 version for CPU tensors or ``use_kernel=False``, else the kernels.
 
-``launches_fwd`` and ``launches_bwd`` count kernel launches (and nothing
-else).
+``launches_fwd`` counts forward launches and ``launches_bwd`` backward
+calls, each of which launches the backward's two kernels (and nothing
+else counts).
 """
 from __future__ import annotations
 
@@ -106,7 +108,7 @@ def _load():
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.wkv6_fwd.argtypes = [i32] + [vp] * 9 + [i32] * 4 + [vp]
         lib.wkv6_fwd.restype = i32
-        lib.wkv6_bwd.argtypes = [i32] + [vp] * 14 + [i32] * 4 + [vp]
+        lib.wkv6_bwd.argtypes = [i32] + [vp] * 15 + [i32] * 5 + [vp]
         lib.wkv6_bwd.restype = i32
         lib.wkv6_error_string.argtypes = [i32]
         lib.wkv6_error_string.restype = ctypes.c_char_p
@@ -167,38 +169,63 @@ def wkv6_forward(r, k, v, w, u, *, save_states: bool = True):
     return out, final, states
 
 
-def wkv6_backward(r, k, v, w, u, states, dout, dfinal=None):
-    """Launch the backward kernel: from the forward's inputs and ``states``
-    and the output's (and, when given, the final state's) gradient, the f32
-    gradients (dr, dk, dv, dw [B, S, H, D], du [H, D])."""
-    global launches_bwd
+def backward_passes(r, k, v, w, u, states, dout, dfinal=None):
+    """The backward's two kernels as two calls on shared buffers: pass 1
+    (the dS scan, which writes the dS leaving every chunk to a scratch
+    ``[B, H, n_chunks, D, D]`` f32) and pass 2 (the chunk-local gradients
+    from it). Returns ``(pass1, pass2, (dr, dk, dv, dw, du_part))``; each
+    call launches its kernel and counts nothing. :func:`wkv6_backward` runs
+    both; timing each alone is the other use."""
     code, strides = _kernel_args(r, k, v, w, u)
     b, s, h, d = r.shape
     dev = r.device
+    nc = -(-s // CHUNK)
     grads = [torch.empty((b, s, h, d), dtype=torch.float32, device=dev)
              for _ in range(4)]
-    du_part = torch.empty((b, h, d), dtype=torch.float32, device=dev)
-    if b * s * h == 0:
-        return (*grads, du_part.zero_().sum(dim=0))
+    du_part = torch.empty((b, h, nc, d), dtype=torch.float32, device=dev)
+    ds_all = torch.empty((b, h, nc, d, d), dtype=torch.float32, device=dev)
     dout = dout.float().contiguous()
     if dfinal is not None:
         dfinal = dfinal.float().contiguous()
     lib = _load()
-    err = lib.wkv6_bwd(code, r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       w.data_ptr(), u.data_ptr(), strides, dout.data_ptr(),
-                       None if dfinal is None else dfinal.data_ptr(),
-                       states.data_ptr(), *(g.data_ptr() for g in grads),
-                       du_part.data_ptr(), b, s, h, d, _build.stream_ptr(dev))
-    _raise_on(lib, err, "wkv6 backward")
+
+    def launch(passes: int) -> None:
+        err = lib.wkv6_bwd(code, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           w.data_ptr(), u.data_ptr(), strides,
+                           dout.data_ptr(),
+                           None if dfinal is None else dfinal.data_ptr(),
+                           states.data_ptr(), ds_all.data_ptr(),
+                           *(g.data_ptr() for g in grads), du_part.data_ptr(),
+                           b, s, h, d, passes, _build.stream_ptr(dev))
+        _raise_on(lib, err, "wkv6 backward")
+
+    return (lambda: launch(1)), (lambda: launch(2)), (*grads, du_part)
+
+
+def wkv6_backward(r, k, v, w, u, states, dout, dfinal=None):
+    """Launch the backward's two kernels: from the forward's inputs and
+    ``states`` and the output's (and, when given, the final state's)
+    gradient, the f32 gradients (dr, dk, dv, dw [B, S, H, D], du [H, D])."""
+    global launches_bwd
+    b, s, h, d = r.shape
+    if b * s * h == 0:
+        _kernel_args(r, k, v, w, u)
+        return (*(torch.empty((b, s, h, d), dtype=torch.float32,
+                              device=r.device) for _ in range(4)),
+                torch.zeros((h, d), dtype=torch.float32, device=r.device))
+    pass1, pass2, (dr, dk, dv, dw, du_part) = backward_passes(
+        r, k, v, w, u, states, dout, dfinal)
+    pass1()
+    pass2()
     launches_bwd += 1
-    # summed over B in a fixed order: deterministic
-    return (*grads, du_part.sum(dim=0))
+    # du summed over B and the chunks in a fixed order: deterministic
+    return dr, dk, dv, dw, du_part.sum(dim=(0, 2))
 
 
 class WKV6(torch.autograd.Function):
     """The kernels as an autograd op: forward saves r/k/v/w/u and every
     chunk's incoming state (when a gradient is needed); backward is the
-    reverse-chunk kernel, its f32 gradients cast to the inputs' dtypes."""
+    two backward kernels, their f32 gradients cast to the inputs' dtypes."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u):

@@ -12,7 +12,11 @@ where only PyTorch is installed:
   std ~1) at atol/rtol 1e-4 in f32 (summation order only) and atol 4e-3 /
   rtol 8e-3 in bf16 (one output rounding, < 2^-7 relative), over ragged S,
   window and a softcap of 2 that binds. Each call adds exactly one
-  launch.
+  launch. The bf16 tensor-core kernel also at every head dim (16, 32, 64,
+  128), S in {1, 15, 64, 65, 100, 512, 1000} and GQA ratios 1, 2, 4, with
+  window 64 + softcap 2 and with ``causal=False``; on bf16 slices of one
+  packed projection; and a bf16 view whose rows are not 16-byte aligned
+  raises ``ValueError``.
 * The card's ``ServeEngine`` (kernels) gives the CPU port's greedy tokens
   (which ``tests/test_torch_serve.py`` holds to the JAX engine).
 * ``backup_reduce``: the kernel equals its plain version bit for bit over
@@ -27,7 +31,9 @@ where only PyTorch is installed:
   r/k/v: the forward's f32 output within atol 1e-4 x max|out|; the
   backward's f32 gradients (dr, dk, dv, dw, du; with a final-state
   gradient too) against the plain twin's autograd within 1e-4 x max|grad|
-  (dw 5e-4: d log w / w amplifies rounding where w is small); through
+  (dw 5e-4: d log w / w amplifies rounding where w is small), also at
+  S in {17, 1000} (a ragged second chunk; 63 chunks), and two backward
+  calls on the same inputs give bit-equal gradients; through
   autograd one forward and one backward launch, gradients in the inputs'
   dtypes; a CUDA call the kernels cannot take raises.
 * ``RWKVLM`` (rwkv6 smoke, f32) on the card, through the kernels, against
@@ -108,6 +114,66 @@ def test_flash_kernel_reads_strided_inputs(cuda_device):
     got = tflash.flash_attention(q, k, v)
     want = tflash.flash_attention(q, k, v, use_kernel=False)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _flash_bf16_case(device, s, d, ratio, causal, window, softcap):
+    h = 4
+    q, k, v = (torch.from_numpy(a).to(device, torch.bfloat16)
+               for a in qkv_inputs(s + d, 2, s, h, h // ratio, d, scale=1.0))
+    before = tflash.launches
+    got = tflash.flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
+    want = tflash.flash_attention(q, k, v, causal=causal, window=window,
+                                  softcap=softcap, use_kernel=False)
+    torch.cuda.synchronize()
+    assert tflash.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=4e-3,
+                               rtol=8e-3)
+
+
+FLASH_S = [1, 15, 64, 65, 100, 512, 1000]
+
+
+@pytest.mark.parametrize("ratio", [1, 2, 4])
+@pytest.mark.parametrize("s", FLASH_S)
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_bf16_tensor_core_kernel_matches_plain(cuda_device, d, s,
+                                                     ratio):
+    _flash_bf16_case(cuda_device, s, d, ratio, True, 0, 0.0)
+
+
+@pytest.mark.parametrize("causal,window,softcap", [(True, 64, 2.0),
+                                                   (False, 0, 0.0)])
+@pytest.mark.parametrize("s", FLASH_S)
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_bf16_tensor_core_kernel_window_softcap_noncausal(
+        cuda_device, d, s, causal, window, softcap):
+    _flash_bf16_case(cuda_device, s, d, 2, causal, window, softcap)
+
+
+def test_flash_bf16_reads_strided_inputs(cuda_device):
+    """bf16 q/k/v as slices of one packed projection (rows 16-byte
+    aligned, not contiguous)."""
+    qkv = torch.randn((2, 40, 16 + 8 + 8, 32), device=cuda_device).to(
+        torch.bfloat16)
+    q, k, v = qkv[:, :, :16], qkv[:, :, 16:24], qkv[:, :, 24:]
+    got = tflash.flash_attention(q, k, v)
+    want = tflash.flash_attention(q, k, v, use_kernel=False)
+    torch.testing.assert_close(got.float(), want.float(), atol=4e-3,
+                               rtol=8e-3)
+
+
+def test_flash_bf16_refuses_unaligned_rows(cuda_device):
+    flat = torch.randn(1 + 2 * 16 * 4 * 32, device=cuda_device).to(
+        torch.bfloat16)
+    q = flat[1:].view(2, 16, 4, 32)          # base 2 bytes off 16
+    before = tflash.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tflash.flash_attention(q, q, q)
+    wide = torch.randn((2, 16, 4, 36), device=cuda_device).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tflash.flash_attention(*(wide[..., :32],) * 3)   # h stride 36
+    assert tflash.launches == before
 
 
 def test_card_engine_matches_cpu_engine(cuda_device):
@@ -261,6 +327,46 @@ def test_wkv_backward_matches_plain_autograd(cuda_device, s, d, dfinal,
         torch.testing.assert_close(g, ref, rtol=0,
                                    atol=tol * ref.abs().max().item(),
                                    msg=name)
+
+
+def _wkv_backward_case(device, s, d, dfinal, dtype):
+    args = _wkv_inputs(2, s, 3, d, dtype, device, seed=s + 1)
+    rng = np.random.RandomState(2)
+    dout = torch.from_numpy(rng.randn(2, s, 3, d).astype(np.float32)).to(
+        device)
+    dfin = torch.from_numpy(rng.randn(2, 3, d, d).astype(np.float32)).to(
+        device) if dfinal else None
+    _, _, states = twkv.wkv6_forward(*args)
+    return args, states, dout, dfin
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dfinal", [False, True])
+@pytest.mark.parametrize("s", [17, 1000])
+def test_wkv_two_pass_backward_long_and_ragged(cuda_device, s, dfinal,
+                                               dtype):
+    args, states, dout, dfin = _wkv_backward_case(cuda_device, s, 64, dfinal,
+                                                  dtype)
+    before = twkv.launches_bwd
+    got = twkv.wkv6_backward(*args, states, dout, dfin)
+    assert twkv.launches_bwd == before + 1
+    leaves = [a.float().requires_grad_() for a in args]
+    out, final = twkv.wkv6_plain(*leaves)
+    loss = (out * dout).sum() + ((final * dfin).sum() if dfinal else 0.0)
+    want = torch.autograd.grad(loss, leaves)
+    for (name, tol), g, ref in zip(WKV_TOL.items(), got, want):
+        torch.testing.assert_close(g, ref, rtol=0,
+                                   atol=tol * ref.abs().max().item(),
+                                   msg=name)
+
+
+def test_wkv_backward_is_deterministic(cuda_device):
+    args, states, dout, dfin = _wkv_backward_case(cuda_device, 1000, 64,
+                                                  True, torch.bfloat16)
+    first = twkv.wkv6_backward(*args, states, dout, dfin)
+    second = twkv.wkv6_backward(*args, states, dout, dfin)
+    for name, a, b in zip(WKV_TOL, first, second):
+        assert torch.equal(a, b), name
 
 
 def test_wkv_autograd_launches_and_dtypes(cuda_device):

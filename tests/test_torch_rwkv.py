@@ -14,6 +14,13 @@ held to it on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 * (c) dr, dk, dv, dw, du of the plain twin against
   ``jax.vjp(rwkv6.wkv_chunked)`` on a seeded cotangent: rtol 1e-4, atol
   1e-4 x max|grad| (dw = d log w / w amplifies rounding where w is small).
+* (c') the wkv6 backward kernels' two-pass decomposition, stated here in
+  plain PyTorch (pass 1 scans dS back through the chunks and keeps the dS
+  leaving each; pass 2 forms every chunk's gradients from its inputs, its
+  incoming state and that dS alone), in f64 and f32, against
+  ``jax.vjp(rwkv6.wkv_chunked)`` with and without a final-state
+  cotangent: rtol 1e-4, atol 1e-4 x max|grad| (the reference computes in
+  f32).
 * (d) time mix, channel mix and the block against JAX: atol 1e-5.
 * (e) ``RWKVLM`` logits, ``per_token_loss`` and its gradients against
   ``jax.value_and_grad``, remat "none" and "full": atol 1e-5.
@@ -26,6 +33,7 @@ held to it on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 * (j) remat "dots" and the serve entry points are refused by name.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -123,6 +131,96 @@ def test_plain_wkv_grads_match_jax_vjp(s):
     out.backward(torch.from_numpy(cot))
     for name, t, g in zip(("dr", "dk", "dv", "dw", "du"), targs, want):
         _close(t.grad.numpy(), g, 1e-4, name)
+
+
+def _wkv_two_pass_backward(r, k, v, w, u, dout, dfinal, chunk=16):
+    """The wkv6 backward kernels' decomposition in plain PyTorch, in the
+    inputs' dtype: pass 1 carries dS back through the chunks and keeps the
+    dS leaving each one; pass 2 is chunk-local (all chunks at once), from a
+    chunk's rows, its incoming state and its outgoing dS. Returns
+    (dr, dk, dv, dw [B, S, H, D], du [H, D])."""
+    b, s, h, d = r.shape
+    n = -(-s // chunk)
+    pad = (0, 0, 0, 0, 0, n * chunk - s)
+    r, k, v, dout = (torch.nn.functional.pad(t, pad) for t in (r, k, v, dout))
+    w = torch.nn.functional.pad(w, pad, value=1.0)
+
+    def chunks(t):                                    # [B, H, n, C, D]
+        return t.reshape(b, n, chunk, h, d).permute(0, 3, 1, 2, 4)
+
+    r, k, v, w, do = (chunks(t) for t in (r, k, v, w, dout))
+    uc = u[None, :, None, None, :]
+    lw = torch.log(torch.clamp_min(w, 1e-30))
+    acc = torch.cumsum(lw, dim=3)
+    a_last = acc[..., -1:, :]
+    ri, kj, kd = r * torch.exp(acc - lw), k * torch.exp(-acc), \
+        k * torch.exp(a_last - acc)
+    a = torch.exp(a_last[..., 0, :])                  # [B, H, n, D]
+    # the forward's saved incoming states
+    st, states = torch.zeros((b, h, d, d), dtype=r.dtype), []
+    for c in range(n):
+        states.append(st)
+        st = a[:, :, c, :, None] * st + kd[:, :, c].transpose(-1, -2) @ v[:, :, c]
+    states = torch.stack(states, dim=2)
+    # pass 1: the dS leaving every chunk
+    ds = torch.zeros_like(st) if dfinal is None else dfinal
+    ds_all = [None] * n
+    for c in reversed(range(n)):
+        ds_all[c] = ds
+        ds = a[:, :, c, :, None] * ds + ri[:, :, c].transpose(-1, -2) @ do[:, :, c]
+    ds_all = torch.stack(ds_all, dim=2)
+    # pass 2
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool), -1)
+    sc = torch.where(tri, ri @ kj.transpose(-1, -2), 0.0)
+    dsc = torch.where(tri, do @ v.transpose(-1, -2), 0.0)
+    bonus, dbonus = (r * uc * k).sum(-1), (do * v).sum(-1)
+    dri = dsc @ kj + do @ states.transpose(-1, -2)
+    dkj = dsc.transpose(-1, -2) @ ri
+    dkd = v @ ds_all.transpose(-1, -2)
+    dv = (sc.transpose(-1, -2) @ do + bonus[..., None] * do + kd @ ds_all)
+    g_ex = dri * ri
+    term = g_ex - dkj * kj - dkd * kd
+    suffix = torch.flip(torch.cumsum(torch.flip(term, [3]), 3), [3])
+    g_last = (states * ds_all).sum(-1) * a + (dkd * kd).sum(3)
+    g_lw = suffix - g_ex + g_last[..., None, :]
+    dr = dri * torch.exp(acc - lw) + dbonus[..., None] * uc * k
+    dk = (dkj * torch.exp(-acc) + dkd * torch.exp(a_last - acc)
+          + dbonus[..., None] * uc * r)
+    dw = torch.where(w > 1e-30, g_lw / w, 0.0)
+    du = (dbonus[..., None] * r * k).sum(3).sum(dim=(0, 2))
+
+    def unchunk(t):
+        return t.permute(0, 2, 3, 1, 4).reshape(b, n * chunk, h, d)[:, :s]
+
+    return (*(unchunk(t) for t in (dr, dk, dv, dw)), du)
+
+
+@functools.lru_cache(maxsize=None)
+def _wkv_vjp_case(s, d, dfinal):
+    """Inputs, cotangents and jax.vjp(rwkv6.wkv_chunked)'s gradients."""
+    args = _wkv_inputs(2, s, 2, d, seed=3 * s + d)
+    rng = np.random.RandomState(s + d)
+    cot = rng.randn(2, s, 2, d).astype(np.float32)
+    cot_state = (rng.randn(2, 2, d, d).astype(np.float32) if dfinal
+                 else np.zeros((2, 2, d, d), np.float32))
+    _, vjp = jax.vjp(jrwkv6.wkv_chunked, *map(jnp.asarray, args))
+    want = vjp((jnp.asarray(cot), jnp.asarray(cot_state)))
+    return args, cot, cot_state if dfinal else None, [np.asarray(g)
+                                                      for g in want]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dfinal", [False, True])
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("s", [1, 16, 40, 100])
+def test_two_pass_wkv_backward_matches_jax_vjp(s, d, dfinal, dtype):
+    args, cot, cot_state, want = _wkv_vjp_case(s, d, dfinal)
+    got = _wkv_two_pass_backward(
+        *(torch.from_numpy(a).to(dtype) for a in args),
+        torch.from_numpy(cot).to(dtype),
+        None if cot_state is None else torch.from_numpy(cot_state).to(dtype))
+    for name, g, ref in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+        _close(g.numpy(), ref, 1e-4, name)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
