@@ -52,20 +52,24 @@ fails (non-zero exit, no result line) if any phase fails:
    forward's f32 output within atol 1e-4 x max|out|, the backward's f32
    gradients within rel 1e-4 of max|grad| (dw 5e-4: d log w / w amplifies
    rounding where w is small); then the kernels' device times as in
-   phase 3 (the backward also pass by pass: the dS scan and the
-   chunk-local gradients), and the plain twin's device busy time per call
-   from torch.profiler (its hundreds of kernels per call overflow the launch
-   queue, so they cannot be queued behind a sleep).
+   phase 3: the forward with and without its chunk states (its column
+   slice, the state columns a block carries, logged); the backward whole
+   and pass by pass (the dS scan and the chunk-local gradients); and the plain
+   twin's device busy time per call from torch.profiler (its hundreds of
+   kernels per call overflow the launch queue, so they cannot be queued
+   behind a sleep).
 9. Train rwkv6-1.6b at full width (24 layers, d_model 2048, 32 wkv heads
    of 64, d_ff 7168, vocab 65,536, bf16, remat full) through
    ``run_experiment``: backup 3 + 1 workers (the most that fit: see
    ``launch/profile_train.WORKERS``), batch 2 per worker, seq 256,
    rmsprop_momentum, EMA 0.999, spmd at mesh 1 x 1, 3 steps. The counters
    are set to 0 just before and read just after: 2 wkv forwards per layer
-   per worker per step (forward and remat recompute), 1 backward, 1
-   backup_reduce per step. The same 3 steps again with
-   ``model.use_kernel = False`` (the plain wkv, no wkv launch): the same
-   masks and sim_time, step 1's loss within rel 1e-3, every loss finite.
+   per worker per step (forward and remat recompute), of which 1 writes
+   the chunk states (the recompute: the first pass's saved tensors are
+   thrown away), 1 backward, 1 backup_reduce per step. The same 3 steps
+   again with ``model.use_kernel = False`` (the plain wkv, no wkv launch):
+   the same masks and sim_time, step 1's loss within rel 1e-3, every loss
+   finite.
 10. At 2 layers, full width, f32: the kernel run against the plain run,
    step 1's loss within rel 1e-5 and the first aggregated gradient within
    rel L2 1e-4.
@@ -716,7 +720,8 @@ def _wkv_phase(torch, rwkv6_scan):
              for _ in ins]
     ms_f = _time_ms(torch, [(lambda a=a: rwkv6_scan.wkv6_forward(*a))
                             for a in ins])
-    # the forward that saves no chunk states (as under no_grad)
+    # the forward that saves no chunk states (as under no_grad, and the
+    # first pass of a remat block)
     ms_f_bare = _time_ms(torch, [
         (lambda a=a: rwkv6_scan.wkv6_forward(*a, save_states=False))
         for a in ins])
@@ -784,6 +789,9 @@ def _wkv_phase(torch, rwkv6_scan):
     _log(f"[kernels] wkv6 fwd without saving the chunk states: "
          f"{ms_f_bare:.4f} ms (the states are {state_bytes} bytes, written "
          f"by the forward and read by the backward, outside the bounds)")
+    width = min(d, rwkv6_scan.FWD_SLICE)
+    _log(f"[kernels] wkv6 fwd column slice: {width} state columns a block, "
+         f"{b * h * d // width} blocks")
     del ins
     torch.cuda.empty_cache()
     return rows
@@ -797,7 +805,8 @@ def _rwkv_train_phase(torch, rwkv6_scan, backup_reduce):
     from repro_torch.launch.profile_train import train_config
     from repro_torch.train.loop import Trainer, run_experiment
     counters = ((rwkv6_scan, "launches_fwd"), (rwkv6_scan, "launches_bwd"),
-                (backup_reduce, "launches"))
+                (backup_reduce, "launches"),
+                (rwkv6_scan, "launches_fwd_states"))
     cfg = train_config("rwkv6-1.6b")
     model, agg = cfg.model, cfg.aggregation
     w = agg.total_workers
@@ -819,7 +828,7 @@ def _rwkv_train_phase(torch, rwkv6_scan, backup_reduce):
                 setattr(m, a, 0)
             res = tr.run(steps)
         torch.cuda.synchronize()
-        n_fwd, n_bwd, n_red = (getattr(m, a) for m, a in counters)
+        n_fwd, n_bwd, n_red, n_states = (getattr(m, a) for m, a in counters)
         peak = torch.cuda.max_memory_allocated()
         n_params = sum(v.numel() for v in res.params.values())
         for m in res.metrics:
@@ -837,8 +846,9 @@ def _rwkv_train_phase(torch, rwkv6_scan, backup_reduce):
              f"{cfg.shape.global_batch} x {cfg.shape.seq_len} tokens/step, "
              f"spmd mesh 1x1: ms/step {', '.join(f'{t:.1f}' for t in ms)} "
              f"(steady {steady:.1f} ms, {tokens / steady * 1e3:.0f} "
-             f"tokens/s) | launches wkv6 fwd {n_fwd} bwd {n_bwd} "
-             f"backup_reduce {n_red} | peak device memory {peak} bytes")
+             f"tokens/s) | launches wkv6 fwd {n_fwd} (writing the chunk "
+             f"states {n_states}) bwd {n_bwd} backup_reduce {n_red} | peak "
+             f"device memory {peak} bytes")
         if n_params != RWKV_PARAMS:
             raise AssertionError(f"{n_params} params, the reference counts "
                                  f"{RWKV_PARAMS}")
@@ -847,11 +857,16 @@ def _rwkv_train_phase(torch, rwkv6_scan, backup_reduce):
         if res.steps != steps or len(res.metrics) != steps:
             raise AssertionError(f"[train rwkv {tag}] ran {res.steps} steps")
         per_step = 2 * model.num_layers * w if tag == "kernel" else 0
-        want = (per_step * steps, per_step // 2 * steps, steps)
-        if (n_fwd, n_bwd, n_red) != want:
+        want = (per_step * steps, per_step // 2 * steps, steps,
+                per_step // 2 * steps)
+        if (n_fwd, n_bwd, n_red, n_states) != want:
             raise AssertionError(
-                f"[train rwkv {tag}] launches wkv6 fwd/bwd, backup_reduce "
-                f"{(n_fwd, n_bwd, n_red)}, expected {want}")
+                f"[train rwkv {tag}] launches wkv6 fwd/bwd, backup_reduce, "
+                f"state-writing wkv6 fwd {(n_fwd, n_bwd, n_red, n_states)}, "
+                f"expected {want}")
+        if n_states * 2 != n_fwd:
+            raise AssertionError(f"[train rwkv {tag}] {n_states} of {n_fwd} "
+                                 f"wkv6 forwards wrote chunk states, not half")
         runs[tag] = dict(metrics=res.metrics, launches=(n_fwd, n_bwd),
                          peak=peak, ms=ms)
         del res

@@ -27,15 +27,43 @@
 // each chunk's incoming state [D, D] written once. At the training shape
 // (B 2, S 256, H 32, D 64) both are a few microseconds of the card.
 //
-// Forward (simple first, as a first port): one block of 256 threads per
-// (b, h) walks the chunks in order, with the state [D, D] f32 and the
-// chunk's tiles in shared memory (rows padded to D + 1 floats, so column
-// walks hit distinct banks). Each step is a block-stride loop over
-// independent items (score entries, (t, e) outputs, (d, e) state lanes,
-// channels) between barriers, in f32 throughout. B * H blocks under-fill
-// the 132 SMs at the training shape (64 blocks). It writes out
-// [B, S, H, D] f32, optionally every chunk's incoming state states
-// [B, H, n_chunks, D, D] f32 (saved for the backward) and the final state
+// Forward: the state's columns split over blocks. The recurrence is
+// separable over the value columns e:
+//
+//     out[:, e] = tril(ri kj^T, -1) v[:, e] + bonus * v[:, e] + ri S[:, e]
+//     S[:, e]  <- diag(a) S[:, e] + k_dec^T v[:, e]
+//
+// so a block carries a column slice S[:, e0:e0+SL] through the chunks with
+// no traffic between blocks: B * H * (D / SL) blocks of 512 threads (SL =
+// 32: 128 blocks at the training shape, one an SM; SL is at most D). Every
+// block recomputes what all slices need from r, k and w over the full D
+// (ri, kj, k_dec, a, the scores and the bonus), so r/k/w are read D / SL
+// times, from L2. Only ri S[:, slice] and the update of S depend on the
+// carried state; the rest of a chunk does not, so the block is two warp
+// groups that overlap: a chunk group runs one chunk ahead (its rows by
+// cp.async into double-buffered staging, the decays as products of w
+// with one reciprocal an element, the bonus, the [16, 16] scores), while a
+// state group carries the state (in mma accumulators), forms ri S and the
+// update, and writes the output. Named barriers order each group, one
+// block barrier a chunk hands the next chunk's tiles over. Every product
+// runs on tensor cores in 3xTF32 (mma.sync m16n8k8, each operand split
+// into two tf32 halves), which keeps f32 accuracy; plain TF32 would not.
+//
+// What bounded the first design (one block per (b, h): 64 blocks on 132
+// SMs, five barriers a chunk, every product a scalar walk through shared
+// memory, the decays on a quarter of the threads) was latency, ~10 us a
+// chunk. What bounds this one is the chain of 16 chunks a block: per
+// chunk, the longer of the two groups' latency chains (the chunk group's
+// decays and scores, the state group's ri S and update) and a block
+// barrier. The slice is kFwdSlice = 32 columns (at most D): on the H100 it
+// beat 16 and 8 (PERF.md), because the chunk group's work, repeated by
+// every slice of a head, is then done once an SM. The
+// chunk-parallel three-pass form (local states, a scan over chunks, then
+// the outputs) was not taken: it moves ~67 MB of states through device
+// memory per call, ~20 us at 3.35 TB/s, four times the bound, where the
+// fused slice scan keeps S on chip. It writes out [B, S, H, D] f32,
+// optionally every chunk's incoming state [B, H, n_chunks, D, D] f32 (read
+// by the backward), straight from the accumulators, and the final state
 // [B, H, D, D] f32.
 //
 // Backward, chunk-parallel in two kernels. The only sequential part of the
@@ -71,6 +99,7 @@ namespace {
 
 constexpr int kChunk = 16;
 constexpr int kThreads = 256;
+constexpr int kFwdSlice = 32;   // the forward's state columns a block
 
 struct Strides {
   long long b, s, h;
@@ -86,147 +115,9 @@ __device__ __forceinline__ long long at(const Strides& st, int b, int s,
   return (long long)b * st.b + (long long)s * st.s + (long long)h * st.h;
 }
 
-// Shared-memory layout, in floats. P = D + 1 is the padded row stride.
-template <int D>
-struct FwdSmem {
-  static constexpr int P = D + 1, CP = kChunk * P;
-  static constexpr int kR = 0, kK = kR + CP, kV = kK + CP, kA = kV + CP,
-                       kRi = kA + CP, kKj = kRi + CP, kKd = kKj + CP,
-                       kS = kKd + CP, kSc = kS + D * P,
-                       kBonus = kSc + kChunk * kChunk, kDecay = kBonus + kChunk,
-                       kU = kDecay + D, kTotal = kU + D;
-};
-
-// One chunk's decays from log w (held in A on entry, inclusive cumsum on
-// exit): ri, kj, k_dec and a = exp(A_C). One thread per channel.
-template <int D>
-__device__ __forceinline__ void chunk_decays(const float* r_s,
-                                             const float* k_s, float* A_s,
-                                             float* ri, float* kj, float* kd,
-                                             float* decay) {
-  constexpr int P = D + 1;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float acc = 0.0f;
-    for (int t = 0; t < kChunk; ++t) {
-      const float lw = A_s[t * P + d];
-      acc += lw;
-      A_s[t * P + d] = acc;
-      ri[t * P + d] = r_s[t * P + d] * expf(acc - lw);
-      kj[t * P + d] = k_s[t * P + d] * expf(-acc);
-    }
-    for (int t = 0; t < kChunk; ++t)
-      kd[t * P + d] = k_s[t * P + d] * expf(acc - A_s[t * P + d]);
-    decay[d] = expf(acc);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-wkv6_fwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
-                const T* __restrict__ v, const float* __restrict__ w,
-                const float* __restrict__ u, Strides sr, Strides sk,
-                Strides sv, Strides sw, float* __restrict__ out,
-                float* __restrict__ states, float* __restrict__ final_state,
-                int H, int S) {
-  using L = FwdSmem<D>;
-  constexpr int P = L::P, C = kChunk;
-  extern __shared__ float smem[];
-  float* r_s = smem + L::kR;
-  float* k_s = smem + L::kK;
-  float* v_s = smem + L::kV;
-  float* A_s = smem + L::kA;
-  float* ri = smem + L::kRi;
-  float* kj = smem + L::kKj;
-  float* kd = smem + L::kKd;
-  float* S_s = smem + L::kS;
-  float* sc = smem + L::kSc;
-  float* bonus = smem + L::kBonus;
-  float* decay = smem + L::kDecay;
-  float* u_s = smem + L::kU;
-
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int nc = (S + C - 1) / C;
-  for (int i = tid; i < D * D; i += nt) S_s[(i / D) * P + i % D] = 0.0f;
-  for (int d = tid; d < D; d += nt) u_s[d] = u[h * D + d];
-
-  for (int c = 0; c < nc; ++c) {
-    const int s0 = c * C;
-    // the chunk's rows, masked past S
-    for (int i = tid; i < C * D; i += nt) {
-      const int t = i / D, d = i % D, s = s0 + t;
-      float rv = 0.0f, kv = 0.0f, vv = 0.0f, wv = 1.0f;
-      if (s < S) {
-        rv = to_f32(r[at(sr, b, s, h) + d]);
-        kv = to_f32(k[at(sk, b, s, h) + d]);
-        vv = to_f32(v[at(sv, b, s, h) + d]);
-        wv = w[at(sw, b, s, h) + d];
-      }
-      r_s[t * P + d] = rv;
-      k_s[t * P + d] = kv;
-      v_s[t * P + d] = vv;
-      A_s[t * P + d] = logf(fmaxf(wv, 1e-30f));
-    }
-    __syncthreads();
-    chunk_decays<D>(r_s, k_s, A_s, ri, kj, kd, decay);
-    __syncthreads();
-    // strictly lower-triangular scores, and the diagonal bonus r.u.k
-    for (int i = tid; i < C * C; i += nt) {
-      const int t = i / C, j = i % C;
-      float acc = 0.0f;
-      if (j < t)
-        for (int d = 0; d < D; ++d) acc += ri[t * P + d] * kj[j * P + d];
-      sc[i] = acc;
-    }
-    for (int t = tid; t < C; t += nt) {
-      float acc = 0.0f;
-      for (int d = 0; d < D; ++d)
-        acc += r_s[t * P + d] * u_s[d] * k_s[t * P + d];
-      bonus[t] = acc;
-    }
-    __syncthreads();
-    // out[t, e] = sum_j<t sc[t, j] v[j, e] + bonus[t] v[t, e] + ri[t] S[:, e]
-    for (int i = tid; i < C * D; i += nt) {
-      const int t = i / D, e = i % D, s = s0 + t;
-      float acc = 0.0f;
-      for (int j = 0; j < t; ++j) acc += sc[t * C + j] * v_s[j * P + e];
-      acc += bonus[t] * v_s[t * P + e];
-      float read = 0.0f;
-      for (int d = 0; d < D; ++d) read += ri[t * P + d] * S_s[d * P + e];
-      if (s < S) out[(((long long)b * S + s) * H + h) * D + e] = acc + read;
-    }
-    if (states != nullptr) {
-      float* dst = states + ((long long)bh * nc + c) * D * D;
-      for (int i = tid; i < D * D; i += nt)
-        dst[i] = S_s[(i / D) * P + i % D];
-    }
-    __syncthreads();
-    // S <- diag(a) S + k_dec^T v
-    for (int i = tid; i < D * D; i += nt) {
-      const int d = i / D, e = i % D;
-      float acc = 0.0f;
-      for (int t = 0; t < C; ++t) acc += kd[t * P + d] * v_s[t * P + e];
-      S_s[d * P + e] = decay[d] * S_s[d * P + e] + acc;
-    }
-    __syncthreads();
-  }
-  if (final_state != nullptr) {
-    float* dst = final_state + (long long)bh * D * D;
-    for (int i = tid; i < D * D; i += nt) dst[i] = S_s[(i / D) * P + i % D];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Backward, in two passes
-// ---------------------------------------------------------------------------
-
-constexpr int kSlice = 16;   // dS columns per scan block
-constexpr int kRowStep = kThreads / kSlice;   // rows between a thread's dS lanes
-constexpr int kChunkThreads = 512;   // pass 2's block
-
 // log2 and 2^x on the special-function unit (relative error ~2^-22). The
 // backward forms its decays in base 2: exp(A) = 2^(A / ln 2), so A2, the
-// cumsum of log2 w, gives the same factors as the natural-log forward.
+// cumsum of log2 w, gives the same factors as the natural-log definition.
 __device__ __forceinline__ float fast_log2(float x) {
   float y;
   asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -237,26 +128,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously (cp.async.cg)
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // The cumsum of log w along one chunk, four threads per channel: the
@@ -283,6 +154,501 @@ __device__ __forceinline__ void chunk_cumsum4(int g, const float (&lw)[4],
 #pragma unroll
   for (int i = 0; i < 4; ++i) a[i] += before;
 }
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously (cp.async.cg)
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// d += a (16 x 8, row) . b (8 x 8, col), tf32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x as tf32 hi + lo in three instructions: hi rounded to nearest (ties
+// away) by integer ops, as cvt.rna does for finite x (its NaN and Inf
+// handling, four instructions a conversion on sm_90, is not needed here);
+// lo = x - hi exactly, left to the tensor core to cut to tf32 (it reads the
+// top 19 bits: an error of at most 2^-10 of lo, ~2^-21 of x)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// hi + lo += a . b for one warp's m16n8k8 fragments (g = lane / 4, t =
+// lane % 4: a holds A(g, t), A(g + 8, t), A(g, t + 4), A(g + 8, t + 4);
+// b holds B(t, g), B(t + 4, g); hi and lo hold D(g, 2t), D(g, 2t + 1),
+// D(g + 8, 2t), D(g + 8, 2t + 1)) in 3xTF32: each operand split as hi + lo
+// (both tf32), hi.hi summed into hi and hi.lo + lo.hi into lo (two shorter
+// dependency chains), which keeps f32 accuracy (the lo.lo term is ~2^-22
+// of the product); plain TF32 would not.
+__device__ __forceinline__ void mma3x(float (&hi)[4], float (&lo)[4],
+                                      const float (&a)[4],
+                                      const float (&b)[2]) {
+  uint32_t ah[4], al[4], bh[2], bl[2];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) split_tf32(a[q], ah[q], al[q]);
+#pragma unroll
+  for (int q = 0; q < 2; ++q) split_tf32(b[q], bh[q], bl[q]);
+  mma_tf32(lo, al, bh[0], bh[1]);
+  mma_tf32(lo, ah, bl[0], bl[1]);
+  mma_tf32(hi, ah, bh[0], bh[1]);
+}
+
+// 1 / x on the special-function unit (rel err ~2^-23)
+__device__ __forceinline__ float fast_rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The products of w along one chunk, four threads per channel (as
+// chunk_cumsum4, multiplicative): the thread with g = lane & 3 owns rows
+// 4g..4g+3 and holds their w. On return incl / excl hold the products of
+// w up to and including / before each of its rows, and last the chunk's.
+__device__ __forceinline__ void chunk_cumprod4(int g, const float (&w)[4],
+                                               float (&incl)[4],
+                                               float (&excl)[4],
+                                               float& last) {
+  float run = 1.0f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    excl[i] = run;
+    run *= w[i];
+  }
+  float p = run;
+  float x = __shfl_up_sync(0xffffffffu, p, 1, 4);
+  if (g >= 1) p *= x;
+  x = __shfl_up_sync(0xffffffffu, p, 2, 4);
+  if (g >= 2) p *= x;
+  float before = __shfl_up_sync(0xffffffffu, p, 1, 4);
+  if (g == 0) before = 1.0f;
+  last = __shfl_sync(0xffffffffu, p, 3, 4);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    excl[i] *= before;
+    incl[i] = excl[i] * w[i];
+  }
+}
+
+// Sums x[0..N-1] (a thread's rows) over the lanes whose bits from MASK up
+// differ (a warp's channels), folded: each step keeps half the rows (the
+// upper half where the lane's MASK bit is set, adding `sel` to the row it
+// will hold) and adds the partner lane's copy of them; once one row is
+// left, plain adds. On return x[0] is the sum for row sel.
+template <int N, int MASK>
+__device__ __forceinline__ void fold_rows(float* x, int lane, int& sel) {
+  if constexpr (MASK < 32) {
+    if constexpr (N > 1) {
+      const bool up = lane & MASK;
+#pragma unroll
+      for (int q = 0; q < N / 2; ++q) {
+        const float send = up ? x[q] : x[q + N / 2];
+        const float keep = up ? x[q + N / 2] : x[q];
+        x[q] = keep + __shfl_xor_sync(0xffffffffu, send, MASK);
+      }
+      if (up) sel += N / 2;
+      fold_rows<N / 2, 2 * MASK>(x, lane, sel);
+    } else {
+      x[0] += __shfl_xor_sync(0xffffffffu, x[0], MASK);
+      fold_rows<1, 2 * MASK>(x, lane, sel);
+    }
+  }
+}
+
+// bar.sync on a named barrier: the `count` threads of one warp group
+__device__ __forceinline__ void group_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count));
+}
+
+// The forward's shared memory (dynamic), in floats, then the staging
+// buffers in bytes. The block is two groups of 8 warps (below); every
+// array the two share is double-buffered by chunk parity. Rows are padded
+// so that fragment reads and float2 stores hit distinct banks (2-way at
+// worst): ri and kj [d][t] are read as (d = t4, t = g), k_dec [d][t] as
+// (d = g, t = t4), rows of v, S and ri S (RP = 24 mod 32) as (row = t4,
+// col = g). The staging buffers (two) hold one chunk's rows of r, k, w
+// [C][D] and v [C][SL] as loaded, by cp.async in 16-byte pieces; the r, k
+// and w rows padded by 16 bytes (reads of rows 4 apart fall 16 banks
+// apart).
+template <typename T, int D, int SL>
+struct FwdSmem {
+  static constexpr int C = kChunk, NWA = 4 * D / 32;   // warps of the decays
+  static constexpr int TP = C + 8, KP = C + 4, SCP = C + 8,
+                       RP = SL <= 24 ? 24 : 56;
+  static constexpr int kRiT = 0,                     // [2][D][TP]
+                       kKjT = kRiT + 2 * D * TP,     // [D][TP]
+                       kKdT = kKjT + D * TP,         // [2][D][KP]
+                       kV = kKdT + 2 * D * KP,       // [2][C][RP]
+                       kSc = kV + 2 * C * RP,        // [2][2 halves][C][SCP]
+                       kBpart = kSc + 4 * C * SCP,   // [2][NWA][C]
+                       kDecay = kBpart + 2 * NWA * C,   // [2][D]
+                       kS = kDecay + 2 * D,          // [D][RP]
+                       kOutS = kS + D * RP,          // [2 halves][C][RP]
+                       kFloats = kOutS + 2 * C * RP;
+  static constexpr int E = 16 / sizeof(T);            // elements a copy
+  static constexpr int RB = D * sizeof(T) + 16, WB = D * 4 + 16,
+                       VB = SL * sizeof(T);           // staged row bytes
+  static constexpr int kR = 0, kK = C * RB, kW = 2 * C * RB,
+                       kVr = kW + C * WB, kStage = kVr + C * VB;
+  static constexpr int kStage0 = (kFloats * 4 + 15) / 16 * 16,
+                       kBytes = kStage0 + 2 * kStage;
+  // copies a chunk: r and k, w, v
+  static constexpr int NR = C * D / E, NW = C * D / 4, NV = C * SL / E;
+  static_assert(SL * sizeof(T) % 16 == 0, "a v row is whole copies");
+};
+
+constexpr int kFwdThreads = 512, kGroup = 256;   // two groups of 8 warps
+
+// The forward. grid = B * H * (D / SL), block = 512 threads, one block per
+// (b, h, column slice e0..e0+SL), in two groups that overlap (named
+// barriers within a group, one block barrier a chunk):
+//   the chunk group (warps 0-7) runs one chunk ahead: the copies of the
+//       chunk after next; the decays of the next chunk, four threads a
+//       channel (thread tid < 4 D: channel ad = tid / 4, rows 4 ag..4 ag +
+//       3), ri, kj, k_dec, a and the bonus summed over the warp's
+//       channels, and its v; then its scores ri kj^T, strictly below the
+//       diagonal, on warps 0-3 (tile j0 = 8 (w % 2), half w / 2 of K = D);
+//   the state group (warps 8-15, bw = w - 8) carries this chunk's state:
+//       it stores its tiles of S to shared memory (and to the chunk
+//       states), then each warp updates its tiles bw, bw + 8 (m16n8 tiles
+//       (i / (SL / 8), i % (SL / 8)) of the state slice, rows r0, r0 + 8 and
+//       columns c0, c0 + 1 a lane, in mma accumulators): S <- diag(a) S +
+//       k_dec^T v (K = 16), while warps bw < 2 SL / 8 form ri S (tile bw %
+//       (SL / 8), half bw / (SL / 8) of K = D); then the chunk's output,
+//       out = ri S + tril(sc, -1) v + bonus v.
+// r/k/v/w rows must start 16-byte aligned (the wrapper refuses any input
+// whose rows do not).
+template <typename T, int D, int SL>
+__global__ void __launch_bounds__(kFwdThreads)
+wkv6_fwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                const T* __restrict__ v, const float* __restrict__ w,
+                const float* __restrict__ u, Strides sr, Strides sk,
+                Strides sv, Strides sw, float* __restrict__ out,
+                float* __restrict__ states, float* __restrict__ final_state,
+                int H, int S) {
+  using L = FwdSmem<T, D, SL>;
+  constexpr int C = kChunk, NS = D / SL, NWA = L::NWA;
+  constexpr int NT = (D / 16) * (SL / 8), NJ = 2 * (SL / 8);
+  constexpr int TP = L::TP, KP = L::KP, SCP = L::SCP, RP = L::RP;
+  static_assert(D % 16 == 0 && SL % 8 == 0 && SL <= D && 4 * D <= kGroup,
+                "tile shapes");
+  static_assert(NT <= 16 && NJ <= 8, "two state tiles, one ri S half a warp");
+  extern __shared__ __align__(16) float smem[];
+  unsigned char* stage = reinterpret_cast<unsigned char*>(smem) + L::kStage0;
+
+  const int bh = blockIdx.x / NS, e0 = (blockIdx.x % NS) * SL;
+  const int b = bh / H, h = bh % H;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int nc = (S + C - 1) / C;
+  const bool chunk_group = tid < kGroup;
+
+  if (chunk_group) {
+    // ------------------------------------------------------------------
+    // the chunk group
+    const bool a_role = tid < 4 * D;
+    const int ad = tid >> 2, ag = tid & 3;
+    const float ud = a_role ? u[h * D + ad] : 0.0f;
+    // chunk c's rows into staging buffer c & 1, 16 bytes a copy, zero-
+    // filled past S (the decays read w = 1 there). This thread's copies
+    // are fixed slots (tid + kGroup n): a row and 16 bytes of r, k, w or
+    // v, whose source moves down C rows a chunk (a copy past S reads
+    // nothing, from the slot's row 0).
+    constexpr int NCP = 2 * L::NR + L::NW + L::NV;
+    constexpr int NSLOT = (NCP + kGroup - 1) / kGroup;
+    const unsigned char* src0[NSLOT];
+    long long step[NSLOT];
+    int dst_off[NSLOT], row_of[NSLOT];
+#pragma unroll
+    for (int n = 0; n < NSLOT; ++n) {
+      const int i = min(tid + kGroup * n, NCP - 1);
+      const Strides* ss;
+      const unsigned char* base;
+      int row, col, size, dst;
+      if (i < 2 * L::NR) {
+        const int j = i % L::NR, kk = i / L::NR;
+        row = j / (D / L::E);
+        col = (j % (D / L::E)) * L::E;
+        ss = kk ? &sk : &sr;
+        base = reinterpret_cast<const unsigned char*>(kk ? k : r);
+        size = sizeof(T);
+        dst = (kk ? L::kK : L::kR) + row * L::RB + col * size;
+      } else if (i < 2 * L::NR + L::NW) {
+        const int j = i - 2 * L::NR;
+        row = j / (D / 4);
+        col = (j % (D / 4)) * 4;
+        ss = &sw;
+        base = reinterpret_cast<const unsigned char*>(w);
+        size = 4;
+        dst = L::kW + row * L::WB + col * 4;
+      } else {
+        const int j = i - 2 * L::NR - L::NW;
+        row = j / (SL / L::E);
+        col = (j % (SL / L::E)) * L::E;
+        ss = &sv;
+        base = reinterpret_cast<const unsigned char*>(v) + e0 * sizeof(T);
+        size = sizeof(T);
+        dst = L::kVr + row * L::VB + col * size;
+      }
+      src0[n] = base + (at(*ss, b, 0, h) + col) * size;
+      step[n] = ss->s * size;
+      dst_off[n] = dst;
+      row_of[n] = row;
+    }
+    auto fetch = [&](int c) {
+      unsigned char* buf = stage + (c & 1) * L::kStage;
+#pragma unroll
+      for (int n = 0; n < NSLOT; ++n) {
+        if (tid + kGroup * n < NCP) {
+          const int s = c * C + row_of[n];
+          cp_async_16(smem_addr(buf + dst_off[n]),
+                      s < S ? src0[n] + s * step[n] : src0[n], s < S);
+        }
+      }
+      cp_async_commit();
+    };
+    // chunk c: its copies have landed (the next chunk's may be in flight)
+    auto prepare = [&](int c) {
+      if (c + 1 < nc) {
+        fetch(c + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      group_sync(1, kGroup);
+      const int p = c & 1;
+      const unsigned char* buf = stage + p * L::kStage;
+      // the decays as products of w (exp(A) = prod w): one reciprocal an
+      // element on the special-function unit, not a log and three exps
+      if (a_role) {
+        float rv[4], kv[4], wv[4], incl[4], excl[4], a_last;
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int row = 4 * ag + m;
+          rv[m] = to_f32(reinterpret_cast<const T*>(buf + L::kR + row * L::RB)[ad]);
+          kv[m] = to_f32(reinterpret_cast<const T*>(buf + L::kK + row * L::RB)[ad]);
+          const float x = reinterpret_cast<const float*>(buf + L::kW + row * L::WB)[ad];
+          wv[m] = c * C + row < S ? fmaxf(x, 1e-30f) : 1.0f;
+        }
+        chunk_cumprod4(ag, wv, incl, excl, a_last);
+        float ri[4], kj[4], kd[4], bo[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          ri[m] = rv[m] * excl[m];
+          kj[m] = kv[m] * fast_rcp(incl[m]);
+          kd[m] = kj[m] * a_last;
+          bo[m] = rv[m] * ud * kv[m];
+        }
+        // the bonus of rows 4 ag..4 ag + 3 summed over the warp's channels
+        int sel = 0;
+        fold_rows<4, 4>(bo, lane, sel);
+        if (!(lane & 16))
+          smem[L::kBpart + (p * NWA + warp) * C + 4 * ag + sel] = bo[0];
+        *reinterpret_cast<float4*>(&smem[L::kRiT + p * D * TP + ad * TP + 4 * ag]) =
+            make_float4(ri[0], ri[1], ri[2], ri[3]);
+        *reinterpret_cast<float4*>(&smem[L::kKjT + ad * TP + 4 * ag]) =
+            make_float4(kj[0], kj[1], kj[2], kj[3]);
+        *reinterpret_cast<float4*>(&smem[L::kKdT + p * D * KP + ad * KP + 4 * ag]) =
+            make_float4(kd[0], kd[1], kd[2], kd[3]);
+        if (ag == 0) smem[L::kDecay + p * D + ad] = a_last;
+      }
+      for (int i = tid; i < C * SL; i += kGroup)
+        smem[L::kV + p * C * RP + (i / SL) * RP + i % SL] = to_f32(
+            reinterpret_cast<const T*>(buf + L::kVr + (i / SL) * L::VB)[i % SL]);
+      group_sync(1, kGroup);
+      // the scores, strictly below the diagonal: [16, D] x [D, 8], half K
+      if (warp < 4) {
+        const int j0 = 8 * (warp % 2), half = warp / 2;
+        const float* ri = smem + L::kRiT + p * D * TP;
+        const float* kj = smem + L::kKjT;
+        float hi[4] = {}, lo[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int k0 = half * (D / 2) + 8 * kk;
+          const float fa[4] = {ri[(k0 + t4) * TP + g], ri[(k0 + t4) * TP + g + 8],
+                               ri[(k0 + t4 + 4) * TP + g],
+                               ri[(k0 + t4 + 4) * TP + g + 8]};
+          const float fb[2] = {kj[(k0 + t4) * TP + j0 + g],
+                               kj[(k0 + t4 + 4) * TP + j0 + g]};
+          mma3x(hi, lo[kk % 2], fa, fb);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          hi[q] += lo[0][q] + lo[1][q];
+          if (j0 + 2 * t4 + q % 2 >= g + 8 * (q / 2)) hi[q] = 0.0f;
+        }
+        float* dst = smem + L::kSc + (p * 2 + half) * C * SCP;
+        *reinterpret_cast<float2*>(&dst[g * SCP + j0 + 2 * t4]) =
+            make_float2(hi[0], hi[1]);
+        *reinterpret_cast<float2*>(&dst[(g + 8) * SCP + j0 + 2 * t4]) =
+            make_float2(hi[2], hi[3]);
+      }
+    };
+    fetch(0);
+    prepare(0);
+    __syncthreads();
+    for (int c = 0; c < nc; ++c) {
+      if (c + 1 < nc) prepare(c + 1);
+      __syncthreads();
+    }
+    return;
+  }
+
+  // --------------------------------------------------------------------
+  // the state group
+  const int btid = tid - kGroup, bw = warp - 8;
+  float st[2][4] = {};
+  auto tile_r0 = [&](int i) { return (i / (SL / 8)) * 16 + g; };
+  auto tile_c0 = [&](int i) { return (i % (SL / 8)) * 8 + 2 * t4; };
+  // tile i of the state slice, float2 a lane (each 32-byte sector written
+  // whole by four lanes), into a [D, D] state at column e0 or the [D, RP]
+  // slice in shared memory
+  auto store_tile = [&](int n, float* dst, int ld) {
+    const int i = bw + 8 * n;
+    dst += tile_r0(i) * ld + tile_c0(i);
+    *reinterpret_cast<float2*>(dst) = make_float2(st[n][0], st[n][1]);
+    *reinterpret_cast<float2*>(dst + 8 * ld) = make_float2(st[n][2], st[n][3]);
+  };
+  float* S_s = smem + L::kS;
+  float* outS = smem + L::kOutS;
+  __syncthreads();              // chunk 0 prepared
+  for (int c = 0; c < nc; ++c) {
+    const int p = c & 1;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      if (bw + 8 * n < NT) {    // the state entering chunk c
+        store_tile(n, S_s, RP);
+        if (states != nullptr)
+          store_tile(n, states + ((long long)bh * nc + c) * D * D + e0, D);
+      }
+    }
+    group_sync(2, kGroup);
+    // S <- diag(a) S + k_dec^T v, this warp's tiles
+    const float* kd = smem + L::kKdT + p * D * KP;
+    const float* vc = smem + L::kV + p * C * RP;
+    const float* decay = smem + L::kDecay + p * D;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int i = bw + 8 * n;
+      if (i < NT) {
+        const int r0 = tile_r0(i), n0 = tile_c0(i) - 2 * t4;
+        const float a0 = decay[r0], a1 = decay[r0 + 8];
+        st[n][0] *= a0;
+        st[n][1] *= a0;
+        st[n][2] *= a1;
+        st[n][3] *= a1;
+        float lo[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const int k0 = 8 * kk;
+          const float fa[4] = {kd[r0 * KP + k0 + t4], kd[(r0 + 8) * KP + k0 + t4],
+                               kd[r0 * KP + k0 + t4 + 4],
+                               kd[(r0 + 8) * KP + k0 + t4 + 4]};
+          const float fb[2] = {vc[(k0 + t4) * RP + n0 + g],
+                               vc[(k0 + t4 + 4) * RP + n0 + g]};
+          mma3x(st[n], lo[kk], fa, fb);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) st[n][q] += lo[0][q] + lo[1][q];
+      }
+    }
+    // ri S: [16, D] x [D, 8], half of K, this warp's tile
+    if (bw < NJ) {
+      const int n0 = 8 * (bw % (SL / 8)), half = bw / (SL / 8);
+      const float* ri = smem + L::kRiT + p * D * TP;
+      float hi[4] = {}, lo[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int k0 = half * (D / 2) + 8 * kk;
+        const float fa[4] = {ri[(k0 + t4) * TP + g], ri[(k0 + t4) * TP + g + 8],
+                             ri[(k0 + t4 + 4) * TP + g],
+                             ri[(k0 + t4 + 4) * TP + g + 8]};
+        const float fb[2] = {S_s[(k0 + t4) * RP + n0 + g],
+                             S_s[(k0 + t4 + 4) * RP + n0 + g]};
+        mma3x(hi, lo[kk % 2], fa, fb);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) hi[q] += lo[0][q] + lo[1][q];
+      float* dst = outS + half * C * RP;
+      *reinterpret_cast<float2*>(&dst[g * RP + n0 + 2 * t4]) =
+          make_float2(hi[0], hi[1]);
+      *reinterpret_cast<float2*>(&dst[(g + 8) * RP + n0 + 2 * t4]) =
+          make_float2(hi[2], hi[3]);
+    }
+    group_sync(2, kGroup);
+    // the output: ri S + tril(sc, -1) v (each the sum of its two halves)
+    // + bonus v (the bonus the sum of its warps' parts)
+    const float* sc = smem + L::kSc + p * 2 * C * SCP;
+    for (int i = btid; i < C * SL; i += kGroup) {
+      const int t = i / SL, e = i % SL;
+      float bonus = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NWA; ++j)
+        bonus += smem[L::kBpart + (p * NWA + j) * C + t];
+      float acc = fmaf(bonus, vc[t * RP + e],
+                       outS[t * RP + e] + outS[C * RP + t * RP + e]);
+#pragma unroll
+      for (int q = 0; q < C / 4; ++q) {
+        const float4 s0 = ld4(&sc[t * SCP + 4 * q]);
+        const float4 s1 = ld4(&sc[C * SCP + t * SCP + 4 * q]);
+        acc = fmaf(s0.x + s1.x, vc[(4 * q) * RP + e], acc);
+        acc = fmaf(s0.y + s1.y, vc[(4 * q + 1) * RP + e], acc);
+        acc = fmaf(s0.z + s1.z, vc[(4 * q + 2) * RP + e], acc);
+        acc = fmaf(s0.w + s1.w, vc[(4 * q + 3) * RP + e], acc);
+      }
+      const int s = c * C + t;
+      if (s < S) out[(((long long)b * S + s) * H + h) * D + e0 + e] = acc;
+    }
+    __syncthreads();
+  }
+  if (final_state != nullptr) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      if (bw + 8 * n < NT)
+        store_tile(n, final_state + (long long)bh * D * D + e0, D);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward, in two passes
+// ---------------------------------------------------------------------------
+
+constexpr int kSlice = 16;   // dS columns per scan block
+constexpr int kRowStep = kThreads / kSlice;   // rows between a thread's dS lanes
+constexpr int kChunkThreads = 512;   // pass 2's block
 
 // Pass 1, the dS scan. grid = B * H * (D / kSlice), block = kThreads: each
 // block carries kSlice columns of dS [D, D] (columns are independent in
@@ -405,45 +771,15 @@ struct ChunkSmem {
   static_assert(CP <= D * P, "d kj fits in S's place");
 };
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// x -> tf32 (round to nearest, ties away), as the bits of an f32
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t y;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
-  return y;
-}
-
-// d += a (16 x 8, row) . b (8 x 8, col), tf32 in, f32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // One warp: out[16, n0..n0+7] = A [16, D] . B, with B(k, n) = M[n, k]
-// (b_rows, for dO S^T and v dS^T) or M[k, n] (for k_dec dS), in 3xTF32:
-// each operand split as hi + lo (both tf32), and hi.hi + hi.lo + lo.hi
-// summed in f32, which keeps f32 accuracy (the lo.lo term is ~2^-22 of
-// the product). Fragments are read straight from the padded f32 tiles,
-// whose row stride puts the 32 lanes of each read in distinct banks.
+// (b_rows, for dO S^T and v dS^T) or M[k, n] (for k_dec dS), in 3xTF32
+// (mma3x). Fragments are read straight from the padded f32 tiles, whose
+// row stride puts the 32 lanes of each read in distinct banks.
 template <int D, int P, bool b_rows>
 __device__ __forceinline__ void mma3_tile(const float* A, const float* M,
                                           int n0, float* out) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float acc[4] = {}, lo[4] = {};
 #pragma unroll 2
   for (int k0 = 0; k0 < D; k0 += 8) {
     const float a[4] = {A[g * P + k0 + t], A[(g + 8) * P + k0 + t],
@@ -451,25 +787,12 @@ __device__ __forceinline__ void mma3_tile(const float* A, const float* M,
     const float bv[2] = {
         b_rows ? M[(n0 + g) * P + k0 + t] : M[(k0 + t) * P + n0 + g],
         b_rows ? M[(n0 + g) * P + k0 + t + 4] : M[(k0 + t + 4) * P + n0 + g]};
-    uint32_t ah[4], al[4], bh[2], bl[2];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      ah[q] = to_tf32(a[q]);
-      al[q] = to_tf32(a[q] - __uint_as_float(ah[q]));
-    }
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      bh[q] = to_tf32(bv[q]);
-      bl[q] = to_tf32(bv[q] - __uint_as_float(bh[q]));
-    }
-    mma_tf32(acc, al, bh[0], bh[1]);
-    mma_tf32(acc, ah, bl[0], bl[1]);
-    mma_tf32(acc, ah, bh[0], bh[1]);
+    mma3x(acc, lo, a, bv);
   }
-  out[g * P + n0 + 2 * t] = acc[0];
-  out[g * P + n0 + 2 * t + 1] = acc[1];
-  out[(g + 8) * P + n0 + 2 * t] = acc[2];
-  out[(g + 8) * P + n0 + 2 * t + 1] = acc[3];
+  out[g * P + n0 + 2 * t] = acc[0] + lo[0];
+  out[g * P + n0 + 2 * t + 1] = acc[1] + lo[1];
+  out[(g + 8) * P + n0 + 2 * t] = acc[2] + lo[2];
+  out[(g + 8) * P + n0 + 2 * t + 1] = acc[3] + lo[3];
 }
 
 // Pass 2, the chunk-local gradients. grid = B * H * n_chunks, block =
@@ -697,7 +1020,9 @@ wkv6_bwd_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k,
   }
 }
 
-// Dynamic shared memory above 48 KB must be opted into, once per kernel.
+// Dynamic shared memory above 48 KB must be opted into, per kernel and
+// per device (the attribute lives in the current device's context), so
+// every launch asks.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -710,15 +1035,17 @@ Strides strides_of(const long long* st, int i) {
   return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
 }
 
+// The forward at head dim D: a column slice of min(D, kFwdSlice).
 template <typename T, int D>
 int fwd(const void* r, const void* k, const void* v, const void* w,
         const void* u, const long long* st, void* out, void* states,
         void* final_state, int B, int S, int H, cudaStream_t stream) {
-  const size_t smem = FwdSmem<D>::kTotal * sizeof(float);
-  auto kernel = wkv6_fwd_kernel<T, D>;
-  cudaError_t err = allow_smem(kernel, smem);
+  constexpr int SL = D < kFwdSlice ? D : kFwdSlice;
+  using L = FwdSmem<T, D, SL>;
+  auto kernel = wkv6_fwd_kernel<T, D, SL>;
+  const cudaError_t err = allow_smem(kernel, L::kBytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<B * H, kThreads, smem, stream>>>(
+  kernel<<<B * H * (D / SL), kFwdThreads, L::kBytes, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(w),
       static_cast<const float*>(u), strides_of(st, 0), strides_of(st, 1),
@@ -761,9 +1088,10 @@ int bwd(const void* r, const void* k, const void* v, const void* w,
 }
 
 template <typename T>
-int fwd_d(int D, const void* r, const void* k, const void* v, const void* w,
-          const void* u, const long long* st, void* out, void* states,
-          void* final_state, int B, int S, int H, cudaStream_t s) {
+int fwd_d(int D, const void* r, const void* k, const void* v,
+          const void* w, const void* u, const long long* st, void* out,
+          void* states, void* final_state, int B, int S, int H,
+          cudaStream_t s) {
   switch (D) {
     case 16: return fwd<T, 16>(r, k, v, w, u, st, out, states, final_state, B, S, H, s);
     case 32: return fwd<T, 32>(r, k, v, w, u, st, out, states, final_state, B, S, H, s);

@@ -12,21 +12,25 @@ zero state, in chunks of 16:
 * :func:`wkv6` runs the hand-written kernels ``csrc/rwkv6_scan.cu``
   (head dims 16, 32, 64; r/k/v f32 or bf16; w and u f32; any S, a ragged
   last chunk masked) on CUDA tensors and raises on anything else:
-  :func:`wkv6_forward` launches one kernel, :func:`wkv6_backward` two
-  (the dS scan, then the chunk-local gradients), and :class:`WKV6` binds
-  them as an ``autograd.Function``.
+  :func:`wkv6_forward` launches one kernel (the state's columns split over
+  blocks), :func:`wkv6_backward` two (the dS scan, then the chunk-local
+  gradients), and :class:`WKV6` binds them as an ``autograd.Function``.
+  The forward writes every chunk's incoming state for the backward, except
+  under :func:`states_discarded` (the first pass of a non-reentrant
+  checkpoint, whose saved tensors are thrown away and recomputed).
 * :func:`wkv6_plain` is the same chunked form in plain PyTorch (autograd
   gives its backward), which the kernels are held to on the card.
 
 The model's ``rwkv6.wkv_chunked`` chooses between the two: the plain
 version for CPU tensors or ``use_kernel=False``, else the kernels.
 
-``launches_fwd`` counts forward launches and ``launches_bwd`` backward
-calls, each of which launches the backward's two kernels (and nothing
-else counts).
+``launches_fwd`` counts forward launches, ``launches_fwd_states`` those of
+them that wrote the chunk states, and ``launches_bwd`` backward calls, each
+of which launches the backward's two kernels (and nothing else counts).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional, Tuple
 
@@ -37,11 +41,15 @@ from repro_torch.kernels import _build
 
 CHUNK = 16
 HEAD_DIMS = (16, 32, 64)
+FWD_SLICE = 32    # state columns a forward block carries, at most D
+                  # (kFwdSlice in csrc/rwkv6_scan.cu)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches_fwd = 0
+launches_fwd_states = 0
 launches_bwd = 0
 _lib = None
+_discard_states = False
 
 
 def wkv6_plain(r, k, v, w, u, state: Optional[torch.Tensor] = None,
@@ -147,10 +155,18 @@ def _raise_on(lib, err: int, what: str) -> None:
 def wkv6_forward(r, k, v, w, u, *, save_states: bool = True):
     """Launch the forward kernel on CUDA tensors: (out [B, S, H, D] f32,
     final state [B, H, D, D] f32, every chunk's incoming state
-    [B, H, n_chunks, D, D] f32 or None when ``save_states`` is false)."""
-    global launches_fwd
+    [B, H, n_chunks, D, D] f32 or None when ``save_states`` is false).
+    The kernel loads 16-byte rows: r/k/v/w whose rows do not start 16-byte
+    aligned are refused."""
+    global launches_fwd, launches_fwd_states
     _check(r, k, v, w, u)
     code, strides = _kernel_args(r, k, v, w, u)
+    if any(t.data_ptr() % 16 or any(t.stride(i) * t.element_size() % 16
+                                    for i in range(3))
+           for t in (r, k, v, w)):
+        raise ValueError("the wkv6 forward loads 16-byte rows: the base "
+                         "pointers of r, k, v and w must be 16-byte aligned "
+                         "and their b, s and h strides multiples of 16 bytes")
     b, s, h, d = r.shape
     dev = r.device
     out = torch.empty((b, s, h, d), dtype=torch.float32, device=dev)
@@ -166,7 +182,24 @@ def wkv6_forward(r, k, v, w, u, *, save_states: bool = True):
                        final.data_ptr(), b, s, h, d, _build.stream_ptr(dev))
     _raise_on(lib, err, "wkv6 forward")
     launches_fwd += 1
+    if save_states:
+        launches_fwd_states += 1
     return out, final, states
+
+
+@contextlib.contextmanager
+def states_discarded():
+    """Under this, :class:`WKV6`'s forward writes no chunk states and saves
+    a zero-stride placeholder of their shape in their place: for a forward
+    whose saved tensors are thrown away, as the first pass of a
+    non-reentrant checkpoint's are (its recompute saves the real ones).
+    The backward raises if it is handed the placeholder."""
+    global _discard_states
+    before, _discard_states = _discard_states, True
+    try:
+        yield
+    finally:
+        _discard_states = before
 
 
 def backward_passes(r, k, v, w, u, states, dout, dfinal=None):
@@ -224,21 +257,32 @@ def wkv6_backward(r, k, v, w, u, states, dout, dfinal=None):
 
 class WKV6(torch.autograd.Function):
     """The kernels as an autograd op: forward saves r/k/v/w/u and every
-    chunk's incoming state (when a gradient is needed); backward is the
-    two backward kernels, their f32 gradients cast to the inputs' dtypes."""
+    chunk's incoming state (when a gradient is needed; a placeholder under
+    :func:`states_discarded`); backward is the two backward kernels, their
+    f32 gradients cast to the inputs' dtypes."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u):
         save = any(ctx.needs_input_grad)
-        out, final, states = wkv6_forward(r, k, v, w, u, save_states=save)
+        out, final, states = wkv6_forward(
+            r, k, v, w, u, save_states=save and not _discard_states)
         ctx.set_materialize_grads(False)
         if save:
+            if states is None:
+                b, s, h, d = r.shape
+                states = torch.empty((), dtype=torch.float32,
+                                     device=r.device).expand(
+                                         b, h, -(-s // CHUNK), d, d)
             ctx.save_for_backward(r, k, v, w, u, states)
         return out, final
 
     @staticmethod
     def backward(ctx, dout, dfinal):
         r, k, v, w, u, states = ctx.saved_tensors
+        if states.stride(-1) == 0:
+            raise RuntimeError(
+                "wkv6 backward handed the placeholder of a forward run under "
+                "states_discarded(): no chunk states were written")
         if dout is None:
             dout = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
         dr, dk, dv, dw, du = wkv6_backward(r, k, v, w, u, states, dout,

@@ -7,16 +7,20 @@ The reference scans stacked ``blocks/<path>[L, ...]`` leaves; here
 (``ln1``, ``att``, ``ln2``, ``ffn``). Each block sees a fresh zero state.
 Every layer's wkv runs through the hand-written kernels on the card
 (``use_kernel=True``, the default) or their plain twin
-(``use_kernel=False``, and always on the CPU).
+(``use_kernel=False``, and always on the CPU). Under remat ``full`` the
+first pass of each block writes no wkv chunk states (the checkpoint throws
+its saved tensors away); the recompute in backward writes them.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import rwkv6_scan
 from repro_torch.models import common, rwkv6
 from repro_torch.models.transformer import _remat_layers
 
@@ -27,6 +31,13 @@ _SERVE = ("RWKV decode and prefill are not ported yet: they come with the "
 def _block(p, cfg, x, state, use_kernel: bool) -> torch.Tensor:
     return rwkv6.rwkv_block_apply(p, cfg, x, state, chunked=True,
                                   use_kernel=use_kernel)[0]
+
+
+def remat_contexts():
+    """``checkpoint``'s ``context_fn``: the first pass runs under
+    ``states_discarded`` (its saved tensors are dropped), the recompute as
+    it is."""
+    return rwkv6_scan.states_discarded(), contextlib.nullcontext()
 
 
 class RWKVLM(nn.Module):
@@ -82,7 +93,8 @@ class RWKVLM(nn.Module):
         for p in self.blocks:
             if remat:
                 x = checkpoint(_block, p, self.cfg, x, zero_state,
-                               self.use_kernel, use_reentrant=False)
+                               self.use_kernel, use_reentrant=False,
+                               context_fn=remat_contexts)
             else:
                 x = _block(p, self.cfg, x, zero_state, self.use_kernel)
         x = common.layernorm(self.ln_out, x, 1e-5)

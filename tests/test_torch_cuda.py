@@ -35,10 +35,18 @@ where only PyTorch is installed:
   S in {17, 1000} (a ragged second chunk; 63 chunks), and two backward
   calls on the same inputs give bit-equal gradients; through
   autograd one forward and one backward launch, gradients in the inputs'
-  dtypes; a CUDA call the kernels cannot take raises.
+  dtypes; a CUDA call the kernels cannot take raises. The forward without
+  chunk states gives the bit-equal output and final state, the chunk
+  states equal the plain twin's (the final states of the whole-chunk
+  prefixes) within 1e-5 x max|S|, repeated forwards are bit-equal, rows
+  not 16-byte aligned are refused, and the forward agrees with the plain
+  twin on every visible card.
 * ``RWKVLM`` (rwkv6 smoke, f32) on the card, through the kernels, against
   the CPU port: logits and per-token loss within atol 1e-5, gradients
-  within atol 1e-5, with remat "full" (2 forward launches per layer).
+  within atol 1e-5, with remat "full" (2 forward launches per layer, one
+  of them writing chunk states); and remat "full" against "none" on the
+  card: the same launches of the backward, one state-writing forward per
+  layer in both, loss and gradients within atol 1e-5.
 """
 import pytest
 
@@ -386,6 +394,82 @@ def test_wkv_autograd_launches_and_dtypes(cuda_device):
         twkv.wkv6(*a[:3], a[3].double(), a[4])
 
 
+def _plain_states(args):
+    """Every chunk's incoming state from the plain twin: the final state
+    of each whole-chunk prefix (zero for the first chunk)."""
+    b, s, h, d = args[0].shape
+    zero = torch.zeros((b, h, d, d), device=args[0].device)
+    return torch.stack([zero] + [
+        twkv.wkv6_plain(*(a[:, :twkv.CHUNK * c] for a in args[:4]),
+                        args[4])[1]
+        for c in range(1, -(-s // twkv.CHUNK))], dim=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 40, 256])
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_wkv_forward_without_states_is_bit_equal(cuda_device, d, s, dtype):
+    args = _wkv_inputs(2, s, 3, d, dtype, cuda_device, seed=s + 2 * d)
+    before = (twkv.launches_fwd, twkv.launches_fwd_states)
+    out, final, states = twkv.wkv6_forward(*args)
+    bare_out, bare_final, none = twkv.wkv6_forward(*args, save_states=False)
+    torch.cuda.synchronize()
+    assert none is None and states is not None
+    assert (twkv.launches_fwd, twkv.launches_fwd_states) == (before[0] + 2,
+                                                             before[1] + 1)
+    assert torch.equal(out, bare_out) and torch.equal(final, bare_final)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 17, 40, 256])
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_wkv_forward_states_match_plain(cuda_device, d, s, dtype):
+    args = _wkv_inputs(2, s, 3, d, dtype, cuda_device, seed=3 * s + d)
+    _, _, states = twkv.wkv6_forward(*args)
+    want = _plain_states(args)
+    torch.testing.assert_close(states, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+def test_wkv_forward_refuses_unaligned_rows(cuda_device):
+    """Rows that do not start 16-byte aligned (r/k/v/w sliced out of wider
+    rows, or a base off 16 bytes) are refused, with nothing launched."""
+    args = _wkv_inputs(2, 40, 3, 32, torch.bfloat16, cuda_device, seed=6)
+    wide = [torch.cat([t[..., :1], t], dim=-1)[..., 1:] for t in args[:4]]
+    assert any(t.stride(2) * t.element_size() % 16 for t in wide)
+    flat = torch.zeros(1 + args[0].numel(), dtype=torch.bfloat16,
+                       device=cuda_device)
+    shifted = flat[1:].view(args[0].shape)           # base 2 bytes off 16
+    before = (twkv.launches_fwd, twkv.launches_fwd_states)
+    with pytest.raises(ValueError, match="16-byte"):
+        twkv.wkv6_forward(*wide, args[4])
+    with pytest.raises(ValueError, match="16-byte"):
+        twkv.wkv6_forward(shifted, *args[1:])
+    assert (twkv.launches_fwd, twkv.launches_fwd_states) == before
+
+
+def test_wkv_forward_on_every_card(cuda_device):
+    """The forward asks for its dynamic shared memory on each device it
+    launches on: on every visible card it agrees with the plain twin."""
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        with torch.cuda.device(dev):
+            args = _wkv_inputs(2, 40, 3, 64, torch.bfloat16, dev, seed=i)
+            out, final, _ = twkv.wkv6_forward(*args)
+            want, want_final = twkv.wkv6_plain(*args)
+        for got, ref in ((out, want), (final, want_final)):
+            torch.testing.assert_close(got, ref, rtol=0,
+                                       atol=1e-4 * ref.abs().max().item())
+
+
+def test_wkv_forward_is_deterministic(cuda_device):
+    args = _wkv_inputs(2, 1000, 3, 64, torch.bfloat16, cuda_device, seed=4)
+    first = twkv.wkv6_forward(*args)
+    second = twkv.wkv6_forward(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_rwkv_model_on_card_matches_cpu(cuda_device):
     cfg = dataclasses.replace(configs.get_smoke_config("rwkv6-1.6b"),
                               remat="full")
@@ -413,4 +497,36 @@ def test_rwkv_model_on_card_matches_cpu(cuda_device):
     for name, p in card.named_parameters():
         np.testing.assert_allclose(p.grad.cpu().numpy(),
                                    grads[name].grad.numpy(), atol=1e-5,
+                                   err_msg=name)
+
+
+def test_rwkv_model_remat_writes_states_once_per_layer(cuda_device):
+    cfg = configs.get_smoke_config("rwkv6-1.6b")
+    rng = np.random.RandomState(4)
+    batch = {"tokens": rng.randint(0, cfg.vocab_size, (2, 40)),
+             "labels": rng.randint(0, cfg.vocab_size, (2, 40))}
+    weights, runs = None, {}
+    for remat in ("none", "full"):
+        model = RWKVLM(dataclasses.replace(cfg, remat=remat),
+                       device=cuda_device)
+        if weights is None:
+            weights = model.state_dict()
+        model.load_state_dict(weights)
+        before = (twkv.launches_fwd, twkv.launches_fwd_states,
+                  twkv.launches_bwd)
+        per_tok, _ = model.per_token_loss(batch)
+        per_tok.mean().backward()
+        torch.cuda.synchronize()
+        after = (twkv.launches_fwd, twkv.launches_fwd_states,
+                 twkv.launches_bwd)
+        runs[remat] = (per_tok.detach().cpu().numpy(),
+                       {n: p.grad.cpu().numpy()
+                        for n, p in model.named_parameters()},
+                       tuple(a - b for a, b in zip(after, before)))
+    layers = cfg.num_layers
+    assert runs["none"][2] == (layers, layers, layers)
+    assert runs["full"][2] == (2 * layers, layers, layers)
+    np.testing.assert_allclose(runs["full"][0], runs["none"][0], atol=1e-5)
+    for name, g in runs["full"][1].items():
+        np.testing.assert_allclose(g, runs["none"][1][name], atol=1e-5,
                                    err_msg=name)

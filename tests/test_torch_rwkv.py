@@ -21,6 +21,20 @@ held to it on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
   ``jax.vjp(rwkv6.wkv_chunked)`` with and without a final-state
   cotangent: rtol 1e-4, atol 1e-4 x max|grad| (the reference computes in
   f32).
+* (c'') the wkv6 forward kernel's decomposition, stated here in plain
+  PyTorch (the state's value columns in slices of 8, 16 or 32, each
+  carried through the chunks alone, the decays (products of w), scores and
+  bonus recomputed for every slice), in f64 and f32: output and final
+  state against
+  ``rwkv6.wkv_chunked``, every chunk's incoming state against the final
+  states of ``wkv6_plain`` on the whole-chunk prefixes, rtol 1e-5, atol
+  1e-5 x max|ref|.
+* (c''') the remat plumbing, with the kernels replaced by CPU stand-ins:
+  under a non-reentrant checkpoint with ``rwkv_lm.remat_contexts`` the
+  first pass of ``WKV6`` writes no chunk states, the recompute does, the
+  backward gets the real ones and the gradients equal a run without
+  checkpoint (bit for bit; through ``RWKVLM``, remat "full" against
+  "none"); a backward handed the placeholder raises.
 * (d) time mix, channel mix and the block against JAX: atol 1e-5.
 * (e) ``RWKVLM`` logits, ``per_token_loss`` and its gradients against
   ``jax.value_and_grad``, remat "none" and "full": atol 1e-5.
@@ -39,6 +53,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from torch.utils.checkpoint import checkpoint
 
 import jax
 import jax.numpy as jnp
@@ -59,6 +75,7 @@ from repro_torch.launch import train as tcli
 from repro_torch.models import (RWKVLM, common as tcommon, from_jax_tree,
                                 get_model, load_jax_params, to_jax_tree)
 from repro_torch.models import rwkv6 as trwkv6
+from repro_torch.models import rwkv_lm as trwkv_lm
 from repro_torch.train import checkpoint as tckpt
 from repro_torch.train import loop as tloop
 from torch_parity import port_config
@@ -221,6 +238,174 @@ def test_two_pass_wkv_backward_matches_jax_vjp(s, d, dfinal, dtype):
         None if cot_state is None else torch.from_numpy(cot_state).to(dtype))
     for name, g, ref in zip(("dr", "dk", "dv", "dw", "du"), got, want):
         _close(g.numpy(), ref, 1e-4, name)
+
+
+def _wkv_column_slices(r, k, v, w, u, width, chunk=16):
+    """The wkv6 forward kernel's decomposition in plain PyTorch, in the
+    inputs' dtype: the state's value columns in slices of ``width``, each
+    carried through the chunks on its own, the chunk's decays (products of
+    w), scores and bonus recomputed for every slice. Returns (out [B, S, H, D],
+    final state [B, H, D, D], every chunk's incoming state
+    [B, H, n_chunks, D, D])."""
+    b, s, h, d = r.shape
+    width = min(width, d)                     # a slice is at most the head
+    n = -(-s // chunk)
+    pad = (0, 0, 0, 0, 0, n * chunk - s)
+    r, k, v = (torch.nn.functional.pad(t, pad) for t in (r, k, v))
+    w = torch.nn.functional.pad(w, pad, value=1.0)
+
+    def chunks(t):                                    # [B, H, n, C, D]
+        return t.reshape(b, n, chunk, h, d).permute(0, 3, 1, 2, 4)
+
+    r, k, v, w = (chunks(t) for t in (r, k, v, w))
+    below = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool), -1)
+    out = torch.zeros_like(v)
+    states = torch.zeros((b, h, n, d, d), dtype=r.dtype)
+    final = torch.zeros((b, h, d, d), dtype=r.dtype)
+    for e0 in range(0, d, width):
+        cols = slice(e0, e0 + width)
+        st = torch.zeros((b, h, d, width), dtype=r.dtype)
+        for c in range(n):
+            rc, kc, wc = r[:, :, c], k[:, :, c], w[:, :, c]
+            vc = v[:, :, c, :, cols]
+            wc = torch.clamp_min(wc, 1e-30)
+            incl = torch.cumprod(wc, dim=2)
+            a_last = incl[:, :, -1:]
+            ri, kj = rc * incl / wc, kc / incl
+            kd = kj * a_last
+            sc = (torch.where(below, ri @ kj.transpose(-1, -2), 0.0)
+                  + torch.diag_embed((rc * u[None, :, None, :] * kc).sum(-1)))
+            states[:, :, c, :, cols] = st
+            out[:, :, c, :, cols] = ri @ st + sc @ vc
+            st = a_last[:, :, 0, :, None] * st + kd.transpose(-1, -2) @ vc
+        final[..., cols] = st
+    out = out.permute(0, 2, 3, 1, 4).reshape(b, n * chunk, h, d)[:, :s]
+    return out, final, states
+
+
+@functools.lru_cache(maxsize=None)
+def _wkv_forward_case(s, d):
+    """Inputs, ``rwkv6.wkv_chunked``'s output and final state, and every
+    chunk's incoming state: the plain twin's final state on each
+    whole-chunk prefix (zero for the first chunk)."""
+    args = _wkv_inputs(2, s, 2, d, seed=5 * s + d)
+    out, final = jrwkv6.wkv_chunked(*map(jnp.asarray, args))
+    targs = list(map(torch.from_numpy, args))
+    states = [torch.zeros((2, 2, d, d))] + [
+        rwkv6_scan.wkv6_plain(*(t[:, :16 * c] for t in targs[:4]),
+                              targs[4])[1] for c in range(1, -(-s // 16))]
+    return (args, np.asarray(out), np.asarray(final),
+            torch.stack(states, dim=2).numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("width", [8, 16, 32])
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("s", [1, 16, 40, 100])
+def test_column_slice_wkv_forward_matches_jax(s, d, width, dtype):
+    args, want_out, want_final, want_states = _wkv_forward_case(s, d)
+    out, final, states = _wkv_column_slices(
+        *(torch.from_numpy(a).to(dtype) for a in args), width)
+    _close(out.numpy(), want_out, 1e-5, "out")
+    _close(final.numpy(), want_final, 1e-5, "final state")
+    _close(states.numpy(), want_states, 1e-5, "chunk states")
+
+
+def _stand_in_kernels(monkeypatch, log):
+    """Replace the wkv6 kernels with CPU stand-ins that log what they are
+    asked for: the forward (the column-slice decomposition) logs
+    ``save_states``; the backward (the plain twin's autograd) logs whether
+    the states it got have a zero stride and equal the recomputed ones."""
+    def forward(r, k, v, w, u, *, save_states=True):
+        log.append(("fwd", save_states))
+        out, final, states = _wkv_column_slices(r, k, v, w, u, 16)
+        return out, final, states if save_states else None
+
+    def backward(r, k, v, w, u, states, dout, dfinal=None):
+        real = _wkv_column_slices(r, k, v, w, u, 16)[2]
+        log.append(("bwd", 0 in states.stride(), torch.equal(states, real)))
+        leaves = [t.detach().float().requires_grad_()
+                  for t in (r, k, v, w, u)]
+        with torch.enable_grad():       # a backward runs without grad mode
+            out, final = rwkv6_scan.wkv6_plain(*leaves)
+            loss = (out * dout).sum()
+            if dfinal is not None:
+                loss = loss + (final * dfinal).sum()
+            return torch.autograd.grad(loss, leaves)
+
+    monkeypatch.setattr(rwkv6_scan, "wkv6_forward", forward)
+    monkeypatch.setattr(rwkv6_scan, "wkv6_backward", backward)
+
+
+def _wkv_out(*args):
+    return rwkv6_scan.WKV6.apply(*args)[0]
+
+
+def test_remat_first_pass_writes_no_wkv_states(monkeypatch):
+    log = []
+    _stand_in_kernels(monkeypatch, log)
+    args = _wkv_inputs(2, 40, 2, 16, seed=11)
+    cot = torch.from_numpy(
+        np.random.RandomState(12).randn(2, 40, 2, 16).astype(np.float32))
+    grads = {}
+    for remat in (False, True):
+        leaves = [torch.from_numpy(a).requires_grad_() for a in args]
+        if remat:           # as RWKVLM.forward calls it
+            out = checkpoint(_wkv_out, *leaves, use_reentrant=False,
+                             context_fn=trwkv_lm.remat_contexts)
+        else:
+            out = _wkv_out(*leaves)
+        out.backward(cot)
+        grads[remat] = [t.grad for t in leaves]
+    # without remat one forward writes the states; with it a first pass
+    # writes none, the recompute does, and each backward gets real states
+    assert log == [("fwd", True), ("bwd", False, True),
+                   ("fwd", False), ("fwd", True), ("bwd", False, True)]
+    for a, b in zip(grads[False], grads[True]):
+        assert torch.equal(a, b)
+
+
+def test_wkv_backward_refuses_the_placeholder(monkeypatch):
+    _stand_in_kernels(monkeypatch, [])
+    leaves = [torch.from_numpy(a).requires_grad_()
+              for a in _wkv_inputs(1, 20, 1, 16, seed=13)]
+    with rwkv6_scan.states_discarded():
+        out = _wkv_out(*leaves)
+    with pytest.raises(RuntimeError, match="placeholder"):
+        out.sum().backward()
+
+
+def test_rwkv_model_remat_writes_wkv_states_once(monkeypatch):
+    log = []
+    _stand_in_kernels(monkeypatch, log)
+    monkeypatch.setattr(        # the model's wkv through WKV6, on the CPU
+        trwkv6, "wkv_chunked",
+        lambda r, k, v, w, u, state=None, *a, **kw: rwkv6_scan.wkv6(
+            r, k, v, w, u))
+    cfg = tconfigs.get_smoke_config(ARCH)
+    toks, labels = _loss_inputs(cfg.vocab_size)
+    weights, runs = None, {}
+    for remat in ("none", "full"):
+        model = RWKVLM(dataclasses.replace(cfg, remat=remat), device="cpu")
+        if weights is None:
+            weights = model.state_dict()
+        model.load_state_dict(weights)
+        del log[:]
+        per_tok, _ = model.per_token_loss({"tokens": toks, "labels": labels})
+        per_tok.mean().backward()
+        runs[remat] = (per_tok.detach(), dict(model.named_parameters()),
+                       list(log))
+    layers = cfg.num_layers
+    assert [e for e in runs["none"][2] if e[0] == "fwd"] == \
+        [("fwd", True)] * layers
+    assert [e for e in runs["full"][2] if e[0] == "fwd"] == \
+        [("fwd", False)] * layers + [("fwd", True)] * layers
+    for _, _, run_log in runs.values():
+        assert [e for e in run_log if e[0] == "bwd"] == \
+            [("bwd", False, True)] * layers
+    assert torch.equal(runs["none"][0], runs["full"][0])
+    for name, p in runs["full"][1].items():
+        assert torch.equal(p.grad, runs["none"][1][name].grad), name
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
