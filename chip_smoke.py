@@ -21,15 +21,19 @@ fails (non-zero exit, no result line) if any phase fails:
    its plain version and the library yardstick (flash also at S 128 against
    SDPA, printed only).
 4. Serve qwen3-0.6b at full width (28 layers, d_model 1024, bf16, seeded
-   random weights) through ``ServeEngine`` on a 16-request trace, once with
-   an fp pool and once with an int8 pool. Launch counters are set to 0
-   just before each run and read just after; the run must complete every
-   request and launch each kernel of its path (page gather twice per layer
-   per decode step, flash attention once per layer per admission).
+   random weights) through ``ServeEngine`` on a 16-request trace, with an
+   fp pool and with an int8 pool, each with eager decode and then with
+   graph decode (the engine's default on the card: one captured CUDA graph
+   per engine, warmed up and captured on a 2-request trace first). Launch
+   counters are set to 0 just before each run and read just after; the
+   run must complete every request, capture decode once, and launch each
+   kernel of its path (page gather twice per layer per decode step, also
+   inside graph replays; flash attention once per layer per admission).
+   Graph-decode tokens must equal eager-decode tokens.
 5. End to end, kernel vs plain: a 2-layer full-width f32 model serves one
    short trace with ``use_kernel=True`` and ``use_kernel=False`` (fp and
-   int8 pools), and the smoke model serves one on the card and one on the
-   CPU; the greedy tokens must be identical.
+   int8 pools), and the smoke model serves one on the card (eager and
+   graph decode) and one on the CPU; the greedy tokens must be identical.
 6. Train qwen3-0.6b at full width (28 layers, bf16, remat full, tied
    151,936-vocab head) through ``run_experiment``: backup 6 + 2 workers,
    batch 2 per worker, seq 256, rmsprop_momentum, EMA 0.999, the spmd
@@ -37,6 +41,13 @@ fails (non-zero exit, no result line) if any phase fails:
    just before and read just after: one launch per step. The same 3 steps
    again with ``use_kernel=False``: the same masks and sim_time, losses
    within rel 1e-3, and the first step's aggregated gradient bit-equal.
+   Then the main path: the same 3 steps as one chunk (``chunk_size`` 3)
+   through the trainer's CUDA graph (step 1 eager and the capture, then
+   replays; counters set to 0 just before, read just after: 3 reduces),
+   held to the eager run: the same masks and sim_time, losses and
+   per-tensor parameter sums bit-equal; the capture time, a chunk of
+   replays' host wall per step and the peak memory (allocated, reserved)
+   are printed.
    Then backup_reduce against its plain version, bit-exact, at the run's
    [8, P] stack (P = 596,049,920 parameters) and at edge shapes W in
    {2, 3, 8}, P in {1, 3, 4097, 65536}, all-zero / all-one / mixed masks,
@@ -69,18 +80,23 @@ fails (non-zero exit, no result line) if any phase fails:
    thrown away), 1 backward, 1 backup_reduce per step. The same 3 steps
    again with ``model.use_kernel = False`` (the plain wkv, no wkv launch):
    the same masks and sim_time, step 1's loss within rel 1e-3, every loss
-   finite.
+   finite. Then the main path, as in phase 6: the 3 steps as one chunk
+   through the CUDA graph, with the eager run's launch counts (576 / 288 /
+   288 / 3, replays included), bit-equal to the eager run.
 10. At 2 layers, full width, f32: the kernel run against the plain run,
    step 1's loss within rel 1e-5 and the first aggregated gradient within
    rel L2 1e-4.
 11. A JSON line of per-kernel numbers (``launches`` is the count of one
-   run of the path that launches the kernel, named by ``launches_run``),
-   then, as the last line, ``{"ok": true, "device": {...}}``.
+   run of the main path that launches the kernel, named by
+   ``launches_run``: the graph-decode serve runs, whose prefills stay
+   eager, and the graph training runs), then, as the last line,
+   ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero when ``torch.cuda.is_available()`` is false.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -411,16 +427,21 @@ def _serve_phase(torch, kernels):
         num_requests=2, rate=1000.0, prompt_len_min=64, prompt_len_max=512,
         max_new_min=4, max_new_max=4, vocab=cfg.vocab_size, seed=1))
     runs = {}
-    for int8 in (False, True):
+    for int8, graph in ((False, False), (False, True), (True, False),
+                        (True, True)):
         engine = ServeEngine(cfg, model, num_slots=8, page_size=16,
                              max_prompt_len=512, max_new_cap=128,
-                             cache_int8=int8, clock="wall")
-        engine.run(warm)
+                             cache_int8=int8, clock="wall",
+                             decode_graph=graph)
+        engine.run(warm)              # graph decode: warmup and capture
         torch.cuda.reset_peak_memory_stats()
         report, (n_gather, n_flash) = _serve(
             torch, engine, trace, (page_gather, flash_attention))
         m = report.metrics
-        tag = "int8" if int8 else "fp"
+        tag = ("int8" if int8 else "fp") + (" graph" if graph else "")
+        if m["decode_compiles"] != 1:
+            raise AssertionError(f"[serve {tag}] decode_compiles "
+                                 f"{m['decode_compiles']}, expected 1")
         if m["completed"] != len(trace):
             raise AssertionError(f"[serve {tag}] {m['completed']} of "
                                  f"{len(trace)} requests completed")
@@ -436,6 +457,11 @@ def _serve_phase(torch, kernels):
                 f"[serve {tag}] launches gather={n_gather} (expected "
                 f"{want_gather}) flash={n_flash} (expected {want_flash})")
         runs[tag] = dict(report=report, gather=n_gather, flash=n_flash)
+        if graph:
+            g = engine._decode_graph
+            _log(f"[serve {tag}] decode graph: {g.captures} capture in "
+                 f"{g.capture_s:.3f} s (the capture alone), {g.replays} "
+                 f"replays")
         _log(f"[serve {tag}] {m['completed']} requests, {m['total_tokens']} "
              f"tokens in {m['duration']:.3f} s -> {m['tokens_per_s']:.1f} "
              f"tok/s | latency p50 {m['p50_latency']:.4f} s p99 "
@@ -447,6 +473,13 @@ def _serve_phase(torch, kernels):
              f"pool {engine.pool_bytes} bytes | peak device memory "
              f"{torch.cuda.max_memory_allocated()} bytes | launches "
              f"page_gather={n_gather} flash_attention={n_flash}")
+    for pool in ("fp", "int8"):
+        eager = runs[pool]["report"].tokens_by_rid()
+        if runs[f"{pool} graph"]["report"].tokens_by_rid() != eager:
+            raise AssertionError(f"[serve {pool}] graph-decode tokens differ "
+                                 f"from eager decode")
+        _log(f"[serve {pool}] graph decode == eager decode: "
+             f"{sum(len(t) for t in eager.values())} greedy tokens equal")
     fp_t = runs["fp"]["report"].tokens_by_rid()
     q8_t = runs["int8"]["report"].tokens_by_rid()
     same = sum(a == b for r in fp_t for a, b in zip(fp_t[r], q8_t[r]))
@@ -493,11 +526,133 @@ def _kernel_vs_plain_phase(torch):
               clock="virtual")
     on_cpu = ServeEngine(smoke, cpu_model, device="cpu", **kw).run(
         strace).tokens_by_rid()
-    on_gpu = ServeEngine(smoke, gpu_model, **kw).run(strace).tokens_by_rid()
-    if on_cpu != on_gpu:
-        raise AssertionError("smoke model: card tokens differ from CPU tokens")
-    _log(f"[e2e] qwen3 smoke f32: card (kernels) tokens == CPU port tokens "
-         f"({sum(len(t) for t in on_cpu.values())} tokens)")
+    for graph in (False, True):
+        on_gpu = ServeEngine(smoke, gpu_model, decode_graph=graph,
+                             **kw).run(strace).tokens_by_rid()
+        if on_cpu != on_gpu:
+            raise AssertionError(f"smoke model: card tokens (decode graph "
+                                 f"{graph}) differ from CPU tokens")
+        _log(f"[e2e] qwen3 smoke f32: card (kernels, "
+             f"{'graph' if graph else 'eager'} decode) tokens == CPU port "
+             f"tokens ({sum(len(t) for t in on_cpu.values())} tokens)")
+
+
+# ---------------------------------------------------------------------------
+# The chunked trainer as a CUDA graph (phases 6 and 9)
+# ---------------------------------------------------------------------------
+
+
+def _param_sums(torch, params):
+    """Per-tensor f64 sums of the parameters: the checksum a graph run is
+    held to."""
+    return torch.stack([p.detach().double().sum()
+                        for p in params.values()]).cpu()
+
+
+@contextlib.contextmanager
+def _planned_masks():
+    """Collects the [W] mask of every step the straggler simulator plans,
+    per-step or chunked (``next_events(k)`` stacks k ``next_event()``
+    calls); yields that list of masks, in step order."""
+    from unittest import mock
+    from repro_torch.core.events import StragglerSimulator
+    plan, log = StragglerSimulator.next_event, []
+
+    def spy(sim):
+        ev = plan(sim)
+        log.append(ev.mask.copy())
+        return ev
+
+    with mock.patch.object(StragglerSimulator, "next_event", spy):
+        yield log
+
+
+def _same_masks(a, b) -> bool:
+    import numpy as np
+    return len(a) == len(b) and bool(np.array_equal(np.stack(a),
+                                                    np.stack(b)))
+
+
+def _graph_train_run(torch, cfg, counters, tag):
+    """``cfg``'s steps as one chunk (``chunk_size = total_steps``) through
+    the trainer's CUDA graph: step 1 runs eagerly and captures the step,
+    the rest replay it. The counters are set to 0 just before and read
+    just after. Then one more chunk on the same trainer, all replays, is
+    timed (host wall per step). Returns the run's metrics, counts,
+    parameter checksum, planned masks and graph numbers."""
+    import gc
+    from repro_torch.core.straggler import PaperCalibrated
+    from repro_torch.train.loop import Trainer
+    k = cfg.total_steps
+    cfg = dataclasses.replace(cfg, chunk_size=k)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, latency=PaperCalibrated(), device="cuda")
+    tr.init_state()
+    for m, a in counters:
+        setattr(m, a, 0)
+    t0 = time.perf_counter()
+    with _planned_masks() as masks:
+        res = tr.run(k)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = tuple(getattr(m, a) for m, a in counters)
+    metrics = list(res.metrics)
+    sums = _param_sums(torch, res.params)
+    g = tr.chunk_step.graph
+    stats = dict(capture_s=g.capture_s, captures=g.captures,
+                 peak=torch.cuda.max_memory_allocated(),
+                 reserved=torch.cuda.max_memory_reserved(),
+                 first_chunk_ms=1e3 * first_s)
+    t0 = time.perf_counter()
+    tr.run(k)
+    torch.cuda.synchronize()
+    stats["replay_ms"] = 1e3 * (time.perf_counter() - t0) / k
+    stats["replays"] = g.replays
+    for m in metrics:
+        _log(f"[train {tag} graph] step {m['step']} loss {m['loss']:.6f} "
+             f"sim_time {m['sim_time']:.6f} selected {m['selected']} "
+             f"lr {m['lr']:.6f}")
+    _log(f"[train {tag} graph] chunk of {k} steps: first chunk "
+         f"{stats['first_chunk_ms']:.1f} ms (step 1 eager, the capture "
+         f"{1e3 * stats['capture_s']:.1f} ms, {k - 1} replays); the next "
+         f"chunk, all replays: {stats['replay_ms']:.1f} ms/step host wall "
+         f"| captures {stats['captures']}, replays {stats['replays']} | "
+         f"peak device memory {stats['peak']} bytes allocated, "
+         f"{stats['reserved']} reserved")
+    del tr, res, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return metrics, counts, sums, masks, stats
+
+
+def _hold_graph_to_eager(tag, eager_run, graph, graph_sums, graph_masks):
+    """The graph run against the eager per-step run (``eager_run``: its
+    metrics, sums and masks): the same masks, selected counts and
+    sim_time, bit-equal losses and parameter checksums."""
+    eager, eager_sums = eager_run["metrics"], eager_run["sums"]
+    if not _same_masks(eager_run["masks"], graph_masks):
+        raise AssertionError(f"[{tag}] graph and eager runs planned "
+                             f"different [W] masks")
+    for a, b in zip(eager, graph):
+        if a["selected"] != b["selected"] or a["sim_time"] != b["sim_time"]:
+            raise AssertionError(f"[{tag}] step {a['step']}: graph and eager "
+                                 f"runs planned different masks")
+    differ = [(a["step"], abs(a["loss"] - b["loss"]) / abs(a["loss"]))
+              for a, b in zip(eager, graph) if a["loss"] != b["loss"]]
+    if differ or len(eager) != len(graph):
+        raise AssertionError(f"[{tag}] graph losses differ from eager: first "
+                             f"step {differ[0][0] if differ else None}, max "
+                             f"rel {max((d for _, d in differ), default=0)}")
+    if not graph_sums.equal(eager_sums):
+        rel = ((graph_sums - eager_sums).abs()
+               / eager_sums.abs().clamp_min(1e-30)).max().item()
+        raise AssertionError(f"[{tag}] graph parameter checksums differ from "
+                             f"eager (max rel {rel:.3g})")
+    _log(f"[{tag}] graph run == eager per-step run: {len(graph_masks)} "
+         f"[W] masks, selected and sim_time equal, {len(eager)} losses and {graph_sums.numel()} parameter "
+         f"checksums bit-equal")
+
 
 
 # ---------------------------------------------------------------------------
@@ -532,8 +687,9 @@ def _train_phase(torch, backup_reduce):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             backup_reduce.launches = 0
-            res = run_experiment(cfg, latency=PaperCalibrated(),
-                                 device="cuda")
+            with _planned_masks() as masks:
+                res = run_experiment(cfg, latency=PaperCalibrated(),
+                                     device="cuda")
             torch.cuda.synchronize()
             launches = backup_reduce.launches
             peak = torch.cuda.max_memory_allocated()
@@ -563,9 +719,12 @@ def _train_phase(torch, backup_reduce):
                 raise AssertionError(f"[train {tag}] backup_reduce launches "
                                      f"{launches}, expected {want}")
             runs[tag] = dict(metrics=res.metrics, launches=launches,
-                             peak=peak, ms=ms, n_params=n_params)
+                             peak=peak, ms=ms, n_params=n_params,
+                             sums=_param_sums(torch, res.params), masks=masks)
             del res
             torch.cuda.empty_cache()
+    if not _same_masks(runs["kernel"]["masks"], runs["plain"]["masks"]):
+        raise AssertionError("kernel and plain runs planned different masks")
     for a, b in zip(runs["kernel"]["metrics"], runs["plain"]["metrics"]):
         if a["selected"] != b["selected"] or a["sim_time"] != b["sim_time"]:
             raise AssertionError(f"step {a['step']}: kernel and plain runs "
@@ -584,7 +743,14 @@ def _train_phase(torch, backup_reduce):
     del gk, gp
     first_grad.clear()
     torch.cuda.empty_cache()
-    return runs["kernel"]
+    # the main path: the same 3 steps as one chunk through the CUDA graph
+    metrics, (launches,), sums, masks, stats = _graph_train_run(
+        torch, train_config(), ((backup_reduce, "launches"),), "qwen3")
+    if launches != 3:
+        raise AssertionError(f"[train graph] backup_reduce launches "
+                             f"{launches}, expected 3")
+    _hold_graph_to_eager("train qwen3", runs["kernel"], metrics, sums, masks)
+    return dict(runs["kernel"], launches=launches, graph=stats)
 
 
 def _parity_cfg(backend, *, directory="", every=0):
@@ -815,18 +981,19 @@ def _rwkv_train_phase(torch, rwkv6_scan, backup_reduce):
     for tag in ("kernel", "plain"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        if tag == "kernel":
-            for m, a in counters:
-                setattr(m, a, 0)
-            res = run_experiment(cfg, latency=PaperCalibrated(),
-                                 device="cuda")
-        else:
-            tr = Trainer(cfg, latency=PaperCalibrated(), device="cuda")
-            tr.model.use_kernel = False
-            tr.init_state()
-            for m, a in counters:
-                setattr(m, a, 0)
-            res = tr.run(steps)
+        with _planned_masks() as masks:
+            if tag == "kernel":
+                for m, a in counters:
+                    setattr(m, a, 0)
+                res = run_experiment(cfg, latency=PaperCalibrated(),
+                                     device="cuda")
+            else:
+                tr = Trainer(cfg, latency=PaperCalibrated(), device="cuda")
+                tr.model.use_kernel = False
+                tr.init_state()
+                for m, a in counters:
+                    setattr(m, a, 0)
+                res = tr.run(steps)
         torch.cuda.synchronize()
         n_fwd, n_bwd, n_red, n_states = (getattr(m, a) for m, a in counters)
         peak = torch.cuda.max_memory_allocated()
@@ -868,12 +1035,16 @@ def _rwkv_train_phase(torch, rwkv6_scan, backup_reduce):
             raise AssertionError(f"[train rwkv {tag}] {n_states} of {n_fwd} "
                                  f"wkv6 forwards wrote chunk states, not half")
         runs[tag] = dict(metrics=res.metrics, launches=(n_fwd, n_bwd),
-                         peak=peak, ms=ms)
+                         peak=peak, ms=ms, sums=_param_sums(torch, res.params),
+                         masks=masks)
         del res
         if tag == "plain":
             del tr
         gc.collect()
         torch.cuda.empty_cache()
+    if not _same_masks(runs["kernel"]["masks"], runs["plain"]["masks"]):
+        raise AssertionError("rwkv kernel and plain runs planned different "
+                             "masks")
     for a, b in zip(runs["kernel"]["metrics"], runs["plain"]["metrics"]):
         if a["selected"] != b["selected"] or a["sim_time"] != b["sim_time"]:
             raise AssertionError(f"rwkv step {a['step']}: kernel and plain "
@@ -885,7 +1056,21 @@ def _rwkv_train_phase(torch, rwkv6_scan, backup_reduce):
     _log(f"[train rwkv] kernel run vs plain run: masks and sim_time equal, "
          f"step 1 loss {la:.6f} vs {lb:.6f} (rel "
          f"{abs(la - lb) / abs(lb):.3g}, limit 1e-3)")
-    return runs["kernel"]
+    # the main path: the same 3 steps as one chunk through the CUDA graph
+    metrics, counts, sums, masks, stats = _graph_train_run(
+        torch, cfg, counters, "rwkv")
+    per_step = 2 * model.num_layers * w
+    want = (per_step * steps, per_step // 2 * steps, steps,
+            per_step // 2 * steps)
+    if counts != want:
+        raise AssertionError(
+            f"[train rwkv graph] launches wkv6 fwd/bwd, backup_reduce, "
+            f"state-writing wkv6 fwd {counts}, expected {want}")
+    _log(f"[train rwkv graph] launches wkv6 fwd {counts[0]} (writing the "
+         f"chunk states {counts[3]}) bwd {counts[1]} backup_reduce "
+         f"{counts[2]}: the eager run's counts")
+    _hold_graph_to_eager("train rwkv", runs["kernel"], metrics, sums, masks)
+    return dict(runs["kernel"], launches=counts[:2], graph=stats)
 
 
 def _rwkv_parity_phase(torch):
@@ -971,13 +1156,17 @@ def main() -> int:
     # each row's launches come from one serve run: the gather variants from
     # the run whose pool they read, flash from the fp run (the int8 run's
     # count is printed on its [serve int8] line)
-    launch_run = {"page_gather": ("fp", "gather"),
-                  "page_gather_dequant": ("int8", "gather"),
-                  "flash_attention": ("fp", "flash")}
+    launch_run = {
+        "page_gather": ("fp graph", "gather",
+                        "serve fp (graph decode), decode replays"),
+        "page_gather_dequant": ("int8 graph", "gather",
+                                "serve int8 (graph decode), decode replays"),
+        "flash_attention": ("fp graph", "flash",
+                            "serve fp (graph decode), prefill eager")}
     for row in rows[:3]:
-        run, counter = launch_run[row["name"]]
+        run, counter, label = launch_run[row["name"]]
         row["launches"] = runs[run][counter]
-        row["launches_run"] = f"serve {run}"
+        row["launches_run"] = label
 
     # 5. kernel path == plain path, end to end
     with torch.inference_mode():
@@ -988,7 +1177,7 @@ def main() -> int:
     train = _train_phase(torch, backup_reduce)
     rows.append(_reduce_phase(torch, backup_reduce, train["n_params"]))
     rows[3]["launches"] = train["launches"]
-    rows[3]["launches_run"] = "train spmd (3 steps)"
+    rows[3]["launches_run"] = "train spmd, one chunk of 3 steps (graph)"
 
     # 7. reduced depth: sim == spmd, checkpoint resume == straight run
     _parity_phase(torch)
@@ -1000,7 +1189,8 @@ def main() -> int:
     rwkv = _rwkv_train_phase(torch, rwkv6_scan, backup_reduce)
     for row, n in zip(wkv_rows, rwkv["launches"]):
         row["launches"] = n
-        row["launches_run"] = "train rwkv6-1.6b spmd (3 steps)"
+        row["launches_run"] = ("train rwkv6-1.6b spmd, one chunk of 3 "
+                               "steps (graph)")
     rows += wkv_rows
 
     # 10. reduced depth: wkv kernels == plain twin through a training step

@@ -11,9 +11,9 @@ reference bit for bit.
   mask is data to the train step, and dropped workers still compute, as
   in the paper. ``FullSync`` waits for everyone, ``BackupWorkers(N, b)``
   takes the first N arrivals (Alg. 3/4), ``Timeout(d)`` everything within
-  d of the first. Only the host ``select`` is ported: the traceable
-  ``select_jax`` and the batched ``select_batch`` serve the fused chunked
-  loop, which comes with a later slice.
+  d of the first. Only the host ``select`` is ported: the chunked loop
+  stacks per-step selections, and the traceable ``select_jax`` belongs to
+  the device straggler backend (ROADMAP Queue 1 item 6).
 * ``EventScheduler``: one ``latency.sample(rng, (W,))`` draw at
   construction, then one ``latency.sample(rng, (1,))`` draw per
   rescheduled source (the serve trace's arrival process).

@@ -1,14 +1,15 @@
 """Per-step worker masks and iteration times for the mask strategies.
-Reference: ``src/repro/core/events.py`` (``StepEvent`` and
-``StragglerSimulator``, :20-126).
+Reference: ``src/repro/core/events.py`` (``StepEvent``, ``ChunkEvents``
+and ``StragglerSimulator`` with ``next_event`` / ``next_events``,
+:20-126).
 
 Composes a latency model with a mask strategy: one ``StepEvent`` per
 training step, deterministic in ``(seed, step)`` — the replay contract
 that makes resume exact with no simulator state to persist. Masks,
-iteration times and arrivals equal the reference's bit for bit. The
-batched ``next_events`` comes with the fused chunked loop (ROADMAP Queue 1
-item 3), the latency spikes and revivals of fault injection with fault
-tolerance (item 7).
+iteration times and arrivals equal the reference's bit for bit, and the
+chunked loop's ``next_events(k)`` equals k ``next_event()`` calls. The
+latency spikes and revivals of fault injection come with fault tolerance
+(ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -27,6 +28,19 @@ class StepEvent:
     mask: np.ndarray          # [W] bool — workers whose gradients count
     iteration_time: float     # simulated seconds for this step
     arrivals: np.ndarray      # [W] raw latencies
+
+
+@dataclasses.dataclass
+class ChunkEvents:
+    """K consecutive StepEvents stacked for one chunk of the fused loop."""
+
+    start_step: int
+    masks: np.ndarray         # [K, W] bool
+    times: np.ndarray         # [K] f64 per-step iteration times
+    arrivals: np.ndarray      # [K, W] raw latencies
+
+    def __len__(self) -> int:
+        return self.masks.shape[0]
 
 
 class StragglerSimulator:
@@ -71,3 +85,12 @@ class StragglerSimulator:
         ev = StepEvent(self._step, mask, t, arrivals)
         self._step += 1
         return ev
+
+    def next_events(self, k: int) -> ChunkEvents:
+        """The next k events stacked: k ``next_event()`` calls."""
+        start = self._step
+        evs = [self.next_event() for _ in range(k)]
+        return ChunkEvents(start, np.stack([e.mask for e in evs]),
+                           np.array([e.iteration_time for e in evs],
+                                    np.float64),
+                           np.stack([e.arrivals for e in evs]))

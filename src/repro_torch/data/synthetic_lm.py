@@ -1,18 +1,21 @@
 """Deterministic synthetic LM token pipeline.
-Reference: ``src/repro/data/synthetic_lm.py`` (the numpy parts, :25-158).
+Reference: ``src/repro/data/synthetic_lm.py`` (the numpy parts, :25-158,
+and ``chunk_batches`` / ``ChunkPrefetcher``, :123-229).
 
 A learnable token stream — an affine Markov chain over the vocab mixed
 with uniform noise — seeded per (worker, step), so every worker draws a
 disjoint shard and the stream replays exactly from (seed, step). Batches
-equal the reference's bit for bit. The device twin ``device_batch_fn``
-and the ``ChunkPrefetcher`` belong to the fused chunked loop, which comes
-with a later slice.
+equal the reference's bit for bit. The chunked loop takes its K stacked
+batches from ``chunk_batches`` through the ``ChunkPrefetcher``. The device
+twin ``device_batch_fn`` belongs to the device straggler backend (ROADMAP
+Queue 1 item 6).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Optional
+import threading
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -73,6 +76,14 @@ def global_batch(cfg: SyntheticLMConfig, step: int) -> Dict[str, np.ndarray]:
     return {k: np.concatenate([s[k] for s in shards], axis=0) for k in shards[0]}
 
 
+def chunk_batches(cfg: SyntheticLMConfig, start_step: int, k: int
+                  ) -> Dict[str, np.ndarray]:
+    """K stacked global batches [K, B, ...], bit-identical to k
+    ``global_batch`` calls: one host->device transfer per chunk."""
+    batches = [global_batch(cfg, s) for s in range(start_step, start_step + k)]
+    return {key: np.stack([b[key] for b in batches]) for key in batches[0]}
+
+
 @dataclasses.dataclass
 class PipelineState:
     step: int = 0
@@ -96,3 +107,73 @@ class SyntheticLMPipeline:
         batch = global_batch(self.cfg, self.state.step)
         self.state.step += 1
         return batch
+
+
+class ChunkPrefetcher:
+    """Look-ahead chunk generation for the chunked trainer.
+
+    After serving chunk [step, step+k) it builds up to ``depth`` upcoming
+    chunks on background threads (depth 1 is double buffering), so host
+    batch generation overlaps the device's work. Generation is pure in
+    (cfg, step): a mispredicted boundary (a checkpoint, the last ragged
+    chunk) falls back to building the chunk in the caller, and the served
+    batches are the same at every depth. The caller's ``PipelineState``
+    owns the position, never the threads. The threads run numpy only.
+    """
+
+    def __init__(self, cfg: SyntheticLMConfig, depth: int = 1):
+        if depth < 0:
+            raise ValueError(f"prefetch depth must be >= 0 (got {depth})")
+        self.cfg = cfg
+        self.depth = depth
+        # in-flight speculations, oldest first: [(spec, thread, holder)]
+        self._pending: list = []
+
+    def _launch(self, step: int, k: int) -> None:
+        holder: Dict = {}
+
+        def work():
+            holder["chunk"] = chunk_batches(self.cfg, step, k)
+
+        th = threading.Thread(target=work, daemon=True,
+                              name="repro-torch-chunk-prefetch")
+        th.start()
+        self._pending.append(((step, k), th, holder))
+
+    def _take(self, step: int, k: int) -> Optional[Dict[str, np.ndarray]]:
+        """Pop the speculation matching (step, k); reap stale ones."""
+        chunk = None
+        keep = []
+        for spec, th, holder in self._pending:
+            if spec == (step, k) and chunk is None:
+                th.join()
+                chunk = holder.get("chunk")
+            elif spec[0] > step:
+                keep.append((spec, th, holder))   # still ahead: may hit later
+            else:
+                th.join()                         # stale: reap and drop
+        self._pending = keep
+        return chunk
+
+    def get(self, step: int, k: int, next_k: Optional[int] = None,
+            next_specs: Optional[List[Tuple[int, int]]] = None
+            ) -> Dict[str, np.ndarray]:
+        """The stacked chunk for [step, step+k).
+
+        ``next_specs`` predicts the following chunks as (step, k) pairs;
+        the first ``depth`` of them not yet in flight are built on
+        background threads. ``next_k`` is the depth-1 shorthand for
+        ``next_specs=[(step + k, next_k)]``. None or empty: no
+        speculation (the last chunk of a run)."""
+        if next_specs is None:
+            next_specs = [(step + k, next_k)] if next_k else []
+        chunk = self._take(step, k)
+        if chunk is None:
+            chunk = chunk_batches(self.cfg, step, k)
+        inflight = {spec for spec, _, _ in self._pending}
+        for spec in next_specs[:max(self.depth, 0)]:
+            if len(self._pending) >= self.depth:
+                break
+            if tuple(spec) not in inflight:
+                self._launch(*spec)
+        return chunk

@@ -2,10 +2,11 @@
 then the masked reduce.
 Reference: ``src/repro/distributed/spmd_engine.py`` (``validate_layout``,
 ``validate_grad_batch``, ``flatten_stacked`` / ``unflatten_vector``,
-``make_worker_loss``, ``build_spmd_step``; :109-389. The reference's
-``make_train_step`` wraps the step in ``jax.jit`` with shardings, which
-eager PyTorch has no counterpart of: the trainer calls
-``build_spmd_step``).
+``make_worker_loss``, ``build_spmd_step``, ``build_spmd_chunk_step``;
+:109-420. The reference's ``make_train_step`` and ``make_chunk_step``
+(:499-516) wrap those in ``jax.jit`` with shardings; the trainer installs
+``build_spmd_step`` and ``build_spmd_chunk_step`` directly, and the chunk
+step's CUDA graph is the port's counterpart of the jitted K-step scan).
 
 On one card the mesh's ``'data'`` axis has size 1, so the card holds all
 W workers (``W_local = W``) and the ``backup_reduce`` kernel does the
@@ -26,6 +27,15 @@ whole of the paper's Alg. 4 line 7 — the reference's ``psum`` over a
 
 The three phases are ``torch.profiler`` ranges (``spmd/worker_grad``,
 ``spmd/reduce``, ``spmd/update``), which ``launch/profile_train.py`` reads.
+They mark the eager step only: a graph replay runs no Python and records
+no range.
+
+``build_spmd_chunk_step`` runs K such steps over stacked inputs. On the
+card one CUDA graph captures the whole step (the W-worker loop, the
+``[W, P]`` stack, ``reduce_then_psum`` with the ``backup_reduce`` kernel,
+unflatten, clip, the optimizer and the EMA); each step of a chunk copies
+its batch, mask and scalar rows into the graph's buffers and replays it
+(``core.step_graph``).
 
 Not ported yet, each refused with ``NotImplementedError`` naming ROADMAP
 Queue 1 item 5 (the multi-card engine): ``mesh_data > 1``,
@@ -42,6 +52,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.core import ema as ema_lib
+from repro_torch.core import step_graph
 from repro_torch.kernels.bucketed_reduce import reduce_then_psum
 from repro_torch.optim import optimizers as opt_lib
 
@@ -211,7 +222,7 @@ def build_spmd_step(model, optimizer: opt_lib.Optimizer, *,
                     mesh_data: int = 1, mesh_model: int = 1) -> Callable:
     """Twin of ``train_step.build_train_step`` — same signature:
 
-        step(opt_state, ema, step, batch, mask) -> metrics
+        step(opt_state, ema, scalars, batch, mask) -> metrics
 
     ``model`` holds the parameters; the step updates them, ``opt_state``
     and ``ema`` in place. ``batch`` rows are worker-contiguous tensors on
@@ -227,7 +238,7 @@ def build_spmd_step(model, optimizer: opt_lib.Optimizer, *,
     spec = flat_spec(dict(model.named_parameters()))
     stack: List[torch.Tensor] = []        # the [W, P] f32 stack, made once
 
-    def step_fn(opt_state, ema_state, step, batch, mask):
+    def step_fn(opt_state, ema_state, scalars, batch, mask):
         # looked up per call: init_state / restore may replace the tensors
         params = dict(model.named_parameters())
         plist = list(params.values())
@@ -265,11 +276,26 @@ def build_spmd_step(model, optimizer: opt_lib.Optimizer, *,
             if clip_norm > 0:
                 agg, gnorm = opt_lib.clip_by_global_norm(agg, clip_norm)
                 metrics["grad_norm"] = gnorm
-            metrics.update(optimizer.apply(params, agg, opt_state, step))
+            optimizer.apply(params, agg, opt_state, scalars)
             del agg
             if ema_decay > 0:
                 ema_lib.update(ema_state, params.items(), ema_decay)
         return metrics
 
     return step_fn
+
+
+
+def build_spmd_chunk_step(model, optimizer: opt_lib.Optimizer,
+                          **step_kwargs) -> Callable:
+    """Twin of the host-mask ``train_step.build_chunk_step``: K engine
+    steps per call,
+
+        chunk(opt_state, ema, scalars {name: [K]}, batches {name: [K, B,
+              ...]}, masks [K, W]) -> metrics {name: [K]}
+
+    The body is the unmodified ``build_spmd_step`` step, so chunking
+    changes only how the steps are dispatched."""
+    return step_graph.chunk_step(
+        build_spmd_step(model, optimizer, **step_kwargs), model)
 

@@ -11,7 +11,8 @@ may be ``ld`` apart, e.g. a bucket sliced out of a wider stack), mask
 * It launches the hand-written kernel ``csrc/backup_reduce.cu`` (one pass
   over the stack, float4 loads where P, the row stride and both bases
   allow, the mask in shared memory; bandwidth-bound) and counts the launch
-  in ``launches``. It refuses CPU tensors: the caller picks the plain twin
+  in ``launches`` (a launch recorded in a CUDA-graph capture counts once
+  per replay: ``kernels.counters``). It refuses CPU tensors: the caller picks the plain twin
   for those (``bucketed_reduce.reduce_then_psum``, ``use_kernel``).
 * ``backup_reduce_plain`` is the same function in plain PyTorch with the
   kernel's arithmetic (ordered f32 sum over w, then one multiply by the

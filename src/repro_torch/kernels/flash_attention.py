@@ -18,7 +18,8 @@ f32 accumulation. Prefill routes every layer's attention through it.
   plain PyTorch (full f32 softmax), which the kernel is held to on the card.
 * ``use_kernel=False`` selects the plain version on either device.
 
-``launches`` counts kernel launches (and nothing else).
+``launches`` counts kernel launches (and nothing else); a launch recorded
+in a CUDA-graph capture counts once per replay (``kernels.counters``).
 """
 from __future__ import annotations
 

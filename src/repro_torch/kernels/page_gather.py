@@ -16,7 +16,8 @@ same pass. Dead table entries point at the trash page 0.
 * ``use_kernel=False`` selects the plain version on either device (the
   tests and ``chip_smoke.py``'s comparison phase).
 
-``launches`` counts kernel launches (and nothing else).
+``launches`` counts kernel launches (and nothing else); a launch recorded
+in a CUDA-graph capture counts once per replay (``kernels.counters``).
 """
 from __future__ import annotations
 

@@ -26,7 +26,9 @@ version for CPU tensors or ``use_kernel=False``, else the kernels.
 
 ``launches_fwd`` counts forward launches, ``launches_fwd_states`` those of
 them that wrote the chunk states, and ``launches_bwd`` backward calls, each
-of which launches the backward's two kernels (and nothing else counts).
+of which launches the backward's two kernels (and nothing else counts). A
+call recorded in a CUDA-graph capture counts once per replay
+(``kernels.counters``).
 """
 from __future__ import annotations
 

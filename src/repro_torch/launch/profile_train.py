@@ -1,6 +1,6 @@
 """Where the training step's time goes on the card: a torch.profiler window.
 
-    python -m repro_torch.launch.profile_train [--arch rwkv6-1.6b]
+    python -m repro_torch.launch.profile_train [--arch rwkv6-1.6b] [--graph]
 
 Builds a full-width training run (``train_config``, which
 ``chip_smoke.py`` drives too): qwen3-0.6b (28 layers, bf16, remat full;
@@ -16,11 +16,19 @@ kernel launches per step; kernels and ops ranked) and, for each of the
 engine's three phases (``spmd/worker_grad`` once per worker,
 ``spmd/reduce``, ``spmd/update``), its host wall time and the device busy
 time (the union of the kernel and copy intervals inside the phase's
-device span). Needs a card.
+device span). With ``--graph`` it then builds the same run at
+``chunk_size`` 3 (the trainer's CUDA graph: one captured step replayed
+per step) and profiles two steady chunks the same way, per step: host
+wall, device busy, the idle share and the launches; the capture's time
+and the peak device memory (allocated and reserved) are printed. A replay
+records no ``record_function`` range, so the per-phase table comes from
+the eager steps. Needs a card.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 
 import torch
 from torch.autograd import DeviceType
@@ -34,6 +42,7 @@ from repro_torch.models.common import resolve_device
 from repro_torch.train.loop import Trainer
 
 STEPS = 2
+CHUNK = 3            # steps per chunk in the graph mode
 PHASES = ("spmd/worker_grad", "spmd/reduce", "spmd/update")
 # arch -> backup (N, b). rwkv6-1.6b: P = 1,584,095,232, so the [W, P] f32
 # stack is 6.34 GB per worker beside 12.67 GB of rmsprop_momentum state and
@@ -67,6 +76,9 @@ def train_config(arch: str = "qwen3-0.6b", *, backend: str = "spmd",
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", choices=sorted(WORKERS), default="qwen3-0.6b")
+    ap.add_argument("--graph", action="store_true",
+                    help="then profile chunks of 3 steps through the CUDA "
+                         "graph")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     cfg = train_config(args.arch)
@@ -95,6 +107,22 @@ def main(argv=None) -> None:
               f"{busy / 1e3 / STEPS:.1f} ms/step")
     print(f"[profile] peak device memory {torch.cuda.max_memory_allocated()} "
           f"bytes")
+    if not args.graph:
+        return
+    del tr, prof, events
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(dataclasses.replace(cfg, chunk_size=CHUNK), device=dev)
+    tr.init_state()
+    _profile("train chunk graph, per step", lambda: tr.run(CHUNK), STEPS,
+             per_call=CHUNK)
+    g = tr.chunk_step.graph
+    print(f"[profile] graph: {g.captures} capture in {g.capture_s:.3f} s "
+          f"(the capture alone; the eager warmup step before it is a real "
+          f"step), {g.replays} replays | peak device memory "
+          f"{torch.cuda.max_memory_allocated()} bytes allocated, "
+          f"{torch.cuda.max_memory_reserved()} reserved")
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 
     python -m repro_torch.launch.train --arch qwen3-0.6b --smoke \\
         --steps 50 --strategy backup --workers 6 --backups 2 [--resume] \\
-        [--execution spmd] [--device cpu]
+        [--execution spmd] [--chunk-size 8] [--prefetch-depth 2] \\
+        [--device cpu]
 
 The reference's flags, plus ``--device``: the run is on the card unless
 ``--device cpu`` is given (without a card it raises). Everything routes
@@ -10,11 +11,14 @@ through ``repro_torch.train.loop.run_experiment`` with the paper's lr
 rule, EMA, atomic checkpoints and the reference's metric lines. On the
 card, ``--execution spmd`` aggregates through the ``backup_reduce``
 kernel. ``--grad-batch`` defaults to 1 here (one worker at a time), the
-only value the port runs.
+only value the port runs. ``--chunk-size K`` runs chunks of K steps (one
+captured CUDA graph replayed per step on the card, a loop on the CPU),
+with ``--prefetch-depth`` chunks of batches built ahead on a thread, as
+in the reference.
 
 The reference's flags of later slices are refused by name, with the
-ROADMAP item that ports them: ``--chunk-size`` > 1, ``--prefetch-depth``,
-``--straggler-backend device``, the event strategies and
+ROADMAP item that ports them: ``--straggler-backend device``, the event
+strategies and
 ``dynamic_backup`` (with ``--dynamic-window`` / ``--latency-source``),
 ``--faults`` / ``--supervise`` (``--fault-seed``, ``--max-restarts``),
 ``--trace`` / ``--metrics``, ``--platform``, ``--mesh-data`` /
@@ -41,7 +45,6 @@ PORTED_STRATEGIES = ("backup", "full_sync", "timeout")
 _Q = "ROADMAP Queue 1 item"
 # flag -> (argparse dest, the ROADMAP item that ports it); refused when set
 DEFERRED_FLAGS = {
-    "--prefetch-depth": ("prefetch_depth", f"{_Q} 3, the fused chunked loop"),
     "--dynamic-window": ("dynamic_window", f"{_Q} 7, dynamic_backup"),
     "--softsync-c": ("softsync_c", f"{_Q} 6, event regimes"),
     "--faults": ("faults", f"{_Q} 7, fault tolerance"),
@@ -90,7 +93,8 @@ def build_config(args) -> TrainConfig:
                                   bucket_size=args.bucket_size or 0),
         seed=args.seed, total_steps=args.steps, log_every=10,
         chunk_size=args.chunk_size,
-        straggler_backend=args.straggler_backend)
+        straggler_backend=args.straggler_backend,
+        prefetch_depth=args.prefetch_depth)
 
 
 def _validate(ap: argparse.ArgumentParser, args) -> None:
@@ -107,9 +111,6 @@ def _validate(ap: argparse.ArgumentParser, args) -> None:
     if args.latency_source != "sim":
         ap.error(f"--latency-source {args.latency_source} is not ported to "
                  f"repro_torch yet ({_Q} 7, dynamic_backup)")
-    if args.chunk_size != 1:
-        ap.error(f"--chunk-size {args.chunk_size}: the fused chunked loop is "
-                 f"not ported to repro_torch yet ({_Q} 3); use 1")
     if args.straggler_backend != "host":
         ap.error(f"--straggler-backend {args.straggler_backend} is not "
                  f"ported to repro_torch yet ({_Q} 6)")
@@ -165,7 +166,8 @@ def main(argv=None) -> None:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--chunk-size", type=int, default=1,
-                    help="iterations per dispatch; the port runs 1")
+                    help="steps per chunk: one CUDA graph replayed per step "
+                         "on the card (1 = the eager per-step loop)")
     ap.add_argument("--straggler-backend", choices=["host", "device"],
                     default="host")
     ap.add_argument("--execution", choices=["sim", "spmd"], default="sim",
@@ -185,7 +187,9 @@ def main(argv=None) -> None:
                     help="lanes of the flattened gradient per reduce bucket "
                          "(spmd only; 0 = one bucket)")
     ap.add_argument("--platform", choices=["cpu", "gpu", "tpu"], default=None)
-    ap.add_argument("--prefetch-depth", type=int, default=None)
+    ap.add_argument("--prefetch-depth", type=int, default=1,
+                    help="chunks of batches built ahead on a thread "
+                         "(chunked loop; 1 = double buffering)")
     ap.add_argument("--dynamic-window", type=int, default=None)
     ap.add_argument("--faults", default=None)
     ap.add_argument("--fault-seed", type=int, default=None)

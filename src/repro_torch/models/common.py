@@ -233,6 +233,7 @@ def chunked_cross_entropy(x: torch.Tensor, out_embed: torch.Tensor,
     for lo in range(0, x.shape[0], chunk):
         args = (x[lo:lo + chunk], out_embed, labels[lo:lo + chunk],
                 valid_vocab)
-        out.append(checkpoint(_chunk_ce, *args, use_reentrant=False)
+        out.append(checkpoint(_chunk_ce, *args, use_reentrant=False,
+                              preserve_rng_state=False)
                    if torch.is_grad_enabled() else _chunk_ce(*args))
     return torch.cat(out)

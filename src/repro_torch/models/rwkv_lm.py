@@ -7,9 +7,11 @@ The reference scans stacked ``blocks/<path>[L, ...]`` leaves; here
 (``ln1``, ``att``, ``ln2``, ``ffn``). Each block sees a fresh zero state.
 Every layer's wkv runs through the hand-written kernels on the card
 (``use_kernel=True``, the default) or their plain twin
-(``use_kernel=False``, and always on the CPU). Under remat ``full`` the
-first pass of each block writes no wkv chunk states (the checkpoint throws
-its saved tensors away); the recompute in backward writes them.
+(``use_kernel=False``, and always on the CPU). Under remat ``full`` and
+``dots`` the first pass of each block writes no wkv chunk states (the
+checkpoint throws its saved tensors away); the recompute in backward
+writes them. ``dots`` also keeps the outputs of the block's matmuls
+without batch dimensions and recomputes the rest, the wkv included.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import rwkv6_scan
 from repro_torch.models import common, rwkv6
-from repro_torch.models.transformer import _remat_layers
+from repro_torch.models.transformer import dots_contexts, remat_options
 
 _SERVE = ("RWKV decode and prefill are not ported yet: they come with the "
           "toy serve path (ROADMAP Queue 1 item 8)")
@@ -34,10 +36,23 @@ def _block(p, cfg, x, state, use_kernel: bool) -> torch.Tensor:
 
 
 def remat_contexts():
-    """``checkpoint``'s ``context_fn``: the first pass runs under
-    ``states_discarded`` (its saved tensors are dropped), the recompute as
-    it is."""
+    """``checkpoint``'s ``context_fn`` for remat 'full': the first pass
+    runs under ``states_discarded`` (its saved tensors are dropped), the
+    recompute as it is."""
     return rwkv6_scan.states_discarded(), contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _both(first, second):
+    with first, second:
+        yield
+
+
+def dots_remat_contexts():
+    """``context_fn`` for remat 'dots': ``dots_contexts`` with the first
+    pass also under ``states_discarded``."""
+    keep, recompute = dots_contexts()
+    return _both(rwkv6_scan.states_discarded(), keep), recompute
 
 
 class RWKVLM(nn.Module):
@@ -85,16 +100,19 @@ class RWKVLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens: [B, S] -> logits [B, S, V_padded]. Under remat ``full``
-        (with autograd on) each block recomputes in backward."""
-        remat = _remat_layers(self.cfg.remat) and torch.is_grad_enabled()
+        or ``dots`` (with autograd on) each block recomputes in backward."""
+        remat = remat_options(self.cfg.remat)
+        if remat is not None:
+            remat["context_fn"] = (dots_remat_contexts
+                                   if self.cfg.remat == "dots"
+                                   else remat_contexts)
         x = common.embed(self.embed, tokens).to(self.dtype)
         x = common.layernorm(self.ln_in, x, 1e-5)
         zero_state = self._fresh_states(tokens.shape[0])
         for p in self.blocks:
-            if remat:
+            if remat is not None and torch.is_grad_enabled():
                 x = checkpoint(_block, p, self.cfg, x, zero_state,
-                               self.use_kernel, use_reentrant=False,
-                               context_fn=remat_contexts)
+                               self.use_kernel, **remat)
             else:
                 x = _block(p, self.cfg, x, zero_state, self.use_kernel)
         x = common.layernorm(self.ln_out, x, 1e-5)

@@ -1,6 +1,7 @@
 """Decoder-only transformer LM, dense family.
 Reference: ``src/repro/models/transformer.py`` (``segments``,
 ``layer_windows_np``, ``block_init`` / ``block_apply``, ``_remat_wrap``
+(``none``, ``full`` and ``dots``: ``dots_with_no_batch_dims_saveable``)
 and ``TransformerLM``'s ``init``, ``_embed_inputs``, ``forward``,
 ``per_token_loss``, ``prefill`` and ``_output_weights``).
 
@@ -16,7 +17,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention, common, mlp
 
@@ -68,15 +70,38 @@ def block_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor,
     return x + mlp.mlp_apply(p["mlp"], h, cfg.hidden_act)
 
 
-def _remat_layers(policy: str) -> bool:
-    """The reference's remat policy for training: 'none' runs the layers
-    as they are, 'full' recomputes each layer in backward."""
-    if policy not in ("none", "full"):
-        raise NotImplementedError(
-            f"remat={policy!r} is not ported yet: the 'dots' policy (save "
-            f"the matmul outputs) comes with a later slice (ROADMAP Queue 1 "
-            f"item 3); use 'full' or 'none'")
-    return policy == "full"
+# matmuls without batch dimensions: what JAX's
+# dots_with_no_batch_dims_saveable keeps (bmm / einsum carry batch dims)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def dots_contexts():
+    """``checkpoint``'s ``context_fn`` for remat 'dots': the first pass
+    keeps the outputs of ``aten.mm`` / ``aten.addmm``, the recompute in
+    backward reads them back and recomputes everything else."""
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def remat_options(policy: str) -> Optional[dict]:
+    """The reference's remat policy for training as ``checkpoint``
+    keyword arguments: None for 'none' (the layers run as they are);
+    'full' recomputes each layer in backward, 'dots' all but its matmuls.
+    The layers draw no random numbers, so no RNG state is saved (which a
+    CUDA-graph capture would refuse)."""
+    if policy not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat policy {policy!r} (none, full, "
+                         f"dots)")
+    if policy == "none":
+        return None
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if policy == "dots":
+        kw["context_fn"] = dots_contexts
+    return kw
 
 
 class TransformerLM(nn.Module):
@@ -124,14 +149,16 @@ class TransformerLM(nn.Module):
             x = x * self.cfg.embed_scale
         return x
 
-    def _run_layers(self, x: torch.Tensor, remat: bool = False
+    def _run_layers(self, x: torch.Tensor, remat: Optional[dict] = None
                     ) -> torch.Tensor:
+        """``remat``: ``checkpoint`` keyword arguments (``remat_options``),
+        applied to each layer while autograd records."""
         positions = torch.arange(x.shape[1], device=x.device).expand(
             x.shape[:2])
         for p, win in zip(self.layers, self.windows):
-            if remat and torch.is_grad_enabled():
+            if remat is not None and torch.is_grad_enabled():
                 x = checkpoint(block_apply, p, self.cfg, x, positions, win,
-                               use_reentrant=False)
+                               **remat)
             else:
                 x = block_apply(p, self.cfg, x, positions, win)
         return x
@@ -159,7 +186,7 @@ class TransformerLM(nn.Module):
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
         x = self._run_layers(self._embed_inputs(tokens),
-                             remat=_remat_layers(cfg.remat))
+                             remat=remat_options(cfg.remat))
         x = common.rmsnorm(self.final_norm, x, cfg.norm_eps)
         b, s, d = x.shape
         out_w = self._output_weights()

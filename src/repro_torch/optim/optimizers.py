@@ -3,7 +3,8 @@ Reference: ``src/repro/optim/optimizers.py``.
 
     opt = make_optimizer(cfg, schedule)
     state = opt.init(named_params)          # {"ms": {...}, "mom": {...}}
-    stats = opt.apply(named_params, grads, state, step)
+    scalars = opt.scalars(step)             # {"lr": ...} host f32 values
+    opt.apply(named_params, grads, state, scalars)
 
 ``named_params`` maps a parameter name (the module's ``named_parameters``
 key) to its tensor; ``grads`` maps the same names to gradients; the state
@@ -14,24 +15,56 @@ inner dict keyed like the parameters. ``apply`` updates parameters and
 state in place, under ``no_grad`` (the reference returns new trees; in
 place the step holds one copy of each). The arithmetic and its order are
 the reference's: f32 state, updates computed in f32, each parameter
-rounded once to its own dtype. ``step`` is the host step (an int).
+rounded once to its own dtype.
+
+The step enters only through its host scalars: ``scalars(step)`` gives
+the values one step reads (the lr from the schedule, and Adam's bias
+corrections ``bc1``/``bc2``), computed in f32 as the reference computes
+them on the device. ``apply`` takes them as Python floats or as 0-dim f32
+tensors. The trainer stages a chunk's K rows of them as ``[K]`` f32
+tensors on the device and hands each step a 0-dim slice
+(``stage_scalars``), so a captured CUDA graph reads each step's values
+from memory instead of baking in the capture step's; its eager per-step
+path stages them too, since on CUDA a float divisor is applied as a
+multiply by its reciprocal and a tensor divisor as a division. On the
+CPU the two forms give the same bits.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Mapping, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 Named = Dict[str, torch.Tensor]
 State = Dict[str, Named]
+Scalars = Mapping[str, Union[float, torch.Tensor]]
+
+
+def _lr_scalars(schedule) -> Callable[[int], Dict[str, float]]:
+    return lambda step: {"lr": schedule(step)}
 
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Named], State]
-    apply: Callable[[Named, Named, State, int], Dict[str, float]]
+    apply: Callable[[Named, Named, State, Scalars], None]
+    scalars: Callable[[int], Dict[str, float]]
+
+
+def stage_scalars(optimizer: Optimizer, steps: Sequence[int],
+                  device) -> Dict[str, torch.Tensor]:
+    """The per-step host scalars of ``steps`` as ``{name: [K] f32}`` on
+    ``device`` (one host->device copy each; pinned first on the card)."""
+    rows = [optimizer.scalars(s) for s in steps]
+    out = {}
+    for name in rows[0]:
+        t = torch.from_numpy(np.array([r[name] for r in rows], np.float32))
+        if torch.device(device).type == "cuda":
+            t = t.pin_memory()
+        out[name] = t.to(device, non_blocking=True)
+    return out
 
 
 @torch.no_grad()
@@ -64,13 +97,12 @@ def sgd(schedule) -> Optimizer:
         return {}
 
     @torch.no_grad()
-    def apply(params, grads, state, step):
-        lr = schedule(step)
+    def apply(params, grads, state, scalars):
+        lr = scalars["lr"]
         for k, p in params.items():
             _set(p, p.float() - lr * grads[k].float())
-        return {"lr": lr}
 
-    return Optimizer(init, apply)
+    return Optimizer(init, apply, _lr_scalars(schedule))
 
 
 def momentum(schedule, beta: float = 0.9, nesterov: bool = False) -> Optimizer:
@@ -78,17 +110,16 @@ def momentum(schedule, beta: float = 0.9, nesterov: bool = False) -> Optimizer:
         return {"m": _f32_like(params)}
 
     @torch.no_grad()
-    def apply(params, grads, state, step):
-        lr = schedule(step)
+    def apply(params, grads, state, scalars):
+        lr = scalars["lr"]
         for k, p in params.items():
             g = grads[k].float()
             m = state["m"][k]
             m.mul_(beta).add_(g)
             upd = beta * m + g if nesterov else m
             _set(p, p.float() - lr * upd)
-        return {"lr": lr}
 
-    return Optimizer(init, apply)
+    return Optimizer(init, apply, _lr_scalars(schedule))
 
 
 def rmsprop_momentum(schedule, decay: float = 0.9, mom: float = 0.9,
@@ -99,17 +130,16 @@ def rmsprop_momentum(schedule, decay: float = 0.9, mom: float = 0.9,
         return {"ms": _f32_like(params), "mom": _f32_like(params)}
 
     @torch.no_grad()
-    def apply(params, grads, state, step):
-        lr = schedule(step)
+    def apply(params, grads, state, scalars):
+        lr = scalars["lr"]
         for k, p in params.items():
             g = grads[k].float()
             ms, mo = state["ms"][k], state["mom"][k]
             ms.mul_(decay).add_(torch.square(g).mul_(1 - decay))
             mo.mul_(mom).add_(g.mul(lr).div_(torch.sqrt(ms + eps)))
             _set(p, p.float() - mo)
-        return {"lr": lr}
 
-    return Optimizer(init, apply)
+    return Optimizer(init, apply, _lr_scalars(schedule))
 
 
 def adam(schedule, beta1: float = 0.9, beta2: float = 0.999,
@@ -117,12 +147,15 @@ def adam(schedule, beta1: float = 0.9, beta2: float = 0.999,
     def init(params):
         return {"m": _f32_like(params), "v": _f32_like(params)}
 
-    @torch.no_grad()
-    def apply(params, grads, state, step):
-        lr = schedule(step)
+    def scalars(step):
         t = np.float32(step) + np.float32(1.0)
-        bc1 = float(np.float32(1.0) - np.float32(beta1) ** t)
-        bc2 = float(np.float32(1.0) - np.float32(beta2) ** t)
+        return {"lr": schedule(step),
+                "bc1": float(np.float32(1.0) - np.float32(beta1) ** t),
+                "bc2": float(np.float32(1.0) - np.float32(beta2) ** t)}
+
+    @torch.no_grad()
+    def apply(params, grads, state, scalars):
+        lr, bc1, bc2 = scalars["lr"], scalars["bc1"], scalars["bc2"]
         for k, p in params.items():
             g = grads[k].float()
             m, v = state["m"][k], state["v"][k]
@@ -132,9 +165,8 @@ def adam(schedule, beta1: float = 0.9, beta2: float = 0.999,
             if weight_decay:
                 u = u + weight_decay * p.float()
             _set(p, p.float() - lr * u)
-        return {"lr": lr}
 
-    return Optimizer(init, apply)
+    return Optimizer(init, apply, scalars)
 
 
 def adagrad(schedule, eps: float = 1e-8) -> Optimizer:
@@ -142,16 +174,15 @@ def adagrad(schedule, eps: float = 1e-8) -> Optimizer:
         return {"acc": _f32_like(params)}
 
     @torch.no_grad()
-    def apply(params, grads, state, step):
-        lr = schedule(step)
+    def apply(params, grads, state, scalars):
+        lr = scalars["lr"]
         for k, p in params.items():
             g = grads[k].float()
             acc = state["acc"][k]
             acc.add_(torch.square(g))
             _set(p, p.float() - lr * g / (torch.sqrt(acc) + eps))
-        return {"lr": lr}
 
-    return Optimizer(init, apply)
+    return Optimizer(init, apply, _lr_scalars(schedule))
 
 
 def make_optimizer(opt_cfg, schedule) -> Optimizer:

@@ -18,6 +18,15 @@ A decode step costs one packed int32 host->device transfer
 device->host read; an admission one packed transfer and one scalar read.
 Those reads are also what fences the device inside each span.
 
+On the card the decode step is one captured CUDA graph per engine
+(``core.step_graph.StepGraph``; its shapes are static and it reads the
+page table on the device): each step copies the packed state into the
+graph's static ``[slots, 2 + max_pages]`` buffer and replays it over the
+engine's pool, which persists across runs (zeroed at the start of each).
+``decode_compiles`` counts its captures: 1, the reference's contract.
+``decode_graph=False`` runs the step eagerly (the comparison runs), and
+the CPU always does. Prefill stays eager, one shape per bucket.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the slice
 that brings them: ``mesh_model > 1`` (tensor parallelism), ``faults``
 (chaos), ``slo`` (admission gate), ``metrics`` (the telemetry registry),
@@ -34,6 +43,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.step_graph import StepGraph
 from repro_torch.models.common import resolve_device
 from repro_torch.obs.trace import as_tracer
 from repro_torch.serve import pages as pages_lib
@@ -107,7 +117,9 @@ class ServeEngine:
     built for ``model_cfg`` on ``device`` (``None`` means ``cuda``; pass
     ``device="cpu"`` to serve on the CPU). ``use_kernel=False`` swaps the
     hand-written kernels for their plain versions (used by the tests and
-    the kernel-vs-plain comparison only)."""
+    the kernel-vs-plain comparison only). ``decode_graph`` (default: on
+    the card) replays decode as a captured CUDA graph; True on the CPU
+    raises."""
 
     def __init__(self, model_cfg, model, *, num_slots: int = 4,
                  page_size: int = 8, max_prompt_len: int = 32,
@@ -119,7 +131,8 @@ class ServeEngine:
                  eos_id: Optional[int] = None,
                  max_queue: Optional[int] = None,
                  strict_capacity: bool = True,
-                 slo=None, tracer=None, metrics=None):
+                 slo=None, tracer=None, metrics=None,
+                 decode_graph: Optional[bool] = None):
         ok, why = supports_paged(model_cfg)
         if not ok:
             raise ValueError(f"paged serving unsupported: {why}")
@@ -180,6 +193,25 @@ class ServeEngine:
         self._buckets_run: set = set()
         self._decode_ran = False
         self.pool_bytes = 0
+        self._bufs: Optional[Dict[str, torch.Tensor]] = None
+        if decode_graph is None:
+            decode_graph = self.device.type == "cuda"
+        self._decode_graph = (StepGraph(self._decode_on_static, self.device)
+                              if decode_graph else None)
+
+    def _decode_on_static(self, static):
+        return {"tokens": self._decode(static["state"], self._bufs)}
+
+    def _decode_step(self, state: np.ndarray) -> torch.Tensor:
+        """One decode step over every slot from the packed host state
+        ``[slots, 2 + max_pages]`` int32: the next tokens ``[slots]`` on
+        the device (a graph replay on the card)."""
+        state_t = torch.from_numpy(state)
+        if self._decode_graph is None:
+            return self._decode(state_t.to(self.device), self._bufs)
+        weights_and_pool = [*self.model.parameters(), *self._bufs.values()]
+        return self._decode_graph({"state": state_t},
+                                  weights_and_pool)["tokens"]
 
     # -- shape counters (the reference's compile counters) -------------------
 
@@ -190,7 +222,10 @@ class ServeEngine:
 
     @property
     def decode_compiles(self) -> int:
-        """1 once decode ran."""
+        """Captures of the decode graph (1 once decode ran); eager: 1 once
+        decode ran."""
+        if self._decode_graph is not None:
+            return self._decode_graph.captures
         return int(self._decode_ran)
 
     # -- clock ----------------------------------------------------------------
@@ -254,7 +289,7 @@ class ServeEngine:
         for r in trace:
             self.validate_request(r)
         pool = pages_lib.PagePool(self.pool_cfg, dtype=self.model.dtype,
-                                  device=self.device)
+                                  device=self.device, buffers=self._bufs)
         self._bufs = pool.buffers
         self.pool_bytes = pool.nbytes
         pending = collections.deque(
@@ -337,9 +372,7 @@ class ServeEngine:
             t_start = time.perf_counter()
             with self.tracer.span("serve/decode", step=step_idx,
                                   n_active=len(active)):
-                toks_dev = self._decode(torch.from_numpy(state).to(
-                    self.device), self._bufs)
-                next_tokens = toks_dev.cpu().numpy()
+                next_tokens = self._decode_step(state).cpu().numpy()
             self._decode_ran = True
             self._decode_s += time.perf_counter() - t_start
             self._advance_decode()

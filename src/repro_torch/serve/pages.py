@@ -51,22 +51,30 @@ class PagePool:
     """Host allocator + device buffers for the paged KV cache."""
 
     def __init__(self, pool_cfg: PoolConfig, dtype=torch.float32,
-                 device="cpu"):
+                 device="cpu", *,
+                 buffers: Optional[Dict[str, torch.Tensor]] = None):
+        """``buffers``: an earlier pool's buffers of this config, zeroed and
+        reused in place (so a captured decode graph keeps reading them)."""
         self.cfg = pool_cfg
         c = pool_cfg
         shape = (c.num_layers, c.num_pages, c.page_size, c.kv_heads,
                  c.head_dim)
         payload_dtype = torch.int8 if c.quantized else dtype
-        bufs: Dict[str, torch.Tensor] = {
-            "k": torch.zeros(shape, dtype=payload_dtype, device=device),
-            "v": torch.zeros(shape, dtype=payload_dtype, device=device),
-        }
-        if c.quantized:
-            bufs["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float16,
-                                          device=device)
-            bufs["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float16,
-                                          device=device)
-        self.buffers = bufs
+        if buffers is not None:
+            for t in buffers.values():
+                t.zero_()
+            self.buffers = buffers
+        else:
+            bufs: Dict[str, torch.Tensor] = {
+                "k": torch.zeros(shape, dtype=payload_dtype, device=device),
+                "v": torch.zeros(shape, dtype=payload_dtype, device=device),
+            }
+            if c.quantized:
+                bufs["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float16,
+                                              device=device)
+                bufs["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float16,
+                                              device=device)
+            self.buffers = bufs
         # -- host bookkeeping: page 0 reserved as the trash page ------------
         self._free: List[int] = list(range(c.num_pages - 1, 0, -1))
         self._owned: Dict[int, List[int]] = {}

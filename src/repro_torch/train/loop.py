@@ -1,8 +1,9 @@
 """The Trainer: the paper's mask-mode coordination regimes behind one entry
 point. Reference: ``src/repro/train/loop.py`` (``TrainResult``,
-``Trainer`` on the per-step path — ``_build_mask``, ``init_state``,
-``save_checkpoint``, ``restore_checkpoint``, ``run``,
-``_run_one_step`` — and ``run_experiment``; :97-311, 366-533, 738-911,
+``Trainer`` in mask mode — ``_build_mask``, ``init_state``,
+``save_checkpoint``, ``restore_checkpoint``, ``run``, ``_chunk_len_at``,
+``_next_chunk_specs``, ``_run_one_step``, ``_run_chunk`` on the host
+straggler backend — and ``run_experiment``; :97-311, 366-533, 738-968,
 1122-1162).
 
 The strategy, built from ``cfg.aggregation`` by
@@ -20,14 +21,26 @@ backup, timeout). Per step:
 4. on checkpoint cadence, state is committed atomically in the
    reference's format (so either package resumes the other's run).
 
+With ``cfg.chunk_size > 1`` the loop runs chunks of up to K steps: the
+simulator plans the chunk's K masks at once (``next_events``), the
+``ChunkPrefetcher`` builds its K stacked batches ahead on a thread, and
+the batches, masks and the optimizer's K per-step scalars reach the
+device in one copy each (through pinned memory on the card). The chunk
+step (``train_step.build_chunk_step``, ``spmd_engine.
+build_spmd_chunk_step``) replays one captured CUDA graph per step on the
+card and loops on the CPU; its metrics are read back once per chunk, and
+only when a logged step falls inside it. Chunk boundaries fall on the run
+target and the checkpoint cadence, so resume is unchanged, and a chunk of
+one step still takes the chunk path, as in the reference.
+
 The model holds the parameters; the optimizer state and the EMA are
 dicts of f32 tensors keyed like them. Everything runs on ``device``
 (``None`` = the card; ``"cpu"`` must be asked for).
 
 Refused, each with ``NotImplementedError`` naming its ROADMAP item, and
-never run another way: the fused chunked loop (``chunk_size > 1``), the
-device straggler backend, the event strategies and ``dynamic_backup``
-(the registry), fault injection and supervision, failure injection
+never run another way: the device straggler backend (with its
+``device_batch_fn``), the event strategies and ``dynamic_backup`` (the
+registry), fault injection and supervision, failure injection
 (``kill_worker_at``) and elastic rescale.
 """
 from __future__ import annotations
@@ -44,14 +57,16 @@ from repro_torch.core import ema as ema_lib
 from repro_torch.core import registry
 from repro_torch.core.events import StragglerSimulator
 from repro_torch.core.straggler import LatencyModel, PaperCalibrated
-from repro_torch.data.synthetic_lm import (PipelineState, SyntheticLMConfig,
+from repro_torch.data.synthetic_lm import (ChunkPrefetcher, PipelineState,
+                                           SyntheticLMConfig,
                                            SyntheticLMPipeline)
 from repro_torch.distributed import spmd_engine
 from repro_torch.models import from_jax_tree, get_model, to_jax_tree
 from repro_torch.models.common import resolve_device
 from repro_torch.optim import make_optimizer, schedules
+from repro_torch.optim.optimizers import stage_scalars
 from repro_torch.train import checkpoint as ckpt_lib
-from repro_torch.train.train_step import build_train_step
+from repro_torch.train.train_step import build_chunk_step, build_train_step
 
 _FAULTS = "fault tolerance, ROADMAP Queue 1 item 7"
 
@@ -69,22 +84,19 @@ class TrainResult:
     mean_selected: float = 0.0
     mean_staleness: float = 0.0
     wall_time_s: float = 0.0
-    # host wall time of each step of this run; a logged step includes its
-    # metrics read, which waits for the device
+    # host wall time of each step of this run (a chunk's steps share its
+    # time evenly); a logged step includes its metrics read, which waits
+    # for the device
     step_times_s: List[float] = dataclasses.field(default_factory=list)
 
 
 def _refuse_deferred(cfg: TrainConfig) -> None:
     """Options of later slices: refused by name, never run another way."""
-    if cfg.chunk_size > 1:
-        raise NotImplementedError(
-            f"chunk_size={cfg.chunk_size}: the fused K-step loop (one "
-            f"lax.scan dispatch in the reference; a CUDA graph on the card) "
-            f"is not ported yet (ROADMAP Queue 1 item 3); use chunk_size=1")
     if cfg.straggler_backend == "device":
         raise NotImplementedError(
-            "straggler_backend='device' (sampling inside the fused loop) is "
-            "not ported yet (ROADMAP Queue 1 item 6); use 'host'")
+            "straggler_backend='device' (arrivals and batches sampled on "
+            "the device inside the chunk: straggler_jax, device_batch_fn) "
+            "is not ported yet (ROADMAP Queue 1 item 6); use 'host'")
     if cfg.straggler_backend != "host":
         raise ValueError(f"unknown straggler_backend "
                          f"{cfg.straggler_backend!r} (host|device)")
@@ -141,19 +153,27 @@ class Trainer:
             n_aggregate=cfg.aggregation.num_workers,
             ema_decay=cfg.optimizer.ema_decay,
             clip_norm=cfg.optimizer.clip_global_norm)
+        chunked = cfg.chunk_size > 1
         if self._spmd:
             ex = cfg.execution
             spmd_engine.check_mesh(ex.mesh_data, ex.mesh_model)
             spmd_engine.validate_layout(cfg.aggregation.total_workers,
                                         cfg.shape.global_batch, ex.mesh_data)
-            self.train_step = spmd_engine.build_spmd_step(
-                self.model, self.optimizer, **step_kwargs,
+            build = (spmd_engine.build_spmd_chunk_step if chunked
+                     else spmd_engine.build_spmd_step)
+            step_kwargs.update(
                 use_kernel=ex.use_kernel, interpret=ex.interpret,
                 grad_batch=ex.grad_batch, bucket_size=ex.bucket_size,
                 mesh_data=ex.mesh_data, mesh_model=ex.mesh_model)
         else:
-            self.train_step = build_train_step(self.model, self.optimizer,
-                                               **step_kwargs)
+            build = build_chunk_step if chunked else build_train_step
+        step = build(self.model, self.optimizer, **step_kwargs)
+        if chunked:
+            self.chunk_step = step
+            self.prefetcher = ChunkPrefetcher(self.pipeline.cfg,
+                                              depth=cfg.prefetch_depth)
+        else:
+            self.train_step = step
         self.step = 0
 
     @property
@@ -261,8 +281,14 @@ class Trainer:
                             f"rescale is not ported yet ({_FAULTS})")
                     raise RuntimeError("insufficient live workers")
                 ts = time.perf_counter()
-                self._run_one_step(target)
-                step_times.append(time.perf_counter() - ts)
+                if self.cfg.chunk_size > 1:
+                    # k == 1 still goes through the chunk path
+                    k = self._chunk_len_at(self.step, target)
+                    self._run_chunk(k, target)
+                else:
+                    k = 1
+                    self._run_one_step(target)
+                step_times += [(time.perf_counter() - ts) / k] * k
                 every = self.cfg.checkpoint.every_steps
                 if every > 0 and self.step % every == 0:
                     self.save_checkpoint()
@@ -274,6 +300,50 @@ class Trainer:
             mean_selected=self._sel_sum / max(self._sel_count, 1),
             wall_time_s=self._wall_s, step_times_s=step_times)
 
+    def _chunk_len_at(self, step: int, target: int) -> int:
+        """Steps from ``step`` to the next forced boundary: the run target
+        or the checkpoint cadence (so resume is unchanged by chunking).
+        Also predicts the next chunks' lengths for the prefetcher."""
+        k = min(self.cfg.chunk_size, target - step)
+        every = self.cfg.checkpoint.every_steps
+        if every > 0:
+            k = min(k, every - step % every)
+        return max(k, 1)
+
+    def _next_chunk_specs(self, k: int, target: int) -> List:
+        """Predicted (data step, length) of the ``prefetch_depth`` chunks
+        after the current one, by the same boundary rules, so speculation
+        hits at ragged boundaries too; a miss costs only the speculated
+        work."""
+        specs = []
+        s = self.step + k
+        d = self.pipeline.state.step + k
+        for _ in range(max(self.cfg.prefetch_depth, 0)):
+            if s >= target:
+                break
+            kk = self._chunk_len_at(s, target)
+            specs.append((d, kk))
+            s += kk
+            d += kk
+        return specs
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the device: on the card copied once into pinned
+        memory, then to the device without blocking the host."""
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _log(self, selected: int, metrics: Dict[str, float],
+             lr: float) -> None:
+        self.metrics.append({"step": self.step, "sim_time": self.sim_time,
+                             "selected": selected, "staleness": 0.0,
+                             **metrics, "lr": lr})
+
+    def _logged(self, target: int) -> bool:
+        return self.step % self.cfg.log_every == 0 or self.step == target
+
     def _run_one_step(self, target: int) -> None:
         """One step: plan the mask, build the batch, run the train step;
         the metrics are read back (one sync) only on a logged step."""
@@ -281,16 +351,46 @@ class Trainer:
         batch = {k: torch.from_numpy(v).to(self.device)
                  for k, v in self.pipeline.next().items()}
         mask = torch.from_numpy(ev.mask).to(self.device)
-        m = self.train_step(self.opt_state, self.ema, self.step, batch, mask)
+        lr = self.optimizer.scalars(self.step)["lr"]
+        scalars = {k: v[0] for k, v in stage_scalars(
+            self.optimizer, [self.step], self.device).items()}
+        m = self.train_step(self.opt_state, self.ema, scalars, batch, mask)
         self.sim_time += ev.iteration_time
         self.step += 1
         selected = int(ev.mask.sum())
         self._sel_sum += selected
         self._sel_count += 1
-        if self.step % self.cfg.log_every == 0 or self.step == target:
-            self.metrics.append({"step": self.step, "sim_time": self.sim_time,
-                                 "selected": selected, "staleness": 0.0,
-                                 **{k: float(v) for k, v in m.items()}})
+        if self._logged(target):
+            self._log(selected, {k: float(v) for k, v in m.items()}, lr)
+
+    def _run_chunk(self, k: int, target: int) -> None:
+        """k steps through the chunk step: one copy each of the stacked
+        batches, masks and scalars, one metrics read when a logged step
+        falls inside the chunk."""
+        steps = list(range(self.step, self.step + k))
+        chunk_np = self.prefetcher.get(
+            self.pipeline.state.step, k,
+            next_specs=self._next_chunk_specs(k, target))
+        self.pipeline.state.step += k
+        events = self.sim.next_events(k)
+        batches = {key: self._to_device(v) for key, v in chunk_np.items()}
+        masks = self._to_device(events.masks)
+        scalars = stage_scalars(self.optimizer, steps, self.device)
+        ms = self.chunk_step(self.opt_state, self.ema, scalars, batches,
+                             masks)
+        selected = events.masks.sum(axis=1)
+        self._sel_sum += float(selected.sum())
+        self._sel_count += k
+        ms_np = None
+        for i, step in enumerate(steps):
+            self.sim_time += float(events.times[i])
+            self.step += 1
+            if self._logged(target):
+                if ms_np is None:
+                    ms_np = {key: v.cpu().numpy() for key, v in ms.items()}
+                self._log(int(selected[i]),
+                          {key: float(v[i]) for key, v in ms_np.items()},
+                          self.optimizer.scalars(step)["lr"])
 
 
 # ---------------------------------------------------------------------------

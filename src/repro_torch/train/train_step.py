@@ -1,18 +1,27 @@
 """The ``sim`` backend's train step: model + optimizer + the paper's
 aggregation as a mask-weighted loss.
 Reference: ``src/repro/train/train_step.py`` (``make_loss_fn``,
-``_microbatch_split``, ``build_train_step``; :31-124).
+``_microbatch_split``, ``build_train_step``, and ``build_chunk_step`` in
+its host-mask mode; :31-194).
 
 The step signature, shared with the spmd engine, is
 
-    step(opt_state, ema, step, batch, mask) -> metrics
+    step(opt_state, ema, scalars, batch, mask) -> metrics
 
 ``mask`` is the [W] backup-worker selection for this step (host-planned
-by the ``StragglerSimulator``). The masked aggregation is realized by
-weighting per-example losses (``core.sync_backup``), so the gradient of
-the one global loss is Alg. 4's mean of the fastest N. The model holds
-the parameters; they, ``opt_state`` and ``ema`` are updated in place.
-The fused K-step ``build_chunk_step`` comes with the chunked loop.
+by the ``StragglerSimulator``), ``scalars`` the optimizer's per-step
+values (``Optimizer.scalars(step)``: the lr, and Adam's bias
+corrections), as floats or 0-dim f32 tensors. The masked aggregation is
+realized by weighting per-example losses (``core.sync_backup``), so the
+gradient of the one global loss is Alg. 4's mean of the fastest N. The
+model holds the parameters; they, ``opt_state`` and ``ema`` are updated
+in place. ``metrics`` are 0-dim device tensors (the host lr is the
+trainer's to log).
+
+``build_chunk_step`` runs K steps over stacked inputs, the reference's
+one ``lax.scan`` dispatch: a Python loop over the step on the CPU, a
+captured CUDA graph replayed K times on the card
+(``core.step_graph.chunk_step``).
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.core import ema as ema_lib
+from repro_torch.core import step_graph
 from repro_torch.core import sync_backup
 from repro_torch.distributed.spmd_engine import per_example_loss
 from repro_torch.optim import optimizers as opt_lib
@@ -88,7 +98,7 @@ def build_train_step(model, optimizer: opt_lib.Optimizer, *,
         return ({k: a / num_microbatches for k, a in acc.items()},
                 {k: v / num_microbatches for k, v in sums.items()})
 
-    def train_step(opt_state, ema_state, step, batch, mask):
+    def train_step(opt_state, ema_state, scalars, batch, mask):
         # looked up per call: init_state / restore may replace the tensors
         params = dict(model.named_parameters())
         grads, metrics = compute_grads(params, batch, mask)
@@ -96,9 +106,29 @@ def build_train_step(model, optimizer: opt_lib.Optimizer, *,
             if clip_norm > 0:
                 grads, gnorm = opt_lib.clip_by_global_norm(grads, clip_norm)
                 metrics["grad_norm"] = gnorm
-            metrics.update(optimizer.apply(params, grads, opt_state, step))
+            optimizer.apply(params, grads, opt_state, scalars)
             if ema_decay > 0:
                 ema_lib.update(ema_state, params.items(), ema_decay)
         return metrics
 
     return train_step
+
+
+def build_chunk_step(model, optimizer: opt_lib.Optimizer, *,
+                     num_workers: int, n_aggregate: int,
+                     ema_decay: float = 0.0, clip_norm: float = 0.0,
+                     num_microbatches: int = 1) -> Callable:
+    """K steps per call over stacked inputs (the reference's host-mask
+    mode):
+
+        chunk(opt_state, ema, scalars {name: [K]}, batches {name: [K, B,
+              ...]}, masks [K, W]) -> metrics {name: [K]}
+
+    Step k reads row k of every input; the step counter advances through
+    the staged scalar rows, as the reference's carry does. The body is
+    the unmodified ``build_train_step`` step."""
+    step_fn = build_train_step(
+        model, optimizer, num_workers=num_workers, n_aggregate=n_aggregate,
+        ema_decay=ema_decay, clip_norm=clip_norm,
+        num_microbatches=num_microbatches)
+    return step_graph.chunk_step(step_fn, model)

@@ -195,10 +195,11 @@ def test_optimizers_match_five_steps(name):
         g = _tree(rng, scale=0.1)
         jp, js, jstats = jo.apply(jp, {k: jnp.asarray(v) for k, v in g.items()},
                                   js, jnp.asarray(step, jnp.int32))
-        tstats = to.apply(tp, {k: torch.from_numpy(v) for k, v in g.items()},
-                          ts, step)
+        scalars = to.scalars(step)
+        to.apply(tp, {k: torch.from_numpy(v) for k, v in g.items()}, ts,
+                 scalars)
         # f32 pow on either side: may differ in the last ulp
-        np.testing.assert_allclose(tstats["lr"], float(jstats["lr"]),
+        np.testing.assert_allclose(scalars["lr"], float(jstats["lr"]),
                                    rtol=2e-7)
     for k in p0:
         np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),

@@ -47,6 +47,13 @@ where only PyTorch is installed:
   of them writing chunk states); and remat "full" against "none" on the
   card: the same launches of the backward, one state-writing forward per
   layer in both, loss and gradients within atol 1e-5.
+* CUDA graphs: the chunked trainer (one captured step replayed) against
+  the eager per-step loop, qwen3 and rwkv6 smoke, ``sim`` and ``spmd``:
+  parameters, optimizer state, EMA and metrics bit-equal; a graph
+  captured before ``init_state`` or ``reset_optimizer_state`` is captured
+  anew, never replayed on the old tensors, and a restore keeps it; the
+  launch counters count replays (the eager loop's counts); graph decode
+  gives the eager decode's greedy tokens, fp and int8, with one capture.
 """
 import pytest
 
@@ -530,3 +537,124 @@ def test_rwkv_model_remat_writes_states_once_per_layer(cuda_device):
     for name, g in runs["full"][1].items():
         np.testing.assert_allclose(g, runs["none"][1][name], atol=1e-5,
                                    err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: the chunked trainer and graph decode
+# ---------------------------------------------------------------------------
+
+
+def _chunk_cfg(arch, backend, chunk, directory="", every=0, optimizer=None):
+    return dataclasses.replace(
+        _train_cfg(), model=dataclasses.replace(
+            configs.get_smoke_config(arch), remat="full"),
+        optimizer=optimizer or OptimizerConfig(
+            name="momentum", learning_rate=0.05, scale_lr_with_workers=False,
+            ema_decay=0.99),
+        execution=ExecutionConfig(backend=backend, grad_batch=1),
+        checkpoint=CheckpointConfig(directory=directory, every_steps=every),
+        chunk_size=chunk)
+
+
+def _state_equal(a, b):
+    """Params, optimizer state and EMA of two trainers, bit for bit."""
+    for k, v in a.params.items():
+        assert torch.equal(v, b.params[k]), k
+    for s, sub in a.opt_state.items():
+        for k, v in sub.items():
+            assert torch.equal(v, b.opt_state[s][k]), (s, k)
+    for k, v in a.ema.items():
+        assert torch.equal(v, b.ema[k]), k
+
+
+@pytest.mark.parametrize("backend", ["sim", "spmd"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b"])
+def test_graph_chunks_match_eager_steps(cuda_device, arch, backend):
+    """5 steps at chunk 3 (chunks of 3 and 2; one capture, then replays)
+    against the eager per-step loop: bit-equal state and metrics."""
+    runs = {}
+    for chunk in (1, 3):
+        tr = Trainer(_chunk_cfg(arch, backend, chunk), device=cuda_device)
+        tr.init_state()
+        runs[chunk] = (tr, tr.run(5))
+    (eager, re), (graph, rg) = runs[1], runs[3]
+    assert rg.metrics == re.metrics and rg.sim_time == re.sim_time
+    _state_equal(eager, graph)
+    g = graph.chunk_step.graph
+    assert (g.captures, g.replays) == (1, 4)
+
+
+def test_graph_recaptures_when_the_state_is_rebuilt(cuda_device):
+    """init_state and reset_optimizer_state build new tensors: the next
+    chunk captures anew instead of updating the old ones; a restore copies
+    in place and keeps the graph. Each stage equals the eager loop's."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        trainers = {}
+        for chunk in (1, 2):
+            tr = Trainer(_chunk_cfg("qwen3-0.6b", "spmd", chunk,
+                                    directory=f"{d}/{chunk}", every=2),
+                         device=cuda_device)
+            tr.init_state()
+            tr.run(2)
+            tr.init_state(seed=5)
+            tr.run(2)
+            tr.reset_optimizer_state()
+            tr.run(2)
+            tr.restore_checkpoint(4)
+            tr.run(2)
+            trainers[chunk] = tr
+        _state_equal(trainers[1], trainers[2])
+        assert trainers[1].metrics == trainers[2].metrics
+        assert trainers[2].chunk_step.graph.captures == 3
+
+
+def test_launch_counters_count_replays(cuda_device):
+    """Through the graph each wrapper's count is what the card ran: the
+    same counts as the eager loop (rwkv6 smoke, spmd, 4 workers)."""
+    cfg = dataclasses.replace(
+        _chunk_cfg("rwkv6-1.6b", "spmd", 3),
+        aggregation=AggregationConfig(strategy="backup", num_workers=3,
+                                      backup_workers=1))
+    counts = {}
+    for chunk in (1, 3):
+        tr = Trainer(dataclasses.replace(cfg, chunk_size=chunk),
+                     device=cuda_device)
+        tr.init_state()
+        before = (twkv.launches_fwd, twkv.launches_fwd_states,
+                  twkv.launches_bwd, treduce.launches)
+        tr.run(3)
+        torch.cuda.synchronize()
+        counts[chunk] = tuple(a - b for a, b in zip(
+            (twkv.launches_fwd, twkv.launches_fwd_states, twkv.launches_bwd,
+             treduce.launches), before))
+    per_step = cfg.model.num_layers * 4
+    assert counts[3] == counts[1] == (2 * per_step * 3, per_step * 3,
+                                      per_step * 3, 3)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_graph_decode_matches_eager(cuda_device, int8):
+    """Graph decode (the default on the card) gives the eager decode's
+    greedy tokens and gather launches; one capture serves two runs."""
+    cfg = configs.get_smoke_config("qwen3-0.6b")
+    model = TransformerLM(cfg, device=cuda_device,
+                          generator=torch.Generator(
+                              device=cuda_device).manual_seed(6))
+    kw = dict(num_slots=3, page_size=4, max_prompt_len=12, max_new_cap=8,
+              clock="virtual", cache_int8=int8)
+    trace = make_trace(TraceConfig(
+        num_requests=6, rate=100.0, prompt_len_min=2, prompt_len_max=12,
+        max_new_min=2, max_new_max=8, vocab=cfg.vocab_size, seed=6))
+    eager = ServeEngine(cfg, model, decode_graph=False, **kw)
+    graph = ServeEngine(cfg, model, **kw)
+    out = {}
+    for tag, eng in (("eager", eager), ("graph", graph)):
+        before = tgather.launches
+        report = eng.run(trace)
+        torch.cuda.synchronize()
+        out[tag] = (report.tokens_by_rid(), tgather.launches - before)
+    assert out["graph"] == out["eager"]
+    assert graph.decode_compiles == 1
+    assert graph.run(trace).tokens_by_rid() == out["eager"][0]
+    assert graph.decode_compiles == 1

@@ -33,18 +33,18 @@ held to it on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
   under a non-reentrant checkpoint with ``rwkv_lm.remat_contexts`` the
   first pass of ``WKV6`` writes no chunk states, the recompute does, the
   backward gets the real ones and the gradients equal a run without
-  checkpoint (bit for bit; through ``RWKVLM``, remat "full" against
-  "none"); a backward handed the placeholder raises.
+  checkpoint (bit for bit; through ``RWKVLM``, remat "full" and "dots"
+  against "none"); a backward handed the placeholder raises.
 * (d) time mix, channel mix and the block against JAX: atol 1e-5.
 * (e) ``RWKVLM`` logits, ``per_token_loss`` and its gradients against
-  ``jax.value_and_grad``, remat "none" and "full": atol 1e-5.
+  ``jax.value_and_grad``, remat "none", "full" and "dots": atol 1e-5.
 * (f) ``run_experiment``, backup 6 + 2, 4 steps, ``sim`` and ``spmd``,
   against the JAX trainer: masks and ``sim_time`` equal, losses within
   rtol 1e-5, params and EMA within atol 1e-5 (``test_torch_train.py``'s).
 * (g) checkpoints resume across packages both ways (atol 1e-5).
 * (h) the training CLI runs ``--arch rwkv6-1.6b --smoke --device cpu``.
 * (i) the converter round-trips the ``blocks`` tree and names a bad leaf.
-* (j) remat "dots" and the serve entry points are refused by name.
+* (j) the serve entry points are refused by name.
 """
 import dataclasses
 import functools
@@ -385,7 +385,7 @@ def test_rwkv_model_remat_writes_wkv_states_once(monkeypatch):
     cfg = tconfigs.get_smoke_config(ARCH)
     toks, labels = _loss_inputs(cfg.vocab_size)
     weights, runs = None, {}
-    for remat in ("none", "full"):
+    for remat in ("none", "full", "dots"):
         model = RWKVLM(dataclasses.replace(cfg, remat=remat), device="cpu")
         if weights is None:
             weights = model.state_dict()
@@ -398,14 +398,16 @@ def test_rwkv_model_remat_writes_wkv_states_once(monkeypatch):
     layers = cfg.num_layers
     assert [e for e in runs["none"][2] if e[0] == "fwd"] == \
         [("fwd", True)] * layers
-    assert [e for e in runs["full"][2] if e[0] == "fwd"] == \
-        [("fwd", False)] * layers + [("fwd", True)] * layers
+    for remat in ("full", "dots"):
+        assert [e for e in runs[remat][2] if e[0] == "fwd"] == \
+            [("fwd", False)] * layers + [("fwd", True)] * layers
     for _, _, run_log in runs.values():
         assert [e for e in run_log if e[0] == "bwd"] == \
             [("bwd", False, True)] * layers
-    assert torch.equal(runs["none"][0], runs["full"][0])
-    for name, p in runs["full"][1].items():
-        assert torch.equal(p.grad, runs["none"][1][name].grad), name
+    for remat in ("full", "dots"):
+        assert torch.equal(runs["none"][0], runs[remat][0])
+        for name, p in runs[remat][1].items():
+            assert torch.equal(p.grad, runs["none"][1][name].grad), name
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -502,7 +504,7 @@ def _loss_inputs(vocab, b=3, s=20, seed=0):
     return toks, labels
 
 
-@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
 def test_model_loss_and_grads_match(smoke, remat):
     jcfg, params, _ = smoke
     jcfg = dataclasses.replace(jcfg, remat=remat)
@@ -694,20 +696,13 @@ def test_converter_roundtrips_blocks_and_names_a_bad_leaf(smoke):
         to_jax_tree({"blocks.1.att.u": named["blocks.1.att.u"]})
 
 
-@pytest.mark.parametrize("call,match", [
-    ("remat_dots", "Queue 1 item 3"), ("decode_step", "Queue 1 item 8"),
-    ("prefill", "Queue 1 item 8"), ("init_cache", "Queue 1 item 8")])
-def test_refused_by_name(call, match):
+@pytest.mark.parametrize("call", ["decode_step", "prefill", "init_cache"])
+def test_refused_by_name(call):
     cfg = tconfigs.get_smoke_config(ARCH)
-    toks, labels = _loss_inputs(cfg.vocab_size, b=1, s=4)
-    if call == "remat_dots":
-        model = RWKVLM(dataclasses.replace(cfg, remat="dots"), device="cpu")
-        fn = lambda: model.per_token_loss({"tokens": toks,  # noqa: E731
-                                           "labels": labels})
-    else:
-        model = RWKVLM(cfg, device="cpu")
-        fn = {"decode_step": lambda: model.decode_step(toks[:, :1], None),
-              "prefill": lambda: model.prefill(toks),
-              "init_cache": lambda: model.init_cache(1, 8)}[call]
-    with pytest.raises(NotImplementedError, match=match):
+    toks, _ = _loss_inputs(cfg.vocab_size, b=1, s=4)
+    model = RWKVLM(cfg, device="cpu")
+    fn = {"decode_step": lambda: model.decode_step(toks[:, :1], None),
+          "prefill": lambda: model.prefill(toks),
+          "init_cache": lambda: model.init_cache(1, 8)}[call]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         fn()

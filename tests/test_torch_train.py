@@ -5,7 +5,7 @@ Parameters come from the JAX model's ``init`` and cross by
 from them. qwen3 smoke config (f32, 2 layers).
 
 * ``per_token_loss`` and its gradients vs ``jax.value_and_grad``, with
-  ``remat`` "none" and "full", and through the chunked cross entropy
+  ``remat`` "none", "full" and "dots", and through the chunked cross entropy
   (its switch lowered so the smoke vocab takes it): atol 1e-5.
   ``chunked_cross_entropy`` alone over ragged multi-chunk input: the same.
 * The ``sim`` step with two microbatches (``_microbatch_split``, f32
@@ -83,7 +83,7 @@ def _jax_loss_and_grads(jmodel, params, toks, labels):
 
 
 @pytest.mark.parametrize("remat,chunked", [("none", False), ("full", False),
-                                           ("full", True)])
+                                           ("full", True), ("dots", False)])
 def test_loss_and_grads_match(remat, chunked, monkeypatch):
     jcfg = dataclasses.replace(jconfigs.get_smoke_config(ARCH), remat=remat)
     jmodel = jget_model(jcfg)
@@ -104,14 +104,6 @@ def test_loss_and_grads_match(remat, chunked, monkeypatch):
     for name, p in tmodel.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), np.asarray(jgrads[name]),
                                    atol=ATOL, err_msg=name)
-
-
-def test_remat_dots_is_refused():
-    cfg = dataclasses.replace(tconfigs.get_smoke_config(ARCH), remat="dots")
-    model = TransformerLM(cfg, device="cpu")
-    toks, labels = _loss_inputs(cfg.vocab_size, b=1, s=4)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        model.per_token_loss({"tokens": toks, "labels": labels})
 
 
 def test_chunked_cross_entropy_matches():
@@ -162,7 +154,7 @@ def test_microbatched_sim_step_matches_jax():
     named = dict(tmodel.named_parameters())
     tema = {k: v.detach().clone() for k, v in named.items()}
     tm = ttrain_step.build_train_step(tmodel, topt_, **kw)(
-        topt_.init(named), tema, 0,
+        topt_.init(named), tema, topt_.scalars(0),
         {k: torch.from_numpy(v) for k, v in batch.items()},
         torch.from_numpy(mask))
     np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
@@ -331,7 +323,6 @@ def test_checkpoint_bf16_roundtrip_and_corruption(tmp_path):
 
 
 @pytest.mark.parametrize("change,err,match", [
-    (dict(chunk_size=4), NotImplementedError, "Queue 1 item 3"),
     (dict(straggler_backend="device"), NotImplementedError, "Queue 1 item 6"),
     (dict(faults=jbase.FaultConfig(spec="crash@2:w1")), NotImplementedError,
      "Queue 1 item 7"),
@@ -405,7 +396,6 @@ def test_cli_runs_on_cpu_and_resumes(tmp_path, capsys, backend):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--chunk-size", "4"], ["--prefetch-depth", "2"],
     ["--straggler-backend", "device"], ["--strategy", "dynamic_backup"],
     ["--strategy", "async"], ["--strategy", "softsync"],
     ["--dynamic-window", "8"], ["--softsync-c", "2"],
