@@ -86,7 +86,33 @@ fails (non-zero exit, no result line) if any phase fails:
 10. At 2 layers, full width, f32: the kernel run against the plain run,
    step 1's loss within rel 1e-5 and the first aggregated gradient within
    rel L2 1e-4.
-11. A JSON line of per-kernel numbers (``launches`` is the count of one
+11. The event regimes on qwen3-0.6b at full width (28 layers, bf16,
+   remat full, ``PaperCalibrated`` stragglers, seed 0, 2 x 256 tokens per
+   arrival, rmsprop_momentum lr 0.02, EMA 0.999, the sim backend;
+   ``launch/profile_train.event_config``): async with W = 8 (8 updates),
+   softsync with W = 8, c = 4 (4 updates, 16 arrivals), each per arrival
+   (``chunk_size`` 1) and then as one chunk through the event graphs (one
+   captured graph for an arrival that applies, one for an arrival that
+   buffers). The graph run equals the per-arrival run bit for bit:
+   losses, per-tensor parameter sums, sim_time, staleness and selected.
+   Captures, capture seconds, host wall per arrival and per update (a
+   second run of as many updates on the same trainer) and peak memory are
+   printed.
+12. rwkv6-1.6b at full width (24 layers, bf16, remat full), async W = 4,
+   4 updates, per arrival and through the graphs: the counters set to 0
+   just before and read just after each run count 192 wkv forwards (2 x
+   24 x 4, replays included), 96 of them writing chunk states, 96
+   backwards and no backup_reduce; the two runs bit-equal.
+13. The §2.1 rig: ``MnistCNN`` at its published widths (32, 32, 64, 64)
+   on ``mnist_like`` (8,192 images), staleness tau 2 ramped over 5
+   updates, 10 updates through ``Trainer`` with the model and batch_fn
+   overrides, chunk 1 against chunk 4 (cuDNN deterministic): the same
+   staleness sequence, bit-equal losses and parameters.
+14. At 2 layers, full width, f32, async W = 4 and staleness tau 2: a
+   checkpoint at update 2, restored and continued, equals the straight
+   run (atol 1e-6), and the card's graph run equals the CPU port's
+   per-arrival run (atol 1e-5).
+15. A JSON line of per-kernel numbers (``launches`` is the count of one
    run of the main path that launches the kernel, named by
    ``launches_run``: the graph-decode serve runs, whose prefills stay
    eager, and the graph training runs), then, as the last line,
@@ -1113,6 +1139,252 @@ def _rwkv_parity_phase(torch):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phases 11-14: the event regimes (async, softsync, the §2.1 staleness rig)
+# ---------------------------------------------------------------------------
+
+
+def _event_run(torch, cfg, counters, tag, *, model=None, batch_fn=None):
+    """``cfg.total_steps`` PS updates on a fresh trainer (the counters set
+    to 0 just before, read just after), then as many again on the same
+    trainer, timed (at ``chunk_size > 1`` all replays). Returns the first
+    run's records, counts and parameter checksum, and the numbers."""
+    import gc
+    from repro_torch.core.straggler import PaperCalibrated
+    from repro_torch.train.loop import Trainer
+    u = cfg.total_steps
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, latency=PaperCalibrated(), device="cuda",
+                 model=model, batch_fn=batch_fn)
+    tr.init_state()
+    for m, a in counters:
+        setattr(m, a, 0)
+    t0 = time.perf_counter()
+    res = tr.run(u)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = tuple(getattr(m, a) for m, a in counters)
+    metrics = list(res.metrics)
+    sums = _param_sums(torch, res.params)
+    arrivals = res.arrivals
+    t0 = time.perf_counter()
+    res = tr.run(u)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    stats = dict(first_ms=1e3 * first_s, arrivals=arrivals,
+                 arrival_ms=1e3 * steady_s / res.arrivals,
+                 update_ms=1e3 * steady_s / u,
+                 peak=torch.cuda.max_memory_allocated(),
+                 reserved=torch.cuda.max_memory_reserved())
+    for m in metrics:
+        _log(f"[{tag}] update {m['step']} loss {m['loss']:.6f} sim_time "
+             f"{m['sim_time']:.6f} selected {m['selected']} staleness "
+             f"{m['staleness']:.3f}")
+    graphs = ""
+    if cfg.chunk_size > 1:
+        g = tr._event_chunk.graphs
+        stats.update(captures=(g[True].captures, g[False].captures),
+                     capture_s=g[True].capture_s + g[False].capture_s,
+                     replays=(g[True].replays, g[False].replays))
+        graphs = (f" | captures apply {g[True].captures} / buffer "
+                  f"{g[False].captures} in {stats['capture_s']:.3f} s, "
+                  f"replays {g[True].replays} / {g[False].replays}")
+    _log(f"[{tag}] {u} updates in {arrivals} arrivals: first run "
+         f"{stats['first_ms']:.1f} ms; the next {u} updates "
+         f"({res.arrivals} arrivals): {stats['arrival_ms']:.1f} ms/arrival, "
+         f"{stats['update_ms']:.1f} ms/update host wall{graphs} | peak device "
+         f"memory {stats['peak']} bytes allocated, {stats['reserved']} "
+         f"reserved")
+    if not all(math.isfinite(m["loss"]) for m in metrics) or \
+            len(metrics) != u:
+        raise AssertionError(f"[{tag}] {len(metrics)} records, or a "
+                             f"non-finite loss")
+    del tr, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(metrics=metrics, counts=counts, sums=sums, stats=stats)
+
+
+def _hold_events(tag, eager, graph):
+    """The chunked (graph) run against the per-arrival run: the same
+    arrivals, steps, sim_time, selected and staleness; bit-equal losses
+    and parameter checksums."""
+    keys = ("step", "sim_time", "selected", "staleness")
+    ea, ga = eager["metrics"], graph["metrics"]
+    if (len(ea) != len(ga) or eager["stats"]["arrivals"]
+            != graph["stats"]["arrivals"]
+            or any(a[k] != b[k] for a, b in zip(ea, ga) for k in keys)):
+        raise AssertionError(f"[{tag}] the graph run planned other arrivals "
+                             f"than the per-arrival run")
+    differ = [a["step"] for a, b in zip(ea, ga) if a["loss"] != b["loss"]]
+    if differ:
+        raise AssertionError(f"[{tag}] graph losses differ from per-arrival "
+                             f"from update {differ[0]}")
+    if not graph["sums"].equal(eager["sums"]):
+        raise AssertionError(f"[{tag}] graph parameter checksums differ "
+                             f"from the per-arrival run")
+    _log(f"[{tag}] graph run == per-arrival run: {len(ea)} updates, "
+         f"{eager['stats']['arrivals']} arrivals, sim_time, selected and "
+         f"staleness equal, losses and {graph['sums'].numel()} parameter "
+         f"checksums bit-equal")
+
+
+def _event_phase(torch, rwkv6_scan, backup_reduce):
+    """Phases 11 and 12: async and softsync on qwen3-0.6b, async on
+    rwkv6-1.6b, at full width, per arrival and then through the event
+    graphs."""
+    from repro_torch.launch.profile_train import event_config
+    counters = ((rwkv6_scan, "launches_fwd"), (rwkv6_scan, "launches_bwd"),
+                (backup_reduce, "launches"),
+                (rwkv6_scan, "launches_fwd_states"))
+    out = {}
+    for arch, strategy, updates in (("qwen3-0.6b", "async", 8),
+                                    ("qwen3-0.6b", "softsync", 4),
+                                    ("rwkv6-1.6b", "async", 4)):
+        tag = f"event {arch} {strategy}"
+        runs = {}
+        for chunk in (1, updates):
+            cfg = event_config(arch, strategy, steps=updates, chunk=chunk)
+            kind = "graph" if chunk > 1 else "per-arrival"
+            runs[kind] = _event_run(torch, cfg, counters, f"{tag} {kind}")
+            n = runs[kind]["stats"]["arrivals"]
+            layers = cfg.model.num_layers if arch == "rwkv6-1.6b" else 0
+            want = (2 * layers * n, layers * n, 0, layers * n)
+            if runs[kind]["counts"] != want:
+                raise AssertionError(
+                    f"[{tag} {kind}] launches wkv6 fwd/bwd, backup_reduce, "
+                    f"state-writing wkv6 fwd {runs[kind]['counts']}, "
+                    f"expected {want}")
+            if layers:
+                _log(f"[{tag} {kind}] launches wkv6 fwd {want[0]} (writing "
+                     f"the chunk states {want[3]}) bwd {want[1]} "
+                     f"backup_reduce 0 over {n} arrivals")
+        _hold_events(tag, runs["per-arrival"], runs["graph"])
+        out[tag] = runs
+    return out
+
+
+def _mnist_phase(torch):
+    """Phase 13: the §2.1 rig, MnistCNN at its published widths on
+    mnist_like, staleness tau 2 with a ramp of 5, 10 updates, chunk 1
+    against chunk 4 on the card."""
+    import numpy as np
+    from repro_torch.configs import (AggregationConfig, CheckpointConfig,
+                                     ModelConfig, OptimizerConfig,
+                                     ShapeConfig, TrainConfig)
+    from repro_torch.data import mnist_like
+    from repro_torch.models import mnist_cnn
+    data_cfg = mnist_like.MnistLikeConfig()
+    train, _ = mnist_like.make_dataset(data_cfg)
+
+    def batch_fn(worker, draw):
+        idx = np.random.RandomState(draw).randint(0, data_cfg.num_train,
+                                                  size=64)
+        return {"images": train["images"][idx],
+                "labels": train["labels"][idx]}
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for chunk in (1, 4):
+            cfg = TrainConfig(
+                model=ModelConfig(name="mnist_cnn"),
+                shape=ShapeConfig("mnist", 1, 64, "train"),
+                aggregation=AggregationConfig(
+                    strategy="staleness", num_workers=1, staleness_tau=2,
+                    staleness_ramp_steps=5),
+                optimizer=OptimizerConfig(name="sgd", learning_rate=0.05,
+                                          scale_lr_with_workers=False,
+                                          ema_decay=0.999),
+                checkpoint=CheckpointConfig(every_steps=0), seed=0,
+                total_steps=10, log_every=1, chunk_size=chunk)
+            model = mnist_cnn.make(device="cuda")
+            runs[chunk] = _event_run(
+                torch, cfg, (), f"mnist staleness chunk {chunk}",
+                model=model, batch_fn=batch_fn)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    stal = [m["staleness"] for m in runs[1]["metrics"]]
+    if max(stal) != 2.0:
+        raise AssertionError(f"[mnist] staleness sequence {stal} never "
+                             f"reaches tau = 2")
+    _hold_events(f"mnist staleness, widths {model.widths}", runs[1], runs[4])
+
+
+def _event_parity_phase(torch):
+    """Phase 14: 2 layers at full width, f32, async W = 4 and staleness
+    tau 2: a checkpoint at update 2, restored and continued for 2 updates,
+    equals 4 straight (graph runs, atol 1e-6), and the card equals the
+    CPU port (atol 1e-5, phase 7's tolerance)."""
+    from repro_torch.configs import (AggregationConfig, CheckpointConfig,
+                                     OptimizerConfig, ShapeConfig)
+    from repro_torch.launch.profile_train import event_config
+    from repro_torch.train.loop import Trainer
+
+    def cfg(strategy, chunk, directory="", every=0):
+        base = event_config("qwen3-0.6b", steps=4, chunk=chunk)
+        agg = (AggregationConfig(strategy="async", num_workers=4)
+               if strategy == "async" else AggregationConfig(
+                   strategy="staleness", num_workers=1, staleness_tau=2,
+                   staleness_ramp_steps=3))
+        return dataclasses.replace(
+            base, model=dataclasses.replace(base.model, num_layers=2,
+                                            dtype="float32"),
+            shape=ShapeConfig("parity", 64, 2 * agg.total_workers, "train"),
+            aggregation=agg,
+            optimizer=OptimizerConfig(name="momentum", learning_rate=0.05,
+                                      scale_lr_with_workers=False,
+                                      ema_decay=0.99),
+            checkpoint=CheckpointConfig(directory=directory,
+                                        every_steps=every))
+
+    def worst(a, b):
+        return max((v.detach().cpu() - b[k].detach().cpu()).abs().max().item()
+                   for k, v in a.items())
+
+    for strategy in ("async", "staleness"):
+        straight = Trainer(cfg(strategy, 2), device="cuda")
+        straight.init_state()
+        full = straight.run(4)
+        with tempfile.TemporaryDirectory() as d:
+            first = Trainer(cfg(strategy, 2, d, every=2), device="cuda")
+            first.init_state()
+            first.run(2)
+            resumed = Trainer(cfg(strategy, 2, d), device="cuda")
+            resumed.reset_optimizer_state()
+            resumed.restore_checkpoint()
+            res = resumed.run(2)
+        diff = max(worst(res.params, full.params), worst(res.ema, full.ema))
+        stal = [m["staleness"] for m in full.metrics]
+        if (diff > 1e-6 or res.sim_time != full.sim_time
+                or [m["staleness"] for m in res.metrics] != stal[2:]):
+            raise AssertionError(f"[parity event {strategy}] resume differs "
+                                 f"from the straight run by {diff}")
+        cpu = Trainer(cfg(strategy, 1), device="cpu")
+        cpu.init_state()
+        card = Trainer(cfg(strategy, 2), device="cuda")
+        card.model.load_state_dict(cpu.model.state_dict())
+        card.reset_optimizer_state()
+        card._init_event_state()
+        rc, rg = cpu.run(4), card.run(4)
+        cdiff = worst(rg.params, rc.params)
+        if (cdiff > 1e-5 or [m["staleness"] for m in rg.metrics]
+                != [m["staleness"] for m in rc.metrics]
+                or rg.sim_time != rc.sim_time):
+            raise AssertionError(f"[parity event {strategy}] card vs CPU: "
+                                 f"params differ by {cdiff}")
+        _log(f"[parity event {strategy}] 2-layer full-width f32, 4 updates: "
+             f"checkpoint at 2 -> restore -> 2 more vs 4 straight (graph): "
+             f"params and EMA max abs diff {diff:.3g} (atol 1e-6), sim_time "
+             f"and staleness {stal} equal; card (graph) vs CPU port (per "
+             f"arrival): params max abs diff {cdiff:.3g} (atol 1e-5)")
+        del straight, first, resumed, cpu, card
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     # cuBLAS picks the same algorithms run to run (the kernel and plain
     # training runs must compute the same first-step gradients)
@@ -1196,7 +1468,16 @@ def main() -> int:
     # 10. reduced depth: wkv kernels == plain twin through a training step
     _rwkv_parity_phase(torch)
 
-    # 11. results
+    # 11-12. the event regimes at full width, per arrival and as graphs
+    _event_phase(torch, rwkv6_scan, backup_reduce)
+
+    # 13. the §2.1 staleness rig on MnistCNN
+    _mnist_phase(torch)
+
+    # 14. reduced depth: event resume == straight run, card == CPU port
+    _event_parity_phase(torch)
+
+    # 15. results
     keys = ("name", "route", "source", "replaces", "launches", "launches_run",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

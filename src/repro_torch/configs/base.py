@@ -186,8 +186,11 @@ SINGLE_POD_MESH = MeshConfig((16, 16), ("data", "model"))
 @dataclasses.dataclass(frozen=True)
 class AggregationConfig:
     """The paper's Sync/Async/backup-worker policy knobs. The port builds
-    the mask strategies 'full_sync', 'backup' and 'timeout'
-    (``repro_torch.core.registry.get_strategy``)."""
+    the mask strategies 'full_sync', 'backup' and 'timeout' and the event
+    strategies 'async', 'softsync' (``softsync_c``) and 'staleness'
+    (``staleness_tau`` / ``_ramp_steps`` / ``_jitter``)
+    (``repro_torch.core.registry.get_strategy``); 'dynamic_backup' is
+    refused by name."""
 
     strategy: str = "backup"
     num_workers: int = 16             # N

@@ -2,9 +2,11 @@
 Reference: ``src/repro/core/registry.py``.
 
 ``get_strategy(cfg)`` is the trainer's only construction path. The port
-registers the three mask strategies; a strategy of the reference that is
-not ported yet raises ``NotImplementedError`` naming its slice, and an
-unknown name raises ``ValueError`` listing the valid ones.
+registers the mask strategies (full_sync, backup, timeout) and the event
+strategies (async, softsync, staleness); ``dynamic_backup`` raises
+``NotImplementedError`` naming its ROADMAP item, and an unknown name
+raises ``ValueError`` listing the valid ones. ``supports_spmd`` and
+``supports_event_scan`` are the reference's capability checks.
 """
 from __future__ import annotations
 
@@ -17,9 +19,6 @@ _BUILDERS: Dict[str, Callable] = {}
 # the reference's other strategies, and the queue item that ports each
 _NOT_PORTED = {
     "dynamic_backup": "ROADMAP Queue 1 item 7 (fault tolerance)",
-    "async": "ROADMAP Queue 1 item 6 (event regimes)",
-    "softsync": "ROADMAP Queue 1 item 6 (event regimes)",
-    "staleness": "ROADMAP Queue 1 item 6 (event regimes)",
 }
 
 
@@ -37,11 +36,28 @@ def available() -> List[str]:
     return sorted(_BUILDERS)
 
 
-def supports_spmd(strategy: coordination.CoordinationStrategy) -> bool:
-    """True when the strategy can run on the spmd engine: the mask
-    strategies. (The reference's per-plugin opt-outs come with the
-    event-regime slice, ROADMAP Queue 1 item 6.)"""
-    return strategy.kind == "mask"
+def supports_spmd(strategy: coordination.CoordinationStrategy,
+                  exec_cfg=None) -> bool:
+    """True when the strategy can run on the spmd engine: any mask
+    strategy, unless it opts out with ``spmd_supported = False``; with an
+    ``ExecutionConfig`` of ``mesh_model > 1`` it must also allow tensor
+    parallelism (``spmd_tp_supported``, default True). Event strategies
+    never run there. (The reference's trainer falls back to the sim
+    backend when this is False; the port's refuses.)"""
+    ok = (getattr(strategy, "kind", "") == "mask"
+          and bool(getattr(strategy, "spmd_supported", True)))
+    if ok and exec_cfg is not None and getattr(exec_cfg, "mesh_model", 1) > 1:
+        ok = bool(getattr(strategy, "spmd_tp_supported", True))
+    return ok
+
+
+def supports_event_scan(strategy: coordination.CoordinationStrategy) -> bool:
+    """True when an event strategy implements the chunked plan/scan
+    protocol (``plan_arrival`` + ``on_arrival_scan``) that the chunked
+    event path (``chunk_size > 1``) needs. A plugin with only
+    ``on_arrival`` runs per arrival."""
+    return (getattr(strategy, "kind", "") == "event"
+            and bool(getattr(strategy, "scan_supported", False)))
 
 
 def get_strategy(agg_cfg) -> coordination.CoordinationStrategy:
@@ -73,3 +89,19 @@ def _backup(cfg) -> coordination.BackupWorkers:
 @register("timeout")
 def _timeout(cfg) -> coordination.Timeout:
     return coordination.Timeout(cfg.num_workers, cfg.deadline_s)
+
+
+@register("async")
+def _async(cfg) -> coordination.Async:
+    return coordination.Async(cfg.num_workers)
+
+
+@register("softsync")
+def _softsync(cfg) -> coordination.SoftSync:
+    return coordination.SoftSync(cfg.num_workers, cfg.softsync_c)
+
+
+@register("staleness")
+def _staleness(cfg) -> coordination.Staleness:
+    return coordination.Staleness(cfg.staleness_tau, cfg.staleness_ramp_steps,
+                                  cfg.staleness_jitter)

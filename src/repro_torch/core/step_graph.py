@@ -47,13 +47,18 @@ Tensors = Dict[str, torch.Tensor]
 class StepGraph:
     """``fn`` captured once over static input buffers, then replayed."""
 
-    def __init__(self, fn: Callable[[Tensors], Tensors], device):
+    def __init__(self, fn: Callable[[Tensors], Tensors], device,
+                 pool=None):
+        """``pool``: a ``torch.cuda.graph_pool_handle()`` shared with other
+        graphs that never replay concurrently with this one (None: a
+        private pool)."""
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph replays on the card, not on "
                              f"{device}; run the step as it is there")
         self.fn = fn
         self.device = device
+        self.pool = pool
         self.static: Tensors = {}
         self.outputs: Optional[Tensors] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
@@ -123,7 +128,8 @@ class StepGraph:
         before = counters.read()
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, stream=self._stream):
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  stream=self._stream):
                 outputs = self.fn(self.static)
         finally:
             self._launches = counters.since(before)

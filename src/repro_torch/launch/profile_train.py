@@ -1,6 +1,8 @@
 """Where the training step's time goes on the card: a torch.profiler window.
 
     python -m repro_torch.launch.profile_train [--arch rwkv6-1.6b] [--graph]
+    python -m repro_torch.launch.profile_train --strategy async|softsync \
+        [--arch rwkv6-1.6b] [--graph]
 
 Builds a full-width training run (``train_config``, which
 ``chip_smoke.py`` drives too): qwen3-0.6b (28 layers, bf16, remat full;
@@ -22,7 +24,15 @@ per step) and profiles two steady chunks the same way, per step: host
 wall, device busy, the idle share and the launches; the capture's time
 and the peak device memory (allocated and reserved) are printed. A replay
 records no ``record_function`` range, so the per-phase table comes from
-the eager steps. Needs a card.
+the eager steps.
+
+With ``--strategy async`` or ``softsync`` it profiles the event regime
+instead (``event_config``, which ``chip_smoke.py`` drives too: the same
+model, W = 8 workers for qwen3-0.6b and 4 for rwkv6-1.6b, 2 x 256 tokens
+per arrival, softsync c = 4, the sim backend): two steady updates per
+arrival (the per-arrival loop; the phases ``event/grad``, ``event/update``
+and ``event/read_copy`` of each arrival), then with ``--graph`` two
+chunks of 3 updates through the event graphs, per arrival. Needs a card.
 """
 from __future__ import annotations
 
@@ -44,6 +54,11 @@ from repro_torch.train.loop import Trainer
 STEPS = 2
 CHUNK = 3            # steps per chunk in the graph mode
 PHASES = ("spmd/worker_grad", "spmd/reduce", "spmd/update")
+EVENT_PHASES = ("event/grad", "event/update", "event/read_copy")
+# arch -> workers of the event runs: rwkv6-1.6b keeps W read copies (3.17
+# GB each in bf16) beside 12.67 GB of optimizer state and 6.34 GB of EMA
+EVENT_WORKERS = {"qwen3-0.6b": 8, "rwkv6-1.6b": 4}
+SOFTSYNC_C = 4
 # arch -> backup (N, b). rwkv6-1.6b: P = 1,584,095,232, so the [W, P] f32
 # stack is 6.34 GB per worker beside 12.67 GB of rmsprop_momentum state and
 # 6.34 GB each of EMA and f32 aggregate: W = 4 needs ~65 GB, W = 8 ~91 GB.
@@ -73,14 +88,96 @@ def train_config(arch: str = "qwen3-0.6b", *, backend: str = "spmd",
         seed=0, total_steps=steps, log_every=1)
 
 
+def event_config(arch: str = "qwen3-0.6b", strategy: str = "async", *,
+                 steps: int = 8, chunk: int = 1) -> TrainConfig:
+    """A full-width event run (the ones ``chip_smoke.py`` drives):
+    ``arch`` at its published widths, ``EVENT_WORKERS[arch]`` workers each
+    drawing 2 sequences of 256 tokens per arrival, ``strategy`` async or
+    softsync (c = ``SOFTSYNC_C``), rmsprop_momentum at lr 0.02 (not scaled
+    by W: every arrival applies its own update), EMA 0.999, seed 0,
+    ``steps`` PS updates, the sim backend, ``chunk`` updates per chunk."""
+    w = EVENT_WORKERS[arch]
+    cfg = train_config(arch, backend="sim", steps=steps)
+    return dataclasses.replace(
+        cfg, shape=ShapeConfig("full", 256, 2 * w, "train"),
+        aggregation=AggregationConfig(
+            strategy=strategy, num_workers=w,
+            softsync_c=SOFTSYNC_C if strategy == "softsync" else 1),
+        optimizer=dataclasses.replace(cfg.optimizer,
+                                      scale_lr_with_workers=False),
+        chunk_size=chunk)
+
+
+def _phase_table(events, phases, per: int) -> None:
+    """Host wall and device busy of each ``record_function`` range, per
+    ``per`` (steps or arrivals)."""
+    on_device = [(e.time_range.start, e.time_range.end) for e in events
+                 if _on_device(e)]
+    for name in phases:
+        host = [e for e in events if e.name == name
+                and e.device_type == DeviceType.CPU]
+        spans = [(e.time_range.start, e.time_range.end) for e in events
+                 if e.name == name and e.device_type == DeviceType.CUDA]
+        busy = _union_us((max(s, a), min(t, b)) for a, b in spans
+                         for s, t in on_device if s < b and t > a)
+        wall = sum(e.time_range.end - e.time_range.start for e in host)
+        print(f"    {name}: x{len(host) / per:.2f} per unit, host wall "
+              f"{wall / 1e3 / per:.1f} ms/unit, device busy "
+              f"{busy / 1e3 / per:.1f} ms/unit")
+
+
+def _main_event(args, dev) -> None:
+    cfg = event_config(args.arch, args.strategy, steps=1)
+    per_update = SOFTSYNC_C if args.strategy == "softsync" else 1
+    tr = Trainer(cfg, device=dev)
+    tr.init_state()
+    agg = cfg.aggregation
+    print(f"[profile] {torch.cuda.get_device_name(0)} torch "
+          f"{torch.__version__} | {cfg.model.name} {cfg.model.num_layers} "
+          f"layers {cfg.model.dtype}, {agg.strategy} W={agg.num_workers}"
+          f"{f' c={agg.softsync_c}' if agg.strategy == 'softsync' else ''}"
+          f", {cfg.shape.seq_len * cfg.shape.global_batch // agg.num_workers}"
+          f" tokens/arrival, {per_update} arrivals/update; figures per "
+          f"arrival")
+    prof = _profile(f"event {agg.strategy}, per arrival",
+                    lambda: tr.run(1), STEPS, per_call=per_update)
+    print("  phases per arrival (unit = arrival):")
+    _phase_table(prof.events(), EVENT_PHASES, STEPS * per_update)
+    print(f"[profile] peak device memory {torch.cuda.max_memory_allocated()} "
+          f"bytes allocated, {torch.cuda.max_memory_reserved()} reserved")
+    if not args.graph:
+        return
+    del tr, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(dataclasses.replace(cfg, chunk_size=CHUNK), device=dev)
+    tr.init_state()
+    _profile(f"event {agg.strategy} graph, per arrival",
+             lambda: tr.run(CHUNK), STEPS, per_call=CHUNK * per_update)
+    g = tr._event_chunk.graphs
+    print(f"[profile] event graphs: captures apply {g[True].captures} / "
+          f"buffer {g[False].captures} in "
+          f"{g[True].capture_s + g[False].capture_s:.3f} s, replays "
+          f"{g[True].replays} / {g[False].replays} | peak device memory "
+          f"{torch.cuda.max_memory_allocated()} bytes allocated, "
+          f"{torch.cuda.max_memory_reserved()} reserved")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", choices=sorted(WORKERS), default="qwen3-0.6b")
     ap.add_argument("--graph", action="store_true",
                     help="then profile chunks of 3 steps through the CUDA "
                          "graph")
+    ap.add_argument("--strategy", choices=["backup", "async", "softsync"],
+                    default="backup",
+                    help="backup: the mask-mode run; async / softsync: the "
+                         "event regime (event_config)")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
+    if args.strategy != "backup":
+        return _main_event(args, dev)
     cfg = train_config(args.arch)
     tr = Trainer(cfg, device=dev)
     tr.init_state()
@@ -92,19 +189,8 @@ def main(argv=None) -> None:
           f"{cfg.shape.seq_len} tokens/step, spmd mesh 1x1")
     prof = _profile("train step", lambda: tr.run(1), STEPS)
     events = prof.events()
-    on_device = [(e.time_range.start, e.time_range.end) for e in events
-                 if _on_device(e)]
-    for name in PHASES:
-        host = [e for e in events if e.name == name
-                and e.device_type == DeviceType.CPU]
-        spans = [(e.time_range.start, e.time_range.end) for e in events
-                 if e.name == name and e.device_type == DeviceType.CUDA]
-        busy = _union_us((max(s, a), min(t, b)) for a, b in spans
-                         for s, t in on_device if s < b and t > a)
-        wall = sum(e.time_range.end - e.time_range.start for e in host)
-        print(f"    {name}: x{len(host) / STEPS:.0f} per step, host wall "
-              f"{wall / 1e3 / STEPS:.1f} ms/step, device busy "
-              f"{busy / 1e3 / STEPS:.1f} ms/step")
+    print("  phases per step (unit = step):")
+    _phase_table(events, PHASES, STEPS)
     print(f"[profile] peak device memory {torch.cuda.max_memory_allocated()} "
           f"bytes")
     if not args.graph:

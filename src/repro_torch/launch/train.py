@@ -1,28 +1,37 @@
 """Training launcher CLI of the port. Reference: ``src/repro/launch/train.py``.
 
-    python -m repro_torch.launch.train --arch qwen3-0.6b --smoke \\
-        --steps 50 --strategy backup --workers 6 --backups 2 [--resume] \\
-        [--execution spmd] [--chunk-size 8] [--prefetch-depth 2] \\
+    python -m repro_torch.launch.train --arch qwen3-0.6b --smoke \
+        --steps 50 --strategy backup --workers 6 --backups 2 [--resume] \
+        [--execution spmd] [--chunk-size 8] [--prefetch-depth 2] \
         [--device cpu]
+    python -m repro_torch.launch.train --smoke --steps 50 \
+        --strategy async --workers 6 [--chunk-size 8]
+    python -m repro_torch.launch.train --smoke --steps 50 \
+        --strategy softsync --workers 6 --softsync-c 2
 
 The reference's flags, plus ``--device``: the run is on the card unless
 ``--device cpu`` is given (without a card it raises). Everything routes
 through ``repro_torch.train.loop.run_experiment`` with the paper's lr
-rule, EMA, atomic checkpoints and the reference's metric lines. On the
+rule, EMA, atomic checkpoints and the reference's metric lines: mask
+strategies (backup, full_sync, timeout) through the straggler simulator
+and the masked step, event strategies (async, softsync; W = ``--workers``
+machines, no backups) through the discrete-event parameter server. On the
 card, ``--execution spmd`` aggregates through the ``backup_reduce``
 kernel. ``--grad-batch`` defaults to 1 here (one worker at a time), the
-only value the port runs. ``--chunk-size K`` runs chunks of K steps (one
-captured CUDA graph replayed per step on the card, a loop on the CPU),
-with ``--prefetch-depth`` chunks of batches built ahead on a thread, as
-in the reference.
+only value the port runs. ``--chunk-size K`` runs chunks of K steps (PS
+updates for the event strategies; one captured CUDA graph replayed per
+step or arrival on the card, a loop on the CPU), with
+``--prefetch-depth`` chunks of batches built ahead on a thread in mask
+mode, as in the reference.
 
 The reference's flags of later slices are refused by name, with the
-ROADMAP item that ports them: ``--straggler-backend device``, the event
-strategies and
+ROADMAP item that ports them: ``--straggler-backend device``,
 ``dynamic_backup`` (with ``--dynamic-window`` / ``--latency-source``),
 ``--faults`` / ``--supervise`` (``--fault-seed``, ``--max-restarts``),
 ``--trace`` / ``--metrics``, ``--platform``, ``--mesh-data`` /
-``--mesh-model`` > 1 and ``--grad-batch`` other than 1.
+``--mesh-model`` > 1 and ``--grad-batch`` other than 1; so is
+``--execution spmd`` with an event strategy, which the reference refuses
+too.
 """
 from __future__ import annotations
 
@@ -40,13 +49,12 @@ from repro_torch.train.loop import run_experiment
 
 MASK_STRATEGIES = ("backup", "full_sync", "timeout", "dynamic_backup")
 EVENT_STRATEGIES = ("async", "softsync")
-PORTED_STRATEGIES = ("backup", "full_sync", "timeout")
+PORTED_STRATEGIES = ("backup", "full_sync", "timeout", "async", "softsync")
 
 _Q = "ROADMAP Queue 1 item"
 # flag -> (argparse dest, the ROADMAP item that ports it); refused when set
 DEFERRED_FLAGS = {
     "--dynamic-window": ("dynamic_window", f"{_Q} 7, dynamic_backup"),
-    "--softsync-c": ("softsync_c", f"{_Q} 6, event regimes"),
     "--faults": ("faults", f"{_Q} 7, fault tolerance"),
     "--fault-seed": ("fault_seed", f"{_Q} 7, fault tolerance"),
     "--supervise": ("supervise", f"{_Q} 7, fault tolerance"),
@@ -72,6 +80,7 @@ def build_config(args) -> TrainConfig:
                  else configs.get_config(args.arch))
     backups, total = _resolved_workers(args)
     deadline = args.deadline if args.deadline is not None else 2.0
+    softsync_c = args.softsync_c if args.softsync_c is not None else 2
     return TrainConfig(
         model=model_cfg,
         shape=ShapeConfig("cli", args.seq, args.batch_per_worker * total,
@@ -79,7 +88,8 @@ def build_config(args) -> TrainConfig:
         aggregation=AggregationConfig(strategy=args.strategy,
                                       num_workers=args.workers,
                                       backup_workers=backups,
-                                      deadline_s=deadline),
+                                      deadline_s=deadline,
+                                      softsync_c=softsync_c),
         optimizer=OptimizerConfig(name=args.optimizer,
                                   learning_rate=args.lr,
                                   scale_lr_with_workers=True,
@@ -104,21 +114,27 @@ def _validate(ap: argparse.ArgumentParser, args) -> None:
         if getattr(args, dest) not in (None, False):
             ap.error(f"{flag} is not ported to repro_torch yet ({item})")
     if args.strategy not in PORTED_STRATEGIES:
-        item = (f"{_Q} 7, dynamic_backup" if args.strategy == "dynamic_backup"
-                else f"{_Q} 6, event regimes")
         ap.error(f"--strategy {args.strategy} is not ported to repro_torch "
-                 f"yet ({item}); ported: {', '.join(PORTED_STRATEGIES)}")
+                 f"yet ({_Q} 7, dynamic_backup); ported: "
+                 f"{', '.join(PORTED_STRATEGIES)}")
     if args.latency_source != "sim":
         ap.error(f"--latency-source {args.latency_source} is not ported to "
                  f"repro_torch yet ({_Q} 7, dynamic_backup)")
     if args.straggler_backend != "host":
         ap.error(f"--straggler-backend {args.straggler_backend} is not "
                  f"ported to repro_torch yet ({_Q} 6)")
+    if args.strategy in EVENT_STRATEGIES and args.execution == "spmd":
+        ap.error(f"--execution spmd only applies to mask strategies (got "
+                 f"--strategy {args.strategy}); event strategies run on the "
+                 f"sim backend ({_Q} 6)")
     if args.backups is not None and args.strategy != "backup":
         ap.error(f"--backups only applies to --strategy backup "
                  f"(got --strategy {args.strategy})")
     if args.deadline is not None and args.strategy != "timeout":
         ap.error(f"--deadline only applies to --strategy timeout "
+                 f"(got --strategy {args.strategy})")
+    if args.softsync_c is not None and args.strategy != "softsync":
+        ap.error(f"--softsync-c only applies to --strategy softsync "
                  f"(got --strategy {args.strategy})")
     for flag, value in (("--mesh-data", args.mesh_data),
                         ("--mesh-model", args.mesh_model),

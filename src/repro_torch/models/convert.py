@@ -48,14 +48,22 @@ _STACKED = {"seg_dense": "layers", "blocks": "blocks"}
 _RESTACKED = {v: k for k, v in _STACKED.items()}
 
 
-def _to_module_leaves(flat: Dict) -> Dict:
-    """JAX paths -> state-dict names, unstacking per-layer leaves."""
+def _take(arr, i: int, axis: int):
+    if isinstance(arr, torch.Tensor):
+        return arr.select(axis, i)
+    return np.take(arr, i, axis=axis)
+
+
+def _to_module_leaves(flat: Dict, axis: int = 0) -> Dict:
+    """JAX paths -> state-dict names, unstacking per-layer leaves (their
+    layer axis is ``axis``)."""
     out: Dict = {}
     for path, arr in flat.items():
         head, _, rest = path.partition("/")
         if head in _STACKED:
-            for i in range(arr.shape[0]):
-                out[f"{_STACKED[head]}.{i}.{rest.replace('/', '.')}"] = arr[i]
+            for i in range(arr.shape[axis]):
+                out[f"{_STACKED[head]}.{i}.{rest.replace('/', '.')}"] = \
+                    _take(arr, i, axis)
         elif head.startswith("seg_"):
             raise ValueError(f"{path}: only the dense segment (seg_dense) is "
                              f"ported")
@@ -64,17 +72,21 @@ def _to_module_leaves(flat: Dict) -> Dict:
     return out
 
 
-def from_jax_tree(tree: Mapping) -> Dict:
+def from_jax_tree(tree: Mapping, axis: int = 0) -> Dict:
     """A reference tree (params, or an optimizer / EMA tree mirroring
     them; leaves numpy arrays or tensors) -> ``{module parameter name:
-    leaf}``, per-layer leaves unstacked."""
-    return _to_module_leaves(_flatten(tree))
+    leaf}``, per-layer leaves unstacked. ``axis`` 1 reads a tree of
+    stacked copies (``[W, L, ...]`` leaves, the event trainer's
+    ``workers`` and ``stale_buffer``) into ``[W, ...]`` leaves."""
+    return _to_module_leaves(_flatten(tree), axis)
 
 
-def to_jax_tree(named: Mapping) -> Dict:
+def to_jax_tree(named: Mapping, axis: int = 0) -> Dict:
     """``{module parameter name: leaf}`` (numpy arrays or tensors) -> the
     reference's nested tree, per-layer leaves restacked into
-    ``seg_dense/<path>[L, ...]`` or ``blocks/<path>[L, ...]``."""
+    ``seg_dense/<path>[L, ...]`` or ``blocks/<path>[L, ...]``. With
+    ``axis`` 1 the leaves are stacks ``[W, ...]`` and the layer axis goes
+    second (``[W, L, ...]``), as in the reference's stacked trees."""
     layers: Dict[tuple, Dict[int, np.ndarray]] = {}
     tree: Dict = {}
 
@@ -98,8 +110,8 @@ def to_jax_tree(named: Mapping) -> Dict:
                              f"are not 0..L-1")
         rows = [by_layer[i] for i in range(len(by_layer))]
         put([_RESTACKED[head]] + leaf.split("."),
-            torch.stack(rows) if isinstance(rows[0], torch.Tensor)
-            else np.stack(rows))
+            torch.stack(rows, dim=axis) if isinstance(rows[0], torch.Tensor)
+            else np.stack(rows, axis=axis))
     return tree
 
 

@@ -1,14 +1,17 @@
-"""The Trainer: the paper's mask-mode coordination regimes behind one entry
-point. Reference: ``src/repro/train/loop.py`` (``TrainResult``,
-``Trainer`` in mask mode — ``_build_mask``, ``init_state``,
-``save_checkpoint``, ``restore_checkpoint``, ``run``, ``_chunk_len_at``,
-``_next_chunk_specs``, ``_run_one_step``, ``_run_chunk`` on the host
-straggler backend — and ``run_experiment``; :97-311, 366-533, 738-968,
+"""The Trainer: the paper's coordination regimes behind one entry point.
+Reference: ``src/repro/train/loop.py`` (``TrainResult``, ``Trainer`` —
+``_build``, ``_build_mask``, ``_build_event``, ``init_state``,
+``_init_event_state``, ``_state_tree``, ``save_checkpoint``,
+``restore_checkpoint``, ``_restore_event_state``, ``_template``, ``run``,
+``_chunk_len_at``, ``_next_chunk_specs``, ``_run_one_step``,
+``_run_chunk`` on the host straggler backend, ``_run_event``,
+``_run_event_chunked`` — and ``run_experiment``; :97-606, 738-1117,
 1122-1162).
 
 The strategy, built from ``cfg.aggregation`` by
-``core.registry.get_strategy``, is one of the mask strategies (full_sync,
-backup, timeout). Per step:
+``core.registry.get_strategy``, picks the mode.
+
+**Mask mode** (full_sync, backup, timeout). Per step:
 
 1. the ``StragglerSimulator`` samples worker arrival times and the
    strategy selects the mask and the iteration time (simulated seconds);
@@ -33,40 +36,64 @@ only when a logged step falls inside it. Chunk boundaries fall on the run
 target and the checkpoint cadence, so resume is unchanged, and a chunk of
 one step still takes the chunk path, as in the reference.
 
-The model holds the parameters; the optimizer state and the EMA are
-dicts of f32 tensors keyed like them. Everything runs on ``device``
-(``None`` = the card; ``"cpu"`` must be asked for).
+**Event mode** (async, softsync, staleness): the discrete-event
+parameter server. The scheduler pops gradient arrivals, the strategy
+decides apply-or-buffer per arrival, and each applied update advances
+``step``. The model holds the PS parameters; a second copy of it (the
+gradient model) takes the arriving worker's read copy and computes its
+gradient (``coordination.make_grad_fn``). Read copies are clones: in
+``VersionedReads`` (one per distinct version) per arrival, in one stacked
+``[W, ...]`` tensor per parameter at ``chunk_size > 1``. With
+``chunk_size > 1`` the host plans a chunk of arrivals
+(``coordination.plan_events``) ending on an update, and
+``train_step.build_event_chunk_step`` runs them: a graph replay per
+arrival on the card (the branch the plan names), a loop on the CPU.
+Checkpoints carry the reference's ``workers`` and ``stale_buffer`` trees
+and its ``meta["event"]``, so event runs resume across the packages. The
+``model=`` and ``batch_fn=`` overrides plug non-LM rigs (the §2.1 MNIST
+CNN) into the event mode.
+
+The optimizer state and the EMA are dicts of f32 tensors keyed like the
+parameters. Everything runs on ``device`` (``None`` = the card; ``"cpu"``
+must be asked for).
 
 Refused, each with ``NotImplementedError`` naming its ROADMAP item, and
 never run another way: the device straggler backend (with its
-``device_batch_fn``), the event strategies and ``dynamic_backup`` (the
+``device_batch_fn``), event strategies on the ``spmd`` backend (the
+reference falls back to ``sim`` with a warning), ``dynamic_backup`` (the
 registry), fault injection and supervision, failure injection
 (``kill_worker_at``) and elastic rescale.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional
+import warnings
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.core import coordination
 from repro_torch.core import ema as ema_lib
 from repro_torch.core import registry
 from repro_torch.core.events import StragglerSimulator
 from repro_torch.core.straggler import LatencyModel, PaperCalibrated
 from repro_torch.data.synthetic_lm import (ChunkPrefetcher, PipelineState,
                                            SyntheticLMConfig,
-                                           SyntheticLMPipeline)
+                                           SyntheticLMPipeline, worker_batch)
 from repro_torch.distributed import spmd_engine
 from repro_torch.models import from_jax_tree, get_model, to_jax_tree
 from repro_torch.models.common import resolve_device
 from repro_torch.optim import make_optimizer, schedules
 from repro_torch.optim.optimizers import stage_scalars
 from repro_torch.train import checkpoint as ckpt_lib
-from repro_torch.train.train_step import build_chunk_step, build_train_step
+from repro_torch.train.train_step import (build_chunk_step,
+                                          build_event_chunk_step,
+                                          build_train_step)
 
 _FAULTS = "fault tolerance, ROADMAP Queue 1 item 7"
 
@@ -80,14 +107,17 @@ class TrainResult:
     steps: int
     restarts: int
     # realized mean of aggregated workers per step (Timeout's actual
-    # per-step mean, not its upper bound) and of staleness (0 here)
+    # per-step mean, not its upper bound) and of the applied gradients'
+    # staleness (0 for the mask strategies)
     mean_selected: float = 0.0
     mean_staleness: float = 0.0
     wall_time_s: float = 0.0
-    # host wall time of each step of this run (a chunk's steps share its
-    # time evenly); a logged step includes its metrics read, which waits
-    # for the device
+    # host wall time of each step (PS update, in event mode) of this run (a
+    # chunk's steps share its time evenly); a logged step includes its
+    # metrics read, which waits for the device
     step_times_s: List[float] = dataclasses.field(default_factory=list)
+    # event mode: gradient arrivals this run processed
+    arrivals: int = 0
 
 
 def _refuse_deferred(cfg: TrainConfig) -> None:
@@ -106,17 +136,36 @@ def _refuse_deferred(cfg: TrainConfig) -> None:
             f"({_FAULTS})")
 
 
+def _host(v) -> np.ndarray:
+    """A batch leaf (numpy or tensor) as a numpy array."""
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+        else np.asarray(v)
+
+
 class Trainer:
     def __init__(self, cfg: TrainConfig,
-                 latency: Optional[LatencyModel] = None, *, device=None):
+                 latency: Optional[LatencyModel] = None, *, device=None,
+                 model=None, batch_fn: Optional[Callable] = None):
+        """``model`` / ``batch_fn`` override the config's model and the
+        per-worker batch source (``batch_fn`` in event mode only): how
+        non-LM rigs such as the §2.1 MNIST staleness experiment route
+        through ``run_experiment``. ``batch_fn(worker, draw_index)`` ->
+        batch dict (numpy arrays or tensors). ``model`` must live on
+        ``device``."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.latency = latency or PaperCalibrated()
         self.restarts = 0
         self.sim_time = 0.0
         self.metrics: List[Dict] = []
+        self._model_override = model
+        self._batch_fn_override = batch_fn
+        # realized selected / staleness accumulators behind TrainResult's
+        # means (persisted across checkpoints)
         self._sel_sum = 0.0
         self._sel_count = 0
+        self._stal_sum = 0.0
+        self._stal_count = 0
         self._wall_s = 0.0
         self._build()
 
@@ -131,15 +180,37 @@ class Trainer:
             raise ValueError(f"unknown execution backend {backend!r} "
                              f"(valid: sim, spmd)")
         self._spmd = backend == "spmd"
-        if self._spmd and not registry.supports_spmd(self.strategy):
+        if self._spmd and not registry.supports_spmd(self.strategy,
+                                                     cfg.execution):
             raise NotImplementedError(
                 f"strategy {cfg.aggregation.strategy!r} ({self.strategy.kind}"
                 f" mode) does not run on the spmd engine, which takes the "
-                f"mask strategies; use backend='sim'")
-        self.model = get_model(
-            cfg.model, device=self.device,
+                f"mask strategies (registry.supports_spmd); the reference "
+                f"falls back to backend='sim' with a warning, the port "
+                f"refuses (ROADMAP Queue 1 item 6): use backend='sim'")
+        if self.strategy.kind == "mask":
+            self._build_mask()
+        elif self.strategy.kind == "event":
+            self._build_event()
+        else:
+            raise ValueError(f"strategy {cfg.aggregation.strategy!r} has "
+                             f"unknown kind {self.strategy.kind!r}")
+        self.step = 0
+
+    def _make_model(self):
+        if self._model_override is not None:
+            return self._model_override
+        return get_model(
+            self.cfg.model, device=self.device,
             generator=torch.Generator(device=self.device).manual_seed(
-                cfg.seed))
+                self.cfg.seed))
+
+    def _build_mask(self) -> None:
+        cfg = self.cfg
+        if self._batch_fn_override is not None:
+            raise ValueError("batch_fn overrides are only supported for "
+                             "event strategies (async/softsync/staleness)")
+        self.model = self._make_model()
         self.sim = StragglerSimulator(self.strategy, self.latency, cfg.seed)
         sched = schedules.from_config(cfg.optimizer,
                                       cfg.aggregation.num_workers)
@@ -174,7 +245,44 @@ class Trainer:
                                               depth=cfg.prefetch_depth)
         else:
             self.train_step = step
-        self.step = 0
+
+    def _build_event(self) -> None:
+        cfg = self.cfg
+        self._event_fused = cfg.chunk_size > 1
+        if self._event_fused and not registry.supports_event_scan(
+                self.strategy):
+            # a plugin with only on_arrival still runs, per arrival
+            warnings.warn(
+                f"strategy {cfg.aggregation.strategy!r} does not implement "
+                "the chunked plan/scan protocol (plan_arrival + "
+                "on_arrival_scan); falling back to the per-arrival path "
+                "(chunk_size=1 semantics)", stacklevel=3)
+            self._event_fused = False
+        self.model = self._make_model()
+        # the gradient model: each arrival's read copy is loaded into it
+        self._grad_model = copy.deepcopy(self.model)
+        sched = schedules.from_config(cfg.optimizer,
+                                      cfg.aggregation.num_workers)
+        self.optimizer = make_optimizer(cfg.optimizer, sched)
+        self._grad_fn = coordination.make_grad_fn(self._grad_model)
+        self._update_fn = coordination.make_update_fn(
+            self.optimizer, cfg.optimizer.clip_global_norm)
+        if self._event_fused:
+            self._event_chunk = build_event_chunk_step(
+                self._grad_model, self._grad_fn, self._update_fn,
+                self.strategy, ema_decay=cfg.optimizer.ema_decay)
+        if self._batch_fn_override is not None:
+            host = self._batch_fn_override
+        else:
+            data_cfg = SyntheticLMConfig(
+                vocab_size=cfg.model.vocab_size, seq_len=cfg.shape.seq_len,
+                global_batch=cfg.shape.global_batch,
+                num_workers=self.strategy.total_workers, seed=cfg.seed)
+
+            def host(worker: int, draw: int) -> Dict:
+                return worker_batch(data_cfg, worker, draw)
+        self._event_batch_host = lambda w, d: {
+            k: _host(v) for k, v in host(w, d).items()}
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -182,11 +290,14 @@ class Trainer:
 
     def init_state(self, seed: Optional[int] = None) -> None:
         """Draw the parameters from ``seed`` (default ``cfg.seed``) and
-        initialize the optimizer state and the EMA from them."""
+        initialize the optimizer state and the EMA from them (and, in
+        event mode, the workers' read copies and the scheduler)."""
         gen = torch.Generator(device=self.device).manual_seed(
             self.cfg.seed if seed is None else seed)
         self.model.init(gen)
         self.reset_optimizer_state()
+        if self.strategy.kind == "event":
+            self._init_event_state()
 
     def reset_optimizer_state(self) -> None:
         """Optimizer state and EMA afresh from the current parameters."""
@@ -194,16 +305,86 @@ class Trainer:
         self.ema = (ema_lib.init(self.params.items())
                     if self.cfg.optimizer.ema_decay > 0 else None)
 
+    def _init_event_state(self) -> None:
+        w = self.strategy.total_workers
+        self._draws = np.zeros(w, dtype=np.int64)
+        self._arrival_count = 0
+        self._event_dead: set = set()
+        if self.strategy.uses_clock:
+            self._sched = coordination.EventScheduler(
+                w, self.latency, self.cfg.seed)
+        else:
+            self._sched = coordination.SerialScheduler()
+        # drop the old copies before making new ones
+        self._workers_stacked = self._scan_aux = self._reads = None
+        with torch.no_grad():
+            if self._event_fused:
+                # one stacked [W, ...] row per worker and the strategy's
+                # device carry; the host keeps the plan state only
+                self._ev_state = None
+                self._plan_state = self.strategy.init_plan_state(
+                    self.cfg.seed)
+                self._read_version = np.zeros(w, dtype=np.int64)
+                self._workers_stacked = {
+                    k: p.detach().unsqueeze(0).repeat(
+                        (w,) + (1,) * p.dim())
+                    for k, p in self.params.items()}
+                self._scan_aux = self.strategy.init_scan_state(self.params)
+            else:
+                self._reads = coordination.VersionedReads(self.params, w)
+                self._read_version = self._reads.version
+                self._ev_state = self.strategy.init_state(self.cfg.seed)
+
     # -- checkpointing --------------------------------------------------------
 
-    def _state_tree(self, leaf=lambda t: t) -> Dict:
-        """The reference's tree: params, opt and ema in its layout."""
-        def tree(named):
-            return to_jax_tree({k: leaf(v) for k, v in named.items()})
-        out = {"params": tree(self.params),
-               "opt": {k: tree(v) for k, v in self.opt_state.items()}}
+    def _state_tree(self) -> Dict:
+        """The reference's tree: params, opt, ema in its layout; in event
+        mode also ``workers`` (every worker's read copy, for strategies
+        with a clock) and ``stale_buffer`` (the staleness FIFO, oldest
+        first), stacked ``[n, ...]``."""
+        out = {"params": to_jax_tree(self.params),
+               "opt": {k: to_jax_tree(v) for k, v in self.opt_state.items()}}
         if self.ema is not None:
-            out["ema"] = tree(self.ema)
+            out["ema"] = to_jax_tree(self.ema)
+        if self.strategy.kind != "event":
+            return out
+        if self.strategy.uses_clock:
+            workers = self._workers_stacked if self._event_fused else {
+                k: torch.stack([self._reads.read(i)[k] for i in
+                                range(self.strategy.total_workers)])
+                for k in self.params}
+            out["workers"] = to_jax_tree(workers, axis=1)
+        if self._event_fused:
+            slots = [s for _, s in getattr(self._plan_state, "fifo", [])]
+            idx = torch.tensor(slots, dtype=torch.int64, device=self.device)
+            stale = {k: r.index_select(0, idx)
+                     for k, r in self._scan_aux.items()} if slots else None
+        else:
+            buf = getattr(self._ev_state, "buffer", None)
+            stale = {k: torch.stack([g[k] for _, g in buf])
+                     for k in self.params} if buf else None
+        if stale is not None:
+            out["stale_buffer"] = to_jax_tree(stale, axis=1)
+        return out
+
+    def _template(self, buffer_len: int = 0) -> Dict:
+        def meta(named, n=None):
+            return {k: torch.empty(((n,) if n else ()) + tuple(t.shape),
+                                   dtype=t.dtype, device="meta")
+                    for k, t in named.items()}
+
+        out = {"params": to_jax_tree(meta(self.params)),
+               "opt": {k: to_jax_tree(meta(v))
+                       for k, v in self.opt_state.items()}}
+        if self.ema is not None:
+            out["ema"] = to_jax_tree(meta(self.ema))
+        if self.strategy.kind == "event":
+            if self.strategy.uses_clock:
+                out["workers"] = to_jax_tree(
+                    meta(self.params, self.strategy.total_workers), axis=1)
+            if buffer_len:
+                out["stale_buffer"] = to_jax_tree(
+                    meta(self.params, buffer_len), axis=1)
         return out
 
     def save_checkpoint(self) -> str:
@@ -214,10 +395,36 @@ class Trainer:
             "sim_time": self.sim_time,
             "restarts": self.restarts,
             "means": {"sel_sum": self._sel_sum, "sel_count": self._sel_count,
-                      "stal_sum": 0.0, "stal_count": 0},
-            "data_state": self.pipeline.state.save(),
-            "dead_workers": [int(w) for w in np.nonzero(self.sim.dead)[0]],
+                      "stal_sum": self._stal_sum,
+                      "stal_count": self._stal_count},
         }
+        if self.strategy.kind == "event":
+            # the loop checkpoints right after an applied update, where the
+            # softsync window is empty; a mid-window snapshot would lose
+            # the buffered gradients on resume
+            strat_state = (self._plan_state if self._event_fused
+                           else self._ev_state)
+            if getattr(strat_state, "pending", None) or getattr(
+                    strat_state, "pending_stals", None):
+                raise RuntimeError(
+                    "event checkpoint with a non-empty softsync window — "
+                    "checkpoint only lands right after an applied update")
+            entries = getattr(strat_state,
+                              "fifo" if self._event_fused else "buffer", [])
+            meta["event"] = {
+                "sched": self._sched.state_dict(),
+                "read_version": [int(v) for v in self._read_version],
+                "draws": [int(d) for d in self._draws],
+                "arrival_count": int(self._arrival_count),
+                "dead": sorted(int(w) for w in self._event_dead),
+                "buffer_tags": [int(tag) for tag, _ in entries],
+                "strategy_rng": coordination.encode_rng(
+                    getattr(strat_state, "rng", None)),
+            }
+        else:
+            meta["data_state"] = self.pipeline.state.save()
+            meta["dead_workers"] = [int(w) for w in
+                                    np.nonzero(self.sim.dead)[0]]
         ck = self.cfg.checkpoint
         with torch.no_grad():
             return ckpt_lib.save(
@@ -228,12 +435,13 @@ class Trainer:
 
     @torch.no_grad()
     def restore_checkpoint(self, step: Optional[int] = None) -> None:
+        # manifest first: the event template depends on the saved buffer
+        # length; the resolved step is pinned for the second read
         directory = self.cfg.checkpoint.directory
         manifest = ckpt_lib.read_manifest(directory, step)
-        template = self._state_tree(
-            leaf=lambda t: torch.empty_like(t, device="meta"))
-        tree, manifest = ckpt_lib.restore(directory, template,
-                                          int(manifest["step"]))
+        tree, manifest = ckpt_lib.restore(
+            directory, self._template(len(manifest.get("event", {}).get(
+                "buffer_tags", []))), int(manifest["step"]))
 
         def load(named, sub):
             for k, t in from_jax_tree(sub).items():
@@ -250,6 +458,11 @@ class Trainer:
         means = manifest.get("means", {})
         self._sel_sum = float(means.get("sel_sum", 0.0))
         self._sel_count = int(means.get("sel_count", 0))
+        self._stal_sum = float(means.get("stal_sum", 0.0))
+        self._stal_count = int(means.get("stal_count", 0))
+        if self.strategy.kind == "event":
+            self._restore_event_state(tree, manifest["event"])
+            return
         self.pipeline.state = PipelineState.restore(manifest["data_state"])
         # replay-exact resume: the simulator is deterministic in (seed, step)
         self.sim.reset_to_step(self.step)
@@ -260,11 +473,53 @@ class Trainer:
                 if 0 <= int(w) < self.strategy.total_workers:
                     self.sim.kill_worker(int(w))
 
+    def _restore_event_state(self, tree: Dict, ev_meta: Dict) -> None:
+        self._init_event_state()
+        read_version = np.array(ev_meta["read_version"], np.int64)
+        self._draws = np.array(ev_meta["draws"], np.int64)
+        self._arrival_count = int(ev_meta["arrival_count"])
+        self._event_dead = set(ev_meta.get("dead", []))
+        self._sched.load_state_dict(ev_meta["sched"])
+        tags = ev_meta.get("buffer_tags", [])
+        workers = (from_jax_tree(tree["workers"], axis=1)
+                   if self.strategy.uses_clock else None)
+        stale = from_jax_tree(tree["stale_buffer"], axis=1) if tags else {}
+        if self._event_fused:
+            self._read_version = read_version
+            if workers is not None:
+                for k, s in self._workers_stacked.items():
+                    s.copy_(workers[k])
+            if tags:
+                # the FIFO-ordered buffer into ring slots 0..n-1, the
+                # round-robin write pointer after them
+                for k, r in self._scan_aux.items():
+                    r[:len(tags)].copy_(stale[k])
+                self._plan_state.fifo = [(int(tag), i)
+                                         for i, tag in enumerate(tags)]
+                self._plan_state.writes = len(tags)
+            strat_state = self._plan_state
+        else:
+            # one copy per distinct read version (a serial rig's worker
+            # reads the live parameters)
+            self._reads.load(read_version, (
+                (lambda i: {k: v[i] for k, v in workers.items()})
+                if workers is not None else (lambda i: self.params)))
+            if tags:
+                self._ev_state.buffer = [
+                    (int(tag), {k: v[i].to(self.device)
+                                for k, v in stale.items()})
+                    for i, tag in enumerate(tags)]
+            strat_state = self._ev_state
+        rng = getattr(strat_state, "rng", None)
+        if rng is not None and ev_meta.get("strategy_rng"):
+            coordination.decode_rng(rng, ev_meta["strategy_rng"])
+
     # -- the loop -------------------------------------------------------------
 
     def run(self, num_steps: int,
             kill_worker_at: Optional[Dict[int, Any]] = None,
             min_alive_behavior: str = "rescale") -> TrainResult:
+        """``num_steps`` steps (PS updates in event mode)."""
         if kill_worker_at:
             raise NotImplementedError(
                 f"kill_worker_at (failure injection) is not ported yet "
@@ -272,33 +527,46 @@ class Trainer:
         t0 = time.perf_counter()
         target = self.step + num_steps
         step_times: List[float] = []
+        arrivals0 = getattr(self, "_arrival_count", 0)
         try:
-            while self.step < target:
-                if self.sim.alive < self.cfg.aggregation.num_workers:
-                    if min_alive_behavior == "rescale":
-                        raise NotImplementedError(
-                            f"{self.sim.alive} live workers < N: elastic "
-                            f"rescale is not ported yet ({_FAULTS})")
-                    raise RuntimeError("insufficient live workers")
-                ts = time.perf_counter()
-                if self.cfg.chunk_size > 1:
-                    # k == 1 still goes through the chunk path
-                    k = self._chunk_len_at(self.step, target)
-                    self._run_chunk(k, target)
+            if self.strategy.kind == "event":
+                if self._event_fused:
+                    self._run_event_chunked(target, step_times)
                 else:
-                    k = 1
-                    self._run_one_step(target)
-                step_times += [(time.perf_counter() - ts) / k] * k
-                every = self.cfg.checkpoint.every_steps
-                if every > 0 and self.step % every == 0:
-                    self.save_checkpoint()
+                    self._run_event(target, step_times)
+            else:
+                self._run_mask(target, min_alive_behavior, step_times)
         finally:
             self._wall_s += time.perf_counter() - t0
         return TrainResult(
             self.params, self.ema, self.metrics, self.sim_time, self.step,
             self.restarts,
             mean_selected=self._sel_sum / max(self._sel_count, 1),
-            wall_time_s=self._wall_s, step_times_s=step_times)
+            mean_staleness=self._stal_sum / max(self._stal_count, 1),
+            wall_time_s=self._wall_s, step_times_s=step_times,
+            arrivals=getattr(self, "_arrival_count", 0) - arrivals0)
+
+    def _run_mask(self, target: int, min_alive_behavior: str,
+                  step_times: List[float]) -> None:
+        while self.step < target:
+            if self.sim.alive < self.cfg.aggregation.num_workers:
+                if min_alive_behavior == "rescale":
+                    raise NotImplementedError(
+                        f"{self.sim.alive} live workers < N: elastic "
+                        f"rescale is not ported yet ({_FAULTS})")
+                raise RuntimeError("insufficient live workers")
+            ts = time.perf_counter()
+            if self.cfg.chunk_size > 1:
+                # k == 1 still goes through the chunk path
+                k = self._chunk_len_at(self.step, target)
+                self._run_chunk(k, target)
+            else:
+                k = 1
+                self._run_one_step(target)
+            step_times += [(time.perf_counter() - ts) / k] * k
+            every = self.cfg.checkpoint.every_steps
+            if every > 0 and self.step % every == 0:
+                self.save_checkpoint()
 
     def _chunk_len_at(self, step: int, target: int) -> int:
         """Steps from ``step`` to the next forced boundary: the run target
@@ -392,6 +660,131 @@ class Trainer:
                           {key: float(v[i]) for key, v in ms_np.items()},
                           self.optimizer.scalars(step)["lr"])
 
+    # -- the event loop -------------------------------------------------------
+
+    def _event_batch(self, worker: int, draw: int) -> Dict:
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in self._event_batch_host(worker, draw).items()}
+
+    def _log_update(self, loss: float, selected: int,
+                    staleness: float) -> None:
+        self.metrics.append({"step": self.step, "loss": loss,
+                             "sim_time": self.sim_time,
+                             "selected": int(selected),
+                             "staleness": float(staleness)})
+
+    def _run_event(self, target: int, step_times: List[float]) -> None:
+        """The discrete-event PS loop, one arrival at a time:
+        ``coordination.run_events`` arrival for arrival, plus the
+        checkpoint cadence and the metrics records. A record's loss is
+        read back (one sync) only on a logged update. The arrival's
+        phases are ``torch.profiler`` ranges (``event/grad``,
+        ``event/update``, ``event/read_copy``), which
+        ``launch/profile_train.py`` reads."""
+        every = self.cfg.checkpoint.every_steps
+        ema_decay = self.cfg.optimizer.ema_decay
+        ts = time.perf_counter()
+        while self.step < target:
+            t, w = self._sched.pop()
+            batch = self._event_batch(w, int(self._draws[w]))
+            self._draws[w] += 1
+            with record_function("event/grad"):
+                loss, grads = self._grad_fn(self._reads.read(w), batch)
+            arrival = coordination.Arrival(
+                index=self._arrival_count, worker=w, time=float(t),
+                staleness=int(self.step - self._read_version[w]),
+                version=self.step)
+            self._arrival_count += 1
+            if self.strategy.stals_per_arrival:
+                self._stal_sum += arrival.staleness
+                self._stal_count += 1
+            ready = self.strategy.on_arrival(self._ev_state, grads, arrival)
+            del grads
+            updated = False
+            if ready is not None:
+                with record_function("event/update"):
+                    self._update_fn(self.params, self.opt_state,
+                                    ready.grads, self.step)
+                    if ema_decay > 0:
+                        ema_lib.update(self.ema, self.params.items(),
+                                       ema_decay)
+                # simulated seconds; the serial rig's clock is the arrival
+                # index
+                self.sim_time = float(t)
+                if not self.strategy.stals_per_arrival:
+                    self._stal_sum += ready.staleness
+                    self._stal_count += 1
+                self._sel_sum += ready.selected
+                self._sel_count += 1
+                self.step += 1
+                updated = True
+                if self._logged(target):
+                    self._log_update(float(loss), ready.selected,
+                                     ready.staleness)
+                del ready
+            # the worker reads the fresh params and starts its next batch
+            with record_function("event/read_copy"):
+                self._reads.write(w, self.params, self.step)
+            self._sched.push(t, w)
+            if updated:
+                step_times.append(time.perf_counter() - ts)
+                if every > 0 and self.step % every == 0:
+                    self.save_checkpoint()
+                ts = time.perf_counter()
+
+    def _run_event_chunked(self, target: int,
+                           step_times: List[float]) -> None:
+        """Chunks of host-planned arrivals through the event chunk step.
+        A chunk's length is counted in PS updates (``_chunk_len_at``) and
+        its plan ends on its last update, so checkpoints land on the same
+        steps, with the same state, as on the per-arrival path. The
+        batches, the plan's rows and the staged scalars reach the device
+        in one copy each; the losses are read back only when a logged
+        update falls in the chunk."""
+        every = self.cfg.checkpoint.every_steps
+        while self.step < target:
+            ts = time.perf_counter()
+            u = self._chunk_len_at(self.step, target)
+            plan = coordination.plan_events(
+                self.strategy, self._sched, self._plan_state,
+                self._read_version, self._draws,
+                version0=self.step, arrival0=self._arrival_count,
+                num_updates=u)
+            self._arrival_count += len(plan)
+            host = [self._event_batch_host(int(wk), int(d))
+                    for wk, d in zip(plan.worker, plan.draw)]
+            batches = {k: self._to_device(np.stack([b[k] for b in host]))
+                       for k in host[0]}
+            scalars = stage_scalars(self.optimizer,
+                                    [int(s) for s in plan.step], self.device)
+            losses = self._event_chunk(
+                self.params, self.opt_state, self.ema, self._workers_stacked,
+                self._scan_aux, scalars, batches, plan.rows(self.device),
+                plan.apply)
+            # host bookkeeping straight off the plan, no device sync
+            if self.strategy.stals_per_arrival:
+                self._stal_sum += float(plan.arrival_staleness.sum())
+                self._stal_count += len(plan)
+            else:
+                self._stal_sum += float(
+                    plan.update_staleness[plan.apply].sum())
+                self._stal_count += plan.updates
+            self._sel_sum += float(plan.selected[plan.apply].sum())
+            self._sel_count += plan.updates
+            losses_np = None
+            for k in np.nonzero(plan.apply)[0]:
+                self.step += 1
+                self.sim_time = float(plan.time[k])
+                if self._logged(target):
+                    if losses_np is None:
+                        losses_np = losses.cpu().numpy()
+                    self._log_update(float(losses_np[k]),
+                                     int(plan.selected[k]),
+                                     float(plan.update_staleness[k]))
+            step_times += [(time.perf_counter() - ts) / u] * u
+            if every > 0 and self.step % every == 0:
+                self.save_checkpoint()
+
 
 # ---------------------------------------------------------------------------
 # The one-call entry point
@@ -400,14 +793,19 @@ class Trainer:
 
 def run_experiment(cfg: TrainConfig, *,
                    latency: Optional[LatencyModel] = None,
-                   device=None, resume: bool = False,
-                   save_final: bool = False,
+                   device=None, model=None,
+                   batch_fn: Optional[Callable] = None,
+                   resume: bool = False, save_final: bool = False,
                    kill_worker_at: Optional[Dict[int, Any]] = None,
                    min_alive_behavior: str = "rescale") -> TrainResult:
-    """Run a mask regime (full_sync, backup, timeout) from ``cfg`` alone:
-    build the Trainer, initialize or resume its state, run
-    ``cfg.total_steps`` steps and return the :class:`TrainResult`."""
-    tr = Trainer(cfg, latency=latency, device=device)
+    """Run a coordination regime (full_sync, backup, timeout, async,
+    softsync, staleness) from ``cfg`` alone: build the Trainer, initialize
+    or resume its state, run ``cfg.total_steps`` steps (PS updates in
+    event mode) and return the :class:`TrainResult`. ``model`` /
+    ``batch_fn`` plug non-LM problems into the event regimes (the MNIST
+    staleness rig)."""
+    tr = Trainer(cfg, latency=latency, device=device, model=model,
+                 batch_fn=batch_fn)
     if resume and ckpt_lib.latest_step(cfg.checkpoint.directory) is not None:
         tr.reset_optimizer_state()
         tr.restore_checkpoint()

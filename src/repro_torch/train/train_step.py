@@ -22,11 +22,17 @@ trainer's to log).
 one ``lax.scan`` dispatch: a Python loop over the step on the CPU, a
 captured CUDA graph replayed K times on the card
 (``core.step_graph.chunk_step``).
+
+``build_event_chunk_step`` (reference :197-246) is the event regimes'
+counterpart: K host-planned arrivals per call, each one captured CUDA
+graph's replay on the card (one graph for an arrival that applies the
+update, one for an arrival that only buffers), a Python loop on the CPU.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 
 from repro_torch.core import ema as ema_lib
@@ -132,3 +138,98 @@ def build_chunk_step(model, optimizer: opt_lib.Optimizer, *,
         ema_decay=ema_decay, clip_norm=clip_norm,
         num_microbatches=num_microbatches)
     return step_graph.chunk_step(step_fn, model)
+
+
+def build_event_chunk_step(model, grad_fn: Callable, update_fn: Callable,
+                           strategy, *, ema_decay: float = 0.0) -> Callable:
+    """K host-planned arrivals per call:
+
+        chunk(params, opt_state, ema, workers {name: [W, ...]}, aux,
+              scalars {name: [K]}, batches {name: [K, b, ...]},
+              rows {worker, slot_w, slot_r: [K] int64}, apply [K] bool)
+            -> losses [K]
+
+    ``params`` are the PS parameters (the trainer's model), ``workers``
+    the stacked per-worker read copies, ``aux`` the strategy's carry
+    (``init_scan_state``), ``rows`` and ``apply`` the host plan
+    (``EventPlan.rows``, ``EventPlan.apply``), ``scalars`` the optimizer's
+    staged scalars of each arrival's PS version (``EventPlan.step``). All
+    state is updated in place. Per arrival: the arriving worker's row is
+    gathered into ``model`` (the gradient model of ``grad_fn``, never the
+    PS's), ``grad_fn`` runs, the strategy aggregates or buffers
+    (``on_arrival_scan``), an arrival that applies runs ``update_fn`` and
+    the EMA, and the worker's row takes the fresh parameters. The worker
+    index and the ring slots are ``[1]`` device tensors, never Python
+    ints, so one capture serves every worker. On the card each branch of
+    ``apply`` is its own captured graph (both in one memory pool), replayed
+    as the plan says; on the CPU the body runs as it is.
+    ``chunk.graphs`` maps ``apply`` to its StepGraph (empty on the CPU)."""
+    device = torch.device(model.device)
+    held: Dict[str, object] = {}
+
+    def body(static: Dict[str, torch.Tensor], apply: bool
+             ) -> Dict[str, torch.Tensor]:
+        params, workers, wk = held["params"], held["workers"], \
+            static["worker"]
+        own = dict(model.named_parameters())
+        with torch.no_grad():
+            for k, p in own.items():
+                torch.index_select(workers[k], 0, wk, out=p.unsqueeze(0))
+        loss, grads = grad_fn(own, {k[6:]: v for k, v in static.items()
+                                    if k.startswith("batch/")})
+        with torch.no_grad():
+            agg = strategy.on_arrival_scan(
+                held["aux"], grads, {"apply": apply,
+                                     "slot_w": static["slot_w"],
+                                     "slot_r": static["slot_r"]})
+            del grads
+            if apply:
+                update_fn(params, held["opt_state"], agg,
+                          {k[7:]: v for k, v in static.items()
+                           if k.startswith("scalar/")})
+                del agg
+                if ema_decay > 0:
+                    ema_lib.update(held["ema"], params.items(), ema_decay)
+            # the worker reads the fresh params for its next mini-batch
+            for k, s in workers.items():
+                s.index_copy_(0, wk, params[k].unsqueeze(0))
+        return {"loss": loss}
+
+    graphs: Dict[bool, step_graph.StepGraph] = {}
+    if device.type == "cuda":
+        pool = torch.cuda.graph_pool_handle()
+        for a in (True, False):
+            graphs[a] = step_graph.StepGraph(
+                lambda static, a=a: body(static, a), device, pool=pool)
+
+    def chunk(params, opt_state, ema, workers, aux, scalars, batches, rows,
+              apply: np.ndarray) -> torch.Tensor:
+        k = len(apply)
+        held.update(params=params, opt_state=opt_state, ema=ema,
+                    workers=workers, aux=aux)
+        state = None
+        losses = None
+        for i in range(k):
+            inputs = {**{n: v[i:i + 1] for n, v in rows.items()},
+                      **{f"scalar/{n}": v[i] for n, v in scalars.items()},
+                      **{f"batch/{n}": v[i] for n, v in batches.items()}}
+            if not graphs:
+                out = body(inputs, bool(apply[i]))
+            else:
+                if state is None:
+                    state = [*step_graph.train_state(model, {}, None),
+                             *params.values(),
+                             *(t for sub in opt_state.values()
+                               for t in sub.values()),
+                             *(ema.values() if ema is not None else ()),
+                             *workers.values(), *aux.values()]
+                out = graphs[bool(apply[i])](inputs, state)
+            if losses is None:
+                losses = torch.empty((k,), dtype=out["loss"].dtype,
+                                     device=out["loss"].device)
+            losses[i].copy_(out["loss"])
+        held.clear()
+        return losses
+
+    chunk.graphs = graphs
+    return chunk

@@ -110,15 +110,19 @@ def test_masks_and_sim_time_bit_exact(strategy, kw, latency):
 
 
 def test_registry_refuses_unported_strategies():
-    for name in ("dynamic_backup", "async", "softsync", "staleness"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            tregistry.get_strategy(tbase.AggregationConfig(strategy=name))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+        tregistry.get_strategy(tbase.AggregationConfig(
+            strategy="dynamic_backup"))
     with pytest.raises(ValueError, match="valid strategies"):
         tregistry.get_strategy(tbase.AggregationConfig(strategy="nope"))
     backup = tregistry.get_strategy(tbase.AggregationConfig(
         strategy="backup", num_workers=3, backup_workers=1))
     assert tregistry.supports_spmd(backup)
-    assert tregistry.available() == ["backup", "full_sync", "timeout"]
+    for name in ("async", "softsync", "staleness"):
+        event = tregistry.get_strategy(tbase.AggregationConfig(strategy=name))
+        assert event.kind == "event" and not tregistry.supports_spmd(event)
+    assert tregistry.available() == ["async", "backup", "full_sync",
+                                     "softsync", "staleness", "timeout"]
 
 
 # ---------------------------------------------------------------------------

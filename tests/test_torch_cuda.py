@@ -54,6 +54,14 @@ where only PyTorch is installed:
   anew, never replayed on the old tensors, and a restore keeps it; the
   launch counters count replays (the eager loop's counts); graph decode
   gives the eager decode's greedy tokens, fp and int8, with one capture.
+* The event regimes' chunked path (one captured graph per branch: an
+  arrival that applies the update, one that only buffers) against the
+  per-arrival loop on the card: async, softsync and staleness on qwen3
+  smoke, async on rwkv6 smoke, parameters, optimizer state, EMA, metrics
+  and the workers' read copies bit-equal; every worker arrives although
+  the capture saw one (the worker index is a device tensor); each branch
+  replays as often as the plan names it; the event run on the card agrees
+  with the CPU port (atol 1e-5, f32).
 """
 import pytest
 
@@ -658,3 +666,86 @@ def test_graph_decode_matches_eager(cuda_device, int8):
     assert graph.decode_compiles == 1
     assert graph.run(trace).tokens_by_rid() == out["eager"][0]
     assert graph.decode_compiles == 1
+
+
+# ---------------------------------------------------------------------------
+# The event regimes' CUDA graphs
+# ---------------------------------------------------------------------------
+
+_EVENT_AGG = {
+    "async": AggregationConfig(strategy="async", num_workers=4),
+    "softsync": AggregationConfig(strategy="softsync", num_workers=4,
+                                  softsync_c=3),
+    "staleness": AggregationConfig(strategy="staleness", num_workers=1,
+                                   staleness_tau=2, staleness_ramp_steps=3,
+                                   staleness_jitter=1),
+}
+
+
+def _event_cfg(arch, name, chunk):
+    return dataclasses.replace(
+        _chunk_cfg(arch, "sim", chunk), aggregation=_EVENT_AGG[name],
+        shape=ShapeConfig("t", 16, 8, "train"))
+
+
+def _event_runs(device, arch, name, updates=6):
+    runs = {}
+    for chunk in (1, 4):
+        tr = Trainer(_event_cfg(arch, name, chunk), device=device)
+        tr.init_state()
+        runs[chunk] = (tr, tr.run(updates))
+    return runs
+
+
+@pytest.mark.parametrize("arch,name", [("qwen3-0.6b", "async"),
+                                       ("qwen3-0.6b", "softsync"),
+                                       ("qwen3-0.6b", "staleness"),
+                                       ("rwkv6-1.6b", "async")])
+def test_event_graphs_match_per_arrival(cuda_device, arch, name):
+    """6 updates at chunk 4 (chunks of 4 and 2) against the per-arrival
+    loop: bit-equal state, read copies and metrics; every worker arrived,
+    though each graph was captured on one worker's arrival."""
+    runs = _event_runs(cuda_device, arch, name)
+    (eager, re), (graph, rg) = runs[1], runs[4]
+    assert rg.metrics == re.metrics and rg.sim_time == re.sim_time
+    assert rg.arrivals == re.arrivals
+    _state_equal(eager, graph)
+    if eager.strategy.uses_clock:
+        assert (graph._draws > 0).all()          # every worker arrived
+        for w in range(eager.strategy.total_workers):
+            for k, v in eager._reads.read(w).items():
+                assert torch.equal(graph._workers_stacked[k][w], v), (w, k)
+    g = graph._event_chunk.graphs
+    assert sum(x.captures for x in g.values()) == (1 if name == "async"
+                                                   else 2)
+    assert sum(x.captures + x.replays for x in g.values()) == rg.arrivals
+
+
+def test_event_graphs_replay_the_planned_branch(cuda_device):
+    """softsync c = 3: of each window's arrivals two only buffer and one
+    applies; each branch's graph runs exactly that often."""
+    runs = _event_runs(cuda_device, "qwen3-0.6b", "softsync", updates=4)
+    graph, res = runs[4]
+    g = graph._event_chunk.graphs
+    assert res.arrivals == 12
+    assert g[True].captures + g[True].replays == 4
+    assert g[False].captures + g[False].replays == 8
+    assert g[True].captures == g[False].captures == 1
+
+
+def test_event_run_on_card_matches_cpu(cuda_device):
+    cfg = _event_cfg("qwen3-0.6b", "async", 4)
+    cpu = Trainer(cfg, device="cpu")
+    cpu.init_state()
+    card = Trainer(cfg, device=cuda_device)
+    card.model.load_state_dict(cpu.model.state_dict())
+    card.reset_optimizer_state()
+    card._init_event_state()
+    rc, rg = cpu.run(5), card.run(5)
+    assert [(m["staleness"], m["sim_time"]) for m in rg.metrics] == \
+        [(m["staleness"], m["sim_time"]) for m in rc.metrics]
+    np.testing.assert_allclose([m["loss"] for m in rg.metrics],
+                               [m["loss"] for m in rc.metrics], rtol=1e-5)
+    for k, v in rc.params.items():
+        np.testing.assert_allclose(rg.params[k].detach().cpu().numpy(),
+                                   v.detach().numpy(), atol=1e-5, err_msg=k)

@@ -337,7 +337,8 @@ def test_checkpoint_bf16_roundtrip_and_corruption(tmp_path):
     (dict(execution=jbase.ExecutionConfig(backend="spmd", grad_batch=1,
                                           use_kernel=True)),
      ValueError, "needs the card"),
-    (dict(aggregation=jbase.AggregationConfig(strategy="async")),
+    (dict(aggregation=jbase.AggregationConfig(strategy="async"),
+          execution=jbase.ExecutionConfig(backend="spmd", grad_batch=1)),
      NotImplementedError, "Queue 1 item 6"),
     (dict(execution=jbase.ExecutionConfig(backend="tpu_pod")), ValueError,
      "unknown execution backend"),
@@ -397,8 +398,9 @@ def test_cli_runs_on_cpu_and_resumes(tmp_path, capsys, backend):
 
 @pytest.mark.parametrize("extra", [
     ["--straggler-backend", "device"], ["--strategy", "dynamic_backup"],
-    ["--strategy", "async"], ["--strategy", "softsync"],
-    ["--dynamic-window", "8"], ["--softsync-c", "2"],
+    ["--strategy", "async", "--execution", "spmd"],
+    ["--strategy", "softsync", "--straggler-backend", "device"],
+    ["--dynamic-window", "8"], ["--strategy", "softsync", "--faults", "x"],
     ["--latency-source", "measured"], ["--faults", "crash@2:w1"],
     ["--fault-seed", "1"], ["--supervise"], ["--max-restarts", "2"],
     ["--trace", "t.json"], ["--metrics", "m.jsonl"], ["--platform", "gpu"],
