@@ -112,7 +112,32 @@ fails (non-zero exit, no result line) if any phase fails:
    checkpoint at update 2, restored and continued, equals the straight
    run (atol 1e-6), and the card's graph run equals the CPU port's
    per-arrival run (atol 1e-5).
-15. A JSON line of per-kernel numbers (``launches`` is the count of one
+15. The paper's Figs. 5 and 6 at the tiny size (``repro_torch.benchmarks``,
+   TF32 off): 20 synchronous SGD steps at N = 2 on the card against the
+   same steps on the CPU port, every loss within 1e-4; then Fig. 5's
+   steps to the target held-out loss for N in {1, 2, 4, 8} on the card,
+   its fit iters(N) = a + c/N, and Fig. 6's best N + b split of 100
+   machines from that fit (or the paper's, when the fit is too flat to
+   extrapolate).
+16. Figs. 8/9 at full width (``bench_sync_vs_async.run_full_width``):
+   qwen3-0.6b (28 layers, bf16) on the synthetic stream cut to 512 ids,
+   2 x 256 tokens a worker, SGD at the swept base lr, backup 6 + 2 and
+   full sync 8 (40 steps each, spmd: ``backup_reduce`` every step) and
+   async W = 8 (160 updates) and softsync W = 8, c = 2 (80 updates) on
+   the event graphs, every step a graph replay. The backup_reduce counter
+   is set to 0 just before and read just after: one launch per mask step
+   (80). Gates: every loss finite, and every regime's last train loss at
+   least ``FALL_NATS`` below its first. Printed, not gated: steps,
+   sim_time and card wall to the target loss, the final held-out loss,
+   host wall per step or update, peak memory, and the paper's claims.
+   Then rwkv6-1.6b at full width (backup 3 + 1, spmd, the same stream and
+   base lr, 12 steps through the graph) through the wkv kernels (counted:
+   2 x 24 x 4 forwards a step, half writing chunk states, 24 x 4
+   backwards, one reduce) and with ``model.use_kernel = False`` (no wkv
+   launch): both loss trajectories and the relative gap per step are
+   printed (every loss finite); then the same pair at 2 layers in f32, a
+   control without bf16 rounding.
+17. A JSON line of per-kernel numbers (``launches`` is the count of one
    run of the main path that launches the kernel, named by
    ``launches_run``: the graph-decode serve runs, whose prefills stay
    eager, and the graph training runs), then, as the last line,
@@ -148,6 +173,11 @@ WKV_SHAPE = dict(b=2, s=256, h=32, d=64)    # rwkv6-1.6b's training call
 WKV_EDGES = dict(d=(16, 32, 64), s=(1, 16, 40, 100))
 WKV_TOL = dict(dr=1e-4, dk=1e-4, dv=1e-4, dw=5e-4, du=1e-4)
 RWKV_PARAMS = 1_584_095_232        # repro.models.registry.param_count
+FIG5_HOLD = dict(n=2, steps=20, atol=1e-4)
+# nats each full-width regime's train loss must fall over its run: from
+# ln(151,936) = 11.93 the swept base reaches ~6.3 (PERF.md, Findings)
+FALL_NATS = 3.0
+RWKV_CONVERGING_STEPS = 12
 
 
 def _log(msg: str) -> None:
@@ -1385,6 +1415,132 @@ def _event_parity_phase(torch):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phases 15 and 16: the paper's convergence experiments
+# ---------------------------------------------------------------------------
+
+
+def _fig5_fig6_phase(torch):
+    """Phase 15: Fig. 5 on the card at the tiny size, held to the CPU port
+    over its first steps, then Fig. 6 from its fit."""
+    from repro_torch.benchmarks import bench_iterations_vs_n as fig5
+    from repro_torch.benchmarks import bench_time_to_converge as fig6
+    n, steps, atol = FIG5_HOLD["n"], FIG5_HOLD["steps"], FIG5_HOLD["atol"]
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        losses[dev] = []
+        fig5.steps_to_target(n, -math.inf, steps, device=dev,
+                             losses=losses[dev])
+    worst = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    if len(losses["cuda"]) != steps or not worst <= atol:
+        raise AssertionError(f"[fig5] card vs CPU port at N = {n}: max abs "
+                             f"loss diff {worst} (atol {atol})")
+    _log(f"[fig5] N = {n}, {steps} SGD steps: card vs CPU port max abs loss "
+         f"diff {worst:.3g} (atol {atol}); card losses "
+         f"{' '.join(f'{v:.6f}' for v in losses['cuda'])}")
+    t0 = time.perf_counter()
+    rows, fit = fig5.run(True, device="cuda")
+    for row in rows:
+        _log(f"[fig5] {','.join(str(x) for x in row)}")
+    _log(f"[fig5] fit iters(N) = {fit[0]:.6f} + {fit[1]:.6f}/N, target "
+         f"held-out loss {fig5.TARGET} ({time.perf_counter() - t0:.1f} s)")
+    src = fig6.iters_model(fit)[1]
+    for row in fig6.run(True, fit=fit):
+        _log(f"[fig6] {','.join(str(x) for x in row)} (iters: {src})")
+
+
+def _full_width_phase(torch, backup_reduce, rwkv6_scan):
+    """Phase 16: the four regimes at full width, then rwkv6-1.6b through
+    the wkv kernels and through the plain twin on the same stream."""
+    import gc
+    from repro_torch.benchmarks import bench_sync_vs_async as sva
+    from repro_torch.train.loop import Trainer
+    t0 = time.perf_counter()
+    backup_reduce.launches = 0
+    out, rows = sva.run_full_width(device="cuda", log=_log)
+    launches = backup_reduce.launches
+    mask_steps = sum(out[k]["res"].steps for k in ("sync_backup",
+                                                   "sync_full"))
+    for row in rows:
+        _log(f"[full width] {','.join(str(x) for x in row)}")
+    for name, o in out.items():
+        losses = [m["loss"] for m in o["res"].metrics]
+        if not all(math.isfinite(v) for v in losses + [o["final"]]):
+            raise AssertionError(f"[full width {name}] non-finite loss")
+        if not losses[-1] <= losses[0] - FALL_NATS:
+            raise AssertionError(f"[full width {name}] train loss "
+                                 f"{losses[0]} -> {losses[-1]}: fell less "
+                                 f"than {FALL_NATS} nats")
+    if launches != mask_steps:
+        raise AssertionError(f"[full width] backup_reduce launches "
+                             f"{launches}, expected {mask_steps}")
+    b, f, a = (out[k] for k in ("sync_backup", "sync_full", "async"))
+    _log(f"[full width] every loss finite; every regime's train loss fell "
+         f"more than {FALL_NATS} nats; backup_reduce launches {launches} = "
+         f"the mask regimes' {mask_steps} steps, replays counted "
+         f"({time.perf_counter() - t0:.1f} s). The paper's claims (not "
+         f"gated): backup reaches the target in less sim_time than full "
+         f"sync: {b['to_target']['sim_time']} vs "
+         f"{f['to_target']['sim_time']} (unigram level "
+         f"{b['to_unigram']['sim_time']} vs {f['to_unigram']['sim_time']});"
+         f" backup's final held-out loss no worse than async's: "
+         f"{b['final']:.6f} vs {a['final']:.6f}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # rwkv6-1.6b, kernels against the plain twin on the converging run; at
+    # 2 layers in f32 the same, as a control without bf16 rounding
+    steps = RWKV_CONVERGING_STEPS
+    cfg, data_cfg = sva.full_width_cfg(
+        "backup", arch="rwkv6-1.6b", workers=3, backups=1, steps=steps,
+        lr=sva.FULL_BASE_LR * 3)
+    f32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, num_layers=2, dtype="float32"))
+    counters = ((rwkv6_scan, "launches_fwd"), (rwkv6_scan, "launches_bwd"),
+                (backup_reduce, "launches"),
+                (rwkv6_scan, "launches_fwd_states"))
+    for label, run_cfg in (("bf16", cfg), ("f32 2 layers", f32)):
+        runs = {}
+        for tag in ("kernel", "plain"):
+            torch.cuda.reset_peak_memory_stats()
+            tr = Trainer(run_cfg, device="cuda", data_cfg=data_cfg)
+            tr.model.use_kernel = tag == "kernel"
+            tr.init_state()
+            for m, attr in counters:
+                setattr(m, attr, 0)
+            res = tr.run(steps)
+            torch.cuda.synchronize()
+            counts = tuple(getattr(m, attr) for m, attr in counters)
+            per_step = (2 * run_cfg.model.num_layers
+                        * run_cfg.aggregation.total_workers
+                        if tag == "kernel" else 0)
+            want = (per_step * steps, per_step // 2 * steps, steps,
+                    per_step // 2 * steps)
+            losses = [m["loss"] for m in res.metrics]
+            if counts != want or len(losses) != steps or not all(
+                    math.isfinite(v) for v in losses):
+                raise AssertionError(
+                    f"[rwkv converging {label} {tag}] launches wkv6 fwd/bwd,"
+                    f" backup_reduce, state-writing fwd {counts} (expected "
+                    f"{want}), or {len(losses)} losses, not all finite")
+            _log(f"[rwkv converging {label} {tag}] {steps} steps, lr "
+                 f"{run_cfg.optimizer.learning_rate:.6g}: launches wkv6 fwd "
+                 f"{counts[0]} (writing the chunk states {counts[3]}) bwd "
+                 f"{counts[1]} backup_reduce {counts[2]}; peak device memory "
+                 f"{torch.cuda.max_memory_allocated()} bytes; train losses "
+                 f"{' '.join(f'{v:.6f}' for v in losses)}")
+            runs[tag] = losses
+            del tr, res
+            gc.collect()
+            torch.cuda.empty_cache()
+        gaps = [abs(k - p) / abs(p) for k, p in zip(runs["kernel"],
+                                                     runs["plain"])]
+        _log(f"[rwkv converging {label}] kernel vs plain relative gap per "
+             f"step {' '.join(f'{g:.3g}' for g in gaps)}; largest "
+             f"{max(gaps):.3g} at step {gaps.index(max(gaps)) + 1}")
+
+
 def main() -> int:
     # cuBLAS picks the same algorithms run to run (the kernel and plain
     # training runs must compute the same first-step gradients)
@@ -1477,7 +1633,13 @@ def main() -> int:
     # 14. reduced depth: event resume == straight run, card == CPU port
     _event_parity_phase(torch)
 
-    # 15. results
+    # 15. Figs. 5 and 6 at the tiny size, the card held to the CPU port
+    _fig5_fig6_phase(torch)
+
+    # 16. Figs. 8/9 at full width, then rwkv6 kernels vs plain converging
+    _full_width_phase(torch, backup_reduce, rwkv6_scan)
+
+    # 17. results
     keys = ("name", "route", "source", "replaces", "launches", "launches_run",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

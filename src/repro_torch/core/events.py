@@ -1,24 +1,26 @@
 """Per-step worker masks and iteration times for the mask strategies.
-Reference: ``src/repro/core/events.py`` (``StepEvent``, ``ChunkEvents``
-and ``StragglerSimulator`` with ``next_event`` / ``next_events``,
-:20-126).
+Reference: ``src/repro/core/events.py`` (``StepEvent``, ``ChunkEvents``,
+``StragglerSimulator`` with ``next_event`` / ``next_events``, and
+``mean_iteration_time`` / ``estimate_time_to_converge``, :20-149).
 
 Composes a latency model with a mask strategy: one ``StepEvent`` per
 training step, deterministic in ``(seed, step)`` — the replay contract
 that makes resume exact with no simulator state to persist. Masks,
 iteration times and arrivals equal the reference's bit for bit, and the
-chunked loop's ``next_events(k)`` equals k ``next_event()`` calls. The
+chunked loop's ``next_events(k)`` equals k ``next_event()`` calls.
+``estimate_time_to_converge`` composes the mean iteration time of each
+(N, b) split with an iteration count per N: paper Fig. 6. The
 latency spikes and revivals of fault injection come with fault tolerance
 (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.coordination import MaskStrategy
+from repro_torch.core.coordination import BackupWorkers, MaskStrategy
 from repro_torch.core.straggler import LatencyModel, PaperCalibrated
 
 
@@ -94,3 +96,31 @@ class StragglerSimulator:
                            np.array([e.iteration_time for e in evs],
                                     np.float64),
                            np.stack([e.arrivals for e in evs]))
+
+
+def mean_iteration_time(strategy: MaskStrategy, latency: LatencyModel,
+                        iters: int = 1000, seed: int = 0) -> float:
+    """The mean simulated iteration time of ``strategy`` over ``iters``
+    steps of a fresh simulator."""
+    sim = StragglerSimulator(strategy, latency, seed)
+    return float(np.mean([sim.next_event().iteration_time
+                          for _ in range(iters)]))
+
+
+def estimate_time_to_converge(n_values: np.ndarray,
+                              iters_to_converge: np.ndarray,
+                              total_machines: int, latency: LatencyModel,
+                              sim_iters: int = 2000, seed: int = 0
+                              ) -> Tuple[np.ndarray, np.ndarray]:
+    """Paper Fig. 6: for each N (with b = total - N), the estimated time
+    to converge = iterations(N) x the mean iteration time of
+    ``BackupWorkers(N, b)``. Returns (times, mean step times), each
+    ``[len(n_values)]``."""
+    times, step_times = [], []
+    for n, it in zip(n_values, iters_to_converge):
+        st = mean_iteration_time(
+            BackupWorkers(int(n), total_machines - int(n)), latency,
+            sim_iters, seed)
+        step_times.append(st)
+        times.append(st * it)
+    return np.array(times), np.array(step_times)

@@ -8,6 +8,11 @@ Reference: ``src/repro/train/loop.py`` (``TrainResult``, ``Trainer`` —
 ``_run_event_chunked`` — and ``run_experiment``; :97-606, 738-1117,
 1122-1162).
 
+The token stream comes from ``data_cfg`` (a ``SyntheticLMConfig``; by
+default the config's vocabulary, sequence, batch and seed at the default
+noise), with its worker count set to the strategy's, as in the
+reference.
+
 The strategy, built from ``cfg.aggregation`` by
 ``core.registry.get_strategy``, picks the mode.
 
@@ -145,8 +150,11 @@ def _host(v) -> np.ndarray:
 class Trainer:
     def __init__(self, cfg: TrainConfig,
                  latency: Optional[LatencyModel] = None, *, device=None,
+                 data_cfg: Optional[SyntheticLMConfig] = None,
                  model=None, batch_fn: Optional[Callable] = None):
-        """``model`` / ``batch_fn`` override the config's model and the
+        """``data_cfg`` sets the synthetic token stream (its
+        ``num_workers`` is replaced by the strategy's). ``model`` /
+        ``batch_fn`` override the config's model and the
         per-worker batch source (``batch_fn`` in event mode only): how
         non-LM rigs such as the §2.1 MNIST staleness experiment route
         through ``run_experiment``. ``batch_fn(worker, draw_index)`` ->
@@ -167,6 +175,10 @@ class Trainer:
         self._stal_sum = 0.0
         self._stal_count = 0
         self._wall_s = 0.0
+        self.data_cfg = data_cfg or SyntheticLMConfig(
+            vocab_size=cfg.model.vocab_size, seq_len=cfg.shape.seq_len,
+            global_batch=cfg.shape.global_batch,
+            num_workers=cfg.aggregation.total_workers, seed=cfg.seed)
         self._build()
 
     # -- construction ---------------------------------------------------------
@@ -215,10 +227,8 @@ class Trainer:
         sched = schedules.from_config(cfg.optimizer,
                                       cfg.aggregation.num_workers)
         self.optimizer = make_optimizer(cfg.optimizer, sched)
-        self.pipeline = SyntheticLMPipeline(SyntheticLMConfig(
-            vocab_size=cfg.model.vocab_size, seq_len=cfg.shape.seq_len,
-            global_batch=cfg.shape.global_batch,
-            num_workers=cfg.aggregation.total_workers, seed=cfg.seed))
+        self.pipeline = SyntheticLMPipeline(dataclasses.replace(
+            self.data_cfg, num_workers=cfg.aggregation.total_workers))
         step_kwargs = dict(
             num_workers=cfg.aggregation.total_workers,
             n_aggregate=cfg.aggregation.num_workers,
@@ -274,10 +284,8 @@ class Trainer:
         if self._batch_fn_override is not None:
             host = self._batch_fn_override
         else:
-            data_cfg = SyntheticLMConfig(
-                vocab_size=cfg.model.vocab_size, seq_len=cfg.shape.seq_len,
-                global_batch=cfg.shape.global_batch,
-                num_workers=self.strategy.total_workers, seed=cfg.seed)
+            data_cfg = dataclasses.replace(
+                self.data_cfg, num_workers=self.strategy.total_workers)
 
             def host(worker: int, draw: int) -> Dict:
                 return worker_batch(data_cfg, worker, draw)
@@ -793,7 +801,9 @@ class Trainer:
 
 def run_experiment(cfg: TrainConfig, *,
                    latency: Optional[LatencyModel] = None,
-                   device=None, model=None,
+                   device=None,
+                   data_cfg: Optional[SyntheticLMConfig] = None,
+                   model=None,
                    batch_fn: Optional[Callable] = None,
                    resume: bool = False, save_final: bool = False,
                    kill_worker_at: Optional[Dict[int, Any]] = None,
@@ -801,11 +811,11 @@ def run_experiment(cfg: TrainConfig, *,
     """Run a coordination regime (full_sync, backup, timeout, async,
     softsync, staleness) from ``cfg`` alone: build the Trainer, initialize
     or resume its state, run ``cfg.total_steps`` steps (PS updates in
-    event mode) and return the :class:`TrainResult`. ``model`` /
-    ``batch_fn`` plug non-LM problems into the event regimes (the MNIST
-    staleness rig)."""
-    tr = Trainer(cfg, latency=latency, device=device, model=model,
-                 batch_fn=batch_fn)
+    event mode) and return the :class:`TrainResult`. ``data_cfg`` sets
+    the token stream (``Trainer``); ``model`` / ``batch_fn`` plug non-LM
+    problems into the event regimes (the MNIST staleness rig)."""
+    tr = Trainer(cfg, latency=latency, device=device, data_cfg=data_cfg,
+                 model=model, batch_fn=batch_fn)
     if resume and ckpt_lib.latest_step(cfg.checkpoint.directory) is not None:
         tr.reset_optimizer_state()
         tr.restore_checkpoint()
