@@ -2,6 +2,7 @@
 """Chip smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mesh-only     # phase 18 alone (several cards)
 
 Drives the port (``src/repro_torch``) through its own entry points and
 fails (non-zero exit, no result line) if any phase fails:
@@ -46,8 +47,8 @@ fails (non-zero exit, no result line) if any phase fails:
    replays; counters set to 0 just before, read just after: 3 reduces),
    held to the eager run: the same masks and sim_time, losses and
    per-tensor parameter sums bit-equal; the capture time, a chunk of
-   replays' host wall per step and the peak memory (allocated, reserved)
-   are printed.
+   replays' host wall per step, the device busy per step (a profiled
+   chunk) and the peak memory (allocated, reserved) are printed.
    Then backup_reduce against its plain version, bit-exact, at the run's
    [8, P] stack (P = 596,049,920 parameters) and at edge shapes W in
    {2, 3, 8}, P in {1, 3, 4097, 65536}, all-zero / all-one / mixed masks,
@@ -135,15 +136,52 @@ fails (non-zero exit, no result line) if any phase fails:
    2 x 24 x 4 forwards a step, half writing chunk states, 24 x 4
    backwards, one reduce) and with ``model.use_kernel = False`` (no wkv
    launch): both loss trajectories and the relative gap per step are
-   printed (every loss finite); then the same pair at 2 layers in f32, a
-   control without bf16 rounding.
-17. A JSON line of per-kernel numbers (``launches`` is the count of one
+   printed (every loss finite). Then the ROADMAP Queue 3 controls on the
+   same bf16 run, each printed per step beside the kernel's gap: (i) the
+   plain twin against itself with ``NUDGED_LEAF`` nudged by one bf16 ulp;
+   (ii) the kernel forward with the plain twin's backward, and the plain
+   forward with the kernel backward (two ``autograd.Function`` classes
+   here, not on the main path); and the verdict, the kernel's largest gap
+   against ``CONTROL_FACTOR`` times control (i)'s. Then the kernel/plain
+   pair at 2 layers in f32, a control without bf16 rounding.
+17. Batched worker gradients at full width (``grad_batch``: the engine's
+   ``torch.func.vmap`` over groups of workers), one chunk of 3 steps
+   through the CUDA graph each: qwen3-0.6b (backup 6 + 2) at grad_batch 0
+   and 2, rwkv6-1.6b (backup 3 + 1) at 2 (at 0 it does not fit the card).
+   Each is held to phase 6's
+   or 9's grad_batch 1 run: the same masks, selected and sim_time, step
+   1's loss within rel 1e-3, and the first aggregated gradient no more
+   than ``BATCHED_ERR_FACTOR`` times as far (rel L2) from the same step's
+   gradient computed in f32 from the same weights as grad_batch 1's (the
+   batched products round bf16 otherwise; the later steps' loss gaps are
+   printed, not gated: RMSProp's
+   first step at lr 0.12, eps 1e-8 turns rounding near g = 0 into
+   full-size updates, which is why phase 9 gates its step 1 alone), and its
+   launches counted through the replays (one backup_reduce a step; per
+   layer and group of workers two wkv6 forwards, one writing the chunk
+   states, and one backward). Host wall a step, device busy, peak memory
+   and the capture time are printed. Then at 2 layers, full width, f32,
+   TF32 off: grad_batch 0 and 2 against 1, parameters within atol 1e-5.
+18. The spmd engine's ``'data'`` axis over ranks (``distributed.mesh.
+   spawn``, one process each). With 2 or more cards: NCCL over 2 ranks
+   (and 4 with 4 cards), one card each: qwen3-0.6b backup 6 + 2 at full
+   width (W_local 4 or 2) and, on 4 cards, rwkv6-1.6b backup 6 + 2 (W_local
+   2), 3 steps as one chunk through the graph with the all-reduce captured;
+   every rank's parameter sums and losses bit-identical, the losses
+   finite, one backup_reduce a step on every rank. With one card: 2 ranks
+   over gloo on CUDA tensors on it (a line says NCCL was not run and why).
+   Both: at 2 layers in f32 the mesh run within atol 1e-5 of the one-card
+   run. Any rank that fails fails the script. ``python3 chip_smoke.py
+   --mesh-only`` runs the build and this phase alone.
+19. A JSON line of per-kernel numbers (``launches`` is the count of one
    run of the main path that launches the kernel, named by
    ``launches_run``: the graph-decode serve runs, whose prefills stay
-   eager, and the graph training runs), then, as the last line,
+   eager, and the graph training runs; ``launches_batched_and_mesh``: those
+   of phases 17 and 18's runs), then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero when ``torch.cuda.is_available()`` is false.
+A line ``[time] phase N: s`` follows each of phases 16-18.
 """
 from __future__ import annotations
 
@@ -178,6 +216,20 @@ FIG5_HOLD = dict(n=2, steps=20, atol=1e-4)
 # ln(151,936) = 11.93 the swept base reaches ~6.3 (PERF.md, Findings)
 FALL_NATS = 3.0
 RWKV_CONVERGING_STEPS = 12
+# phase 17: (arch, grad_batch values) of the batched full-width runs.
+# rwkv6-1.6b at 0 (all 4 workers) runs out of the card's memory: at 2 it
+# peaks at 69.1 GB allocated, 82.2 GB reserved (PERF.md, Findings)
+BATCHED_RUNS = (("qwen3-0.6b", (0, 2)), ("rwkv6-1.6b", (2,)))
+MESH_TIMEOUT_S = 300.0
+# phase 17: a batched run's first aggregated gradient may lie at most this
+# factor farther (relative L2) from the same step's gradient computed in
+# f32 than grad_batch 1's bf16 gradient does: the batched products round
+# bf16 otherwise, not worse
+BATCHED_ERR_FACTOR = 2.0
+# Queue 3's control (i): the leaf nudged by one bf16 ulp, and the factor of
+# its gap within which the kernel's gap counts as rounding sensitivity
+NUDGED_LEAF = "blocks.0.ln1.scale"
+CONTROL_FACTOR = 4.0
 
 
 def _log(msg: str) -> None:
@@ -623,6 +675,25 @@ def _planned_masks():
         yield log
 
 
+@contextlib.contextmanager
+def _first_grad():
+    """Yields a list that receives the first aggregated [P] gradient the
+    spmd engine reduces under it (a copy in host memory, taken in an eager
+    step: a graph run's first step is its eager warmup)."""
+    from unittest import mock
+    from repro_torch.distributed import spmd_engine
+    reduce, kept = spmd_engine.reduce_then_psum, []
+
+    def keep(*args, **kw):
+        red, tail = reduce(*args, **kw)
+        if not kept:
+            kept.append(red.detach().cpu())
+        return red, tail
+
+    with mock.patch.object(spmd_engine, "reduce_then_psum", keep):
+        yield kept
+
+
 def _same_masks(a, b) -> bool:
     import numpy as np
     return len(a) == len(b) and bool(np.array_equal(np.stack(a),
@@ -664,6 +735,7 @@ def _graph_train_run(torch, cfg, counters, tag):
     tr.run(k)
     torch.cuda.synchronize()
     stats["replay_ms"] = 1e3 * (time.perf_counter() - t0) / k
+    stats["busy_ms"] = _busy_ms(torch, [lambda: tr.run(k)], calls=1) / k
     stats["replays"] = g.replays
     for m in metrics:
         _log(f"[train {tag} graph] step {m['step']} loss {m['loss']:.6f} "
@@ -672,10 +744,11 @@ def _graph_train_run(torch, cfg, counters, tag):
     _log(f"[train {tag} graph] chunk of {k} steps: first chunk "
          f"{stats['first_chunk_ms']:.1f} ms (step 1 eager, the capture "
          f"{1e3 * stats['capture_s']:.1f} ms, {k - 1} replays); the next "
-         f"chunk, all replays: {stats['replay_ms']:.1f} ms/step host wall "
-         f"| captures {stats['captures']}, replays {stats['replays']} | "
-         f"peak device memory {stats['peak']} bytes allocated, "
-         f"{stats['reserved']} reserved")
+         f"chunk, all replays: {stats['replay_ms']:.3f} ms/step host wall, "
+         f"device busy {stats['busy_ms']:.3f} ms/step (a third chunk, "
+         f"profiled) | captures {stats['captures']}, replays "
+         f"{stats['replays']} | peak device memory {stats['peak']} bytes "
+         f"allocated, {stats['reserved']} reserved")
     del tr, res, g
     gc.collect()
     torch.cuda.empty_cache()
@@ -796,6 +869,7 @@ def _train_phase(torch, backup_reduce):
     _log(f"[train] kernel run == plain run: masks and sim_time equal, "
          f"losses within rel 1e-3, first step's aggregated gradient "
          f"({gk.numel()} lanes) bit-equal")
+    runs["kernel"]["first_grad"] = gk.cpu()
     del gk, gp
     first_grad.clear()
     torch.cuda.empty_cache()
@@ -1037,7 +1111,7 @@ def _rwkv_train_phase(torch, rwkv6_scan, backup_reduce):
     for tag in ("kernel", "plain"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        with _planned_masks() as masks:
+        with _planned_masks() as masks, _first_grad() as first:
             if tag == "kernel":
                 for m, a in counters:
                     setattr(m, a, 0)
@@ -1092,7 +1166,7 @@ def _rwkv_train_phase(torch, rwkv6_scan, backup_reduce):
                                  f"wkv6 forwards wrote chunk states, not half")
         runs[tag] = dict(metrics=res.metrics, launches=(n_fwd, n_bwd),
                          peak=peak, ms=ms, sums=_param_sums(torch, res.params),
-                         masks=masks)
+                         masks=masks, first_grad=first[0])
         del res
         if tag == "plain":
             del tr
@@ -1488,9 +1562,16 @@ def _full_width_phase(torch, backup_reduce, rwkv6_scan):
     del out
     gc.collect()
     torch.cuda.empty_cache()
+    _rwkv_converging(torch, backup_reduce, rwkv6_scan)
 
-    # rwkv6-1.6b, kernels against the plain twin on the converging run; at
-    # 2 layers in f32 the same, as a control without bf16 rounding
+
+def _rwkv_converging(torch, backup_reduce, rwkv6_scan):
+    """Phase 16's rwkv6-1.6b runs: the kernels against the plain twin on
+    the converging run, with the Queue 3 controls; at 2 layers in f32 the
+    same pair, as a control without bf16 rounding."""
+    import gc
+    from repro_torch.benchmarks import bench_sync_vs_async as sva
+    from repro_torch.train.loop import Trainer
     steps = RWKV_CONVERGING_STEPS
     cfg, data_cfg = sva.full_width_cfg(
         "backup", arch="rwkv6-1.6b", workers=3, backups=1, steps=steps,
@@ -1500,16 +1581,27 @@ def _full_width_phase(torch, backup_reduce, rwkv6_scan):
     counters = ((rwkv6_scan, "launches_fwd"), (rwkv6_scan, "launches_bwd"),
                 (backup_reduce, "launches"),
                 (rwkv6_scan, "launches_fwd_states"))
+    controls = _wkv_controls(torch, rwkv6_scan)
     for label, run_cfg in (("bf16", cfg), ("f32 2 layers", f32)):
         runs = {}
-        for tag in ("kernel", "plain"):
+        tags = ["kernel", "plain"] + (list(controls) if label == "bf16"
+                                      else [])
+        for tag in tags:
             torch.cuda.reset_peak_memory_stats()
             tr = Trainer(run_cfg, device="cuda", data_cfg=data_cfg)
             tr.model.use_kernel = tag == "kernel"
             tr.init_state()
+            if tag == "plain nudged":
+                # control (i): one leaf one bf16 ulp up, the rest as is
+                with torch.no_grad():
+                    leaf = dict(tr.model.named_parameters())[NUDGED_LEAF]
+                    leaf.copy_(torch.nextafter(leaf, torch.full_like(
+                        leaf, math.inf)))
+                tr.reset_optimizer_state()
             for m, attr in counters:
                 setattr(m, attr, 0)
-            res = tr.run(steps)
+            with controls.get(tag, contextlib.nullcontext()):
+                res = tr.run(steps)
             torch.cuda.synchronize()
             counts = tuple(getattr(m, attr) for m, attr in counters)
             per_step = (2 * run_cfg.model.num_layers
@@ -1518,8 +1610,9 @@ def _full_width_phase(torch, backup_reduce, rwkv6_scan):
             want = (per_step * steps, per_step // 2 * steps, steps,
                     per_step // 2 * steps)
             losses = [m["loss"] for m in res.metrics]
-            if counts != want or len(losses) != steps or not all(
-                    math.isfinite(v) for v in losses):
+            if (tag in ("kernel", "plain") and counts != want) or \
+                    len(losses) != steps or not all(
+                        math.isfinite(v) for v in losses):
                 raise AssertionError(
                     f"[rwkv converging {label} {tag}] launches wkv6 fwd/bwd,"
                     f" backup_reduce, state-writing fwd {counts} (expected "
@@ -1534,17 +1627,405 @@ def _full_width_phase(torch, backup_reduce, rwkv6_scan):
             del tr, res
             gc.collect()
             torch.cuda.empty_cache()
-        gaps = [abs(k - p) / abs(p) for k, p in zip(runs["kernel"],
-                                                     runs["plain"])]
-        _log(f"[rwkv converging {label}] kernel vs plain relative gap per "
-             f"step {' '.join(f'{g:.3g}' for g in gaps)}; largest "
-             f"{max(gaps):.3g} at step {gaps.index(max(gaps)) + 1}")
+        for tag in tags[:1] + tags[2:]:
+            gaps = [abs(k - p) / abs(p) for k, p in zip(runs[tag],
+                                                         runs["plain"])]
+            _log(f"[rwkv converging {label}] {tag} vs plain relative gap "
+                 f"per step {' '.join(f'{g:.3g}' for g in gaps)}; largest "
+                 f"{max(gaps):.3g} at step {gaps.index(max(gaps)) + 1}")
+        if label == "bf16":
+            gap = {t: max(abs(a - b) / abs(b) for a, b in zip(
+                runs[t], runs["plain"])) for t in tags[:1] + tags[2:]}
+            ratio = gap["kernel"] / max(gap["plain nudged"], 1e-30)
+            _log(f"[rwkv converging bf16] Queue 3 verdict: the kernel's "
+                 f"largest gap {gap['kernel']:.3g} is {ratio:.3g}x control "
+                 f"(i)'s {gap['plain nudged']:.3g} (one bf16 ulp on "
+                 f"{NUDGED_LEAF}; the factor set beforehand: "
+                 f"{CONTROL_FACTOR}); control (ii): kernel forward alone "
+                 f"{gap['kernel fwd, plain bwd']:.3g}, kernel backward "
+                 f"alone {gap['plain fwd, kernel bwd']:.3g}: "
+                 + ("within the factor: the parting is the trajectory's "
+                    "sensitivity to rounding" if ratio <= CONTROL_FACTOR
+                    else "beyond the factor"))
 
 
-def main() -> int:
+def _wkv_controls(torch, rwkv6_scan):
+    """Queue 3's control (ii): the model's wkv through the kernel forward
+    with the plain twin's backward, and through the plain forward with the
+    kernel backward, each an ``autograd.Function`` here (not on the main
+    path), as contexts that route ``models.rwkv6.wkv_chunked`` through it;
+    control (i), the nudged plain run, needs no context."""
+    from unittest import mock
+    from repro_torch.models import rwkv6
+
+    class KernelFwdPlainBwd(torch.autograd.Function):
+        @staticmethod
+        def forward(r, k, v, w, u):
+            out, final, _ = rwkv6_scan.wkv6_forward(r, k, v, w, u,
+                                                    save_states=False)
+            return out, final
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            ctx.save_for_backward(*inputs)
+
+        @staticmethod
+        def backward(ctx, dout, dfinal):
+            _, pull = torch.func.vjp(rwkv6_scan.wkv6_plain,
+                                     *ctx.saved_tensors)
+            return pull((dout, dfinal))
+
+    class PlainFwdKernelBwd(torch.autograd.Function):
+        @staticmethod
+        def forward(r, k, v, w, u):
+            return rwkv6_scan.wkv6_plain(r, k, v, w, u)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            ctx.save_for_backward(*inputs)
+
+        @staticmethod
+        def backward(ctx, dout, dfinal):
+            ins = ctx.saved_tensors
+            states = rwkv6_scan.WKV6.apply(*ins, True)[2]
+            return rwkv6_scan.WKV6Backward.apply(*ins, states, dout, dfinal)
+
+    def route(fn):
+        return mock.patch.object(
+            rwkv6, "wkv_chunked",
+            lambda r, k, v, w, u, state=None, *a, **kw: fn.apply(
+                r, k, v, w, u))
+
+    return {"plain nudged": contextlib.nullcontext(),
+            "kernel fwd, plain bwd": route(KernelFwdPlainBwd),
+            "plain fwd, kernel bwd": route(PlainFwdKernelBwd)}
+
+
+# ---------------------------------------------------------------------------
+# Phases 17 and 18: batched worker gradients, the 'data' axis over ranks
+# ---------------------------------------------------------------------------
+
+
+def _small_cfg(arch, grad_batch, *, mesh_data=1, chunk=1):
+    """``arch`` cut to 2 layers in f32 at full width (seq 64 for qwen3, as
+    phase 7; 256 for rwkv6, as phase 10), momentum (phase 7's reason), 3
+    steps, at ``grad_batch`` over ``mesh_data`` ranks in chunks of
+    ``chunk``."""
+    from repro_torch.configs import OptimizerConfig
+    from repro_torch.launch.profile_train import train_config
+    cfg = train_config(arch)
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, num_layers=2,
+                                       dtype="float32"),
+        shape=dataclasses.replace(
+            cfg.shape, seq_len=64 if arch == "qwen3-0.6b" else 256),
+        optimizer=OptimizerConfig(name="momentum", learning_rate=0.05,
+                                  scale_lr_with_workers=False,
+                                  ema_decay=0.99),
+        execution=dataclasses.replace(cfg.execution, grad_batch=grad_batch,
+                                      mesh_data=mesh_data),
+        chunk_size=chunk)
+
+
+def _run_small(torch, cfg, device="cuda"):
+    """``cfg``'s 3 steps on a fresh trainer; its parameters and losses."""
+    from repro_torch.core.straggler import PaperCalibrated
+    from repro_torch.train.loop import Trainer
+    tr = Trainer(cfg, latency=PaperCalibrated(), device=device)
+    tr.init_state()
+    res = tr.run(cfg.total_steps)
+    return ({k: v.detach().clone() for k, v in res.params.items()},
+            [m["loss"] for m in res.metrics])
+
+
+def _worst(a, b) -> float:
+    return max((a[k] - b[k]).abs().max().item() for k in a)
+
+
+def _wkv_launches(cfg, grad_batch, steps):
+    """(wkv6 forwards, backwards, backup_reduce, state-writing forwards)
+    of ``steps`` steps of ``cfg`` at ``grad_batch``: per layer and group of
+    workers a first pass and its recompute (half of them writing the chunk
+    states) and one backward; one reduce a step."""
+    w = cfg.aggregation.total_workers // cfg.execution.mesh_data
+    groups = w // (grad_batch or w)
+    per = cfg.model.num_layers * groups if cfg.model.family == "ssm" else 0
+    return (2 * per * steps, per * steps, steps, per * steps)
+
+
+def _rel_l2(torch, a, b) -> float:
+    return (torch.linalg.vector_norm(a - b)
+            / torch.linalg.vector_norm(b)).item()
+
+
+def _f32_first_grad(torch, arch):
+    """The first aggregated gradient of ``train_config(arch)``'s first
+    step computed in f32 (TF32 off) from the same bf16 initial weights:
+    the gradient the bf16 runs approximate (in host memory)."""
+    import gc
+    from repro_torch.core.straggler import PaperCalibrated
+    from repro_torch.launch.profile_train import train_config
+    from repro_torch.models import get_model
+    from repro_torch.train.loop import Trainer
+    cfg = train_config(arch, steps=1)
+    tr = Trainer(dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype="float32")), latency=PaperCalibrated(),
+        device="cuda")
+    bf16 = get_model(cfg.model, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(cfg.seed))
+    with torch.no_grad():
+        for p, q in zip(tr.model.parameters(), bf16.parameters()):
+            p.copy_(q)
+    del bf16
+    tr.reset_optimizer_state()
+    with _first_grad() as first:
+        tr.run(1)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return first[0]
+
+
+def _batched_phase(torch, backup_reduce, rwkv6_scan, one_at_a_time):
+    """Phase 17: the batched worker gradients at full width through the
+    graph, held to the one-worker-at-a-time runs of phases 6 and 9
+    (``one_at_a_time``: arch -> that eager run), then at 2 layers in f32
+    against grad_batch 1."""
+    import gc
+    from repro_torch.launch.profile_train import train_config
+    counters = ((rwkv6_scan, "launches_fwd"), (rwkv6_scan, "launches_bwd"),
+                (backup_reduce, "launches"),
+                (rwkv6_scan, "launches_fwd_states"))
+    launches = {}
+    for arch, gbs in BATCHED_RUNS:
+        ref = one_at_a_time[arch]
+        truth = _f32_first_grad(torch, arch)
+        err1 = _rel_l2(torch, ref["first_grad"], truth)
+        for gb in gbs:
+            cfg = train_config(arch, grad_batch=gb)
+            tag = f"{arch} grad_batch {gb}"
+            with _first_grad() as first:
+                metrics, counts, sums, masks, stats = _graph_train_run(
+                    torch, cfg, counters, tag)
+            rel_l2 = _rel_l2(torch, first[0], ref["first_grad"])
+            err = _rel_l2(torch, first[0], truth)
+            del first[:]
+            want = _wkv_launches(cfg, gb, cfg.total_steps)
+            if counts != want:
+                raise AssertionError(
+                    f"[batched {tag}] launches wkv6 fwd/bwd, backup_reduce,"
+                    f" state-writing wkv6 fwd {counts}, expected {want}")
+            if not _same_masks(ref["masks"], masks) or any(
+                    a["selected"] != b["selected"]
+                    or a["sim_time"] != b["sim_time"]
+                    for a, b in zip(ref["metrics"], metrics)):
+                raise AssertionError(f"[batched {tag}] masks or sim_time "
+                                     f"differ from the grad_batch 1 run")
+            gaps = [abs(a["loss"] - b["loss"]) / abs(a["loss"])
+                    for a, b in zip(ref["metrics"], metrics)]
+            if len(gaps) != cfg.total_steps or not gaps[0] <= 1e-3 or \
+                    not err <= BATCHED_ERR_FACTOR * err1 or \
+                    not all(math.isfinite(m["loss"]) for m in metrics):
+                raise AssertionError(
+                    f"[batched {tag}] vs grad_batch 1: step 1 loss rel gap "
+                    f"{gaps[0]} (limit 1e-3); first aggregated gradient's "
+                    f"rel L2 from the f32 gradient {err} against grad_batch "
+                    f"1's {err1} (limit {BATCHED_ERR_FACTOR}x); or a "
+                    f"non-finite loss")
+            launches[tag] = dict(zip(("wkv6_fwd", "wkv6_bwd",
+                                      "backup_reduce", "wkv6_fwd_states"),
+                                     counts))
+            _log(f"[batched {tag}] held to the grad_batch 1 run: masks, "
+                 f"selected and sim_time equal, step 1 loss rel gap "
+                 f"{gaps[0]:.3g} (limit 1e-3); first aggregated gradient: "
+                 f"rel L2 from the f32 gradient {err:.3g}, grad_batch 1's "
+                 f"{err1:.3g} (limit {BATCHED_ERR_FACTOR}x), from grad_batch "
+                 f"1's {rel_l2:.3g}; later steps' loss rel gaps (not gated) "
+                 f"{' '.join(f'{v:.3g}' for v in gaps[1:])} | launches "
+                 f"wkv6 fwd "
+                 f"{counts[0]} (writing the chunk states {counts[3]}) bwd "
+                 f"{counts[1]} backup_reduce {counts[2]} | host wall "
+                 f"{stats['replay_ms']:.3f} ms/step, device busy "
+                 f"{stats['busy_ms']:.3f} ms/step, capture "
+                 f"{stats['capture_s']:.3f} s, peak {stats['peak']} bytes "
+                 f"allocated, {stats['reserved']} reserved")
+            gc.collect()
+            torch.cuda.empty_cache()
+    return launches
+
+
+def _batched_parity_phase(torch):
+    """Phase 17 at 2 layers in f32: grad_batch 0 and 2 against 1."""
+    import gc
+    for arch in ("qwen3-0.6b", "rwkv6-1.6b"):
+        params = {gb: _run_small(torch, _small_cfg(arch, gb))[0]
+                  for gb in (1, 0, 2)}
+        worst = {gb: _worst(params[gb], params[1]) for gb in (0, 2)}
+        if not max(worst.values()) <= 1e-5:
+            raise AssertionError(f"[batched {arch} 2 layers f32] params vs "
+                                 f"grad_batch 1 max abs {worst} (atol 1e-5)")
+        _log(f"[batched {arch} 2 layers f32] 3 steps, params vs grad_batch "
+             f"1 max abs diff: grad_batch 0 {worst[0]:.3g}, 2 "
+             f"{worst[2]:.3g} (atol 1e-5)")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _mesh_rank(rank, device, out_dir, runs):
+    """One rank of phase 18 (``mesh.spawn``): each of ``runs`` ((tag, cfg,
+    keep)) on a fresh trainer, the counters set to 0 just before and read
+    just after; the losses, per-tensor parameter sums and numbers go to
+    ``out_dir/rank<r>.json``. Rank 0 keeps the parameters of the runs
+    marked ``keep`` and holds them to the same config on its card alone
+    (mesh_data 1)."""
+    import torch
+    from repro_torch.kernels import backup_reduce, rwkv6_scan
+    from repro_torch.core.straggler import PaperCalibrated
+    from repro_torch.train.loop import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = ((rwkv6_scan, "launches_fwd"), (rwkv6_scan, "launches_bwd"),
+                (backup_reduce, "launches"),
+                (rwkv6_scan, "launches_fwd_states"))
+    out = {}
+    for tag, cfg, keep in runs:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        tr = Trainer(cfg, latency=PaperCalibrated(), device=device)
+        tr.init_state()
+        for m, a in counters:
+            setattr(m, a, 0)
+        t0 = time.perf_counter()
+        res = tr.run(cfg.total_steps)
+        torch.cuda.synchronize(device)
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        r = dict(losses=[m["loss"] for m in res.metrics],
+                 sums=_param_sums(torch, res.params).tolist(),
+                 counts=[getattr(m, a) for m, a in counters],
+                 first_ms=first_ms)
+        if keep:
+            kept = {k: v.detach().cpu() for k, v in res.params.items()}
+        if cfg.chunk_size > 1:
+            k = cfg.chunk_size
+            t0 = time.perf_counter()
+            tr.run(k)
+            torch.cuda.synchronize(device)
+            r["replay_ms"] = 1e3 * (time.perf_counter() - t0) / k
+            r["capture_s"] = tr.chunk_step.graph.capture_s
+        r["peak"] = torch.cuda.max_memory_allocated(device)
+        r["reserved"] = torch.cuda.max_memory_reserved(device)
+        out[tag] = r
+        del tr, res
+        torch.cuda.empty_cache()
+        if keep and rank == 0:
+            one = dataclasses.replace(cfg, execution=dataclasses.replace(
+                cfg.execution, mesh_data=1), chunk_size=1)
+            params, _ = _run_small(torch, one, device)
+            r["vs_one_card"] = max(
+                (kept[k] - v.cpu()).abs().max().item()
+                for k, v in params.items())
+            del params
+        if keep:
+            del kept
+        torch.distributed.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _mesh_phase(torch):
+    """Phase 18: the 'data' axis over ranks. With at least 2 cards: NCCL
+    over 2 ranks (and 4 with 4 cards), each on its own card, the collective
+    captured in the step graph; with one card: 2 ranks over gloo on it."""
+    from repro_torch.distributed import mesh
+    from repro_torch.launch.profile_train import train_config
+    cards = torch.cuda.device_count()
+    sizes = [k for k in (2, 4) if k <= cards] if cards >= 2 else [2]
+    nccl = cards >= 2
+    if not nccl:
+        _log("[mesh] one card visible: NCCL not run (it needs a card per "
+             "rank); 2 ranks over gloo on CUDA tensors on the one card, at "
+             "2 layers f32, chunk_size 1 (a gloo all-reduce cannot be "
+             "captured in a CUDA graph)")
+    launches = {}
+    for k in sizes:
+        runs = [(f"qwen3-0.6b 2 layers f32 mesh {k}",
+                 _small_cfg("qwen3-0.6b", 0, mesh_data=k,
+                            chunk=3 if nccl else 1), True)]
+        if nccl:
+            runs.append((f"qwen3-0.6b mesh {k}", dataclasses.replace(
+                train_config("qwen3-0.6b", grad_batch=0, mesh_data=k),
+                chunk_size=3), False))
+        if nccl and k == 4:
+            cfg = train_config("rwkv6-1.6b", grad_batch=0, mesh_data=4)
+            runs.append(("rwkv6-1.6b mesh 4", dataclasses.replace(
+                cfg, chunk_size=3, shape=dataclasses.replace(
+                    cfg.shape, global_batch=2 * 8),
+                aggregation=dataclasses.replace(
+                    cfg.aggregation, num_workers=6, backup_workers=2)),
+                False))
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            mesh.spawn(_mesh_rank, k, "cuda", args=(d, runs),
+                       timeout_s=MESH_TIMEOUT_S)
+            ranks = []
+            for r in range(k):
+                with open(os.path.join(d, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+        backend = "nccl" if nccl else "gloo"
+        for tag, cfg, keep in runs:
+            first = ranks[0][tag]
+            for r, other in enumerate(ranks[1:], 1):
+                if other[tag]["sums"] != first["sums"] or \
+                        other[tag]["losses"] != first["losses"]:
+                    raise AssertionError(f"[mesh {tag}] rank {r}'s "
+                                         f"parameters or losses differ from "
+                                         f"rank 0's")
+            steps = cfg.total_steps
+            for r, rk in enumerate(ranks):
+                want = _wkv_launches(cfg, 0, steps)
+                if rk[tag]["counts"] != list(want):
+                    raise AssertionError(
+                        f"[mesh {tag}] rank {r}: launches wkv6 fwd/bwd, "
+                        f"backup_reduce, state-writing fwd "
+                        f"{rk[tag]['counts']}, expected {list(want)}")
+            if not all(math.isfinite(v) for v in first["losses"]):
+                raise AssertionError(f"[mesh {tag}] non-finite loss")
+            if keep and not first["vs_one_card"] <= 1e-5:
+                raise AssertionError(f"[mesh {tag}] params vs the one-card "
+                                     f"run max abs {first['vs_one_card']}")
+            launches[tag] = dict(zip(("wkv6_fwd", "wkv6_bwd",
+                                      "backup_reduce", "wkv6_fwd_states"),
+                                     first["counts"]))
+            timing = (f"host wall {first['replay_ms']:.3f} ms/step (a chunk "
+                      f"of replays), capture {first['capture_s']:.3f} s"
+                      if "replay_ms" in first else
+                      f"first run {first['first_ms']:.1f} ms")
+            _log(f"[mesh {tag}] {backend}, {k} ranks: losses "
+                 f"{' '.join(f'{v:.6f}' for v in first['losses'])}; every "
+                 f"rank's {len(first['sums'])} parameter sums and losses "
+                 f"bit-identical; launches per rank wkv6 fwd "
+                 f"{first['counts'][0]} bwd {first['counts'][1]} "
+                 f"backup_reduce {first['counts'][2]} | rank 0: {timing}, "
+                 f"peak {first['peak']} bytes allocated, {first['reserved']} "
+                 f"reserved"
+                 + (f" | params vs one card max abs "
+                    f"{first['vs_one_card']:.3g} (atol 1e-5)"
+                    if keep else ""))
+        _log(f"[mesh] {k} ranks over {backend}: "
+             f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def main(argv) -> int:
     # cuBLAS picks the same algorithms run to run (the kernel and plain
     # training runs must compute the same first-step gradients)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    mesh_only = argv == ["--mesh-only"]
+    if argv and not mesh_only:
+        print(f"chip_smoke: unknown arguments {argv} (none, or --mesh-only)",
+              file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -1571,6 +2052,11 @@ def main() -> int:
     secs = _build.build()
     _log(f"[build] {', '.join(f'{k}.cu {v:.1f} s' for k, v in secs.items())}"
          f" (wall {time.perf_counter() - t0:.1f} s, parallel nvcc, sm_90a)")
+    if mesh_only:         # phase 18 alone (the multi-card check)
+        t0 = time.perf_counter()
+        _mesh_phase(torch)
+        _log(f"[time] phase 18: {time.perf_counter() - t0:.1f} s")
+        return 0
 
     # 3. the serve kernels at the serve path's shapes (its maxp and pool)
     maxp = pages_for(512 + 128, GATHER_SHAPE["ps"])
@@ -1637,13 +2123,39 @@ def main() -> int:
     _fig5_fig6_phase(torch)
 
     # 16. Figs. 8/9 at full width, then rwkv6 kernels vs plain converging
+    # with the Queue 3 controls
+    t0 = time.perf_counter()
     _full_width_phase(torch, backup_reduce, rwkv6_scan)
+    _log(f"[time] phase 16: {time.perf_counter() - t0:.1f} s")
+
+    # 17. batched worker gradients at full width, held to phases 6 and 9
+    t0 = time.perf_counter()
+    batched = _batched_phase(torch, backup_reduce, rwkv6_scan,
+                             {"qwen3-0.6b": train, "rwkv6-1.6b": rwkv})
+    del train["first_grad"], rwkv["first_grad"]
+    _batched_parity_phase(torch)
+    _log(f"[time] phase 17: {time.perf_counter() - t0:.1f} s")
+
+    # 18. the 'data' axis over ranks: NCCL with a card each, else gloo
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    meshed = _mesh_phase(torch)
+    _log(f"[time] phase 18: {time.perf_counter() - t0:.1f} s")
+    for row in rows[3:]:
+        key = {"backup_reduce": "backup_reduce",
+               "rwkv6_wkv_fwd": "wkv6_fwd",
+               "rwkv6_wkv_bwd": "wkv6_bwd"}.get(row["name"])
+        if key:
+            row["launches_batched_and_mesh"] = {
+                tag: n[key] for tag, n in {**batched, **meshed}.items()
+                if n[key]}
 
     # 17. results
     keys = ("name", "route", "source", "replaces", "launches", "launches_run",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+            "launches_batched_and_mesh", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1651,4 +2163,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

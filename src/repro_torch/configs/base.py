@@ -240,9 +240,11 @@ class ExecutionConfig:
 
     'sim'  — the mask-weighted loss over one global batch.
     'spmd' — the engine (``repro_torch.distributed.spmd_engine``): each
-             worker's own gradient, written into one ``[W, P]`` f32 stack,
-             then the masked reduce. The port runs it at mesh 1 x 1 (one
-             card, ``grad_batch`` 1).
+             worker's own gradient, written into one ``[W_local, P]`` f32
+             stack per rank, then the masked reduce and, over the
+             ``mesh_data`` ranks of the ``'data'`` axis
+             (``distributed.mesh``), one all-reduce per bucket.
+             ``mesh_model`` must be 1 (tensor parallelism is not ported).
 
     ``use_kernel``: None = the ``backup_reduce`` CUDA kernel on the card
     and its plain twin on the CPU; True = the kernel (raises on the CPU);
@@ -254,8 +256,8 @@ class ExecutionConfig:
     mesh_model: int = 1               # 'model' (tensor-parallel) axis size
     use_kernel: Optional[bool] = None
     interpret: Optional[bool] = None
-    # per-worker gradient batching: 0 = all workers at once, 1 = one
-    # worker at a time, k = groups of k workers
+    # per-worker gradient batching: 0 = all local workers in one
+    # torch.func.vmap, 1 = one worker at a time, k = groups of k workers
     grad_batch: int = 0
     # lanes of the flattened gradient per bucket (0 = one bucket)
     bucket_size: int = 0

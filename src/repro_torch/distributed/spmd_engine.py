@@ -1,5 +1,5 @@
-"""The spmd execution engine at mesh 1 x 1: each worker's own gradient,
-then the masked reduce.
+"""The spmd execution engine: each worker's own gradient, then the masked
+reduce, over a ``'data'`` axis of ranks.
 Reference: ``src/repro/distributed/spmd_engine.py`` (``validate_layout``,
 ``validate_grad_batch``, ``flatten_stacked`` / ``unflatten_vector``,
 ``make_worker_loss``, ``build_spmd_step``, ``build_spmd_chunk_step``;
@@ -8,39 +8,47 @@ Reference: ``src/repro/distributed/spmd_engine.py`` (``validate_layout``,
 ``build_spmd_step`` and ``build_spmd_chunk_step`` directly, and the chunk
 step's CUDA graph is the port's counterpart of the jitted K-step scan).
 
-On one card the mesh's ``'data'`` axis has size 1, so the card holds all
-W workers (``W_local = W``) and the ``backup_reduce`` kernel does the
-whole of the paper's Alg. 4 line 7 — the reference's ``psum`` over a
-1-device axis is the identity. Per step:
+The W workers lie contiguously over the ``'data'`` axis: with
+``mesh_data`` ranks (``distributed.mesh``: one process each) rank r owns
+workers ``[r * W_local, (r + 1) * W_local)``, ``W_local = W /
+mesh_data``, and only their rows of the worker-contiguous batch. At
+``mesh_data = 1`` one card holds all W and no collective is issued.
+Per step, on every rank:
 
-1. the workers run one after another (the reference's ``grad_batch = 1``
-   ``lax.map``): worker w's gradient is the gradient of its own
-   mini-batch mean, written as f32 into row w of one preallocated
-   ``[W, P]`` stack (``flatten_into``; the stack is allocated once and
-   reused, and no more than one worker's gradients exist at a time);
-2. ``reduce_then_psum`` masked-reduces the stack, with the loss and aux
-   sums riding the last bucket;
+1. the local workers' gradients, in groups of ``grad_batch`` (the
+   reference's ``vmap`` / ``lax.map``): ``0`` one group of all
+   ``W_local``, ``k`` groups of k one after another, ``1`` one worker at a
+   time through ``torch.autograd.grad``. A group of k > 1 is one
+   ``torch.func.vmap(torch.func.grad_and_value(...))`` over the worker loss
+   (``functional_call`` of the model with its detached parameters), so
+   every op of the k workers runs as one batched op. A worker's gradient is
+   that of its own mini-batch mean; the group's ``[k, ...]`` gradients are
+   written as f32 into rows of one preallocated ``[W_local, P]`` stack
+   (``flatten_into``; allocated once, reused; one group's gradients exist
+   at a time);
+2. ``reduce_then_psum`` masked-reduces the stack with the rank's slice of
+   the ``[W]`` mask (``backup_reduce``) and, over ranks, all-reduces each
+   bucket, the loss and aux sums riding the last;
 3. ``unflatten_vector`` casts the ``[P]`` result back to each parameter's
    dtype (bf16 at full width);
-4. the ``loss`` metric over the selected workers, ``clip_by_global_norm``
-   when ``clip_norm > 0``, the optimizer and the EMA, in place.
+4. the ``loss`` metric over the selected workers of every rank,
+   ``clip_by_global_norm`` when ``clip_norm > 0``, the optimizer and the
+   EMA, in place, replicated: every rank applies the same aggregate.
 
-The three phases are ``torch.profiler`` ranges (``spmd/worker_grad``,
-``spmd/reduce``, ``spmd/update``), which ``launch/profile_train.py`` reads.
-They mark the eager step only: a graph replay runs no Python and records
-no range.
+The three phases are ``torch.profiler`` ranges (``spmd/worker_grad`` per
+group, ``spmd/reduce``, ``spmd/update``), which
+``launch/profile_train.py`` reads. They mark the eager step only: a graph
+replay runs no Python and records no range.
 
 ``build_spmd_chunk_step`` runs K such steps over stacked inputs. On the
-card one CUDA graph captures the whole step (the W-worker loop, the
-``[W, P]`` stack, ``reduce_then_psum`` with the ``backup_reduce`` kernel,
-unflatten, clip, the optimizer and the EMA); each step of a chunk copies
-its batch, mask and scalar rows into the graph's buffers and replays it
-(``core.step_graph``).
+card one CUDA graph captures the whole step (the groups' gradients, the
+``[W_local, P]`` stack, ``reduce_then_psum`` with the ``backup_reduce``
+kernel and the NCCL all-reduce, unflatten, clip, the optimizer and the
+EMA); each step of a chunk copies its batch, mask and scalar rows into the
+graph's buffers and replays it (``core.step_graph``).
 
-Not ported yet, each refused with ``NotImplementedError`` naming ROADMAP
-Queue 1 item 5 (the multi-card engine): ``mesh_data > 1``,
-``mesh_model > 1`` (tensor parallelism) and batched worker gradients
-(``grad_batch`` 0 or k > 1, the reference's ``vmap`` paths).
+Not ported: ``mesh_model > 1`` (tensor parallelism), refused with
+``NotImplementedError`` naming ROADMAP Queue 1 item 5.
 """
 from __future__ import annotations
 
@@ -49,15 +57,18 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 from torch.profiler import record_function
 
 from repro_torch.core import ema as ema_lib
 from repro_torch.core import step_graph
+from repro_torch.distributed import mesh as mesh_lib
 from repro_torch.kernels.bucketed_reduce import reduce_then_psum
 from repro_torch.optim import optimizers as opt_lib
 
-WORKER_AXIS = "data"
-_QUEUE5 = "the multi-card spmd engine, ROADMAP Queue 1 item 5"
+WORKER_AXIS = mesh_lib.WORKER_AXIS
+_QUEUE5 = ("tensor parallelism over the 'model' axis, ROADMAP Queue 1 "
+           "item 5")
 
 
 # ---------------------------------------------------------------------------
@@ -66,15 +77,16 @@ _QUEUE5 = "the multi-card spmd engine, ROADMAP Queue 1 item 5"
 
 
 def check_mesh(mesh_data: int, mesh_model: int) -> None:
-    """The port runs the engine on one card: mesh 1 x 1."""
+    """The port runs the ``'data'`` axis over ranks; the ``'model'`` axis
+    must be 1."""
     if mesh_data < 1 or mesh_model < 1:
         raise ValueError(f"mesh axes must be >= 1 (got {mesh_data} x "
                          f"{mesh_model})")
-    if mesh_data > 1 or mesh_model > 1:
+    if mesh_model > 1:
         raise NotImplementedError(
             f"mesh_data={mesh_data} x mesh_model={mesh_model}: repro_torch "
-            f"runs the spmd engine at mesh 1 x 1 on one card; larger meshes "
-            f"come with {_QUEUE5}")
+            f"runs the spmd engine's 'data' axis only; mesh_model > 1 comes "
+            f"with {_QUEUE5}")
 
 
 def validate_layout(num_workers: int, global_batch: int,
@@ -107,7 +119,7 @@ def validate_grad_batch(grad_batch: int, w_local: int) -> int:
         raise ValueError(
             f"grad_batch: {grad_batch} does not divide the per-shard "
             f"worker count W_local={w_local} (total_workers / mesh_data); "
-            f"valid values here: 0 (all) or one of {divisors}")
+            f"valid values here: 0 (vmap all) or one of {divisors}")
     return grad_batch or w_local
 
 
@@ -153,11 +165,15 @@ def flat_spec(named: Dict[str, torch.Tensor]) -> FlatSpec:
                     tuple(int(o) for o in np.cumsum([0] + sizes)))
 
 
-def flatten_into(row: torch.Tensor, tensors: Sequence[torch.Tensor],
+def flatten_into(rows: torch.Tensor, tensors: Sequence[torch.Tensor],
                  spec: FlatSpec) -> None:
-    """Write ``tensors`` (in ``spec`` order) into the f32 [P] ``row``."""
+    """Write ``tensors`` (in ``spec`` order) into the f32 ``rows``: a [P]
+    row from one worker's tensors, or [k, P] rows from the ``[k, ...]``
+    tensors of k workers."""
+    lead = tuple(rows.shape[:-1])
     for i, t in enumerate(tensors):
-        row[spec.offsets[i]:spec.offsets[i + 1]].copy_(t.reshape(-1))
+        rows[..., spec.offsets[i]:spec.offsets[i + 1]].copy_(
+            t.reshape(lead + (-1,)))
 
 
 def flatten_stacked(stacked: Dict[str, torch.Tensor]
@@ -208,6 +224,36 @@ def make_worker_loss(model) -> Callable:
     return loss_fn
 
 
+class _WorkerLoss(nn.Module):
+    """The worker loss as a module's ``forward``, so that
+    ``torch.func.functional_call`` can swap the model's parameters (keys
+    ``model.<name>``)."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+        self.loss = make_worker_loss(model)
+
+    def forward(self, batch):
+        total, mean_loss, aux = self.loss(batch)
+        return total, (mean_loss, aux)
+
+
+def make_batched_grads(model) -> Callable:
+    """grads(params, group) -> ({"model.<name>": [k, ...]}, (total [k],
+    (mean_loss [k], aux [k]))): each of the k workers' own gradient, one
+    ``torch.func.vmap`` over ``grad_and_value`` of the worker loss.
+    ``params`` ({"model.<name>": tensor}, detached) is shared; ``group``'s
+    leaves are ``[k, rows, ...]``."""
+    holder = _WorkerLoss(model)
+
+    def loss(params, batch):
+        return torch.func.functional_call(holder, params, (batch,))
+
+    return torch.func.vmap(
+        torch.func.grad_and_value(loss, has_aux=True), in_dims=(None, 0))
+
+
 # ---------------------------------------------------------------------------
 # The engine step
 # ---------------------------------------------------------------------------
@@ -225,47 +271,68 @@ def build_spmd_step(model, optimizer: opt_lib.Optimizer, *,
         step(opt_state, ema, scalars, batch, mask) -> metrics
 
     ``model`` holds the parameters; the step updates them, ``opt_state``
-    and ``ema`` in place. ``batch`` rows are worker-contiguous tensors on
-    the model's device, ``mask`` the host-planned [W] selection there."""
+    and ``ema`` in place. ``batch`` holds this rank's rows of the
+    worker-contiguous global batch (all of it at ``mesh_data = 1``),
+    ``mask`` the host-planned [W] selection of every worker, both on the
+    model's device. With ``mesh_data > 1`` this process must be a rank of
+    a world of that size (``distributed.mesh.spawn``)."""
     check_mesh(mesh_data, mesh_model)
-    if validate_grad_batch(grad_batch, num_workers) != 1:
-        raise NotImplementedError(
-            f"grad_batch={grad_batch}: batched worker gradients (the "
-            f"reference's vmap paths) come with {_QUEUE5}; the port runs "
-            f"one worker at a time (grad_batch=1)")
+    if num_workers % mesh_data:
+        raise ValueError(
+            f"total_workers ({num_workers}) must be divisible by the "
+            f"'{WORKER_AXIS}' axis size ({mesh_data})")
+    group = mesh_lib.data_group(mesh_data)
+    w_local = num_workers // mesh_data
+    first = mesh_lib.rank() * w_local if group is not None else 0
+    gb = validate_grad_batch(grad_batch, w_local)
     kernel = resolve_use_kernel(use_kernel, interpret, model.device)
     worker_loss = make_worker_loss(model)
+    batched = make_batched_grads(model) if gb > 1 else None
     spec = flat_spec(dict(model.named_parameters()))
-    stack: List[torch.Tensor] = []        # the [W, P] f32 stack, made once
+    stack: List[torch.Tensor] = []        # the [W_local, P] stack, made once
+
+    def group_grads(flat, params, shards, g0):
+        """Gradients of workers [g0, g0 + gb) into rows of ``flat``;
+        returns their (mean_loss, aux), each [gb]."""
+        if batched is None:
+            shard = {k: v[g0] for k, v in shards.items()}
+            total, mean_loss, aux = worker_loss(shard)
+            grads = torch.autograd.grad(total, list(params.values()))
+            with torch.no_grad():
+                flatten_into(flat[g0], grads, spec)
+            return mean_loss.detach()[None], aux.detach()[None]
+        detached = {f"model.{k}": v.detach() for k, v in params.items()}
+        grads, (_, (mean_loss, aux)) = batched(
+            detached, {k: v[g0:g0 + gb] for k, v in shards.items()})
+        with torch.no_grad():
+            flatten_into(flat[g0:g0 + gb], grads.values(), spec)
+        return mean_loss, aux
 
     def step_fn(opt_state, ema_state, scalars, batch, mask):
         # looked up per call: init_state / restore may replace the tensors
         params = dict(model.named_parameters())
-        plist = list(params.values())
         if not stack:
-            stack.append(torch.empty((num_workers, spec.total),
+            stack.append(torch.empty((w_local, spec.total),
                                      dtype=torch.float32,
                                      device=model.device))
         flat = stack[0]
-        per = next(iter(batch.values())).shape[0] // num_workers
+        shards = {k: v.reshape((w_local, v.shape[0] // w_local)
+                               + tuple(v.shape[1:]))
+                  for k, v in batch.items()}
         losses, auxes = [], []
-        for w in range(num_workers):
-            shard = {k: v[w * per:(w + 1) * per] for k, v in batch.items()}
+        for g0 in range(0, w_local, gb):
             with record_function("spmd/worker_grad"):
-                total, mean_loss, aux = worker_loss(shard)
-                grads = torch.autograd.grad(total, plist)
-                with torch.no_grad():
-                    flatten_into(flat[w], grads, spec)
-            del grads                     # one worker's gradients at a time
-            losses.append(mean_loss.detach())
-            auxes.append(aux.detach())
+                mean_loss, aux = group_grads(flat, params, shards, g0)
+            losses.append(mean_loss)
+            auxes.append(aux)
         with torch.no_grad(), record_function("spmd/reduce"):
             mf = mask.float()
-            tail = torch.stack([torch.sum(torch.stack(losses) * mf),
-                                torch.sum(torch.stack(auxes))])
-            red, tail = reduce_then_psum(flat, mask, n_aggregate,
+            local = mask[first:first + w_local]
+            tail = torch.stack([torch.sum(torch.cat(losses) * mf[
+                first:first + w_local]), torch.sum(torch.cat(auxes))])
+            red, tail = reduce_then_psum(flat, local, n_aggregate,
                                          bucket=bucket_size, tail=tail,
-                                         use_kernel=kernel)
+                                         use_kernel=kernel, group=group)
             agg = unflatten_vector(red, spec)
             del red
         with torch.no_grad(), record_function("spmd/update"):
@@ -283,7 +350,6 @@ def build_spmd_step(model, optimizer: opt_lib.Optimizer, *,
         return metrics
 
     return step_fn
-
 
 
 def build_spmd_chunk_step(model, optimizer: opt_lib.Optimizer,

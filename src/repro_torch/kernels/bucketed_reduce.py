@@ -9,16 +9,21 @@ by its plain twin (``use_kernel=False``). As in the reference, ``W == 1``
 is a scalar rescale of the one row and an empty bucket takes the plain
 path. The per-step monitoring scalars (``tail``) ride the last bucket:
 the buckets are reduced straight into one ``[P + E]`` output whose last
-``E`` lanes hold the tail, the layout over which the reference issues one
-collective per bucket. The port runs one card, where that collective is
-the identity: no ``torch.distributed`` all-reduce is issued here (it comes
-with the multi-card engine, ROADMAP Queue 1 item 5).
+``E`` lanes hold the tail.
+
+With a process group (the spmd engine's ``'data'`` axis over ranks,
+``distributed.mesh``) each bucket is summed over the ranks by one
+``torch.distributed.all_reduce`` issued as soon as that bucket is
+reduced, the last bucket together with the tail: ``ceil(P / bucket)``
+collectives a step, as the reference's ``psum`` per bucket. Without one
+(one card holds every worker) there is no collective.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels.backup_reduce import (backup_reduce,
                                                backup_reduce_plain)
@@ -45,12 +50,14 @@ def bucket_bounds(total: int, bucket: int) -> Tuple[Tuple[int, int], ...]:
 def reduce_then_psum(grads: torch.Tensor, mask: torch.Tensor,
                      n_aggregate: int, *, bucket: int = 0,
                      tail: Optional[torch.Tensor] = None,
-                     use_kernel: bool = True
+                     use_kernel: bool = True, group=None
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Bucketed masked reduce of [W, P] stacked grads.
+    """Bucketed masked reduce of [W, P] stacked grads, summed over
+    ``group``'s ranks per bucket (no collective when ``group`` is None).
 
     Returns ``([P] f32 (1/n_aggregate) * sum_{selected} g_w, tail_out)``,
-    ``tail_out`` being ``tail`` in f32 (None in == None out)."""
+    ``tail_out`` being ``tail`` in f32, summed over the ranks with the last
+    bucket (None in == None out)."""
     w, p = grads.shape
     if tuple(mask.shape) != (w,):
         raise ValueError(f"mask shape {tuple(mask.shape)} does not match the "
@@ -58,7 +65,8 @@ def reduce_then_psum(grads: torch.Tensor, mask: torch.Tensor,
     mf = mask.float()
     e = 0 if tail is None else tail.numel()
     out = torch.empty(p + e, dtype=torch.float32, device=grads.device)
-    for lo, hi in bucket_bounds(p, bucket):
+    bounds = bucket_bounds(p, bucket)
+    for i, (lo, hi) in enumerate(bounds):
         chunk = grads[:, lo:hi]
         if w == 1:
             # one local worker: the masked mean is a rescale of its row
@@ -67,7 +75,12 @@ def reduce_then_psum(grads: torch.Tensor, mask: torch.Tensor,
             backup_reduce(chunk, mf, n_aggregate, out=out[lo:hi])
         else:
             out[lo:hi] = backup_reduce_plain(chunk, mf, n_aggregate)
+        if i == len(bounds) - 1:
+            if tail is not None:
+                out[p:] = tail.float().reshape(-1)
+            hi = p + e
+        if group is not None:
+            dist.all_reduce(out[lo:hi], group=group)
     if tail is None:
         return out[:p], None
-    out[p:] = tail.float().reshape(-1)
     return out[:p], out[p:]

@@ -14,10 +14,14 @@ zero state, in chunks of 16:
   last chunk masked) on CUDA tensors and raises on anything else:
   :func:`wkv6_forward` launches one kernel (the state's columns split over
   blocks), :func:`wkv6_backward` two (the dS scan, then the chunk-local
-  gradients), and :class:`WKV6` binds them as an ``autograd.Function``.
-  The forward writes every chunk's incoming state for the backward, except
-  under :func:`states_discarded` (the first pass of a non-reentrant
-  checkpoint, whose saved tensors are thrown away and recomputed).
+  gradients), and :class:`WKV6` / :class:`WKV6Backward` bind them as
+  ``autograd.Function`` classes that ``torch.func`` goes through: under
+  ``vmap`` the vmapped rows (the spmd engine's workers) fold into B, one
+  launch for all of them, and ``du`` comes back per row. The forward
+  writes every chunk's incoming state for the backward only when a
+  backward may follow (:func:`wants_states`): not in the first pass of a
+  remat block, nor under :func:`states_discarded` (the first pass of remat
+  'dots', a selective checkpoint whose saved tensors are thrown away).
 * :func:`wkv6_plain` is the same chunked form in plain PyTorch (autograd
   gives its backward), which the kernels are held to on the card.
 
@@ -191,8 +195,8 @@ def wkv6_forward(r, k, v, w, u, *, save_states: bool = True):
 
 @contextlib.contextmanager
 def states_discarded():
-    """Under this, :class:`WKV6`'s forward writes no chunk states and saves
-    a zero-stride placeholder of their shape in their place: for a forward
+    """Under this, :func:`wkv6` writes no chunk states and saves a
+    zero-stride placeholder of their shape in their place: for a forward
     whose saved tensors are thrown away, as the first pass of a
     non-reentrant checkpoint's are (its recompute saves the real ones).
     The backward raises if it is handed the placeholder."""
@@ -237,62 +241,160 @@ def backward_passes(r, k, v, w, u, states, dout, dfinal=None):
     return (lambda: launch(1)), (lambda: launch(2)), (*grads, du_part)
 
 
-def wkv6_backward(r, k, v, w, u, states, dout, dfinal=None):
+def wkv6_backward_parts(r, k, v, w, u, states, dout, dfinal=None):
     """Launch the backward's two kernels: from the forward's inputs and
     ``states`` and the output's (and, when given, the final state's)
-    gradient, the f32 gradients (dr, dk, dv, dw [B, S, H, D], du [H, D])."""
+    gradient, the f32 gradients (dr, dk, dv, dw [B, S, H, D]) and ``du``
+    per row and chunk (``du_part`` [B, H, n_chunks, D]): its sum over rows
+    and chunks is ``du``."""
     global launches_bwd
     b, s, h, d = r.shape
     if b * s * h == 0:
         _kernel_args(r, k, v, w, u)
         return (*(torch.empty((b, s, h, d), dtype=torch.float32,
                               device=r.device) for _ in range(4)),
-                torch.zeros((h, d), dtype=torch.float32, device=r.device))
-    pass1, pass2, (dr, dk, dv, dw, du_part) = backward_passes(
-        r, k, v, w, u, states, dout, dfinal)
+                torch.zeros((b, h, -(-s // CHUNK), d), dtype=torch.float32,
+                            device=r.device))
+    pass1, pass2, grads = backward_passes(r, k, v, w, u, states, dout,
+                                          dfinal)
     pass1()
     pass2()
     launches_bwd += 1
-    # du summed over B and the chunks in a fixed order: deterministic
-    return dr, dk, dv, dw, du_part.sum(dim=(0, 2))
+    return grads
+
+
+def wkv6_backward(r, k, v, w, u, states, dout, dfinal=None):
+    """:func:`wkv6_backward_parts` with ``du`` [H, D] summed over the rows
+    and the chunks in a fixed order (deterministic)."""
+    *grads, du_part = wkv6_backward_parts(r, k, v, w, u, states, dout,
+                                          dfinal)
+    return (*grads, du_part.sum(dim=(0, 2)))
+
+
+def wants_states(*inputs: torch.Tensor) -> bool:
+    """Whether a forward on ``inputs`` must write the chunk states: when a
+    backward may follow (grad mode on and an input requires grad; also
+    under ``torch.func`` transforms) and not under
+    :func:`states_discarded`. The first pass of a
+    ``models.common.Remat`` block runs without grad mode, so it writes
+    none; the recompute in its backward does."""
+    return (torch.is_grad_enabled() and not _discard_states
+            and any(t.requires_grad for t in inputs))
+
+
+def _fold(t, dim, n: int):
+    """A vmapped tensor (its vmapped dim ``dim``, or None when it is shared)
+    with the ``n`` vmapped rows folded into the batch axis B."""
+    if t is None:
+        return None
+    t = t.expand(n, *t.shape) if dim is None else t.movedim(dim, 0)
+    return t.reshape(n * t.shape[1], *t.shape[2:])
+
+
+def _unfold(t, n: int):
+    return t.reshape(n, t.shape[0] // n, *t.shape[1:])
+
+
+def _shared_u(in_dims) -> None:
+    if in_dims[4] is not None:
+        raise NotImplementedError(
+            "the wkv6 kernels' vmap rule folds the vmapped rows into B and "
+            "takes one u for all of them; a vmapped u is not supported")
 
 
 class WKV6(torch.autograd.Function):
-    """The kernels as an autograd op: forward saves r/k/v/w/u and every
-    chunk's incoming state (when a gradient is needed; a placeholder under
-    :func:`states_discarded`); backward is the two backward kernels, their
-    f32 gradients cast to the inputs' dtypes."""
+    """The kernels as an autograd op, ``apply(r, k, v, w, u,
+    save_states)``: the forward returns (out, final state, chunk states),
+    the chunk states a non-differentiable output (a zero-stride
+    placeholder of their shape unless ``save_states``), saved for the
+    backward with r/k/v/w/u. The backward is :class:`WKV6Backward`. Under
+    ``torch.func.vmap`` (the spmd engine's batched worker gradients) the
+    vmapped rows fold into B: one launch for all of them."""
 
     @staticmethod
-    def forward(ctx, r, k, v, w, u):
-        save = any(ctx.needs_input_grad)
-        out, final, states = wkv6_forward(
-            r, k, v, w, u, save_states=save and not _discard_states)
+    def forward(r, k, v, w, u, save_states):
+        out, final, states = wkv6_forward(r, k, v, w, u,
+                                          save_states=save_states)
+        if states is None:
+            b, s, h, d = r.shape
+            states = torch.empty((), dtype=torch.float32,
+                                 device=r.device).expand(
+                                     b, h, -(-s // CHUNK), d, d)
+        return out, final, states
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output[2])
         ctx.set_materialize_grads(False)
-        if save:
-            if states is None:
-                b, s, h, d = r.shape
-                states = torch.empty((), dtype=torch.float32,
-                                     device=r.device).expand(
-                                         b, h, -(-s // CHUNK), d, d)
-            ctx.save_for_backward(r, k, v, w, u, states)
-        return out, final
+        ctx.save_for_backward(*inputs[:5], output[2])
 
     @staticmethod
-    def backward(ctx, dout, dfinal):
-        r, k, v, w, u, states = ctx.saved_tensors
-        if states.stride(-1) == 0:
-            raise RuntimeError(
-                "wkv6 backward handed the placeholder of a forward run under "
-                "states_discarded(): no chunk states were written")
-        if dout is None:
-            dout = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
-        dr, dk, dv, dw, du = wkv6_backward(r, k, v, w, u, states, dout,
-                                           dfinal)
-        return dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw, du
+    def backward(ctx, dout, dfinal, _dstates):
+        return (*WKV6Backward.apply(*ctx.saved_tensors, dout, dfinal),
+                None)
+
+    @staticmethod
+    def vmap(info, in_dims, r, k, v, w, u, save_states):
+        _shared_u(in_dims)
+        n = info.batch_size
+        folded = [_fold(t, d, n) for t, d in zip((r, k, v, w), in_dims)]
+        outs = WKV6.apply(*folded, u, save_states)
+        return tuple(_unfold(t, n) for t in outs), (0, 0, 0)
+
+
+def _backward(r, k, v, w, u, states, dout, dfinal):
+    """The backward kernels' gradients, dr/dk/dv in the inputs' dtypes,
+    with ``du_part`` [B, H, n_chunks, D]."""
+    if states.stride(-1) == 0:
+        raise RuntimeError(
+            "wkv6 backward handed the placeholder of a forward that wrote "
+            "no chunk states (no gradient was wanted then, or it ran under "
+            "states_discarded())")
+    if dout is None:
+        dout = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+    dr, dk, dv, dw, du_part = wkv6_backward_parts(r, k, v, w, u, states,
+                                                  dout, dfinal)
+    return dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw, du_part
+
+
+class WKV6Backward(torch.autograd.Function):
+    """The backward kernels as a function of (r, k, v, w, u, states, dout,
+    dfinal) -> (dr, dk, dv, dw, du [H, D]). Its vmap rule folds the
+    vmapped rows into B for one launch and returns ``du`` per vmapped row
+    (each row's sum of ``du_part`` over its own B rows and the chunks):
+    ``u`` is shared across workers, its gradient is each worker's own. It
+    has no backward of its own (no double backward through the kernels)."""
+
+    @staticmethod
+    def forward(r, k, v, w, u, states, dout, dfinal):
+        *grads, du_part = _backward(r, k, v, w, u, states, dout, dfinal)
+        return (*grads, du_part.sum(dim=(0, 2)))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("the wkv6 backward kernels have no "
+                                  "backward (double backward)")
+
+    @staticmethod
+    def vmap(info, in_dims, r, k, v, w, u, states, dout, dfinal):
+        _shared_u(in_dims)
+        n = info.batch_size
+        args = [_fold(t, d, n) for t, d in zip(
+            (r, k, v, w, None, states, dout, dfinal), in_dims)]
+        *grads, du_part = _backward(*args[:4], u, *args[5:])
+        du = du_part.reshape(n, -1, *du_part.shape[1:]).sum(dim=(1, 3))
+        return (*(_unfold(g, n) for g in grads), du), (0,) * 5
 
 
 def wkv6(r, k, v, w, u) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernels' wkv from a zero state: r/k/v/w [B, S, H, D], u [H, D]
-    on CUDA -> (out [B, S, H, D] f32, final state [B, H, D, D] f32)."""
-    return WKV6.apply(r, k, v, w, u)
+    on CUDA -> (out [B, S, H, D] f32, final state [B, H, D, D] f32). The
+    chunk states are written when :func:`wants_states` says a backward may
+    follow."""
+    out, final, _ = WKV6.apply(r, k, v, w, u,
+                               wants_states(r, k, v, w, u))
+    return out, final

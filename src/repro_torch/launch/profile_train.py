@@ -1,6 +1,7 @@
 """Where the training step's time goes on the card: a torch.profiler window.
 
-    python -m repro_torch.launch.profile_train [--arch rwkv6-1.6b] [--graph]
+    python -m repro_torch.launch.profile_train [--arch rwkv6-1.6b] [--graph] \
+        [--grad-batch 0|k] [--mesh-data k]
     python -m repro_torch.launch.profile_train --strategy async|softsync \
         [--arch rwkv6-1.6b] [--graph]
 
@@ -10,8 +11,12 @@ backup 6 + 2 workers) or rwkv6-1.6b (24 layers, bf16, remat full, every
 layer's wkv through the ``rwkv6_scan`` kernels; backup 3 + 1 workers, the
 most whose [W, P] f32 gradient stack and optimizer state fit the card's
 80 GB), each with 2 x 256 tokens per worker, rmsprop_momentum, EMA 0.999,
-the spmd backend at mesh 1 x 1, one worker at a time, the
-``backup_reduce`` kernel. It profiles two steady steps, printing what
+the spmd backend, one worker at a time (``--grad-batch`` k: groups of k
+workers through ``torch.func.vmap``, 0 all of them), the ``backup_reduce``
+kernel, at mesh 1 x 1 (``--mesh-data`` k: the workers over k ranks, one
+card each through NCCL, or gloo when the ranks share cards; rank 0 is
+profiled and prints, the others run the same steps). It profiles two
+steady steps, printing what
 ``profile_serve`` prints for a serve phase (host wall per step,
 unprofiled and profiled; device busy per step; the device's idle share;
 kernel launches per step; kernels and ops ranked) and, for each of the
@@ -47,6 +52,7 @@ from repro_torch import configs
 from repro_torch.configs import (AggregationConfig, CheckpointConfig,
                                  ExecutionConfig, OptimizerConfig,
                                  ShapeConfig, TrainConfig)
+from repro_torch.distributed import mesh
 from repro_torch.launch.profile_serve import _on_device, _profile, _union_us
 from repro_torch.models.common import resolve_device
 from repro_torch.train.loop import Trainer
@@ -66,12 +72,14 @@ WORKERS = {"qwen3-0.6b": (6, 2), "rwkv6-1.6b": (3, 1)}
 
 
 def train_config(arch: str = "qwen3-0.6b", *, backend: str = "spmd",
-                 use_kernel=None, steps: int = 3) -> TrainConfig:
+                 use_kernel=None, steps: int = 3, grad_batch: int = 1,
+                 mesh_data: int = 1) -> TrainConfig:
     """A full-width training run (the ones ``chip_smoke.py`` drives):
     ``arch`` at its published widths, backup ``WORKERS[arch]`` workers with
     2 sequences of 256 tokens each, rmsprop_momentum lr 0.02 x N, EMA
-    0.999, seed 0, ``steps`` steps, no checkpoint, one worker at a time and
-    a single reduce bucket on the ``backend``."""
+    0.999, seed 0, ``steps`` steps, no checkpoint, ``grad_batch`` workers'
+    gradients at a time (1: one at a time), a single reduce bucket, on the
+    ``backend`` over ``mesh_data`` ranks."""
     n, b = WORKERS[arch]
     return TrainConfig(
         model=configs.get_config(arch),
@@ -84,7 +92,8 @@ def train_config(arch: str = "qwen3-0.6b", *, backend: str = "spmd",
                                   ema_decay=0.999),
         checkpoint=CheckpointConfig(every_steps=0),
         execution=ExecutionConfig(backend=backend, use_kernel=use_kernel,
-                                  grad_batch=1, bucket_size=0),
+                                  grad_batch=grad_batch, bucket_size=0,
+                                  mesh_data=mesh_data),
         seed=0, total_steps=steps, log_every=1)
 
 
@@ -164,6 +173,63 @@ def _main_event(args, dev) -> None:
           f"{torch.cuda.max_memory_reserved()} reserved")
 
 
+def _steps(name: str, fn, calls: int, per_call: int = 1):
+    """``_profile`` on rank 0; the other ranks of a 'data' world run the
+    same calls (3 warmups, ``calls`` timed, ``calls`` profiled), since
+    every step is a collective."""
+    if mesh.is_leader():
+        return _profile(name, fn, calls, per_call=per_call)
+    for _ in range(3 + 2 * calls):
+        fn()
+    torch.cuda.synchronize()
+    return None
+
+
+def _main_mask(args, dev) -> None:
+    say = mesh.is_leader()
+    cfg = train_config(args.arch, grad_batch=args.grad_batch,
+                       mesh_data=args.mesh_data)
+    tr = Trainer(cfg, device=dev)
+    tr.init_state()
+    agg = cfg.aggregation
+    if say:
+        print(f"[profile] {torch.cuda.get_device_name(dev)} torch "
+              f"{torch.__version__} | {cfg.model.name} "
+              f"{cfg.model.num_layers} layers {cfg.model.dtype}, backup "
+              f"{agg.num_workers}+{agg.backup_workers}, "
+              f"{cfg.shape.global_batch} x {cfg.shape.seq_len} tokens/step, "
+              f"spmd mesh {args.mesh_data}x1 ({mesh.backend() or 'one card'})"
+              f", grad_batch {args.grad_batch}")
+    prof = _steps("train step", lambda: tr.run(1), STEPS)
+    if say:
+        print("  phases per step (unit = step):")
+        _phase_table(prof.events(), PHASES, STEPS)
+        print(f"[profile] peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev)} bytes allocated, "
+              f"{torch.cuda.max_memory_reserved(dev)} reserved")
+    if not args.graph:
+        return
+    del tr, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = Trainer(dataclasses.replace(cfg, chunk_size=CHUNK), device=dev)
+    tr.init_state()
+    _steps("train chunk graph, per step", lambda: tr.run(CHUNK), STEPS,
+           per_call=CHUNK)
+    g = tr.chunk_step.graph
+    if say:
+        print(f"[profile] graph: {g.captures} capture in {g.capture_s:.3f} "
+              f"s (the capture alone; the eager warmup step before it is a "
+              f"real step), {g.replays} replays | peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev)} bytes allocated, "
+              f"{torch.cuda.max_memory_reserved(dev)} reserved")
+
+
+def _rank_main(rank: int, device, args) -> None:
+    _main_mask(args, device)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", choices=sorted(WORKERS), default="qwen3-0.6b")
@@ -174,41 +240,18 @@ def main(argv=None) -> None:
                     default="backup",
                     help="backup: the mask-mode run; async / softsync: the "
                          "event regime (event_config)")
+    ap.add_argument("--grad-batch", type=int, default=1,
+                    help="workers' gradients at a time (mask run): 1 one "
+                         "at a time, k groups of k, 0 all")
+    ap.add_argument("--mesh-data", type=int, default=1,
+                    help="ranks on the 'data' axis (mask run)")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     if args.strategy != "backup":
         return _main_event(args, dev)
-    cfg = train_config(args.arch)
-    tr = Trainer(cfg, device=dev)
-    tr.init_state()
-    agg = cfg.aggregation
-    print(f"[profile] {torch.cuda.get_device_name(0)} torch "
-          f"{torch.__version__} | {cfg.model.name} {cfg.model.num_layers} "
-          f"layers {cfg.model.dtype}, backup {agg.num_workers}+"
-          f"{agg.backup_workers}, {cfg.shape.global_batch} x "
-          f"{cfg.shape.seq_len} tokens/step, spmd mesh 1x1")
-    prof = _profile("train step", lambda: tr.run(1), STEPS)
-    events = prof.events()
-    print("  phases per step (unit = step):")
-    _phase_table(events, PHASES, STEPS)
-    print(f"[profile] peak device memory {torch.cuda.max_memory_allocated()} "
-          f"bytes")
-    if not args.graph:
-        return
-    del tr, prof, events
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    tr = Trainer(dataclasses.replace(cfg, chunk_size=CHUNK), device=dev)
-    tr.init_state()
-    _profile("train chunk graph, per step", lambda: tr.run(CHUNK), STEPS,
-             per_call=CHUNK)
-    g = tr.chunk_step.graph
-    print(f"[profile] graph: {g.captures} capture in {g.capture_s:.3f} s "
-          f"(the capture alone; the eager warmup step before it is a real "
-          f"step), {g.replays} replays | peak device memory "
-          f"{torch.cuda.max_memory_allocated()} bytes allocated, "
-          f"{torch.cuda.max_memory_reserved()} reserved")
+    if args.mesh_data > 1:
+        return mesh.spawn(_rank_main, args.mesh_data, "cuda", args=(args,))
+    _main_mask(args, dev)
 
 
 if __name__ == "__main__":

@@ -8,6 +8,8 @@
         --strategy async --workers 6 [--chunk-size 8]
     python -m repro_torch.launch.train --smoke --steps 50 \
         --strategy softsync --workers 6 --softsync-c 2
+    python -m repro_torch.launch.train --smoke --steps 50 \
+        --execution spmd --mesh-data 2 [--grad-batch 2] [--device cpu]
 
 The reference's flags, plus ``--device``: the run is on the card unless
 ``--device cpu`` is given (without a card it raises). Everything routes
@@ -17,8 +19,13 @@ strategies (backup, full_sync, timeout) through the straggler simulator
 and the masked step, event strategies (async, softsync; W = ``--workers``
 machines, no backups) through the discrete-event parameter server. On the
 card, ``--execution spmd`` aggregates through the ``backup_reduce``
-kernel. ``--grad-batch`` defaults to 1 here (one worker at a time), the
-only value the port runs. ``--chunk-size K`` runs chunks of K steps (PS
+kernel; ``--grad-batch`` batches the workers' gradients (the reference's
+default 0: all local workers in one ``torch.func.vmap``; 1 one at a time;
+k groups of k) and ``--mesh-data k`` runs the workers over k ranks
+(``distributed.mesh.spawn``: one process each, NCCL with a card each,
+else gloo), of which rank 0 prints the lines below and writes the
+checkpoints. Inside a world that is already up (``torchrun``) the
+process joins it as its rank. ``--chunk-size K`` runs chunks of K steps (PS
 updates for the event strategies; one captured CUDA graph replayed per
 step or arrival on the card, a loop on the CPU), with
 ``--prefetch-depth`` chunks of batches built ahead on a thread in mask
@@ -28,10 +35,9 @@ The reference's flags of later slices are refused by name, with the
 ROADMAP item that ports them: ``--straggler-backend device``,
 ``dynamic_backup`` (with ``--dynamic-window`` / ``--latency-source``),
 ``--faults`` / ``--supervise`` (``--fault-seed``, ``--max-restarts``),
-``--trace`` / ``--metrics``, ``--platform``, ``--mesh-data`` /
-``--mesh-model`` > 1 and ``--grad-batch`` other than 1; so is
-``--execution spmd`` with an event strategy, which the reference refuses
-too.
+``--trace`` / ``--metrics``, ``--platform`` and ``--mesh-model`` > 1
+(tensor parallelism); so is ``--execution spmd`` with an event strategy,
+which the reference refuses too.
 """
 from __future__ import annotations
 
@@ -39,11 +45,16 @@ import argparse
 import os
 import tempfile
 
+import torch
+
 from repro_torch import configs
 from repro_torch.configs.base import (AggregationConfig, CheckpointConfig,
                                       ExecutionConfig, OptimizerConfig,
                                       ShapeConfig, TrainConfig)
 from repro_torch.core.straggler import PaperCalibrated
+from repro_torch.distributed import mesh
+from repro_torch.distributed.spmd_engine import validate_grad_batch
+from repro_torch.models.common import resolve_device
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.loop import run_experiment
 
@@ -99,7 +110,7 @@ def build_config(args) -> TrainConfig:
         execution=ExecutionConfig(backend=args.execution,
                                   mesh_data=args.mesh_data or 1,
                                   mesh_model=args.mesh_model or 1,
-                                  grad_batch=args.grad_batch,
+                                  grad_batch=args.grad_batch or 0,
                                   bucket_size=args.bucket_size or 0),
         seed=args.seed, total_steps=args.steps, log_every=10,
         chunk_size=args.chunk_size,
@@ -138,19 +149,52 @@ def _validate(ap: argparse.ArgumentParser, args) -> None:
                  f"(got --strategy {args.strategy})")
     for flag, value in (("--mesh-data", args.mesh_data),
                         ("--mesh-model", args.mesh_model),
+                        ("--grad-batch", args.grad_batch),
                         ("--bucket-size", args.bucket_size)):
         if value is not None and args.execution != "spmd":
             ap.error(f"{flag} only applies to --execution spmd")
-    if args.grad_batch != 1 and args.execution != "spmd":
-        ap.error("--grad-batch only applies to --execution spmd")
-    for flag, value in (("--mesh-data", args.mesh_data),
-                        ("--mesh-model", args.mesh_model)):
-        if value is not None and value > 1:
-            ap.error(f"{flag} {value}: repro_torch runs the spmd engine on "
-                     f"one card (mesh 1 x 1); larger meshes come with {_Q} 5")
-    if args.grad_batch != 1:
-        ap.error(f"--grad-batch {args.grad_batch}: batched worker gradients "
-                 f"come with {_Q} 5; the port runs one worker at a time (1)")
+    if args.mesh_model is not None and args.mesh_model > 1:
+        ap.error(f"--mesh-model {args.mesh_model}: tensor parallelism is "
+                 f"not ported to repro_torch yet ({_Q} 5)")
+    if args.execution == "spmd":
+        _, total = _resolved_workers(args)
+        if total % (args.mesh_data or 1):
+            ap.error(f"total workers ({total}) must be divisible by "
+                     f"--mesh-data ({args.mesh_data})")
+        if args.grad_batch is not None:
+            try:
+                validate_grad_batch(args.grad_batch,
+                                    total // (args.mesh_data or 1))
+            except ValueError as e:
+                ap.error(f"--grad-batch: {e}")
+
+
+def _run(args) -> None:
+    """One run of the parsed flags; prints on rank 0 of a 'data' world
+    (every process without one)."""
+    cfg = build_config(args)
+    resume = args.resume and ckpt_lib.latest_step(args.ckpt) is not None
+    say = mesh.is_leader()
+    if resume and say:
+        print(f"[train] resumed at step {ckpt_lib.latest_step(args.ckpt)}")
+    res = run_experiment(cfg, latency=PaperCalibrated(), device=args.device,
+                         resume=resume, save_final=True)
+    if not say:
+        return
+    for m in res.metrics:
+        print(f"[train] step {m['step']:5d} loss {m['loss']:.4f} "
+              f"sim {m['sim_time']:8.1f}s selected {m['selected']} "
+              f"staleness {m['staleness']:.1f}")
+    print(f"[train] done: {res.steps} steps, sim_time {res.sim_time:.0f}s, "
+          f"mean_selected {res.mean_selected:.2f}, "
+          f"mean_staleness {res.mean_staleness:.2f}, "
+          f"restarts {res.restarts}, checkpoint {args.ckpt}")
+    print(f"[train] wall {res.wall_time_s:.2f}s", flush=True)
+
+
+def _rank_main(rank: int, device, args) -> None:
+    """A rank of ``--mesh-data k`` (``mesh.spawn``): the run on its card."""
+    _run(argparse.Namespace(**{**vars(args), "device": str(device)}))
 
 
 def main(argv=None) -> None:
@@ -191,14 +235,17 @@ def main(argv=None) -> None:
                          "aggregates them with the backup_reduce kernel; "
                          "'sim' differentiates the mask-weighted loss")
     ap.add_argument("--mesh-data", type=int, default=None,
-                    help="'data' axis size (spmd only; the port runs 1)")
+                    help="ranks on the 'data' (worker) axis (spmd only; "
+                         "total workers must divide evenly): one process "
+                         "each, NCCL with a card each, else gloo")
     ap.add_argument("--mesh-model", type=int, default=None,
                     help="'model' axis size (spmd only; the port runs 1)")
-    ap.add_argument("--grad-batch", type=int, default=1,
-                    help="workers whose gradients are computed together "
-                         "(spmd only). Default 1 here (one worker at a "
-                         "time), the only value the port runs; the "
-                         "reference's default is 0 (all workers)")
+    ap.add_argument("--grad-batch", type=int, default=None,
+                    help="per-rank worker-gradient batching (spmd only): "
+                         "0 = all local workers in one torch.func.vmap "
+                         "(the default), 1 = one worker at a time, k = "
+                         "groups of k (must divide total workers / "
+                         "mesh-data)")
     ap.add_argument("--bucket-size", type=int, default=None,
                     help="lanes of the flattened gradient per reduce bucket "
                          "(spmd only; 0 = one bucket)")
@@ -217,22 +264,15 @@ def main(argv=None) -> None:
     ap.add_argument("--metrics", default=None, metavar="PATH")
     args = ap.parse_args(argv)
     _validate(ap, args)
-
-    cfg = build_config(args)
-    resume = args.resume and ckpt_lib.latest_step(args.ckpt) is not None
-    if resume:
-        print(f"[train] resumed at step {ckpt_lib.latest_step(args.ckpt)}")
-    res = run_experiment(cfg, latency=PaperCalibrated(), device=args.device,
-                         resume=resume, save_final=True)
-    for m in res.metrics:
-        print(f"[train] step {m['step']:5d} loss {m['loss']:.4f} "
-              f"sim {m['sim_time']:8.1f}s selected {m['selected']} "
-              f"staleness {m['staleness']:.1f}")
-    print(f"[train] done: {res.steps} steps, sim_time {res.sim_time:.0f}s, "
-          f"mean_selected {res.mean_selected:.2f}, "
-          f"mean_staleness {res.mean_staleness:.2f}, "
-          f"restarts {res.restarts}, checkpoint {args.ckpt}")
-    print(f"[train] wall {res.wall_time_s:.2f}s")
+    k = args.mesh_data or 1
+    if k > 1 and not torch.distributed.is_initialized():
+        if args.device is None:
+            resolve_device(None)          # raises without a card
+        if "RANK" not in os.environ:      # one new process per rank
+            mesh.spawn(_rank_main, k, args.device or "cuda", args=(args,))
+            return
+        mesh.join(k, args.device or "cuda")     # a rank torchrun started
+    _run(args)
 
 
 if __name__ == "__main__":

@@ -11,12 +11,11 @@ layout: ``dense`` is ``x @ w``.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -193,6 +192,78 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Rematerialization
+# ---------------------------------------------------------------------------
+
+
+class Remat(torch.autograd.Function):
+    """``fn(*tensors)`` whose backward recomputes it: the reference's
+    ``jax.checkpoint``, written so that ``torch.func`` goes through it.
+
+    ``torch.utils.checkpoint`` cannot sit under ``torch.func.vmap(grad)``
+    (the non-reentrant form uses saved-tensor hooks, the reentrant one has
+    no ``setup_context``). This Function saves only its tensor inputs; its
+    forward runs ``fn`` without recording anything, its backward runs it
+    again under ``torch.func.vjp``. Under ``vmap`` PyTorch derives the
+    batched rule from these (``generate_vmap_rule``). ``fn`` takes every
+    other argument from its closure (which must hold no tensor the caller
+    differentiates or vmaps), returns one tensor and draws no random
+    numbers. Gradients flow to the floating-point inputs."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, *args):
+        return fn(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fn = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        args = ctx.saved_tensors
+        diff = [i for i, a in enumerate(args) if a.is_floating_point()]
+
+        def again(*primals):
+            full = list(args)
+            for i, t in zip(diff, primals):
+                full[i] = t
+            return ctx.fn(*full)
+
+        _, pull = torch.func.vjp(again, *(args[i] for i in diff))
+        grads = [None] * len(args)
+        for i, g in zip(diff, pull(grad_out)):
+            grads[i] = g
+        return (None, *grads)
+
+
+def param_tree(names: Sequence[str], leaves: Sequence[torch.Tensor]
+               ) -> Dict:
+    """Dotted parameter names and their tensors -> the nested dict the
+    layer functions read (``p["attn"]["wq"]["w"]``)."""
+    root: Dict = {}
+    for name, t in zip(names, leaves):
+        *path, last = name.split(".")
+        node = root
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = t
+    return root
+
+
+def remat_module(fn: Callable, params: nn.Module, x: torch.Tensor,
+                 ) -> torch.Tensor:
+    """``fn(tree, x)`` through :class:`Remat`, ``tree`` being
+    ``params``' tensors (the swapped-in ones under
+    ``torch.func.functional_call``) as a nested dict."""
+    names, leaves = zip(*params.named_parameters())
+    return Remat.apply(
+        lambda x_, *ls: fn(param_tree(names, ls), x_), x, *leaves)
+
+
+# ---------------------------------------------------------------------------
 # Losses
 # ---------------------------------------------------------------------------
 
@@ -223,17 +294,16 @@ def chunked_cross_entropy(x: torch.Tensor, out_embed: torch.Tensor,
     """CE over huge vocabs without materializing full [T, V] logits.
 
     x: [T, d]; out_embed: [d, V]; labels: [T] -> per-token loss [T]. Each
-    chunk of ``chunk`` tokens computes its logits inside a checkpoint, so
-    backward recomputes them (the reference's ``jax.checkpoint`` scan
+    chunk of ``chunk`` tokens computes its logits inside :class:`Remat`,
+    so backward recomputes them (the reference's ``jax.checkpoint`` scan
     body). The reference zero-pads T up to a multiple of ``chunk``; here
     the last chunk is ragged instead, which gives the same losses (rows
     never mix) without the padded rows' logits.
     """
     out = []
     for lo in range(0, x.shape[0], chunk):
-        args = (x[lo:lo + chunk], out_embed, labels[lo:lo + chunk],
-                valid_vocab)
-        out.append(checkpoint(_chunk_ce, *args, use_reentrant=False,
-                              preserve_rng_state=False)
-                   if torch.is_grad_enabled() else _chunk_ce(*args))
+        args = (x[lo:lo + chunk], out_embed, labels[lo:lo + chunk])
+        out.append(Remat.apply(lambda *a: _chunk_ce(*a, valid_vocab), *args)
+                   if torch.is_grad_enabled() else _chunk_ce(*args,
+                                                             valid_vocab))
     return torch.cat(out)

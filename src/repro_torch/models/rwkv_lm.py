@@ -7,11 +7,14 @@ The reference scans stacked ``blocks/<path>[L, ...]`` leaves; here
 (``ln1``, ``att``, ``ln2``, ``ffn``). Each block sees a fresh zero state.
 Every layer's wkv runs through the hand-written kernels on the card
 (``use_kernel=True``, the default) or their plain twin
-(``use_kernel=False``, and always on the CPU). Under remat ``full`` and
-``dots`` the first pass of each block writes no wkv chunk states (the
-checkpoint throws its saved tensors away); the recompute in backward
-writes them. ``dots`` also keeps the outputs of the block's matmuls
-without batch dimensions and recomputes the rest, the wkv included.
+(``use_kernel=False``, and always on the CPU). Remat goes through
+``transformer.run_remat``: ``full`` is ``common.Remat``, whose first pass
+runs without grad mode, so the wkv writes no chunk states there
+(``rwkv6_scan.wants_states``); the recompute in backward writes them.
+``dots`` (a selective checkpoint, outside ``torch.func``) keeps the
+outputs of the block's matmuls without batch dimensions and recomputes
+the rest, the wkv included; its first pass runs under
+``rwkv6_scan.states_discarded``.
 """
 from __future__ import annotations
 
@@ -20,26 +23,13 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import rwkv6_scan
 from repro_torch.models import common, rwkv6
-from repro_torch.models.transformer import dots_contexts, remat_options
+from repro_torch.models.transformer import dots_contexts, run_remat
 
 _SERVE = ("RWKV decode and prefill are not ported yet: they come with the "
           "toy serve path (ROADMAP Queue 1 item 8)")
-
-
-def _block(p, cfg, x, state, use_kernel: bool) -> torch.Tensor:
-    return rwkv6.rwkv_block_apply(p, cfg, x, state, chunked=True,
-                                  use_kernel=use_kernel)[0]
-
-
-def remat_contexts():
-    """``checkpoint``'s ``context_fn`` for remat 'full': the first pass
-    runs under ``states_discarded`` (its saved tensors are dropped), the
-    recompute as it is."""
-    return rwkv6_scan.states_discarded(), contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -101,20 +91,20 @@ class RWKVLM(nn.Module):
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens: [B, S] -> logits [B, S, V_padded]. Under remat ``full``
         or ``dots`` (with autograd on) each block recomputes in backward."""
-        remat = remat_options(self.cfg.remat)
-        if remat is not None:
-            remat["context_fn"] = (dots_remat_contexts
-                                   if self.cfg.remat == "dots"
-                                   else remat_contexts)
+        cfg, use_kernel = self.cfg, self.use_kernel
         x = common.embed(self.embed, tokens).to(self.dtype)
         x = common.layernorm(self.ln_in, x, 1e-5)
-        zero_state = self._fresh_states(tokens.shape[0])
+
+        def block(p, x_):
+            # the zero state is made inside the block: common.Remat's
+            # closures may hold no tensor made under a torch.func transform
+            return rwkv6.rwkv_block_apply(p, cfg, x_,
+                                          self._fresh_states(x_.shape[0]),
+                                          chunked=True,
+                                          use_kernel=use_kernel)[0]
+
         for p in self.blocks:
-            if remat is not None and torch.is_grad_enabled():
-                x = checkpoint(_block, p, self.cfg, x, zero_state,
-                               self.use_kernel, **remat)
-            else:
-                x = _block(p, self.cfg, x, zero_state, self.use_kernel)
+            x = run_remat(cfg.remat, block, p, x, dots_remat_contexts)
         x = common.layernorm(self.ln_out, x, 1e-5)
         return common.dense(self.head, x)
 

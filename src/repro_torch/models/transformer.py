@@ -9,6 +9,14 @@ The reference scans stacked ``seg_dense`` leaves ``[L, ...]``; here the
 layers are an ``nn.ModuleList`` of per-layer ``nn.ModuleDict``s with the
 same keys (``ln1``, ``attn``, ``ln2``, ``mlp``). The weights are trainable
 parameters; the serve path runs under ``torch.inference_mode``.
+
+Remat (``run_remat``): 'full' runs each layer through
+``common.Remat``, an ``autograd.Function`` that ``torch.func`` goes
+through (the spmd engine's batched worker gradients vmap the worker
+loss). 'dots' is a selective ``torch.utils.checkpoint`` keeping the
+matmuls' outputs; that cannot run under ``torch.func``, so there (the
+batched gradients) 'dots' recomputes the whole layer as 'full' does: the
+same gradients, the recompute of 'full'.
 """
 from __future__ import annotations
 
@@ -87,21 +95,31 @@ def dots_contexts():
     return create_selective_checkpoint_contexts(_save_dots)
 
 
-def remat_options(policy: str) -> Optional[dict]:
-    """The reference's remat policy for training as ``checkpoint``
-    keyword arguments: None for 'none' (the layers run as they are);
-    'full' recomputes each layer in backward, 'dots' all but its matmuls.
-    The layers draw no random numbers, so no RNG state is saved (which a
-    CUDA-graph capture would refuse)."""
+def run_remat(policy: str, fn, params, x: torch.Tensor,
+              dots_context_fn=dots_contexts) -> torch.Tensor:
+    """``fn(params, x)`` under the reference's remat policy while autograd
+    records: 'none' as it is; 'full' through ``common.Remat`` (recomputed
+    in backward); 'dots' through a selective ``checkpoint`` whose
+    ``dots_context_fn`` keeps the matmuls' outputs, or, under ``torch.func``
+    transforms, as 'full'. The layers draw no random numbers, so no RNG
+    state is saved (which a CUDA-graph capture would refuse)."""
     if policy not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat policy {policy!r} (none, full, "
                          f"dots)")
-    if policy == "none":
-        return None
-    kw = dict(use_reentrant=False, preserve_rng_state=False)
-    if policy == "dots":
-        kw["context_fn"] = dots_contexts
-    return kw
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn(params, x)
+    if policy == "dots" and not torch._C._are_functorch_transforms_active():
+        return checkpoint(fn, params, x, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=dots_context_fn)
+    return common.remat_module(fn, params, x)
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    """[B, S] token positions of ``x`` [B, S, d], made inside the layer
+    (``common.Remat``'s closures may hold no tensor made under a
+    ``torch.func`` transform)."""
+    return torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
 
 
 class TransformerLM(nn.Module):
@@ -149,18 +167,13 @@ class TransformerLM(nn.Module):
             x = x * self.cfg.embed_scale
         return x
 
-    def _run_layers(self, x: torch.Tensor, remat: Optional[dict] = None
+    def _run_layers(self, x: torch.Tensor, remat: str = "none"
                     ) -> torch.Tensor:
-        """``remat``: ``checkpoint`` keyword arguments (``remat_options``),
-        applied to each layer while autograd records."""
-        positions = torch.arange(x.shape[1], device=x.device).expand(
-            x.shape[:2])
+        """``remat``: the policy (``run_remat``) applied to each layer."""
+        cfg = self.cfg
         for p, win in zip(self.layers, self.windows):
-            if remat is not None and torch.is_grad_enabled():
-                x = checkpoint(block_apply, p, self.cfg, x, positions, win,
-                               **remat)
-            else:
-                x = block_apply(p, self.cfg, x, positions, win)
+            x = run_remat(remat, lambda p_, x_, w=win: block_apply(
+                p_, cfg, x_, _positions(x_), w), p, x)
         return x
 
     def _output_weights(self) -> torch.Tensor:
@@ -185,8 +198,7 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        x = self._run_layers(self._embed_inputs(tokens),
-                             remat=remat_options(cfg.remat))
+        x = self._run_layers(self._embed_inputs(tokens), remat=cfg.remat)
         x = common.rmsnorm(self.final_norm, x, cfg.norm_eps)
         b, s, d = x.shape
         out_w = self._output_weights()

@@ -134,6 +134,11 @@ def retry_delays(retries: int, backoff_s: float, *,
     return out
 
 
+def step_dir(directory: str, step: int) -> str:
+    """The directory of step ``step``'s checkpoint."""
+    return os.path.join(directory, f"step_{step:08d}")
+
+
 def save(directory: str, step: int, tree: Mapping,
          metadata: Optional[Dict] = None, keep: int = 3, *,
          retries: int = 3, backoff_s: float = 0.01,
@@ -142,7 +147,7 @@ def save(directory: str, step: int, tree: Mapping,
     """Write one checkpoint of the nested dict ``tree`` (leaves: tensors
     or arrays) durably and atomically; returns its directory."""
     os.makedirs(directory, exist_ok=True)
-    final = os.path.join(directory, f"step_{step:08d}")
+    final = step_dir(directory, step)
     flat = {k: to_numpy(v) for k, v in _flatten_with_paths(tree).items()}
     manifest = {"step": step, "arrays": sorted(flat),
                 "checksums": {k: _checksum(v) for k, v in flat.items()},

@@ -29,6 +29,18 @@ The strategy, built from ``cfg.aggregation`` by
 4. on checkpoint cadence, state is committed atomically in the
    reference's format (so either package resumes the other's run).
 
+On the spmd backend with ``mesh_data > 1`` the trainer is one rank of the
+``'data'`` world (``distributed.mesh.spawn``; each rank builds its own
+Trainer from the same config). Every rank plans the same masks from the
+same seed and builds the same global batch on the host, and copies only
+its workers' rows to its card; the engine sums the ranks' reduced
+gradients, and every rank applies the same update. Rank 0 alone writes
+checkpoints (the others wait at a barrier); every rank restores them.
+Chunked runs capture the NCCL all-reduce inside the step graph (the first,
+eager step makes the communicator live); a gloo world on CUDA tensors
+(several ranks on one card) cannot be captured, so there ``chunk_size >
+1`` raises.
+
 With ``cfg.chunk_size > 1`` the loop runs chunks of up to K steps: the
 simulator plans the chunk's K masks at once (``next_events``), the
 ``ChunkPrefetcher`` builds its K stacked batches ahead on a thread, and
@@ -90,7 +102,7 @@ from repro_torch.core.straggler import LatencyModel, PaperCalibrated
 from repro_torch.data.synthetic_lm import (ChunkPrefetcher, PipelineState,
                                            SyntheticLMConfig,
                                            SyntheticLMPipeline, worker_batch)
-from repro_torch.distributed import spmd_engine
+from repro_torch.distributed import mesh, spmd_engine
 from repro_torch.models import from_jax_tree, get_model, to_jax_tree
 from repro_torch.models.common import resolve_device
 from repro_torch.optim import make_optimizer, schedules
@@ -192,6 +204,7 @@ class Trainer:
             raise ValueError(f"unknown execution backend {backend!r} "
                              f"(valid: sim, spmd)")
         self._spmd = backend == "spmd"
+        self._group = None                   # the spmd 'data' world, if any
         if self._spmd and not registry.supports_spmd(self.strategy,
                                                      cfg.execution):
             raise NotImplementedError(
@@ -235,11 +248,25 @@ class Trainer:
             ema_decay=cfg.optimizer.ema_decay,
             clip_norm=cfg.optimizer.clip_global_norm)
         chunked = cfg.chunk_size > 1
+        self._rows = slice(None)             # this rank's rows of a batch
         if self._spmd:
             ex = cfg.execution
             spmd_engine.check_mesh(ex.mesh_data, ex.mesh_model)
             spmd_engine.validate_layout(cfg.aggregation.total_workers,
                                         cfg.shape.global_batch, ex.mesh_data)
+            self._group = mesh.data_group(ex.mesh_data)
+            if self._group is not None:
+                per_rank = cfg.shape.global_batch // ex.mesh_data
+                lo = mesh.rank() * per_rank
+                self._rows = slice(lo, lo + per_rank)
+                if (chunked and self.device.type == "cuda"
+                        and mesh.backend() != "nccl"):
+                    raise ValueError(
+                        f"chunk_size={cfg.chunk_size} replays a captured "
+                        f"CUDA graph of the step, and the '{mesh.backend()}'"
+                        f" world's all-reduce cannot be captured (several "
+                        f"ranks on one card run over gloo); use "
+                        f"chunk_size=1 here, or one card per rank (NCCL)")
             build = (spmd_engine.build_spmd_chunk_step if chunked
                      else spmd_engine.build_spmd_step)
             step_kwargs.update(
@@ -396,6 +423,12 @@ class Trainer:
         return out
 
     def save_checkpoint(self) -> str:
+        ck = self.cfg.checkpoint
+        group = self._group
+        if group is not None and mesh.rank() != 0:
+            # rank 0 writes; every rank leaves once the write is committed
+            torch.distributed.barrier(group)
+            return ckpt_lib.step_dir(ck.directory, self.step)
         meta = {
             "num_workers": self.cfg.aggregation.num_workers,
             "backup_workers": self.cfg.aggregation.backup_workers,
@@ -433,13 +466,15 @@ class Trainer:
             meta["data_state"] = self.pipeline.state.save()
             meta["dead_workers"] = [int(w) for w in
                                     np.nonzero(self.sim.dead)[0]]
-        ck = self.cfg.checkpoint
         with torch.no_grad():
-            return ckpt_lib.save(
+            path = ckpt_lib.save(
                 ck.directory, self.step, self._state_tree(), meta, ck.keep,
                 retries=ck.write_retries, backoff_s=ck.retry_backoff_s,
                 max_backoff_s=ck.retry_max_backoff_s, jitter=ck.retry_jitter,
                 backoff_seed=self.cfg.seed)
+        if group is not None:
+            torch.distributed.barrier(group)
+        return path
 
     @torch.no_grad()
     def restore_checkpoint(self, step: Optional[int] = None) -> None:
@@ -624,7 +659,7 @@ class Trainer:
         """One step: plan the mask, build the batch, run the train step;
         the metrics are read back (one sync) only on a logged step."""
         ev = self.sim.next_event()
-        batch = {k: torch.from_numpy(v).to(self.device)
+        batch = {k: torch.from_numpy(v[self._rows]).to(self.device)
                  for k, v in self.pipeline.next().items()}
         mask = torch.from_numpy(ev.mask).to(self.device)
         lr = self.optimizer.scalars(self.step)["lr"]
@@ -649,7 +684,9 @@ class Trainer:
             next_specs=self._next_chunk_specs(k, target))
         self.pipeline.state.step += k
         events = self.sim.next_events(k)
-        batches = {key: self._to_device(v) for key, v in chunk_np.items()}
+        batches = {key: self._to_device(
+            np.ascontiguousarray(v[:, self._rows]))
+            for key, v in chunk_np.items()}
         masks = self._to_device(events.masks)
         scalars = stage_scalars(self.optimizer, steps, self.device)
         ms = self.chunk_step(self.opt_state, self.ema, scalars, batches,

@@ -30,7 +30,7 @@ held to it on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
   states of ``wkv6_plain`` on the whole-chunk prefixes, rtol 1e-5, atol
   1e-5 x max|ref|.
 * (c''') the remat plumbing, with the kernels replaced by CPU stand-ins:
-  under a non-reentrant checkpoint with ``rwkv_lm.remat_contexts`` the
+  under ``common.Remat`` (remat "full") the
   first pass of ``WKV6`` writes no chunk states, the recompute does, the
   backward gets the real ones and the gradients equal a run without
   checkpoint (bit for bit; through ``RWKVLM``, remat "full" and "dots"
@@ -54,7 +54,6 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch.utils.checkpoint import checkpoint
 
 import jax
 import jax.numpy as jnp
@@ -75,7 +74,6 @@ from repro_torch.launch import train as tcli
 from repro_torch.models import (RWKVLM, common as tcommon, from_jax_tree,
                                 get_model, load_jax_params, to_jax_tree)
 from repro_torch.models import rwkv6 as trwkv6
-from repro_torch.models import rwkv_lm as trwkv_lm
 from repro_torch.train import checkpoint as tckpt
 from repro_torch.train import loop as tloop
 from torch_parity import port_config
@@ -324,21 +322,36 @@ def _stand_in_kernels(monkeypatch, log):
     def backward(r, k, v, w, u, states, dout, dfinal=None):
         real = _wkv_column_slices(r, k, v, w, u, 16)[2]
         log.append(("bwd", 0 in states.stride(), torch.equal(states, real)))
-        leaves = [t.detach().float().requires_grad_()
-                  for t in (r, k, v, w, u)]
-        with torch.enable_grad():       # a backward runs without grad mode
-            out, final = rwkv6_scan.wkv6_plain(*leaves)
-            loss = (out * dout).sum()
-            if dfinal is not None:
-                loss = loss + (final * dfinal).sum()
-            return torch.autograd.grad(loss, leaves)
+        return _plain_backward_parts(r, k, v, w, u, dout, dfinal)
 
     monkeypatch.setattr(rwkv6_scan, "wkv6_forward", forward)
-    monkeypatch.setattr(rwkv6_scan, "wkv6_backward", backward)
+    monkeypatch.setattr(rwkv6_scan, "wkv6_backward_parts", backward)
+
+
+def _plain_backward_parts(r, k, v, w, u, dout, dfinal):
+    """The backward kernels' outputs from the plain twin's autograd:
+    (dr, dk, dv, dw, du_part [B, H, n_chunks, D]), each row's du in its
+    chunk 0 (the kernels spread it over the chunks; the sums agree)."""
+    leaves = [t.detach().float().requires_grad_() for t in (r, k, v, w)]
+    du_rows = []
+    with torch.enable_grad():       # a backward runs without grad mode
+        for b in range(r.shape[0]):
+            ub = u.detach().float().requires_grad_()
+            out, final = rwkv6_scan.wkv6_plain(
+                *(t[b:b + 1] for t in leaves), ub)
+            loss = (out * dout[b:b + 1]).sum()
+            if dfinal is not None:
+                loss = loss + (final * dfinal[b:b + 1]).sum()
+            loss.backward()
+            du_rows.append(ub.grad)
+    b, s, h, d = r.shape
+    du_part = torch.zeros((b, h, -(-s // rwkv6_scan.CHUNK), d))
+    du_part[:, :, 0] = torch.stack(du_rows)
+    return (*(t.grad for t in leaves), du_part)
 
 
 def _wkv_out(*args):
-    return rwkv6_scan.WKV6.apply(*args)[0]
+    return rwkv6_scan.wkv6(*args)[0]
 
 
 def test_remat_first_pass_writes_no_wkv_states(monkeypatch):
@@ -351,8 +364,7 @@ def test_remat_first_pass_writes_no_wkv_states(monkeypatch):
     for remat in (False, True):
         leaves = [torch.from_numpy(a).requires_grad_() for a in args]
         if remat:           # as RWKVLM.forward calls it
-            out = checkpoint(_wkv_out, *leaves, use_reentrant=False,
-                             context_fn=trwkv_lm.remat_contexts)
+            out = tcommon.Remat.apply(_wkv_out, *leaves)
         else:
             out = _wkv_out(*leaves)
         out.backward(cot)
