@@ -2,7 +2,7 @@
 """Chip smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --mesh-only     # phase 18 alone (several cards)
+    python3 chip_smoke.py --mesh-only     # phases 18-19 alone (several cards)
 
 Drives the port (``src/repro_torch``) through its own entry points and
 fails (non-zero exit, no result line) if any phase fails:
@@ -181,7 +181,7 @@ fails (non-zero exit, no result line) if any phase fails:
    ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero when ``torch.cuda.is_available()`` is false.
-A line ``[time] phase N: s`` follows each of phases 16-18.
+A line ``[time] phase N: s`` follows each of phases 16-19.
 """
 from __future__ import annotations
 
@@ -2017,6 +2017,243 @@ def _mesh_phase(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the 'model' axis (tensor parallelism) over ranks
+# ---------------------------------------------------------------------------
+
+
+def _tp_full_cfg(shape, grad_batch, chunk, steps=3):
+    """qwen3-0.6b at full width (``train_config``) over the ``shape`` =
+    (mesh_data, mesh_model) mesh, ``steps`` steps in chunks of ``chunk``."""
+    from repro_torch.launch.profile_train import train_config
+    return dataclasses.replace(
+        train_config("qwen3-0.6b", grad_batch=grad_batch, steps=steps,
+                     mesh_data=shape[0], mesh_model=shape[1]),
+        chunk_size=chunk)
+
+
+def _tp_small_cfg(shape, chunk):
+    """Phase 18's 2-layer f32 qwen3 (``_small_cfg``) over ``shape``."""
+    cfg = _small_cfg("qwen3-0.6b", 0, mesh_data=shape[0], chunk=chunk)
+    return dataclasses.replace(cfg, execution=dataclasses.replace(
+        cfg.execution, mesh_model=shape[1]))
+
+
+def _sha(torch, t) -> str:
+    """A hash of a tensor's bytes: equal hashes, bit-identical tensors."""
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().view(
+        torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def _tp_rank(rank, device, out_dir, runs):
+    """One rank of phase 19 (``mesh.spawn``): each of ``runs`` ((tag, cfg,
+    kind)) on a fresh trainer, the counters (backup_reduce launches, the
+    model group's all-reduces) set to 0 just before and read just after.
+    Writes ``out_dir/rank<r>.json``: the losses, a hash of each replicated
+    leaf, the counts, P_local, peak memory and, for a chunked run, a
+    chunk of replays' host wall, a profiled chunk's device busy and the
+    capture time. ``kind`` "small":
+    the full parameters are gathered and rank 0 holds them to the same
+    config on its card alone; "full": rank 0 then holds backup_reduce to
+    its plain version at the run's [W_local, P_local] stack, once."""
+    import gc
+    import torch
+    from repro_torch.core.straggler import PaperCalibrated
+    from repro_torch.distributed import mesh, tp
+    from repro_torch.kernels import backup_reduce
+    from repro_torch.train.loop import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for tag, cfg, kind in runs:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        tr = Trainer(cfg, latency=PaperCalibrated(), device=device)
+        tr.init_state()
+        dims = tr.model.tp_dims
+        steps = cfg.total_steps
+        backup_reduce.launches = 0
+        tp.all_reduces = 0
+        t0 = time.perf_counter()
+        res = tr.run(steps)
+        torch.cuda.synchronize(device)
+        r = dict(losses=[m["loss"] for m in res.metrics],
+                 first_ms=1e3 * (time.perf_counter() - t0),
+                 reduces=backup_reduce.launches,
+                 all_reduces=tp.all_reduces / steps,
+                 p_local=sum(p.numel() for p in res.params.values()),
+                 w_local=cfg.aggregation.total_workers
+                 // cfg.execution.mesh_data,
+                 replicated={k: _sha(torch, v) for k, v in res.params.items()
+                             if dims[k] is None},
+                 split=sum(d is not None for d in dims.values()))
+        if kind == "small":
+            kept = {k: v.detach().to("cpu", copy=True)
+                    for k, v in tr._full(res.params).items()}
+        k = cfg.chunk_size
+        if k > 1:
+            t0 = time.perf_counter()
+            tr.run(k)
+            torch.cuda.synchronize(device)
+            r["replay_ms"] = 1e3 * (time.perf_counter() - t0) / k
+            r["capture_s"] = tr.chunk_step.graph.capture_s
+            r["busy_ms"] = _busy_ms(torch, [lambda: tr.run(k)], calls=1) / k
+        r["peak"] = torch.cuda.max_memory_allocated(device)
+        r["reserved"] = torch.cuda.max_memory_reserved(device)
+        out[tag] = r
+        del tr, res
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0 and kind == "small":
+            one = dataclasses.replace(cfg, execution=dataclasses.replace(
+                cfg.execution, mesh_data=1, mesh_model=1), chunk_size=1)
+            params, _ = _run_small(torch, one, device)
+            r["vs_one_card"] = max((kept[n] - v.cpu()).abs().max().item()
+                                   for n, v in params.items())
+            del params
+        if rank == 0 and kind == "full":
+            gen = torch.Generator(device=device).manual_seed(19)
+            grads = torch.randn((r["w_local"], r["p_local"]), generator=gen,
+                                device=device)
+            mask = (torch.arange(r["w_local"], device=device) % 4
+                    != 3).float()
+            n = cfg.aggregation.num_workers
+            before = backup_reduce.launches
+            got = backup_reduce.backup_reduce(grads, mask, n)
+            backup_reduce.launches = before   # a comparison, not the path
+            want = backup_reduce.backup_reduce_plain(grads, mask, n)
+            r["hold_max_abs_err"] = (got - want).abs().max().item()
+            r["hold_equal"] = bool(torch.equal(got, want))
+            del grads, got, want
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _tp_ref_loss(torch):
+    """Step 1's loss of the full-width one-card run at grad_batch 1 (phase
+    6's run), for ``--mesh-only``."""
+    import gc
+    from repro_torch.core.straggler import PaperCalibrated
+    from repro_torch.launch.profile_train import train_config
+    from repro_torch.train.loop import Trainer
+    tr = Trainer(train_config("qwen3-0.6b", steps=1),
+                 latency=PaperCalibrated(), device="cuda")
+    tr.init_state()
+    loss = tr.run(1).metrics[0]["loss"]
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss
+
+
+def _tp_phase(torch, ref_loss):
+    """Phase 19: the 'model' axis over ranks. With one card: 2 gloo ranks
+    on it at mesh 1 x 2, chunk 1 (gloo cannot be captured): 2 layers f32
+    held to the one-card run, then qwen3-0.6b at full width for 2 steps at
+    grad_batch 1. With 2 or more cards: NCCL at 1 x 2 (and 1 x 4, 2 x 2
+    with 4), one card per rank, 2 layers f32 then full width at
+    grad_batch 0, each one chunk of 3 through the graph with the model
+    group's all-reduces captured. ``ref_loss``: step 1's loss of the
+    one-card full-width run."""
+    from repro_torch.distributed import mesh
+    cards = torch.cuda.device_count()
+    nccl = cards >= 2
+    shapes = [s for s in ((1, 2), (1, 4), (2, 2)) if s[0] * s[1] <= cards] \
+        if nccl else [(1, 2)]
+    if not nccl:
+        _log("[tp] one card visible: NCCL not run (it needs a card per "
+             "rank); 2 ranks over gloo on CUDA tensors on the one card, "
+             "chunk_size 1 (a gloo all-reduce cannot be captured)")
+    launches = {}
+    for shape in shapes:
+        d, m = shape
+        name = f"mesh {d} x {m}"
+        chunk = 3 if nccl else 1
+        runs = [(f"qwen3-0.6b 2 layers f32 {name}",
+                 _tp_small_cfg(shape, chunk), "small"),
+                (f"qwen3-0.6b {name}",
+                 _tp_full_cfg(shape, 0 if nccl else 1, chunk,
+                              steps=3 if nccl else 2), "full")]
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            mesh.spawn(_tp_rank, d, "cuda", args=(tmp, runs), mesh_model=m,
+                       timeout_s=MESH_TIMEOUT_S)
+            ranks = []
+            for r in range(d * m):
+                with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+        backend = "nccl" if nccl else "gloo"
+        for tag, cfg, kind in runs:
+            first = ranks[0][tag]
+            steps = cfg.total_steps
+            for r, other in enumerate(ranks):
+                o = other[tag]
+                if o["losses"] != first["losses"] or \
+                        o["replicated"] != first["replicated"] or \
+                        o["all_reduces"] != first["all_reduces"]:
+                    raise AssertionError(
+                        f"[tp {tag}] rank {r}'s losses, replicated leaves "
+                        f"or all-reduce count differ from rank 0's")
+                if o["reduces"] != steps:
+                    raise AssertionError(
+                        f"[tp {tag}] rank {r}: {o['reduces']} backup_reduce "
+                        f"launches in {steps} steps, expected {steps}")
+            if not first["split"] or not first["all_reduces"] or \
+                    not all(math.isfinite(v) for v in first["losses"]):
+                raise AssertionError(f"[tp {tag}] no split leaf, no model-"
+                                     f"group all-reduce or a non-finite "
+                                     f"loss: {first}")
+            if kind == "small" and not first["vs_one_card"] <= 1e-5:
+                raise AssertionError(f"[tp {tag}] params vs the one-card "
+                                     f"run max abs {first['vs_one_card']}")
+            if kind == "full":
+                gap = abs(first["losses"][0] - ref_loss) / abs(ref_loss)
+                if not gap <= 1e-3:
+                    raise AssertionError(
+                        f"[tp {tag}] step 1 loss {first['losses'][0]} vs "
+                        f"the one-card run's {ref_loss}: rel {gap} (limit "
+                        f"1e-3)")
+                if not first["hold_equal"]:
+                    raise AssertionError(
+                        f"[tp {tag}] backup_reduce vs plain at [W_local, "
+                        f"P_local] = [{first['w_local']}, "
+                        f"{first['p_local']}]: max abs "
+                        f"{first['hold_max_abs_err']}")
+                launches[tag] = dict(backup_reduce=first["reduces"],
+                                     wkv6_fwd=0, wkv6_bwd=0,
+                                     wkv6_fwd_states=0)
+            timing = (f"host wall {first['replay_ms']:.3f} ms/step (a chunk "
+                      f"of replays), device busy {first['busy_ms']:.3f} "
+                      f"ms/step, capture {first['capture_s']:.3f} s"
+                      if "replay_ms" in first else
+                      f"first run {first['first_ms']:.1f} ms ({steps} eager "
+                      f"steps; a gloo check, not timed further)")
+            _log(f"[tp {tag}] {backend}, {d * m} ranks: losses "
+                 f"{' '.join(f'{v:.6f}' for v in first['losses'])}; every "
+                 f"rank's losses and {len(first['replicated'])} replicated "
+                 f"leaves bit-identical; {first['split']} split leaves, "
+                 f"P_local {first['p_local']}, W_local {first['w_local']}; "
+                 f"per rank backup_reduce {first['reduces']} in {steps} "
+                 f"steps, model-group all-reduces "
+                 f"{first['all_reduces']:.1f}/step | rank 0: {timing}, peak "
+                 f"{first['peak']} bytes allocated, {first['reserved']} "
+                 f"reserved"
+                 + (f" | params vs one card max abs "
+                    f"{first['vs_one_card']:.3g} (atol 1e-5)"
+                    if kind == "small" else
+                    f" | step 1 loss vs one card rel "
+                    f"{abs(first['losses'][0] - ref_loss) / abs(ref_loss):.3g}"
+                    f" (limit 1e-3); backup_reduce == plain bit for bit at "
+                    f"[{first['w_local']}, {first['p_local']}] (max abs "
+                    f"{first['hold_max_abs_err']:.3g})"))
+        _log(f"[tp] {name} over {backend}: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main(argv) -> int:
     # cuBLAS picks the same algorithms run to run (the kernel and plain
     # training runs must compute the same first-step gradients)
@@ -2052,10 +2289,13 @@ def main(argv) -> int:
     secs = _build.build()
     _log(f"[build] {', '.join(f'{k}.cu {v:.1f} s' for k, v in secs.items())}"
          f" (wall {time.perf_counter() - t0:.1f} s, parallel nvcc, sm_90a)")
-    if mesh_only:         # phase 18 alone (the multi-card check)
+    if mesh_only:         # phases 18 and 19 alone (the multi-card check)
         t0 = time.perf_counter()
         _mesh_phase(torch)
         _log(f"[time] phase 18: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        _tp_phase(torch, _tp_ref_loss(torch))
+        _log(f"[time] phase 19: {time.perf_counter() - t0:.1f} s")
         return 0
 
     # 3. the serve kernels at the serve path's shapes (its maxp and pool)
@@ -2141,6 +2381,12 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     meshed = _mesh_phase(torch)
     _log(f"[time] phase 18: {time.perf_counter() - t0:.1f} s")
+
+    # 19. the 'model' axis over ranks: NCCL with a card each, else gloo
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    meshed.update(_tp_phase(torch, train["metrics"][0]["loss"]))
+    _log(f"[time] phase 19: {time.perf_counter() - t0:.1f} s")
     for row in rows[3:]:
         key = {"backup_reduce": "backup_reduce",
                "rwkv6_wkv_fwd": "wkv6_fwd",
@@ -2150,7 +2396,7 @@ def main(argv) -> int:
                 tag: n[key] for tag, n in {**batched, **meshed}.items()
                 if n[key]}
 
-    # 17. results
+    # 20. results
     keys = ("name", "route", "source", "replaces", "launches", "launches_run",
             "launches_batched_and_mesh", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

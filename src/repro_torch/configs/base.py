@@ -242,9 +242,13 @@ class ExecutionConfig:
     'spmd' — the engine (``repro_torch.distributed.spmd_engine``): each
              worker's own gradient, written into one ``[W_local, P]`` f32
              stack per rank, then the masked reduce and, over the
-             ``mesh_data`` ranks of the ``'data'`` axis
-             (``distributed.mesh``), one all-reduce per bucket.
-             ``mesh_model`` must be 1 (tensor parallelism is not ported).
+             ``mesh_data`` positions of the ``'data'`` axis
+             (``distributed.mesh``), one all-reduce per bucket. With
+             ``mesh_model`` > 1 each worker's gradient is tensor-parallel
+             over a ``'model'`` group of that many ranks, each holding its
+             slice of the parameters, optimizer state and EMA
+             (``distributed.sharding``, ``distributed.tp``): the world is
+             ``mesh_data * mesh_model`` ranks.
 
     ``use_kernel``: None = the ``backup_reduce`` CUDA kernel on the card
     and its plain twin on the CPU; True = the kernel (raises on the CPU);

@@ -1,44 +1,55 @@
-"""The spmd engine's ``'data'`` axis as a ``torch.distributed`` world.
+"""The spmd engine's ``('data', 'model')`` mesh as a ``torch.distributed``
+world.
 Reference: ``src/repro/launch/mesh.py`` (``make_host_mesh``) and
 ``src/repro/distributed/spmd_engine.py`` (``build_mesh``): the reference
-lays the workers over a device mesh inside one process; here each
-position on the ``'data'`` axis is one process (a rank), and the axis is
-the world of ``mesh_data`` ranks.
+lays devices out on a ``(mesh_data, mesh_model)`` mesh inside one
+process; here each position on the mesh is one process (a rank), and the
+world has ``mesh_data * mesh_model`` ranks, laid out as
+``make_host_mesh`` lays out devices, row-major: rank r sits at
+``data_index = r // mesh_model``, ``model_index = r % mesh_model``.
 
 * :func:`join` joins the world, or makes it: NCCL when every rank has a
   card of its own, gloo on the CPU (and for several ranks on one card,
   where NCCL refuses to run). Rank r works on ``cuda:{r % device_count}``.
   A world that ``torchrun`` started (``RANK`` / ``WORLD_SIZE`` /
   ``MASTER_ADDR`` in the environment) is joined as it is.
-* :func:`spawn` starts ``mesh_data`` ranks with ``torch.multiprocessing``
-  (the ``spawn`` start method) and a ``file://`` rendezvous, runs
-  ``fn(rank, device, *args)`` on each, and raises if any rank fails.
-* :func:`data_group` is what the engine asks for: the world when it has
-  ``mesh_data`` ranks, None at ``mesh_data = 1``; it raises, naming
-  :func:`spawn`, when no such world exists.
-
-The ``'model'`` axis (tensor parallelism) is not ported: ``spmd_engine.
-check_mesh`` refuses ``mesh_model > 1`` (ROADMAP Queue 1 item 5).
+* :func:`spawn` starts the ``mesh_data * mesh_model`` ranks with
+  ``torch.multiprocessing`` (the ``spawn`` start method) and a
+  ``file://`` rendezvous, runs ``fn(rank, device, *args)`` on each, and
+  raises if any rank fails.
+* :func:`data_group` is the ``'data'`` axis: the ``mesh_data`` ranks that
+  share this rank's model index (the world at ``mesh_model = 1``, None at
+  ``mesh_data = 1``). :func:`model_group` is the ``'model'`` axis: the
+  ``mesh_model`` ranks that share its data index (None at ``mesh_model =
+  1``). Both raise, naming :func:`spawn`, when no such world exists. The
+  first call makes every group of the mesh with ``dist.new_group`` in one
+  fixed order, on every rank (a rank that skipped one would hang the
+  others).
 """
 from __future__ import annotations
 
 import datetime
 import os
 import tempfile
-from typing import Callable, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 WORKER_AXIS = "data"
+MODEL_AXIS = "model"
 TIMEOUT_S = 600.0
 
+# the mesh this process's world was made for: (mesh_data, mesh_model) and
+# its groups, made once per world (_mesh_groups)
+_mesh: Dict = {}
 
-def backend_for(device, mesh_data: int) -> str:
-    """``nccl`` when the ranks run on cards and each has its own, else
-    ``gloo``."""
+
+def backend_for(device, ranks: int) -> str:
+    """``nccl`` when the ``ranks`` ranks run on cards and each has its
+    own, else ``gloo``."""
     device = torch.device(device)
-    if device.type == "cuda" and torch.cuda.device_count() >= mesh_data:
+    if device.type == "cuda" and torch.cuda.device_count() >= ranks:
         return "nccl"
     return "gloo"
 
@@ -53,34 +64,89 @@ def rank_device(device, rank: int) -> torch.device:
 
 
 def rank() -> int:
-    """This process's position on the ``'data'`` axis (0 without a
-    world)."""
+    """This process's rank in the world (0 without a world)."""
     return dist.get_rank() if dist.is_initialized() else 0
 
 
+def _mesh_model() -> int:
+    return _mesh.get("shape", (1, 1))[1] if dist.is_initialized() else 1
+
+
+def data_index() -> int:
+    """This rank's position on the ``'data'`` axis (0 without a world)."""
+    return rank() // _mesh_model()
+
+
+def model_index() -> int:
+    """This rank's position on the ``'model'`` axis (0 without a
+    world)."""
+    return rank() % _mesh_model()
+
+
 def is_leader() -> bool:
-    """Rank 0 (or no world): the process that prints and writes
-    checkpoints."""
+    """Rank 0, at mesh position (0, 0), or no world: the process that
+    prints and writes checkpoints."""
     return rank() == 0
 
 
-def data_group(mesh_data: int):
-    """The process group of the ``'data'`` axis: None at ``mesh_data = 1``,
-    else the initialized world, which must have ``mesh_data`` ranks."""
-    if mesh_data == 1:
-        return None
+def _mesh_groups(mesh_data: int, mesh_model: int) -> Dict:
+    """The mesh's groups, made on the first call for this world: every
+    ``'data'`` group (one per model index), then every ``'model'`` group
+    (one per data index), each through ``dist.new_group`` on every rank;
+    an axis that spans the world is the world itself."""
+    ranks = mesh_data * mesh_model
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError(
-            f"mesh_data={mesh_data}: the spmd engine's '{WORKER_AXIS}' axis "
-            f"is a torch.distributed world of {mesh_data} ranks and none is "
-            f"initialized in this process; start the ranks with "
-            f"repro_torch.distributed.mesh.spawn (or torchrun, then "
-            f"mesh.join)")
+            f"mesh {mesh_data} x {mesh_model}: the spmd engine's "
+            f"('{WORKER_AXIS}', '{MODEL_AXIS}') mesh is a torch.distributed "
+            f"world of {ranks} ranks and none is initialized in this "
+            f"process; start the ranks with repro_torch.distributed.mesh."
+            f"spawn (or torchrun, then mesh.join)")
     size = dist.get_world_size()
-    if size != mesh_data:
-        raise ValueError(f"mesh_data={mesh_data} but the world has {size} "
-                         f"ranks")
-    return dist.group.WORLD
+    if size != ranks:
+        raise ValueError(f"mesh {mesh_data} x {mesh_model} needs {ranks} "
+                         f"ranks but the world has {size}")
+    world = dist.group.WORLD
+    if _mesh.get("world") is world and \
+            _mesh.get("shape") == (mesh_data, mesh_model):
+        return _mesh
+    if _mesh.get("world") is world:
+        raise ValueError(f"this world's mesh is {_mesh['shape']}, not "
+                         f"{(mesh_data, mesh_model)}")
+
+    def axis(members):
+        return [world if len(m) == ranks else dist.new_group(m)
+                for m in members]
+
+    r = dist.get_rank()
+    data = axis([[d * mesh_model + m for d in range(mesh_data)]
+                 for m in range(mesh_model)]) if mesh_data > 1 else None
+    model = axis([[d * mesh_model + m for m in range(mesh_model)]
+                  for d in range(mesh_data)]) if mesh_model > 1 else None
+    _mesh.clear()
+    _mesh.update(world=world, shape=(mesh_data, mesh_model),
+                 data=data[r % mesh_model] if data else None,
+                 model=model[r // mesh_model] if model else None)
+    return _mesh
+
+
+def data_group(mesh_data: int, mesh_model: int = 1):
+    """The process group of this rank's ``'data'`` axis: None at
+    ``mesh_data = 1``, the world at ``mesh_model = 1``, else the
+    ``mesh_data`` ranks sharing this rank's model index. The world must
+    have ``mesh_data * mesh_model`` ranks."""
+    if mesh_data == 1 and mesh_model == 1:
+        return None
+    return _mesh_groups(mesh_data, mesh_model)["data"]
+
+
+def model_group(mesh_data: int, mesh_model: int):
+    """The process group of this rank's ``'model'`` axis: None at
+    ``mesh_model = 1``, else the ``mesh_model`` ranks sharing this rank's
+    data index."""
+    if mesh_model == 1:
+        return None
+    return _mesh_groups(mesh_data, mesh_model)["model"]
 
 
 def backend() -> Optional[str]:
@@ -88,15 +154,15 @@ def backend() -> Optional[str]:
     return dist.get_backend() if dist.is_initialized() else None
 
 
-def join(mesh_data: int, device, *, rank: Optional[int] = None,
-         init_method: Optional[str] = None,
+def join(mesh_data: int, device, *, mesh_model: int = 1,
+         rank: Optional[int] = None, init_method: Optional[str] = None,
          timeout_s: float = TIMEOUT_S):
-    """Join the world of ``mesh_data`` ranks as ``rank`` through
-    ``init_method``; with neither given, the world ``torchrun`` describes
-    in the environment. Sets this rank's card current. Returns the
-    group."""
+    """Join the world of ``mesh_data * mesh_model`` ranks as ``rank``
+    through ``init_method``; with neither given, the world ``torchrun``
+    describes in the environment. Sets this rank's card current and makes
+    the mesh's groups. Returns the ``'data'`` group."""
     if dist.is_initialized():
-        return data_group(mesh_data)
+        return data_group(mesh_data, mesh_model)
     if rank is None:
         if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
             raise RuntimeError("mesh.join needs a rank and an init_method, "
@@ -106,37 +172,39 @@ def join(mesh_data: int, device, *, rank: Optional[int] = None,
     dev = rank_device(device, rank)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    ranks = mesh_data * mesh_model
     dist.init_process_group(
-        backend_for(device, mesh_data), init_method=init_method, rank=rank,
-        world_size=mesh_data,
-        timeout=datetime.timedelta(seconds=timeout_s))
-    return data_group(mesh_data)
+        backend_for(device, ranks), init_method=init_method, rank=rank,
+        world_size=ranks, timeout=datetime.timedelta(seconds=timeout_s))
+    return data_group(mesh_data, mesh_model)
 
 
-def _entry(rank: int, fn: Callable, mesh_data: int, device: str,
-           init_file: str, args: Sequence, threads: Optional[int],
-           timeout_s: float) -> None:
+def _entry(rank: int, fn: Callable, mesh_data: int, mesh_model: int,
+           device: str, init_file: str, args: Sequence,
+           threads: Optional[int], timeout_s: float) -> None:
     if threads:
         torch.set_num_threads(threads)
-    join(mesh_data, device, rank=rank, init_method=f"file://{init_file}",
-         timeout_s=timeout_s)
+    join(mesh_data, device, mesh_model=mesh_model, rank=rank,
+         init_method=f"file://{init_file}", timeout_s=timeout_s)
     try:
         fn(rank, rank_device(device, rank), *args)
     finally:
+        _mesh.clear()
         dist.destroy_process_group()
 
 
 def spawn(fn: Callable, mesh_data: int, device, args: Sequence = (), *,
-          threads: Optional[int] = None,
+          mesh_model: int = 1, threads: Optional[int] = None,
           timeout_s: float = TIMEOUT_S) -> None:
-    """Run ``fn(rank, device, *args)`` on ``mesh_data`` new processes that
-    form the ``'data'`` world (``fn`` and ``args`` are pickled: ``fn``
-    must be importable). ``threads``: torch threads per rank;
-    ``timeout_s``: the collectives' timeout. Returns when every rank has
-    finished; raises if one fails (the others are then terminated)."""
+    """Run ``fn(rank, device, *args)`` on ``mesh_data * mesh_model`` new
+    processes that form the mesh's world (``fn`` and ``args`` are
+    pickled: ``fn`` must be importable). ``threads``: torch threads per
+    rank; ``timeout_s``: the collectives' timeout. Returns when every rank
+    has finished; raises if one fails (the others are then
+    terminated)."""
     with tempfile.TemporaryDirectory(prefix="repro_torch_mesh_") as d:
         torch.multiprocessing.start_processes(
-            _entry, args=(fn, mesh_data, str(device),
+            _entry, args=(fn, mesh_data, mesh_model, str(device),
                           os.path.join(d, "rendezvous"), tuple(args),
                           threads, timeout_s),
-            nprocs=mesh_data, join=True, start_method="spawn")
+            nprocs=mesh_data * mesh_model, join=True, start_method="spawn")

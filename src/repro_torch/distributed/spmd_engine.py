@@ -1,18 +1,38 @@
 """The spmd execution engine: each worker's own gradient, then the masked
-reduce, over a ``'data'`` axis of ranks.
+reduce, over a ``('data', 'model')`` mesh of ranks.
 Reference: ``src/repro/distributed/spmd_engine.py`` (``validate_layout``,
 ``validate_grad_batch``, ``flatten_stacked`` / ``unflatten_vector``,
-``make_worker_loss``, ``build_spmd_step``, ``build_spmd_chunk_step``;
-:109-420. The reference's ``make_train_step`` and ``make_chunk_step``
-(:499-516) wrap those in ``jax.jit`` with shardings; the trainer installs
-``build_spmd_step`` and ``build_spmd_chunk_step`` directly, and the chunk
-step's CUDA graph is the port's counterpart of the jitted K-step scan).
+``make_worker_loss``, ``resolve_tp``, ``build_spmd_step``,
+``build_spmd_chunk_step``; :109-420. The reference's ``make_train_step``
+and ``make_chunk_step`` (:499-516) wrap those in ``jax.jit`` with
+shardings; the trainer installs ``build_spmd_step`` and
+``build_spmd_chunk_step`` directly, and the chunk step's CUDA graph is
+the port's counterpart of the jitted K-step scan).
 
 The W workers lie contiguously over the ``'data'`` axis: with
-``mesh_data`` ranks (``distributed.mesh``: one process each) rank r owns
-workers ``[r * W_local, (r + 1) * W_local)``, ``W_local = W /
-mesh_data``, and only their rows of the worker-contiguous batch. At
-``mesh_data = 1`` one card holds all W and no collective is issued.
+``mesh_data`` positions on it (``distributed.mesh``: one process per
+mesh position) the ranks at data index d own workers ``[d * W_local, (d
++ 1) * W_local)``, ``W_local = W / mesh_data``, and only their rows of
+the worker-contiguous batch. At mesh 1 x 1 one card holds all W and no
+collective is issued.
+
+Tensor parallelism over the ``'model'`` axis: with ``mesh_model > 1`` and
+a plan (``resolve_tp``: ``sharding.tp_plan`` of ``model_cfg``) the model
+becomes each rank's slice (``models.convert.shard_model``: 1/M of the
+attention heads, of the FFN hidden width and of the tied vocabulary rows;
+the config's head counts and width divided), and each worker's gradient
+runs under the ``distributed.tp`` context, whose hooks all-reduce over
+the model group (``mesh.model_group``) at the contracted dimensions. The
+``[W_local, P]`` stack is then the rank's ``[W_local, P_local]``: the
+masked reduce, the all-reduce over the ``'data'`` group, the optimizer
+and the EMA all act on the rank's slices. The loss and aux sums are the
+same on every rank of a model group (the cross entropy ends in
+all-reduces). ``clip_by_global_norm`` sums the squares of the sharded
+leaves over the model group and counts the replicated ones once. When no
+group can shard (rwkv6, a model override, an indivisible config) the
+engine warns and carries the axis replicated: every rank of a model group
+computes the same gradients, with no model-axis collective.
+
 Per step, on every rank:
 
 1. the local workers' gradients, in groups of ``grad_batch`` (the
@@ -44,15 +64,15 @@ replay runs no Python and records no range.
 card one CUDA graph captures the whole step (the groups' gradients, the
 ``[W_local, P]`` stack, ``reduce_then_psum`` with the ``backup_reduce``
 kernel and the NCCL all-reduce, unflatten, clip, the optimizer and the
-EMA); each step of a chunk copies its batch, mask and scalar rows into the
-graph's buffers and replays it (``core.step_graph``).
-
-Not ported: ``mesh_model > 1`` (tensor parallelism), refused with
-``NotImplementedError`` naming ROADMAP Queue 1 item 5.
+EMA, with the model group's all-reduces under TP); each step of a chunk
+copies its batch, mask and scalar rows into the graph's buffers and
+replays it (``core.step_graph``). The eager step before the capture has
+used every communicator, as NCCL needs before a capture.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -63,12 +83,13 @@ from torch.profiler import record_function
 from repro_torch.core import ema as ema_lib
 from repro_torch.core import step_graph
 from repro_torch.distributed import mesh as mesh_lib
+from repro_torch.distributed import sharding, tp
 from repro_torch.kernels.bucketed_reduce import reduce_then_psum
+from repro_torch.models import convert
 from repro_torch.optim import optimizers as opt_lib
 
 WORKER_AXIS = mesh_lib.WORKER_AXIS
-_QUEUE5 = ("tensor parallelism over the 'model' axis, ROADMAP Queue 1 "
-           "item 5")
+MODEL_AXIS = mesh_lib.MODEL_AXIS
 
 
 # ---------------------------------------------------------------------------
@@ -77,16 +98,41 @@ _QUEUE5 = ("tensor parallelism over the 'model' axis, ROADMAP Queue 1 "
 
 
 def check_mesh(mesh_data: int, mesh_model: int) -> None:
-    """The port runs the ``'data'`` axis over ranks; the ``'model'`` axis
-    must be 1."""
+    """Both mesh axes must be at least 1."""
     if mesh_data < 1 or mesh_model < 1:
         raise ValueError(f"mesh axes must be >= 1 (got {mesh_data} x "
                          f"{mesh_model})")
-    if mesh_model > 1:
-        raise NotImplementedError(
-            f"mesh_data={mesh_data} x mesh_model={mesh_model}: repro_torch "
-            f"runs the spmd engine's 'data' axis only; mesh_model > 1 comes "
-            f"with {_QUEUE5}")
+
+
+def resolve_tp(model_cfg, mesh_model: int) -> sharding.TPPlan:
+    """The TP plan for a ``'model'`` axis of ``mesh_model`` ranks and a
+    model config. Warns when ``mesh_model > 1`` but no parameter group can
+    shard (indivisible config, biased layers, a family without the hooks,
+    or a model override without a config): the axis is then carried
+    replicated."""
+    plan = sharding.tp_plan(model_cfg, mesh_model)
+    if mesh_model > 1 and not plan.any:
+        warnings.warn(
+            f"mesh_model={mesh_model} but no parameter group is shardable "
+            f"for this model (see sharding.tp_plan: divisibility, biases, "
+            f"family); the '{MODEL_AXIS}' axis will be carried (replicated)",
+            stacklevel=2)
+    return plan
+
+
+def tp_global_norm(grads: Dict[str, torch.Tensor],
+                   dims: Dict[str, Optional[int]], group) -> torch.Tensor:
+    """The global norm of a TP rank's gradient slices: the squares of the
+    sharded leaves summed over the model ``group``, those of the
+    replicated leaves (the same on every rank) counted once."""
+    zero = torch.zeros((), device=next(iter(grads.values())).device)
+
+    def sq(split: bool) -> torch.Tensor:
+        return sum((torch.sum(torch.square(g.float()))
+                    for k, g in grads.items()
+                    if (dims.get(k) is not None) == split), zero)
+
+    return torch.sqrt(tp.psum_fwd(sq(True), group) + sq(False))
 
 
 def validate_layout(num_workers: int, global_batch: int,
@@ -265,7 +311,8 @@ def build_spmd_step(model, optimizer: opt_lib.Optimizer, *,
                     use_kernel: Optional[bool] = None,
                     interpret: Optional[bool] = None,
                     grad_batch: int = 0, bucket_size: int = 0,
-                    mesh_data: int = 1, mesh_model: int = 1) -> Callable:
+                    mesh_data: int = 1, mesh_model: int = 1,
+                    model_cfg=None) -> Callable:
     """Twin of ``train_step.build_train_step`` — same signature:
 
         step(opt_state, ema, scalars, batch, mask) -> metrics
@@ -274,18 +321,29 @@ def build_spmd_step(model, optimizer: opt_lib.Optimizer, *,
     and ``ema`` in place. ``batch`` holds this rank's rows of the
     worker-contiguous global batch (all of it at ``mesh_data = 1``),
     ``mask`` the host-planned [W] selection of every worker, both on the
-    model's device. With ``mesh_data > 1`` this process must be a rank of
-    a world of that size (``distributed.mesh.spawn``)."""
+    model's device. With ``mesh_data * mesh_model > 1`` this process must
+    be a rank of a world of that size (``distributed.mesh.spawn``). With
+    ``mesh_model > 1`` and a plan for ``model_cfg`` (the config ``model``
+    was built from; None for a model without one) ``model`` is made this
+    rank's slice in place (``convert.shard_model``) before anything else:
+    build the optimizer state and EMA after this call."""
     check_mesh(mesh_data, mesh_model)
     if num_workers % mesh_data:
         raise ValueError(
             f"total_workers ({num_workers}) must be divisible by the "
             f"'{WORKER_AXIS}' axis size ({mesh_data})")
-    group = mesh_lib.data_group(mesh_data)
+    group = mesh_lib.data_group(mesh_data, mesh_model)
+    mgroup = mesh_lib.model_group(mesh_data, mesh_model)
     w_local = num_workers // mesh_data
-    first = mesh_lib.rank() * w_local if group is not None else 0
+    first = mesh_lib.data_index() * w_local
     gb = validate_grad_batch(grad_batch, w_local)
     kernel = resolve_use_kernel(use_kernel, interpret, model.device)
+    plan = resolve_tp(model_cfg, mesh_model)
+    tp_ctx = None
+    if plan.any:
+        index = mesh_lib.model_index()
+        convert.shard_model(model, plan, index)
+        tp_ctx = tp.TPContext(mgroup, index, plan.attn, plan.ffn, plan.vocab)
     worker_loss = make_worker_loss(model)
     batched = make_batched_grads(model) if gb > 1 else None
     spec = flat_spec(dict(model.named_parameters()))
@@ -321,7 +379,8 @@ def build_spmd_step(model, optimizer: opt_lib.Optimizer, *,
                   for k, v in batch.items()}
         losses, auxes = [], []
         for g0 in range(0, w_local, gb):
-            with record_function("spmd/worker_grad"):
+            with record_function("spmd/worker_grad"), \
+                    tp.tensor_parallel(tp_ctx):
                 mean_loss, aux = group_grads(flat, params, shards, g0)
             losses.append(mean_loss)
             auxes.append(aux)
@@ -341,7 +400,9 @@ def build_spmd_step(model, optimizer: opt_lib.Optimizer, *,
                        / torch.clamp_min(frac, 1e-6),
                        "aux_loss": tail[1] / num_workers}
             if clip_norm > 0:
-                agg, gnorm = opt_lib.clip_by_global_norm(agg, clip_norm)
+                agg, gnorm = opt_lib.clip_by_global_norm(
+                    agg, clip_norm, norm=tp_global_norm(
+                        agg, model.tp_dims, mgroup) if tp_ctx else None)
                 metrics["grad_norm"] = gnorm
             optimizer.apply(params, agg, opt_state, scalars)
             del agg

@@ -3,8 +3,9 @@
 Each wrapper adds one to a module-level count where it launches its
 kernel (``page_gather.launches``, ``flash_attention.launches``,
 ``backup_reduce.launches``, ``rwkv6_scan.launches_fwd`` /
-``launches_fwd_states`` / ``launches_bwd``). Under CUDA-graph capture a
-wrapper call records its kernel and launches nothing:
+``launches_fwd_states`` / ``launches_bwd``), and so does the tensor
+parallelism's all-reduce (``distributed.tp.all_reduces``). Under
+CUDA-graph capture a wrapper call records its kernel and launches nothing:
 ``core.step_graph.StepGraph`` takes back what the capture added and adds
 it again on every replay, so each count is the launches the card ran.
 """
@@ -16,13 +17,15 @@ from typing import Tuple
 COUNTERS = (("page_gather", "launches"), ("flash_attention", "launches"),
             ("backup_reduce", "launches"), ("rwkv6_scan", "launches_fwd"),
             ("rwkv6_scan", "launches_fwd_states"),
-            ("rwkv6_scan", "launches_bwd"))
+            ("rwkv6_scan", "launches_bwd"),
+            ("repro_torch.distributed.tp", "all_reduces"))
 
 Counts = Tuple[int, ...]
 
 
 def _module(name: str):
-    return importlib.import_module(f"repro_torch.kernels.{name}")
+    return importlib.import_module(
+        name if "." in name else f"repro_torch.kernels.{name}")
 
 
 def read() -> Counts:

@@ -1,35 +1,39 @@
 """Where the training step's time goes on the card: a torch.profiler window.
 
     python -m repro_torch.launch.profile_train [--arch rwkv6-1.6b] [--graph] \
-        [--grad-batch 0|k] [--mesh-data k]
+        [--grad-batch 0|k] [--mesh-data D] [--mesh-model M]
     python -m repro_torch.launch.profile_train --strategy async|softsync \
         [--arch rwkv6-1.6b] [--graph]
 
-Builds a full-width training run (``train_config``, which
-``chip_smoke.py`` drives too): qwen3-0.6b (28 layers, bf16, remat full;
-backup 6 + 2 workers) or rwkv6-1.6b (24 layers, bf16, remat full, every
-layer's wkv through the ``rwkv6_scan`` kernels; backup 3 + 1 workers, the
-most whose [W, P] f32 gradient stack and optimizer state fit the card's
-80 GB), each with 2 x 256 tokens per worker, rmsprop_momentum, EMA 0.999,
-the spmd backend, one worker at a time (``--grad-batch`` k: groups of k
-workers through ``torch.func.vmap``, 0 all of them), the ``backup_reduce``
-kernel, at mesh 1 x 1 (``--mesh-data`` k: the workers over k ranks, one
-card each through NCCL, or gloo when the ranks share cards; rank 0 is
-profiled and prints, the others run the same steps). It profiles two
-steady steps, printing what
-``profile_serve`` prints for a serve phase (host wall per step,
-unprofiled and profiled; device busy per step; the device's idle share;
-kernel launches per step; kernels and ops ranked) and, for each of the
-engine's three phases (``spmd/worker_grad`` once per worker,
-``spmd/reduce``, ``spmd/update``), its host wall time and the device busy
-time (the union of the kernel and copy intervals inside the phase's
-device span). With ``--graph`` it then builds the same run at
-``chunk_size`` 3 (the trainer's CUDA graph: one captured step replayed
-per step) and profiles two steady chunks the same way, per step: host
-wall, device busy, the idle share and the launches; the capture's time
-and the peak device memory (allocated and reserved) are printed. A replay
-records no ``record_function`` range, so the per-phase table comes from
-the eager steps.
+Builds a full-width training run (``train_config``, which ``chip_smoke.py``
+drives too): qwen3-0.6b (28 layers, bf16, remat full; backup 6 + 2 workers)
+or rwkv6-1.6b (24 layers, bf16, remat full, every layer's wkv through the
+``rwkv6_scan`` kernels; backup 3 + 1 workers, the most whose [W, P] f32
+gradient stack and optimizer state fit the card's 80 GB), each with 2 x 256
+tokens per worker, rmsprop_momentum, EMA 0.999, the spmd backend, one worker
+at a time (``--grad-batch`` k: groups of k workers through
+``torch.func.vmap``, 0 all of them), the ``backup_reduce`` kernel, at mesh 1
+x 1 (``--mesh-data D --mesh-model M``: D x M ranks, one card each through
+NCCL, or gloo when the ranks share cards, the workers over the D positions
+of the ``'data'`` axis and each worker's gradient tensor-parallel over a
+``'model'`` group of M; rank 0 is profiled and prints, the others run the
+same steps). It profiles two steady steps, printing what ``profile_serve``
+prints for a serve phase (host wall per step, unprofiled and profiled;
+device busy per step; the device's idle share; kernel launches per step;
+kernels and ops ranked) and, for each of the engine's three phases
+(``spmd/worker_grad`` once per worker, ``spmd/reduce``, ``spmd/update``),
+its host wall time and the device busy time (the union of the kernel and
+copy intervals inside the range's device span); then the model group's
+all-reduces per step (``tp.all_reduces``) and each NCCL kernel's count and
+device time per step (at D = 1 all of them are the model group's). With
+``--graph`` it then builds the same run at ``chunk_size`` 3 (the trainer's
+CUDA graph: one captured step replayed per step) and profiles two steady
+chunks the same way, per step: host wall, device busy, the idle share and
+the launches; the capture's time and the peak device memory (allocated and
+reserved) are printed. A replay records no ``record_function`` range, so the
+per-phase table comes from the eager steps; ``tp.all_reduces`` counts the
+graph's captured all-reduces once per replay, and the NCCL kernels are
+listed per step again.
 
 With ``--strategy async`` or ``softsync`` it profiles the event regime
 instead (``event_config``, which ``chip_smoke.py`` drives too: the same
@@ -52,7 +56,7 @@ from repro_torch import configs
 from repro_torch.configs import (AggregationConfig, CheckpointConfig,
                                  ExecutionConfig, OptimizerConfig,
                                  ShapeConfig, TrainConfig)
-from repro_torch.distributed import mesh
+from repro_torch.distributed import mesh, tp
 from repro_torch.launch.profile_serve import _on_device, _profile, _union_us
 from repro_torch.models.common import resolve_device
 from repro_torch.train.loop import Trainer
@@ -73,13 +77,13 @@ WORKERS = {"qwen3-0.6b": (6, 2), "rwkv6-1.6b": (3, 1)}
 
 def train_config(arch: str = "qwen3-0.6b", *, backend: str = "spmd",
                  use_kernel=None, steps: int = 3, grad_batch: int = 1,
-                 mesh_data: int = 1) -> TrainConfig:
+                 mesh_data: int = 1, mesh_model: int = 1) -> TrainConfig:
     """A full-width training run (the ones ``chip_smoke.py`` drives):
     ``arch`` at its published widths, backup ``WORKERS[arch]`` workers with
     2 sequences of 256 tokens each, rmsprop_momentum lr 0.02 x N, EMA
     0.999, seed 0, ``steps`` steps, no checkpoint, ``grad_batch`` workers'
     gradients at a time (1: one at a time), a single reduce bucket, on the
-    ``backend`` over ``mesh_data`` ranks."""
+    ``backend`` over a ``mesh_data`` x ``mesh_model`` mesh of ranks."""
     n, b = WORKERS[arch]
     return TrainConfig(
         model=configs.get_config(arch),
@@ -93,7 +97,8 @@ def train_config(arch: str = "qwen3-0.6b", *, backend: str = "spmd",
         checkpoint=CheckpointConfig(every_steps=0),
         execution=ExecutionConfig(backend=backend, use_kernel=use_kernel,
                                   grad_batch=grad_batch, bucket_size=0,
-                                  mesh_data=mesh_data),
+                                  mesh_data=mesh_data,
+                                  mesh_model=mesh_model),
         seed=0, total_steps=steps, log_every=1)
 
 
@@ -174,9 +179,9 @@ def _main_event(args, dev) -> None:
 
 
 def _steps(name: str, fn, calls: int, per_call: int = 1):
-    """``_profile`` on rank 0; the other ranks of a 'data' world run the
-    same calls (3 warmups, ``calls`` timed, ``calls`` profiled), since
-    every step is a collective."""
+    """``_profile`` on rank 0; the other ranks of the mesh run the same
+    calls (3 warmups, ``calls`` timed, ``calls`` profiled), since every
+    step is a collective."""
     if mesh.is_leader():
         return _profile(name, fn, calls, per_call=per_call)
     for _ in range(3 + 2 * calls):
@@ -188,22 +193,29 @@ def _steps(name: str, fn, calls: int, per_call: int = 1):
 def _main_mask(args, dev) -> None:
     say = mesh.is_leader()
     cfg = train_config(args.arch, grad_batch=args.grad_batch,
-                       mesh_data=args.mesh_data)
+                       mesh_data=args.mesh_data, mesh_model=args.mesh_model)
     tr = Trainer(cfg, device=dev)
     tr.init_state()
     agg = cfg.aggregation
+    mesh_name = f"{args.mesh_data}x{args.mesh_model}"
     if say:
         print(f"[profile] {torch.cuda.get_device_name(dev)} torch "
               f"{torch.__version__} | {cfg.model.name} "
               f"{cfg.model.num_layers} layers {cfg.model.dtype}, backup "
               f"{agg.num_workers}+{agg.backup_workers}, "
               f"{cfg.shape.global_batch} x {cfg.shape.seq_len} tokens/step, "
-              f"spmd mesh {args.mesh_data}x1 ({mesh.backend() or 'one card'})"
+              f"spmd mesh {mesh_name} ({mesh.backend() or 'one card'})"
               f", grad_batch {args.grad_batch}")
+    before = tp.all_reduces
     prof = _steps("train step", lambda: tr.run(1), STEPS)
+    # 3 warmups, the timed and the profiled calls
+    per_step = (tp.all_reduces - before) / (3 + 2 * STEPS)
     if say:
         print("  phases per step (unit = step):")
         _phase_table(prof.events(), PHASES, STEPS)
+        print(f"[profile] model-group all-reduces {per_step:.1f} per step "
+              f"(tp.all_reduces)")
+        _nccl_table(prof, STEPS)
         print(f"[profile] peak device memory "
               f"{torch.cuda.max_memory_allocated(dev)} bytes allocated, "
               f"{torch.cuda.max_memory_reserved(dev)} reserved")
@@ -215,15 +227,36 @@ def _main_mask(args, dev) -> None:
     torch.cuda.reset_peak_memory_stats(dev)
     tr = Trainer(dataclasses.replace(cfg, chunk_size=CHUNK), device=dev)
     tr.init_state()
-    _steps("train chunk graph, per step", lambda: tr.run(CHUNK), STEPS,
-           per_call=CHUNK)
+    before = tp.all_reduces
+    prof = _steps("train chunk graph, per step", lambda: tr.run(CHUNK),
+                  STEPS, per_call=CHUNK)
+    per_step = (tp.all_reduces - before) / ((3 + 2 * STEPS) * CHUNK)
     g = tr.chunk_step.graph
     if say:
         print(f"[profile] graph: {g.captures} capture in {g.capture_s:.3f} "
               f"s (the capture alone; the eager warmup step before it is a "
-              f"real step), {g.replays} replays | peak device memory "
+              f"real step), {g.replays} replays | model-group all-reduces "
+              f"{per_step:.1f} per step (tp.all_reduces, replays included) "
+              f"| peak device memory "
               f"{torch.cuda.max_memory_allocated(dev)} bytes allocated, "
               f"{torch.cuda.max_memory_reserved(dev)} reserved")
+        _nccl_table(prof, STEPS * CHUNK)
+
+
+def _nccl_table(prof, per: int) -> None:
+    """Count and device time per ``per`` (steps) of each NCCL kernel: at
+    mesh_data 1 all of them are the model group's all-reduces; at D > 1
+    the data group's all-reduce of a bucket (f32) is among the f32 ones.
+    (A ``tp/all_reduce`` range has no device span: NCCL launches on its
+    own stream.)"""
+    rows = [e for e in prof.key_averages()
+            if _on_device(e) and "nccl" in e.key.lower()]
+    for e in rows:
+        print(f"    {e.key.split('(')[0]}: x{e.count / per:.1f} per step, "
+              f"device {e.self_device_time_total / 1e3 / per:.3f} ms/step")
+    total = sum(e.self_device_time_total for e in rows) / 1e3 / per
+    print(f"[profile] NCCL kernels {sum(e.count for e in rows) / per:.1f} "
+          f"per step, {total:.3f} ms/step device time")
 
 
 def _rank_main(rank: int, device, args) -> None:
@@ -245,12 +278,16 @@ def main(argv=None) -> None:
                          "at a time, k groups of k, 0 all")
     ap.add_argument("--mesh-data", type=int, default=1,
                     help="ranks on the 'data' axis (mask run)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="ranks on the 'model' (tensor-parallel) axis "
+                         "(mask run)")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     if args.strategy != "backup":
         return _main_event(args, dev)
-    if args.mesh_data > 1:
-        return mesh.spawn(_rank_main, args.mesh_data, "cuda", args=(args,))
+    if args.mesh_data * args.mesh_model > 1:
+        return mesh.spawn(_rank_main, args.mesh_data, "cuda", args=(args,),
+                          mesh_model=args.mesh_model)
     _main_mask(args, dev)
 
 

@@ -29,7 +29,7 @@ _LATER = {
     "--toy": "serving resilience (legacy toy path)",
     "--replicas > 1": "serving resilience (replica router)",
     "--restore": "trainer and checkpoint",
-    "--mesh-model > 1": "distributed",
+    "--mesh-model > 1": "distributed serving (ROADMAP Queue 1 item 8)",
     "--faults": "fault-tolerance",
     "--slo-p99-ms": "serving resilience",
     "--metrics": "telemetry",

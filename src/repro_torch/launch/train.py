@@ -9,35 +9,36 @@
     python -m repro_torch.launch.train --smoke --steps 50 \
         --strategy softsync --workers 6 --softsync-c 2
     python -m repro_torch.launch.train --smoke --steps 50 \
-        --execution spmd --mesh-data 2 [--grad-batch 2] [--device cpu]
+        --execution spmd --mesh-data 2 [--mesh-model 2] [--grad-batch 2] \
+        [--device cpu]
 
 The reference's flags, plus ``--device``: the run is on the card unless
 ``--device cpu`` is given (without a card it raises). Everything routes
-through ``repro_torch.train.loop.run_experiment`` with the paper's lr
-rule, EMA, atomic checkpoints and the reference's metric lines: mask
-strategies (backup, full_sync, timeout) through the straggler simulator
-and the masked step, event strategies (async, softsync; W = ``--workers``
-machines, no backups) through the discrete-event parameter server. On the
-card, ``--execution spmd`` aggregates through the ``backup_reduce``
-kernel; ``--grad-batch`` batches the workers' gradients (the reference's
-default 0: all local workers in one ``torch.func.vmap``; 1 one at a time;
-k groups of k) and ``--mesh-data k`` runs the workers over k ranks
-(``distributed.mesh.spawn``: one process each, NCCL with a card each,
-else gloo), of which rank 0 prints the lines below and writes the
-checkpoints. Inside a world that is already up (``torchrun``) the
-process joins it as its rank. ``--chunk-size K`` runs chunks of K steps (PS
-updates for the event strategies; one captured CUDA graph replayed per
-step or arrival on the card, a loop on the CPU), with
-``--prefetch-depth`` chunks of batches built ahead on a thread in mask
-mode, as in the reference.
+through ``repro_torch.train.loop.run_experiment`` with the paper's lr rule,
+EMA, atomic checkpoints and the reference's metric lines: mask strategies
+(backup, full_sync, timeout) through the straggler simulator and the masked
+step, event strategies (async, softsync; W = ``--workers`` machines, no
+backups) through the discrete-event parameter server. On the card,
+``--execution spmd`` aggregates through the ``backup_reduce`` kernel;
+``--grad-batch`` batches the workers' gradients (the reference's default 0:
+all local workers in one ``torch.func.vmap``; 1 one at a time; k groups of
+k) and ``--mesh-data D --mesh-model M`` runs the workers over D x M ranks
+(``distributed.mesh.spawn``: one process each, NCCL with a card each, else
+gloo): the workers over the D positions of the ``'data'`` axis, each
+worker's gradient tensor-parallel over the M ranks of a ``'model'`` group,
+of which rank 0 prints the lines below and writes the checkpoints. Inside a
+world that is already up (``torchrun``) the process joins it as its rank.
+``--chunk-size K`` runs chunks of K steps (PS updates for the event
+strategies; one captured CUDA graph replayed per step or arrival on the
+card, a loop on the CPU), with ``--prefetch-depth`` chunks of batches built
+ahead on a thread in mask mode, as in the reference.
 
 The reference's flags of later slices are refused by name, with the
 ROADMAP item that ports them: ``--straggler-backend device``,
 ``dynamic_backup`` (with ``--dynamic-window`` / ``--latency-source``),
 ``--faults`` / ``--supervise`` (``--fault-seed``, ``--max-restarts``),
-``--trace`` / ``--metrics``, ``--platform`` and ``--mesh-model`` > 1
-(tensor parallelism); so is ``--execution spmd`` with an event strategy,
-which the reference refuses too.
+``--trace`` / ``--metrics`` and ``--platform``; so is ``--execution
+spmd`` with an event strategy, which the reference refuses too.
 """
 from __future__ import annotations
 
@@ -153,9 +154,6 @@ def _validate(ap: argparse.ArgumentParser, args) -> None:
                         ("--bucket-size", args.bucket_size)):
         if value is not None and args.execution != "spmd":
             ap.error(f"{flag} only applies to --execution spmd")
-    if args.mesh_model is not None and args.mesh_model > 1:
-        ap.error(f"--mesh-model {args.mesh_model}: tensor parallelism is "
-                 f"not ported to repro_torch yet ({_Q} 5)")
     if args.execution == "spmd":
         _, total = _resolved_workers(args)
         if total % (args.mesh_data or 1):
@@ -170,7 +168,7 @@ def _validate(ap: argparse.ArgumentParser, args) -> None:
 
 
 def _run(args) -> None:
-    """One run of the parsed flags; prints on rank 0 of a 'data' world
+    """One run of the parsed flags; prints on rank 0 of a mesh's world
     (every process without one)."""
     cfg = build_config(args)
     resume = args.resume and ckpt_lib.latest_step(args.ckpt) is not None
@@ -193,7 +191,8 @@ def _run(args) -> None:
 
 
 def _rank_main(rank: int, device, args) -> None:
-    """A rank of ``--mesh-data k`` (``mesh.spawn``): the run on its card."""
+    """A rank of ``--mesh-data D --mesh-model M`` (``mesh.spawn``): the run
+    on its card."""
     _run(argparse.Namespace(**{**vars(args), "device": str(device)}))
 
 
@@ -239,7 +238,10 @@ def main(argv=None) -> None:
                          "total workers must divide evenly): one process "
                          "each, NCCL with a card each, else gloo")
     ap.add_argument("--mesh-model", type=int, default=None,
-                    help="'model' axis size (spmd only; the port runs 1)")
+                    help="ranks on the 'model' (tensor-parallel) axis "
+                         "(spmd only): each worker's gradient over M "
+                         "ranks, each holding 1/M of the heads, FFN width "
+                         "and vocabulary")
     ap.add_argument("--grad-batch", type=int, default=None,
                     help="per-rank worker-gradient batching (spmd only): "
                          "0 = all local workers in one torch.func.vmap "
@@ -264,14 +266,15 @@ def main(argv=None) -> None:
     ap.add_argument("--metrics", default=None, metavar="PATH")
     args = ap.parse_args(argv)
     _validate(ap, args)
-    k = args.mesh_data or 1
-    if k > 1 and not torch.distributed.is_initialized():
+    d, m = args.mesh_data or 1, args.mesh_model or 1
+    if d * m > 1 and not torch.distributed.is_initialized():
         if args.device is None:
             resolve_device(None)          # raises without a card
         if "RANK" not in os.environ:      # one new process per rank
-            mesh.spawn(_rank_main, k, args.device or "cuda", args=(args,))
+            mesh.spawn(_rank_main, d, args.device or "cuda", args=(args,),
+                       mesh_model=m)
             return
-        mesh.join(k, args.device or "cuda")     # a rank torchrun started
+        mesh.join(d, args.device or "cuda", mesh_model=m)   # from torchrun
     _run(args)
 
 

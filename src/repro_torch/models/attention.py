@@ -1,7 +1,8 @@
 """GQA attention: projections, masks, dense attention, int8 KV quantization.
 Reference: ``src/repro/models/attention.py`` (the GQA subset: ``gqa_init``,
 ``_project_qkv``, ``_expand_kv``, ``_window_ok``, ``make_attention_mask``,
-``gqa_attend``, ``_quantize_kv``, ``_dequantize_kv``).
+``gqa_attend``, ``_quantize_kv``, ``_dequantize_kv``; the qk-norm scales
+pass ``distributed.tp.shared_param`` as in the reference).
 
 Windows are per-layer Python ints here (the reference feeds them through
 ``lax.scan`` as traced scalars); ``window <= 0`` means unlimited.
@@ -13,6 +14,7 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.distributed import tp
 from repro_torch.models import common
 
 NEG_INF = -1e30
@@ -47,8 +49,13 @@ def _project_qkv(params, cfg, x: torch.Tensor, positions: torch.Tensor):
     k = common.dense(params["wk"], x).reshape(b, s, kv, hd)
     v = common.dense(params["wv"], x).reshape(b, s, kv, hd)
     if cfg.qk_norm:
-        q = common.rmsnorm(params["q_norm"], q, cfg.norm_eps)
-        k = common.rmsnorm(params["k_norm"], k, cfg.norm_eps)
+        # the qk-norm scales are replicated but applied to head-sharded
+        # q/k under TP: tp.shared_param assembles their whole gradient
+        # from the ranks' parts
+        q = common.rmsnorm(tp.shared_param(params["q_norm"], "attn"), q,
+                           cfg.norm_eps)
+        k = common.rmsnorm(tp.shared_param(params["k_norm"], "attn"), k,
+                           cfg.norm_eps)
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

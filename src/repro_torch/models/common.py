@@ -1,5 +1,7 @@
 """Shared building blocks: device choice, inits, norms, rope, dense layers,
-cross entropy. Reference: ``src/repro/models/common.py``.
+cross entropy. Reference: ``src/repro/models/common.py`` (``embed`` and
+``softmax_cross_entropy`` take the vocab-sharded paths of
+``distributed.tp`` under a TP context, as there).
 
 Parameters live in ``nn.ParameterDict``/``nn.ModuleDict`` containers whose
 keys are the reference pytree's (``{"w": [d_in, d_out], "b": [d_out]}``
@@ -16,6 +18,8 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.distributed import tp
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -104,6 +108,9 @@ def embed_init(gen, vocab: int, d: int, dtype=torch.float32, device=None,
 
 
 def embed(params, ids: torch.Tensor) -> torch.Tensor:
+    ctx = tp.vocab_active()
+    if ctx is not None:               # TP: a vocab-sharded table
+        return tp.sharded_embed(params["embedding"], ids, ctx)
     return F.embedding(ids, params["embedding"])
 
 
@@ -272,7 +279,12 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           valid_vocab: Optional[int] = None) -> torch.Tensor:
     """Per-position CE in f32, written as ``lse - label_logit`` with the
     max held constant (the reference's ``stop_gradient``). Vocab padding
-    lanes at or past ``valid_vocab`` are masked out."""
+    lanes at or past ``valid_vocab`` are masked out. Under a TP context
+    with the vocab sharded the logits are the rank's columns and the
+    reductions are all-reduces (``tp.sharded_cross_entropy``)."""
+    ctx = tp.vocab_active()
+    if ctx is not None:
+        return tp.sharded_cross_entropy(logits, labels, valid_vocab, ctx)
     logits = logits.float()
     if valid_vocab is not None and valid_vocab < logits.shape[-1]:
         pad_mask = torch.arange(logits.shape[-1],
@@ -293,7 +305,8 @@ def chunked_cross_entropy(x: torch.Tensor, out_embed: torch.Tensor,
                           chunk: int = 4096) -> torch.Tensor:
     """CE over huge vocabs without materializing full [T, V] logits.
 
-    x: [T, d]; out_embed: [d, V]; labels: [T] -> per-token loss [T]. Each
+    x: [T, d]; out_embed: [d, V] (the rank's [d, V_local] columns under a
+    TP context); labels: [T] -> per-token loss [T]. Each
     chunk of ``chunk`` tokens computes its logits inside :class:`Remat`,
     so backward recomputes them (the reference's ``jax.checkpoint`` scan
     body). The reference zero-pads T up to a multiple of ``chunk``; here

@@ -22,13 +22,31 @@ per-parameter dicts, which mirror them): ``layers.<i>.<path>`` leaves are
 restacked into ``seg_dense/<path>[L, ...]`` and ``blocks.<i>.<path>``
 into ``blocks/<path>[L, ...]``, the rest nest by their dotted path.
 ``from_jax_tree`` flattens a reference tree to those names.
+
+Tensor parallelism (the spmd engine's ``'model'`` axis) keeps a rank's
+slice of each sharded leaf (``distributed.sharding``):
+
+* ``shard_named(full, plan, index)`` cuts ``{name: full leaf}`` to rank
+  ``index``'s slices (parameters, or an optimizer / EMA dict keyed like
+  them); ``gather_named(local, dims, group)`` all-gathers them back over
+  the model group;
+* ``shard_model(model, plan, index)`` turns a full model into the rank's
+  local one in place: each sharded parameter replaced by its slice, the
+  config by ``sharding.tp_local_model_cfg``, and the split dimensions
+  kept in ``model.tp_dims`` (with ``model.tp_slice = (plan, index)``).
+  ``load_named`` and ``load_jax_params`` slice a full tree into such a
+  model, so a reference tree crosses into a TP run as it is.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch import nn
+
+from repro_torch.distributed import sharding
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict:
@@ -115,24 +133,117 @@ def to_jax_tree(named: Mapping, axis: int = 0) -> Dict:
     return tree
 
 
+def shard_named(full: Mapping, plan: sharding.TPPlan, index: int) -> Dict:
+    """Rank ``index``'s slices of ``{name: leaf}`` (tensors or numpy
+    arrays, full shapes): each leaf cut along the dimension
+    ``sharding.tp_param_spec`` splits, the others as they are."""
+    out = {}
+    for name, t in full.items():
+        dim = sharding.tp_param_spec(name, tuple(t.shape), plan)
+        if dim is None:
+            out[name] = t
+            continue
+        n = t.shape[dim] // plan.size
+        out[name] = (t.narrow(dim, index * n, n)
+                     if isinstance(t, torch.Tensor)
+                     else np.take(t, np.arange(index * n, (index + 1) * n),
+                                  axis=dim))
+    return out
+
+
+def gather_named(local: Mapping[str, torch.Tensor],
+                 dims: Mapping[str, Optional[int]], group) -> Dict:
+    """The full leaves of ``{name: local slice}``: each leaf split along
+    ``dims[name]`` all-gathered over the model ``group`` (every rank of it
+    must call this, with the same names in the same order); the others as
+    they are."""
+    size = dist.get_world_size(group)
+    out = {}
+    for name, t in local.items():
+        dim = dims.get(name)
+        if dim is None:
+            out[name] = t
+            continue
+        parts = [torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for _ in range(size)]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        out[name] = torch.cat(parts, dim=dim)
+    return out
+
+
 @torch.no_grad()
-def load_jax_params(model: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
-    """Copy the JAX param tree ``tree`` into ``model`` in place (cast to
-    each parameter's dtype, on its device). Returns ``model``."""
-    leaves = _to_module_leaves(_flatten(tree))
+def shard_model(model: nn.Module, plan: sharding.TPPlan,
+                index: int) -> nn.Module:
+    """Make ``model`` (full parameters) rank ``index``'s local model in
+    place; returns it. Idempotent for the same plan and index."""
+    if getattr(model, "tp_slice", None) is not None:
+        if model.tp_slice != (plan, index):
+            raise ValueError(f"model already sharded as {model.tp_slice}, "
+                             f"not {(plan, index)}")
+        return model
     params = dict(model.named_parameters())
-    missing = sorted(set(params) - set(leaves))
-    extra = sorted(set(leaves) - set(params))
+    model.tp_dims = sharding.tp_param_specs(plan, params)
+    for name, t in shard_named(params, plan, index).items():
+        if model.tp_dims[name] is None:
+            continue
+        parent, _, leaf = name.rpartition(".")
+        model.get_submodule(parent).register_parameter(
+            leaf, nn.Parameter(t.clone(),
+                               requires_grad=params[name].requires_grad))
+    model.cfg = sharding.tp_local_model_cfg(model.cfg, plan)
+    model.tp_slice = (plan, index)
+    return model
+
+
+def full_shapes(model: nn.Module, named: Mapping[str, torch.Tensor]
+                ) -> Dict:
+    """The full shapes of ``named`` (a sharded model's parameters, or a
+    state dict keyed like them): the split dimension times the axis
+    size."""
+    tp_slice = getattr(model, "tp_slice", None)
+    out = {}
+    for name, t in named.items():
+        shape = list(t.shape)
+        dim = model.tp_dims.get(name) if tp_slice else None
+        if dim is not None:
+            shape[dim] *= tp_slice[0].size
+        out[name] = tuple(shape)
+    return out
+
+
+@torch.no_grad()
+def load_named(model: nn.Module, named: Mapping) -> nn.Module:
+    """Copy ``{name: full leaf}`` into ``model``'s parameters in place
+    (cast, on their device), each cut to the model's slice when it is a
+    TP rank's (``shard_model``). Raises ``ValueError`` naming every
+    missing or extra leaf and every shape that does not fit."""
+    tp_slice = getattr(model, "tp_slice", None)
+    if tp_slice is not None:
+        named = shard_named(named, *tp_slice)
+    params = dict(model.named_parameters())
+    missing = sorted(set(params) - set(named))
+    extra = sorted(set(named) - set(params))
     bad_shape = sorted(
-        f"{name}: jax {tuple(leaves[name].shape)} vs torch "
+        f"{name}: given {tuple(named[name].shape)} vs model "
         f"{tuple(params[name].shape)}"
-        for name in set(params) & set(leaves)
-        if tuple(leaves[name].shape) != tuple(params[name].shape))
+        for name in set(params) & set(named)
+        if tuple(named[name].shape) != tuple(params[name].shape))
     if missing or extra or bad_shape:
         raise ValueError(
             f"param tree does not fit the model: missing {missing}, "
             f"extra {extra}, shape mismatches {bad_shape}")
     for name, p in params.items():
-        src = torch.from_numpy(np.array(leaves[name], dtype=np.float32))
+        src = named[name]
+        if not isinstance(src, torch.Tensor):
+            src = torch.from_numpy(np.array(src, dtype=np.float32))
         p.copy_(src.to(device=p.device, dtype=p.dtype))
     return model
+
+
+@torch.no_grad()
+def load_jax_params(model: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
+    """Copy the JAX param tree ``tree`` into ``model`` in place (cast to
+    each parameter's dtype, on its device; a TP rank's model takes its
+    slices). Returns ``model``."""
+    return load_named(model, _to_module_leaves(_flatten(tree)))
+

@@ -5,6 +5,15 @@ Reference: ``src/repro/models/transformer.py`` (``segments``,
 and ``TransformerLM``'s ``init``, ``_embed_inputs``, ``forward``,
 ``per_token_loss``, ``prefill`` and ``_output_weights``).
 
+Tensor parallelism (the spmd engine's ``'model'`` axis): ``block_apply``,
+``forward`` and ``per_token_loss`` carry the reference's hooks
+(``distributed.tp.col_in`` / ``row_out``), identity unless the engine has
+made a ``tp.TPContext`` current. Under one the model is a rank's slice
+(``models.convert.shard_model``): its config holds the local head counts
+and hidden width, its embedding the local vocabulary rows, and the tied
+head reads them transposed, so the logits are the local vocabulary
+columns.
+
 The reference scans stacked ``seg_dense`` leaves ``[L, ...]``; here the
 layers are an ``nn.ModuleList`` of per-layer ``nn.ModuleDict``s with the
 same keys (``ln1``, ``attn``, ``ln2``, ``mlp``). The weights are trainable
@@ -28,6 +37,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed import tp
 from repro_torch.models import attention, common, mlp
 
 # padded_vocab * seq above this: cross entropy chunked over tokens (the
@@ -71,11 +81,16 @@ def block_init(gen, cfg, kind: str, dtype, device=None) -> nn.ModuleDict:
 
 def block_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor,
                 window: int) -> torch.Tensor:
-    """One pre-norm block over the full sequence (dense attention)."""
-    h = common.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    x = x + attention.gqa_attend(p["attn"], cfg, h, positions, window=window)
-    h = common.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp.mlp_apply(p["mlp"], h, cfg.hidden_act)
+    """One pre-norm block over the full sequence (dense attention). Under
+    a ``tp.TPContext`` the qkv and up/gate projections take head- and
+    hidden-sharded weights (an all-reduce of the input's gradient) and
+    ``wo`` / ``w_down`` give partial sums, all-reduced forward."""
+    h = tp.col_in(common.rmsnorm(p["ln1"], x, cfg.norm_eps), "attn")
+    attn_out = attention.gqa_attend(p["attn"], cfg, h, positions,
+                                    window=window)
+    x = x + tp.row_out(attn_out, "attn")
+    h = tp.col_in(common.rmsnorm(p["ln2"], x, cfg.norm_eps), "ffn")
+    return x + tp.row_out(mlp.mlp_apply(p["mlp"], h, cfg.hidden_act), "ffn")
 
 
 # matmuls without batch dimensions: what JAX's
@@ -182,10 +197,11 @@ class TransformerLM(nn.Module):
         return self.lm_head["w"]
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens: [B, S] -> logits [B, S, V_padded]."""
+        """tokens: [B, S] -> logits [B, S, V_padded] (the local vocabulary
+        columns under a TP context)."""
         x = self._run_layers(self._embed_inputs(tokens))
         x = common.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
-        return x @ self._output_weights()
+        return tp.col_in(x, "vocab") @ self._output_weights()
 
     # -- loss ----------------------------------------------------------------
 
@@ -200,6 +216,7 @@ class TransformerLM(nn.Module):
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
         x = self._run_layers(self._embed_inputs(tokens), remat=cfg.remat)
         x = common.rmsnorm(self.final_norm, x, cfg.norm_eps)
+        x = tp.col_in(x, "vocab")               # TP head: local logits
         b, s, d = x.shape
         out_w = self._output_weights()
         safe_labels = torch.clamp_min(labels, 0)

@@ -32,7 +32,8 @@ CPU the two forms give the same bits.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, Sequence, Tuple, Union
+from typing import (Callable, Dict, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -74,10 +75,14 @@ def global_norm(tensors: Named) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Named, max_norm: float
+def clip_by_global_norm(grads: Named, max_norm: float,
+                        norm: Optional[torch.Tensor] = None
                         ) -> Tuple[Named, torch.Tensor]:
-    """Paper §A.3: Async-Opt requires global-norm clipping; Sync does not."""
-    norm = global_norm(grads)
+    """Paper §A.3: Async-Opt requires global-norm clipping; Sync does not.
+    ``norm``: the global norm when ``grads`` are one rank's slices of it
+    (``spmd_engine.tp_global_norm``); None computes it from ``grads``."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return ({k: (g.float() * scale).to(g.dtype) for k, g in grads.items()},
             norm)

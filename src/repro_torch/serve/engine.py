@@ -28,7 +28,8 @@ engine's pool, which persists across runs (zeroed at the start of each).
 the CPU always does. Prefill stays eager, one shape per bucket.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the slice
-that brings them: ``mesh_model > 1`` (tensor parallelism), ``faults``
+that brings them: ``mesh_model > 1`` (tensor-parallel decode, ROADMAP
+Queue 1 item 8; the trainer's tensor parallelism is ported), ``faults``
 (chaos), ``slo`` (admission gate), ``metrics`` (the telemetry registry),
 ``restore_params`` (checkpoint bridge) and ``StepSession`` (the router's
 per-replica surface).
@@ -139,8 +140,10 @@ class ServeEngine:
         if clock not in ("wall", "virtual"):
             raise ValueError(f"clock must be 'wall' or 'virtual' (got {clock})")
         if mesh_model > 1:
+            # the trainer's TP plan and hooks exist; the paged decode's
+            # sharded caches do not yet
             raise _not_ported("tensor-parallel decode (mesh_model > 1)",
-                              "distributed")
+                              "distributed serving (ROADMAP Queue 1 item 8)")
         if faults:
             raise _not_ported("serve chaos injection (faults=)",
                               "fault-tolerance")

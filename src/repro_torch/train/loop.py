@@ -29,17 +29,24 @@ The strategy, built from ``cfg.aggregation`` by
 4. on checkpoint cadence, state is committed atomically in the
    reference's format (so either package resumes the other's run).
 
-On the spmd backend with ``mesh_data > 1`` the trainer is one rank of the
-``'data'`` world (``distributed.mesh.spawn``; each rank builds its own
-Trainer from the same config). Every rank plans the same masks from the
-same seed and builds the same global batch on the host, and copies only
-its workers' rows to its card; the engine sums the ranks' reduced
-gradients, and every rank applies the same update. Rank 0 alone writes
-checkpoints (the others wait at a barrier); every rank restores them.
-Chunked runs capture the NCCL all-reduce inside the step graph (the first,
-eager step makes the communicator live); a gloo world on CUDA tensors
-(several ranks on one card) cannot be captured, so there ``chunk_size >
-1`` raises.
+On the spmd backend with ``mesh_data * mesh_model > 1`` the trainer is
+one rank of the mesh's world (``distributed.mesh.spawn``; each rank builds
+its own Trainer from the same config). Every rank plans the same masks
+from the same seed and builds the same global batch on the host, and
+copies only its data index's workers' rows to its card; the engine sums
+the reduced gradients over the ``'data'`` group, and every rank applies
+the update to what it holds. With ``mesh_model > 1`` and a TP plan the
+model is the rank's slice (``models.convert.shard_model``), and so are
+the optimizer state and the EMA: ``init_state`` draws the full parameters
+from the seed, exactly as on one card, and keeps the rank's slices;
+checkpoints stay in the reference's full format (the model group of data
+index 0 all-gathers each sharded leaf, rank 0 writes) and every rank
+restores the full file and keeps its slices, so they interchange with
+one-card and JAX runs. Rank 0 alone writes checkpoints (the others wait
+at a barrier); every rank restores them. Chunked runs capture the NCCL
+all-reduces inside the step graph (the first, eager step makes the
+communicators live); a gloo world on CUDA tensors (several ranks on one
+card) cannot be captured, so there ``chunk_size > 1`` raises.
 
 With ``cfg.chunk_size > 1`` the loop runs chunks of up to K steps: the
 simulator plans the chunk's K masks at once (``next_events``), the
@@ -104,6 +111,7 @@ from repro_torch.data.synthetic_lm import (ChunkPrefetcher, PipelineState,
                                            SyntheticLMPipeline, worker_batch)
 from repro_torch.distributed import mesh, spmd_engine
 from repro_torch.models import from_jax_tree, get_model, to_jax_tree
+from repro_torch.models import convert
 from repro_torch.models.common import resolve_device
 from repro_torch.optim import make_optimizer, schedules
 from repro_torch.optim.optimizers import stage_scalars
@@ -204,7 +212,9 @@ class Trainer:
             raise ValueError(f"unknown execution backend {backend!r} "
                              f"(valid: sim, spmd)")
         self._spmd = backend == "spmd"
-        self._group = None                   # the spmd 'data' world, if any
+        # the spmd mesh's world, if any, and its 'model' group under TP
+        self._world = False
+        self._model_group = None
         if self._spmd and not registry.supports_spmd(self.strategy,
                                                      cfg.execution):
             raise NotImplementedError(
@@ -254,25 +264,31 @@ class Trainer:
             spmd_engine.check_mesh(ex.mesh_data, ex.mesh_model)
             spmd_engine.validate_layout(cfg.aggregation.total_workers,
                                         cfg.shape.global_batch, ex.mesh_data)
-            self._group = mesh.data_group(ex.mesh_data)
-            if self._group is not None:
+            self._world = ex.mesh_data * ex.mesh_model > 1
+            if self._world:
+                self._model_group = mesh.model_group(ex.mesh_data,
+                                                     ex.mesh_model)
                 per_rank = cfg.shape.global_batch // ex.mesh_data
-                lo = mesh.rank() * per_rank
+                lo = mesh.data_index() * per_rank
                 self._rows = slice(lo, lo + per_rank)
                 if (chunked and self.device.type == "cuda"
                         and mesh.backend() != "nccl"):
                     raise ValueError(
                         f"chunk_size={cfg.chunk_size} replays a captured "
                         f"CUDA graph of the step, and the '{mesh.backend()}'"
-                        f" world's all-reduce cannot be captured (several "
+                        f" world's all-reduces cannot be captured (several "
                         f"ranks on one card run over gloo); use "
                         f"chunk_size=1 here, or one card per rank (NCCL)")
             build = (spmd_engine.build_spmd_chunk_step if chunked
                      else spmd_engine.build_spmd_step)
+            # a model override has no config: its 'model' axis stays
+            # replicated, as in the reference
             step_kwargs.update(
                 use_kernel=ex.use_kernel, interpret=ex.interpret,
                 grad_batch=ex.grad_batch, bucket_size=ex.bucket_size,
-                mesh_data=ex.mesh_data, mesh_model=ex.mesh_model)
+                mesh_data=ex.mesh_data, mesh_model=ex.mesh_model,
+                model_cfg=(None if self._model_override is not None
+                           else cfg.model))
         else:
             build = build_chunk_step if chunked else build_train_step
         step = build(self.model, self.optimizer, **step_kwargs)
@@ -329,7 +345,14 @@ class Trainer:
         event mode, the workers' read copies and the scheduler)."""
         gen = torch.Generator(device=self.device).manual_seed(
             self.cfg.seed if seed is None else seed)
-        self.model.init(gen)
+        if self._tp_slice is not None:
+            # the full parameters, drawn as on one card; keep the slices
+            full = get_model(self.cfg.model, device=self.device,
+                             generator=gen)
+            convert.load_named(self.model, dict(full.named_parameters()))
+            del full
+        else:
+            self.model.init(gen)
         self.reset_optimizer_state()
         if self.strategy.kind == "event":
             self._init_event_state()
@@ -370,17 +393,32 @@ class Trainer:
                 self._read_version = self._reads.version
                 self._ev_state = self.strategy.init_state(self.cfg.seed)
 
+    @property
+    def _tp_slice(self):
+        """(plan, model index) of a TP rank's model, else None."""
+        return getattr(self.model, "tp_slice", None)
+
     # -- checkpointing --------------------------------------------------------
 
+    def _full(self, named: Dict[str, torch.Tensor]) -> Dict:
+        """``named`` (keyed like the parameters) with its sharded leaves
+        all-gathered over the model group (as it is without TP)."""
+        if self._tp_slice is None:
+            return named
+        return convert.gather_named(named, self.model.tp_dims,
+                                    self._model_group)
+
     def _state_tree(self) -> Dict:
-        """The reference's tree: params, opt, ema in its layout; in event
-        mode also ``workers`` (every worker's read copy, for strategies
-        with a clock) and ``stale_buffer`` (the staleness FIFO, oldest
-        first), stacked ``[n, ...]``."""
-        out = {"params": to_jax_tree(self.params),
-               "opt": {k: to_jax_tree(v) for k, v in self.opt_state.items()}}
+        """The reference's tree: params, opt, ema in its layout (full
+        leaves: under TP each rank of the model group must call this); in
+        event mode also ``workers`` (every worker's read copy, for
+        strategies with a clock) and ``stale_buffer`` (the staleness FIFO,
+        oldest first), stacked ``[n, ...]``."""
+        out = {"params": to_jax_tree(self._full(self.params)),
+               "opt": {k: to_jax_tree(self._full(v))
+                       for k, v in self.opt_state.items()}}
         if self.ema is not None:
-            out["ema"] = to_jax_tree(self.ema)
+            out["ema"] = to_jax_tree(self._full(self.ema))
         if self.strategy.kind != "event":
             return out
         if self.strategy.uses_clock:
@@ -404,7 +442,8 @@ class Trainer:
 
     def _template(self, buffer_len: int = 0) -> Dict:
         def meta(named, n=None):
-            return {k: torch.empty(((n,) if n else ()) + tuple(t.shape),
+            shapes = convert.full_shapes(self.model, named)
+            return {k: torch.empty(((n,) if n else ()) + shapes[k],
                                    dtype=t.dtype, device="meta")
                     for k, t in named.items()}
 
@@ -424,10 +463,13 @@ class Trainer:
 
     def save_checkpoint(self) -> str:
         ck = self.cfg.checkpoint
-        group = self._group
-        if group is not None and mesh.rank() != 0:
-            # rank 0 writes; every rank leaves once the write is committed
-            torch.distributed.barrier(group)
+        if self._world and mesh.rank() != 0:
+            # rank 0 writes (its model group gathers the sharded leaves
+            # with it); every rank leaves once the write is committed
+            if self._tp_slice is not None and mesh.data_index() == 0:
+                with torch.no_grad():
+                    self._state_tree()
+            torch.distributed.barrier()
             return ckpt_lib.step_dir(ck.directory, self.step)
         meta = {
             "num_workers": self.cfg.aggregation.num_workers,
@@ -472,8 +514,8 @@ class Trainer:
                 retries=ck.write_retries, backoff_s=ck.retry_backoff_s,
                 max_backoff_s=ck.retry_max_backoff_s, jitter=ck.retry_jitter,
                 backoff_seed=self.cfg.seed)
-        if group is not None:
-            torch.distributed.barrier(group)
+        if self._world:
+            torch.distributed.barrier()
         return path
 
     @torch.no_grad()
@@ -487,7 +529,10 @@ class Trainer:
                 "buffer_tags", []))), int(manifest["step"]))
 
         def load(named, sub):
-            for k, t in from_jax_tree(sub).items():
+            full = from_jax_tree(sub)
+            if self._tp_slice is not None:
+                full = convert.shard_named(full, *self._tp_slice)
+            for k, t in full.items():
                 named[k].copy_(t)
 
         load(self.params, tree["params"])

@@ -71,6 +71,11 @@ where only PyTorch is installed:
   (``mesh.spawn``; the all-reduce captured in the step graph) give
   bit-identical parameters on both ranks, within atol 1e-5 of one card
   holding every worker.
+* Tensor parallelism at mesh 1 x 2 on the card: 2 NCCL ranks with 2
+  cards (chunks of 3, the model group's all-reduces captured), else 2
+  gloo ranks sharing the one card (chunk 1); the parameters gathered over
+  the model group within atol 1e-5 of one card, the replicated leaves
+  bit-identical on both ranks.
 """
 import pytest
 
@@ -839,5 +844,38 @@ def test_nccl_ranks_match_one_card(cuda_device, tmp_path):
     want = one.run(3).params
     for k, v in ranks[0].items():
         assert torch.equal(ranks[1][k], v), k
+        np.testing.assert_allclose(v.numpy(), want[k].detach().cpu().numpy(),
+                                   atol=1e-5, err_msg=k)
+
+
+def tp_rank(rank, device, out_dir, chunk):
+    """A rank of ``test_tp_ranks_match_one_card`` (``mesh.spawn``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _mesh_cfg(1, chunk)
+    tr = Trainer(dataclasses.replace(cfg, execution=dataclasses.replace(
+        cfg.execution, mesh_model=2)), device=device)
+    tr.init_state()
+    res = tr.run(3)
+    local = {k: v.detach().cpu() for k, v in res.params.items()}
+    full = {k: v.detach().cpu() for k, v in tr._full(res.params).items()}
+    torch.save({"local": local, "full": full, "dims": tr.model.tp_dims},
+               f"{out_dir}/rank{rank}.pt")
+
+
+def test_tp_ranks_match_one_card(cuda_device, tmp_path):
+    from repro_torch.distributed import mesh
+    chunk = 3 if torch.cuda.device_count() >= 2 else 1   # gloo: no capture
+    mesh.spawn(tp_rank, 1, "cuda", args=(str(tmp_path), chunk),
+               mesh_model=2, timeout_s=300)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    one = Trainer(_mesh_cfg(1, 1), device=cuda_device)
+    one.init_state()
+    want = one.run(3).params
+    dims = ranks[0]["dims"]
+    assert any(d is not None for d in dims.values())
+    for k, v in ranks[0]["full"].items():
+        assert torch.equal(ranks[1]["full"][k], v), k
+        if dims[k] is None:
+            assert torch.equal(ranks[1]["local"][k], ranks[0]["local"][k]), k
         np.testing.assert_allclose(v.numpy(), want[k].detach().cpu().numpy(),
                                    atol=1e-5, err_msg=k)

@@ -227,7 +227,8 @@ def test_engine_validation(qwen):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mesh_model=2), "distributed"), (dict(faults="slowdown@1"), "fault"),
+    (dict(mesh_model=2), "Queue 1 item 8"),
+    (dict(faults="slowdown@1"), "fault"),
     (dict(slo=object()), "resilience"), (dict(metrics=object()), "telemetry")])
 def test_unported_engine_options_raise(qwen, kw, match):
     _, _, tcfg, tmodel = qwen
@@ -276,7 +277,8 @@ def test_cli_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("argv,match", [
     (["--toy"], "toy"), (["--replicas", "2"], "router"),
-    (["--restore", "ck"], "checkpoint"), (["--mesh-model", "2"], "distributed"),
+    (["--restore", "ck"], "checkpoint"),
+    (["--mesh-model", "2"], "Queue 1 item 8"),
     (["--faults", "slowdown@1"], "fault"), (["--slo-p99-ms", "5"], "resilience"),
     (["--metrics", "m.jsonl"], "telemetry"), (["--ema"], "--restore"),
     (["--timeout", "3"], "--replicas")])

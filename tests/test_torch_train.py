@@ -18,9 +18,9 @@ from them. qwen3 smoke config (f32, 2 layers).
 * Checkpoints across packages: a JAX checkpoint at step 2 resumes in the
   port and a port checkpoint resumes in JAX; both end within atol 1e-5 of
   the uninterrupted 4-step JAX run.
-* The trainer and the CLI refuse the options of later slices by name
-  (``mesh_model > 1``), a ``'data'`` axis without its world of ranks
-  (naming ``mesh.spawn``) and a ``grad_batch`` that does not divide the
+* The trainer and the CLI refuse the options of later slices by name, a
+  ``'data'`` or ``'model'`` axis without its world of ranks (naming
+  ``mesh.spawn``) and a ``grad_batch`` that does not divide the
   local workers (listing the divisors); the CLI runs with ``--device cpu``
   and raises without a card otherwise.
 """
@@ -334,7 +334,7 @@ def test_checkpoint_bf16_roundtrip_and_corruption(tmp_path):
      RuntimeError, "mesh.spawn"),
     (dict(execution=jbase.ExecutionConfig(backend="spmd", mesh_model=2,
                                           grad_batch=1)),
-     NotImplementedError, "Queue 1 item 5"),
+     RuntimeError, "mesh.spawn"),
     (dict(execution=jbase.ExecutionConfig(backend="spmd", grad_batch=3)),
      ValueError, r"0 \(vmap all\) or one of \[1, 2, 4, 8\]"),
     (dict(execution=jbase.ExecutionConfig(backend="spmd", grad_batch=1,
@@ -407,9 +407,6 @@ def test_cli_runs_on_cpu_and_resumes(tmp_path, capsys, backend):
     ["--latency-source", "measured"], ["--faults", "crash@2:w1"],
     ["--fault-seed", "1"], ["--supervise"], ["--max-restarts", "2"],
     ["--trace", "t.json"], ["--metrics", "m.jsonl"], ["--platform", "gpu"],
-    ["--execution", "spmd", "--mesh-data", "2", "--mesh-model", "2"],
-    ["--execution", "spmd", "--mesh-model", "2"],
-    ["--execution", "spmd", "--grad-batch", "0", "--mesh-model", "2"],
 ])
 def test_cli_refuses_deferred_flags(tmp_path, capsys, extra):
     with pytest.raises(SystemExit):
