@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-only     # phases 18-19 alone (several cards)
+    python3 chip_smoke.py --faults-only   # phases 20-21 alone
 
 Drives the port (``src/repro_torch``) through its own entry points and
 fails (non-zero exit, no result line) if any phase fails:
@@ -162,6 +163,8 @@ fails (non-zero exit, no result line) if any phase fails:
    states, and one backward). Host wall a step, device busy, peak memory
    and the capture time are printed. Then at 2 layers, full width, f32,
    TF32 off: grad_batch 0 and 2 against 1, parameters within atol 1e-5.
+   Last, a record (not gated): qwen3-0.6b grad_batch 0 against 1 at
+   RMSProp eps 1e-3, the loss rel gap per step.
 18. The spmd engine's ``'data'`` axis over ranks (``distributed.mesh.
    spawn``, one process each). With 2 or more cards: NCCL over 2 ranks
    (and 4 with 4 cards), one card each: qwen3-0.6b backup 6 + 2 at full
@@ -173,15 +176,47 @@ fails (non-zero exit, no result line) if any phase fails:
    Both: at 2 layers in f32 the mesh run within atol 1e-5 of the one-card
    run. Any rank that fails fails the script. ``python3 chip_smoke.py
    --mesh-only`` runs the build and this phase alone.
-19. A JSON line of per-kernel numbers (``launches`` is the count of one
+19. The ``'model'`` axis (tensor parallelism) over ranks: with one card 2
+   gloo ranks at mesh 1 x 2, with 2 or more NCCL over one card a rank
+   (``--mesh-only`` on four cards: 1 x 2, 1 x 4, 2 x 2).
+20. The device straggler backend (``straggler_backend='device'``):
+   each of the four samplers at ``SAMPLER_DRAWS`` f32 draws on the card
+   against as many numpy draws of its ``LatencyModel`` (mean, std and the
+   ``SAMPLER_QUANTILES`` within rel 0.05); ``device_batch_fn`` at noise 0
+   on the card is the closed-form chain; qwen3-0.6b at full width on the
+   sim backend (backup 6 + 2, the stream cut to ``DATA_VOCAB`` ids,
+   rmsprop_momentum at ``FAULT_LR`` x N),
+   8 steps as chunks of 4 + 4 and as one chunk of 8: losses, selected,
+   sim_time and parameter checksums bit-equal, every chunk's device masks
+   and times equal to the host ``BackupWorkers.select`` on the same
+   arrivals copied back, row by row. The host backend's wall per step on
+   the same cell is printed beside the device backend's (a record).
+21. Faults on the spmd engine, qwen3-0.6b at full width cut to
+   ``FAULT_LAYERS`` layers (a 28-layer checkpoint holds 8.35 GB and the
+   runs write 7, past a chip call's disk budget; backup 6 + 2, grad_batch
+   1, chunks of 4 through the graph, checkpoints every 4):
+   ``FAULT_SPEC`` at fault seed 0 under ``run_supervised`` gives the
+   recovery log ``FAULT_LOG``; the same plan without the preemption
+   matches the unfaulted run at steps 1-2 bit for bit and ends in the
+   supervised run's parameters and EMA bit for bit (the restore loses
+   nothing); backup_reduce launches once a step (counted from 0 around
+   the supervised run) and, on the first stack after the rescale (8 -> 4
+   workers), equals its plain twin bit for bit; the peak device memory
+   after the rescale lies within 1 GiB of the peak before it less the
+   stack's freed rows ((8 - 4) x P x 4 bytes). Checkpoint bytes and save /
+   restore seconds are printed. Then ``dynamic_backup`` at all 28 layers
+   (N = 8, b = 0, workers 6 and 7 slowed 5x, 16 steps, no checkpoints): its adapted n below 8 and equal
+   to the CPU port's host logic at the same seed; once more with
+   ``latency_source='measured'``, n printed (a record).
+22. A JSON line of per-kernel numbers (``launches`` is the count of one
    run of the main path that launches the kernel, named by
    ``launches_run``: the graph-decode serve runs, whose prefills stay
    eager, and the graph training runs; ``launches_batched_and_mesh``: those
-   of phases 17 and 18's runs), then, as the last line,
-   ``{"ok": true, "device": {...}}``.
+   of phases 17 and 18's runs; ``launches_faults``: phase 21's supervised
+   run), then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero when ``torch.cuda.is_available()`` is false.
-A line ``[time] phase N: s`` follows each of phases 16-19.
+A line ``[time] phase N: s`` follows each of phases 16-21.
 """
 from __future__ import annotations
 
@@ -230,6 +265,36 @@ BATCHED_ERR_FACTOR = 2.0
 # its gap within which the kernel's gap counts as rounding sensitivity
 NUDGED_LEAF = "blocks.0.ln1.scale"
 CONTROL_FACTOR = 4.0
+# phase 20: the token stream's ids (device_batch_fn computes in int32, as
+# the reference does, and refuses vocabularies over 46340), steps, and the
+# draws of each sampler's distribution check: at 2^20 draws the 0.99
+# quantile of PaperCalibrated spreads by ~3% from seed to seed alone
+DATA_VOCAB = 512
+DEVICE_STEPS = 8
+# phases 20-21's lr (x N): at train_config's 0.02 x N RMSProp's first step
+# moves every weight by ~0.38 and the loss runs from 12.1 to 739 in 8 steps
+# (PERF.md §6)
+FAULT_LR = 2e-4
+SAMPLER_DRAWS = 2 ** 24
+SAMPLER_QUANTILES = (0.1, 0.5, 0.9, 0.99)
+# phase 21: the chaos plan, its steps, and the recovery log the CPU port
+# gives for it at seed 0 (tests/test_torch_faults.py holds it to JAX)
+FAULT_SPEC = "crash@2:w1,slowdown@3:w0:x4:d3,crash@5:w2,crash@6:w3,preempt@9"
+FAULT_STEPS = 12
+# the supervised part's depth: a full-width (28-layer) checkpoint holds
+# 8.35 GB and the plan writes 7 of them, past a chip call's disk budget
+FAULT_LAYERS = 4
+FAULT_LOG = [
+    {"event": "worker_crash", "step": 2, "worker": 1},
+    {"event": "worker_slowdown", "step": 3, "worker": 0, "factor": 4.0,
+     "until": 6},
+    {"event": "worker_crash", "step": 5, "worker": 2},
+    {"event": "worker_crash", "step": 6, "worker": 3},
+    {"event": "rescale", "step": 6, "from_workers": 8, "to_workers": 4},
+    {"event": "preempt", "step": 9, "grace": True},
+    {"event": "restore", "step": 9, "attempt": 1},
+]
+DYNAMIC_STEPS = 16
 
 
 def _log(msg: str) -> None:
@@ -2254,15 +2319,429 @@ def _tp_phase(torch, ref_loss):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the device straggler backend
+# ---------------------------------------------------------------------------
+
+
+def _device_cfg(chunk, backend, *, steps=DEVICE_STEPS, noise=None):
+    """Phase 20's cell: qwen3-0.6b at full width on the sim backend (backup
+    6 + 2, 2 x 256 tokens a worker, rmsprop_momentum, grad_batch 1), the
+    token stream cut to ``DATA_VOCAB`` ids (``device_batch_fn`` computes in
+    int32 and refuses vocabularies over 46340, as the reference does)."""
+    from repro_torch.data.synthetic_lm import SyntheticLMConfig
+    from repro_torch.launch.profile_train import train_config
+    cfg = train_config(backend="sim", steps=steps)
+    cfg = dataclasses.replace(
+        cfg, chunk_size=chunk, straggler_backend=backend,
+        optimizer=dataclasses.replace(cfg.optimizer,
+                                      learning_rate=FAULT_LR))
+    data = SyntheticLMConfig(
+        vocab_size=DATA_VOCAB, seq_len=cfg.shape.seq_len,
+        global_batch=cfg.shape.global_batch,
+        num_workers=cfg.aggregation.total_workers, seed=cfg.seed,
+        **({} if noise is None else {"noise": noise}))
+    return cfg, data
+
+
+def _device_run(torch, chunk, backend):
+    """8 steps of phase 20's cell at ``chunk``; on the device backend every
+    chunk's arrivals, masks and times (``select_device``'s in and out) are
+    kept. Returns the metrics, the kept chunks (host copies), the host wall
+    per step and the parameter checksums."""
+    import gc
+    from repro_torch.core.straggler import PaperCalibrated
+    from repro_torch.train.loop import Trainer
+    cfg, data = _device_cfg(chunk, backend)
+    tr = Trainer(cfg, latency=PaperCalibrated(), device="cuda",
+                 data_cfg=data)
+    tr.init_state()
+    picks = []
+    if backend == "device":
+        select = tr.strategy.select_device
+
+        def keep(arrivals):
+            masks, times = select(arrivals)
+            picks.append((arrivals.clone(), masks.clone(), times.clone()))
+            return masks, times
+
+        # the strategy is a frozen dataclass: set the spy past it
+        object.__setattr__(tr.strategy, "select_device", keep)
+    res = tr.run(cfg.total_steps)
+    torch.cuda.synchronize()
+    out = dict(metrics=list(res.metrics), step_ms=[1e3 * t for t in
+                                                   res.step_times_s],
+               picks=[tuple(t.cpu() for t in p) for p in picks],
+               sums=_param_sums(torch, res.params),
+               captures=tr.chunk_step.graph.captures)
+    del tr, res, picks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _summary(np, x):
+    x = np.asarray(x, np.float64).ravel()
+    return np.array([x.mean(), x.std()] + [np.quantile(x, q)
+                                           for q in SAMPLER_QUANTILES])
+
+
+def _device_backend_phase(torch):
+    """Phase 20: the samplers and ``device_batch_fn`` on the card, then the
+    cell as chunks of 4 + 4 and as one chunk of 8 (bit-equal), each chunk's
+    device selection held to the host ``select`` on the same arrivals,
+    and the host backend's wall beside it (a record)."""
+    import numpy as np
+    from repro_torch.core import straggler as st
+    from repro_torch.core import straggler_device as sd
+    from repro_torch.data.synthetic_lm import _transition, device_batch_fn
+    w = 8
+    for model in (st.PaperCalibrated(), st.LogNormal(), st.Uniform(),
+                  st.DeterministicStragglers(slow_workers=(6, 7))):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        got = sd.sampler_for(model)(gen, (SAMPLER_DRAWS // w, w))
+        got = got.cpu().numpy()
+        want = model.sample(np.random.RandomState(0),
+                            (SAMPLER_DRAWS // w, w))
+        a, b = _summary(np, got), _summary(np, want)
+        rel = np.abs(a / b - 1)
+        _log(f"[device backend] {type(model).__name__}: {SAMPLER_DRAWS} "
+             f"f32 draws on the card vs {SAMPLER_DRAWS} numpy draws: mean, "
+             f"std, quantiles {SAMPLER_QUANTILES} rel err "
+             f"{' '.join(f'{v:.2e}' for v in rel)} (limit 0.05)")
+        if not (got.dtype == np.float32 and (got > 0).all()
+                and rel.max() <= 0.05):
+            raise AssertionError(f"[device backend] {type(model).__name__} "
+                                 f"does not match the numpy model")
+    _, data0 = _device_cfg(4, "device", noise=0.0)
+    b = device_batch_fn(data0, "cuda")(3)
+    seq = torch.cat([b["tokens"], b["labels"][:, -1:]], 1).cpu().numpy()
+    a, c = _transition(DATA_VOCAB, data0.seed)
+    if not (seq.shape == (data0.global_batch, data0.seq_len + 1)
+            and np.array_equal(seq[:, 1:],
+                               (a * seq[:, :-1] + c) % DATA_VOCAB)):
+        raise AssertionError("[device backend] device_batch_fn at noise 0 "
+                             "is not the closed-form chain")
+    _log(f"[device backend] device_batch_fn at noise 0: {seq.size} tokens "
+         f"on the card follow the chain tok' = ({a} tok + {c}) mod "
+         f"{DATA_VOCAB}")
+    from repro_torch.core.coordination import BackupWorkers
+    runs = {(4, "device"): _device_run(torch, 4, "device"),
+            (8, "device"): _device_run(torch, 8, "device"),
+            (4, "host"): _device_run(torch, 4, "host")}
+    four, eight = runs[4, "device"], runs[8, "device"]
+    key = [(m["step"], m["loss"], m["selected"], m["sim_time"])
+           for m in four["metrics"]]
+    if key != [(m["step"], m["loss"], m["selected"], m["sim_time"])
+               for m in eight["metrics"]] or not four["sums"].equal(
+                   eight["sums"]):
+        raise AssertionError("[device backend] chunks of 4 + 4 and one "
+                             "chunk of 8 differ")
+    cat = [torch.cat([p[i] for p in four["picks"]]) for i in range(3)]
+    if not all(torch.equal(x, y) for x, y in zip(cat, eight["picks"][0])):
+        raise AssertionError("[device backend] the partitions drew or "
+                             "selected differently")
+    strategy = BackupWorkers(6, 2)
+    for arrivals, masks, times in four["picks"] + eight["picks"]:
+        rows = [strategy.select(a) for a in arrivals.double().numpy()]
+        if not (np.array_equal(masks.numpy(), [m for m, _ in rows])
+                and times.double().tolist() == [t for _, t in rows]):
+            raise AssertionError("[device backend] device masks or times "
+                                 "differ from the host select on the same "
+                                 "arrivals")
+    if not all(math.isfinite(m["loss"]) for m in four["metrics"]):
+        raise AssertionError("[device backend] non-finite loss")
+    host = runs[4, "host"]
+    steady = {k: statistics.mean(r["step_ms"][4:]) for k, r in runs.items()}
+    _log(f"[device backend] qwen3-0.6b full width, sim backend, backup "
+         f"6 + 2, data vocab {DATA_VOCAB}: 8 steps as chunks 4 + 4 == one "
+         f"chunk of 8 (losses, selected, sim_time, parameter checksums "
+         f"bit-equal; {len(four['picks'])} + {len(eight['picks'])} chunks' "
+         f"masks and times == BackupWorkers.select on the same arrivals, "
+         f"row by row); losses "
+         f"{' '.join(f'{m[1]:.6f}' for m in key)}; captures "
+         f"{four['captures']} / {eight['captures']}")
+    _log(f"[device backend] host wall per step, second chunk of 4: device "
+         f"backend {steady[4, 'device']:.3f} ms, host backend "
+         f"{steady[4, 'host']:.3f} ms (same cell; a record, not a gate); "
+         f"host backend losses "
+         f"{' '.join(f'{m['loss']:.6f}' for m in host['metrics'])}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: faults on the spmd engine
+# ---------------------------------------------------------------------------
+
+
+def _fault_cfg(directory, spec, steps=FAULT_STEPS, layers=FAULT_LAYERS):
+    """Phase 21's cell: qwen3-0.6b at full width (cut to ``layers``) on the
+    spmd engine (``train_config``: backup 6 + 2, grad_batch 1; lr
+    ``FAULT_LR`` x N), chunks of 4 through the graph, checkpoints every 4
+    steps, the chaos plan ``spec`` at seed 0."""
+    from repro_torch.configs import CheckpointConfig, FaultConfig
+    from repro_torch.launch.profile_train import train_config
+    cfg = train_config(steps=steps)
+    return dataclasses.replace(
+        cfg, chunk_size=4,
+        model=dataclasses.replace(cfg.model, num_layers=layers),
+        optimizer=dataclasses.replace(cfg.optimizer,
+                                      learning_rate=FAULT_LR),
+        checkpoint=CheckpointConfig(directory=directory, every_steps=4),
+        faults=FaultConfig(spec=spec, seed=0))
+
+
+@contextlib.contextmanager
+def _timed_checkpoints(ckpts):
+    """Records (kind, seconds, bytes) of every checkpoint save and
+    restore under it."""
+    from unittest import mock
+    from repro_torch.train import checkpoint as ckpt_lib
+    save, restore = ckpt_lib.save, ckpt_lib.restore
+
+    def size(path):
+        return sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+
+    def timed_save(*args, **kw):
+        t0 = time.perf_counter()
+        path = save(*args, **kw)
+        ckpts.append(("save", time.perf_counter() - t0, size(path)))
+        return path
+
+    def timed_restore(directory, template, step=None, **kw):
+        t0 = time.perf_counter()
+        out = restore(directory, template, step, **kw)
+        ckpts.append(("restore", time.perf_counter() - t0,
+                      size(ckpt_lib.step_dir(directory, out[1]["step"]))))
+        return out
+
+    with mock.patch.object(ckpt_lib, "save", timed_save), \
+            mock.patch.object(ckpt_lib, "restore", timed_restore):
+        yield
+
+
+def _host_state(res):
+    return {k: v.detach().cpu() for k, v in
+            {**res.params, **{f"ema.{n}": t for n, t in res.ema.items()}
+             }.items()}
+
+
+def _faults_phase(torch, backup_reduce):
+    """Phase 21: the chaos plan ``FAULT_SPEC`` on the spmd engine at full
+    width: an unfaulted run, the plan without the preemption (peak memory
+    before and after the rescale), the plan under ``run_supervised``
+    (backup_reduce counted, held to its plain twin on the first stack
+    after the rescale), then ``dynamic_backup`` in sim and measured mode.
+    Returns the supervised run's backup_reduce launches."""
+    import gc
+    from unittest import mock
+    from repro_torch.core import faults
+    from repro_torch.core.events import StragglerSimulator
+    from repro_torch.core import registry
+    from repro_torch.core.straggler import (DeterministicStragglers,
+                                            PaperCalibrated)
+    from repro_torch.distributed import spmd_engine
+    from repro_torch.kernels.backup_reduce import backup_reduce_plain
+    from repro_torch.configs import AggregationConfig
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.supervisor import run_supervised
+
+    def trainer(cfg, **kw):
+        tr = Trainer(cfg, latency=PaperCalibrated(), device="cuda", **kw)
+        tr.init_state()
+        return tr
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    ckpts = []
+    with tempfile.TemporaryDirectory() as d, _timed_checkpoints(ckpts):
+        clean = trainer(_fault_cfg(f"{d}/clean", "", steps=2)).run(2)
+        clean = [m["loss"] for m in clean.metrics]
+        free()
+        # the plan without the preemption, paused at the rescale's step:
+        # the peak before it, then after it (the rebuild's capture on)
+        cfg = _fault_cfg(f"{d}/straight", FAULT_SPEC.replace(",preempt@9",
+                                                             ""))
+        tr = trainer(cfg, injector=faults.build_injector(
+            cfg.faults, num_steps=cfg.total_steps,
+            num_workers=cfg.aggregation.total_workers))
+        n_params = sum(p.numel() for p in tr.params.values())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr.run(6)
+        torch.cuda.synchronize()
+        mem = dict(peak_before=torch.cuda.max_memory_allocated(),
+                   alloc_before=torch.cuda.memory_allocated())
+        rescale = tr.rescale
+
+        def measured_rescale(n):
+            rescale(n)
+            torch.cuda.synchronize()
+            mem["alloc_after_rescale"] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+
+        tr.rescale = measured_rescale
+        straight = tr.run(FAULT_STEPS - 6)
+        torch.cuda.synchronize()
+        mem["peak_after"] = torch.cuda.max_memory_allocated()
+        w_new = tr.cfg.aggregation.total_workers
+        straight_state = _host_state(straight)
+        straight_metrics = list(straight.metrics)
+        del tr, straight
+        free()
+        # the whole plan under the supervisor, backup_reduce counted
+        reduce, held = spmd_engine.reduce_then_psum, {}
+
+        def hold(grads, mask, n, **kw):
+            if grads.shape[0] == w_new and not held:
+                before = backup_reduce.launches
+                mf = mask.float()
+                k = backup_reduce.backup_reduce(grads, mf, n)
+                p = backup_reduce_plain(grads, mf, n)
+                held.update(shape=tuple(grads.shape), equal=torch.equal(k, p),
+                            err=(k - p).abs().max().item())
+                backup_reduce.launches = before     # a comparison launch
+                del k, p
+            return reduce(grads, mask, n, **kw)
+
+        cfg = _fault_cfg(f"{d}/supervised", FAULT_SPEC)
+        backup_reduce.launches = 0
+        t0 = time.perf_counter()
+        with mock.patch.object(spmd_engine, "reduce_then_psum", hold):
+            sup = run_supervised(cfg, latency=PaperCalibrated(),
+                                 device="cuda")
+        torch.cuda.synchronize()
+        sup_s = time.perf_counter() - t0
+        launches = backup_reduce.launches
+        sup_state = _host_state(sup)
+        log = sup.recovery_log
+        del sup
+        free()
+    saves = [(s, b) for k, s, b in ckpts if k == "save"]
+    restores = [(s, b) for k, s, b in ckpts if k == "restore"]
+    _log(f"[faults] checkpoints of the full-width state: "
+         f"{saves[0][1]} bytes; {len(saves)} saves "
+         f"({' '.join(f'{s:.2f}' for s, _ in saves)} s), {len(restores)} "
+         f"restores ({' '.join(f'{s:.2f}' for s, _ in restores)} s)")
+    if log != FAULT_LOG:
+        raise AssertionError(f"[faults] recovery log {log} != {FAULT_LOG}")
+    got = [m["loss"] for m in straight_metrics[:2]]
+    if got != clean:
+        raise AssertionError(f"[faults] steps 1-2 {got} differ from the "
+                             f"unfaulted run's {clean}")
+    differ = [k for k, v in sup_state.items()
+              if not torch.equal(v, straight_state[k])]
+    if differ:
+        raise AssertionError(f"[faults] the supervised run's final state "
+                             f"differs from the run without the preemption "
+                             f"in {len(differ)} tensors, e.g. {differ[0]}")
+    if not (held.get("equal") and held["shape"] == (w_new, n_params)):
+        raise AssertionError(f"[faults] backup_reduce after the rescale vs "
+                             f"its plain twin: {held}")
+    if launches != FAULT_STEPS:
+        raise AssertionError(f"[faults] backup_reduce launches {launches}, "
+                             f"expected {FAULT_STEPS} (one a step)")
+    freed = (8 - w_new) * n_params * 4
+    predicted = mem["peak_before"] - freed
+    gap = mem["peak_after"] - predicted
+    _log(f"[faults] qwen3-0.6b full width cut to {FAULT_LAYERS} layers "
+         f"({n_params} params), spmd, backup 6 + 2, chunks of 4, "
+         f"checkpoints every 4, {FAULT_SPEC!r} seed 0 under run_supervised "
+         f"({sup_s:.1f} s): recovery log == the CPU port's literal "
+         f"({len(log)} events: "
+         f"{', '.join(e['event'] + '@' + str(e['step']) for e in log)}); "
+         f"steps 1-2 bit-equal to the unfaulted run ({clean}); final "
+         f"parameters and EMA ({len(sup_state)} tensors) bit-equal to the "
+         f"run without the preemption; backup_reduce {launches} launches "
+         f"(one a step), on the first stack after the rescale "
+         f"{list(held['shape'])} bit-equal to its plain twin")
+    _log(f"[faults] memory around the rescale 8 -> {w_new} workers: peak "
+         f"{mem['peak_before']} bytes before, {mem['peak_after']} after "
+         f"(the stack's freed rows: {freed} bytes; predicted {predicted}, "
+         f"gap {gap}, limit 1 GiB); allocated {mem['alloc_before']} before, "
+         f"{mem['alloc_after_rescale']} right after the rebuild")
+    if abs(gap) > 2 ** 30:
+        raise AssertionError(f"[faults] peak memory after the rescale "
+                             f"{mem['peak_after']} is {gap} bytes from the "
+                             f"pre-rescale peak scaled to the new W")
+    # dynamic_backup: N = 8, b = 0, workers 6 and 7 slowed 5x
+    lat = DeterministicStragglers(slow_workers=(6, 7), slowdown=5.0)
+    ns = {}
+    for source in ("sim", "measured"):
+        cfg = _fault_cfg("", "", steps=DYNAMIC_STEPS, layers=28)
+        cfg = dataclasses.replace(
+            cfg, checkpoint=dataclasses.replace(cfg.checkpoint,
+                                                every_steps=0),
+            aggregation=AggregationConfig(
+                strategy="dynamic_backup", num_workers=8, backup_workers=0,
+                latency_source=source))
+        tr = Trainer(cfg, latency=lat, device="cuda")
+        tr.init_state()
+        res = tr.run(DYNAMIC_STEPS)
+        ns[source] = (tr.strategy.n, [m["selected"] for m in res.metrics],
+                      res.metrics[-1]["loss"])
+        del tr, res
+        free()
+        if source == "sim":
+            sim = StragglerSimulator(registry.get_strategy(cfg.aggregation),
+                                     lat, cfg.seed)
+            sim.next_events(DYNAMIC_STEPS)
+            cpu_n = sim.strategy.n
+    n, selected, loss = ns["sim"]
+    _log(f"[faults] dynamic_backup, qwen3-0.6b full width (28 layers), N = "
+         f"8, b = 0, workers 6 and 7 slowed 5x, {DYNAMIC_STEPS} steps: "
+         f"adapted n {n} (the CPU port's host logic: "
+         f"{cpu_n}); selected per step {selected}; last loss {loss:.6f}")
+    _log(f"[faults] dynamic_backup latency_source='measured' (a record: on "
+         f"a lockstep card every live worker measures the same time): n "
+         f"{ns['measured'][0]}; selected per step {ns['measured'][1]}")
+    if not (n == cpu_n < 8 and math.isfinite(loss)):
+        raise AssertionError(f"[faults] dynamic_backup n {n}, the CPU "
+                             f"port's {cpu_n} (must be equal and below 8)")
+    return launches
+
+
+def _eps_record(torch):
+    """Phase 17's record of ROADMAP Queue 3's closed control: qwen3-0.6b
+    grad_batch 0 against 1 at RMSProp eps 1e-3 (the parity setting), one
+    chunk of 3 steps through the graph each; the loss rel gaps per step
+    are printed beside phase 17's at eps 1e-8 and gate nothing."""
+    import gc
+    from repro_torch.core.straggler import PaperCalibrated
+    from repro_torch.launch.profile_train import train_config
+    from repro_torch.train.loop import Trainer
+    losses = {}
+    for gb in (1, 0):
+        cfg = train_config(grad_batch=gb)
+        cfg = dataclasses.replace(
+            cfg, chunk_size=cfg.total_steps, optimizer=dataclasses.replace(
+                cfg.optimizer, eps=1e-3))
+        tr = Trainer(cfg, latency=PaperCalibrated(), device="cuda")
+        tr.init_state()
+        losses[gb] = [m["loss"] for m in tr.run(cfg.total_steps).metrics]
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    gaps = [abs(a - b) / abs(a) for a, b in zip(losses[1], losses[0])]
+    held = max(gaps[1:]) <= 1e-3
+    _log(f"[batched qwen3-0.6b grad_batch 0, eps 1e-3] vs grad_batch 1 at "
+         f"eps 1e-3: loss rel gap per step "
+         f"{' '.join(f'{g:.3g}' for g in gaps)} (a record, not a gate): "
+         f"steps 2-3 {'stay' if held else 'do not stay'} within rel 1e-3")
+
+
 def main(argv) -> int:
     # cuBLAS picks the same algorithms run to run (the kernel and plain
     # training runs must compute the same first-step gradients)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    mesh_only = argv == ["--mesh-only"]
-    if argv and not mesh_only:
-        print(f"chip_smoke: unknown arguments {argv} (none, or --mesh-only)",
-              file=sys.stderr)
+    entries = ("--mesh-only", "--faults-only")
+    if argv and (len(argv) > 1 or argv[0] not in entries):
+        print(f"chip_smoke: unknown arguments {argv} (none, or one of "
+              f"{', '.join(entries)})", file=sys.stderr)
         return 2
+    mesh_only = argv == ["--mesh-only"]
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -2296,6 +2775,14 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         _tp_phase(torch, _tp_ref_loss(torch))
         _log(f"[time] phase 19: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if argv == ["--faults-only"]:       # phases 20 and 21 alone
+        t0 = time.perf_counter()
+        _device_backend_phase(torch)
+        _log(f"[time] phase 20: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        _faults_phase(torch, backup_reduce)
+        _log(f"[time] phase 21: {time.perf_counter() - t0:.1f} s")
         return 0
 
     # 3. the serve kernels at the serve path's shapes (its maxp and pool)
@@ -2374,6 +2861,7 @@ def main(argv) -> int:
                              {"qwen3-0.6b": train, "rwkv6-1.6b": rwkv})
     del train["first_grad"], rwkv["first_grad"]
     _batched_parity_phase(torch)
+    _eps_record(torch)
     _log(f"[time] phase 17: {time.perf_counter() - t0:.1f} s")
 
     # 18. the 'data' axis over ranks: NCCL with a card each, else gloo
@@ -2387,6 +2875,19 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     meshed.update(_tp_phase(torch, train["metrics"][0]["loss"]))
     _log(f"[time] phase 19: {time.perf_counter() - t0:.1f} s")
+
+    # 20. the device straggler backend at full width
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    _device_backend_phase(torch)
+    _log(f"[time] phase 20: {time.perf_counter() - t0:.1f} s")
+
+    # 21. faults, the supervisor, the rescale and dynamic_backup on the
+    # spmd engine at full width
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    rows[3]["launches_faults"] = _faults_phase(torch, backup_reduce)
+    _log(f"[time] phase 21: {time.perf_counter() - t0:.1f} s")
     for row in rows[3:]:
         key = {"backup_reduce": "backup_reduce",
                "rwkv6_wkv_fwd": "wkv6_fwd",
@@ -2396,9 +2897,10 @@ def main(argv) -> int:
                 tag: n[key] for tag, n in {**batched, **meshed}.items()
                 if n[key]}
 
-    # 20. results
+    # 22. results
     keys = ("name", "route", "source", "replaces", "launches", "launches_run",
-            "launches_batched_and_mesh", "max_abs_err", "ms", "plain_ms",
+            "launches_batched_and_mesh", "launches_faults", "max_abs_err",
+            "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))

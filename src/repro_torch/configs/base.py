@@ -188,9 +188,9 @@ class AggregationConfig:
     """The paper's Sync/Async/backup-worker policy knobs. The port builds
     the mask strategies 'full_sync', 'backup' and 'timeout' and the event
     strategies 'async', 'softsync' (``softsync_c``) and 'staleness'
-    (``staleness_tau`` / ``_ramp_steps`` / ``_jitter``)
-    (``repro_torch.core.registry.get_strategy``); 'dynamic_backup' is
-    refused by name."""
+    (``staleness_tau`` / ``_ramp_steps`` / ``_jitter``), and
+    'dynamic_backup' (``dynamic_window``, ``dynamic_min_workers``,
+    ``latency_source``) (``repro_torch.core.registry.get_strategy``)."""
 
     strategy: str = "backup"
     num_workers: int = 16             # N
@@ -285,8 +285,10 @@ class CheckpointConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FaultConfig:
-    """Seeded fault injection + recovery supervision (not ported yet:
-    a non-empty ``spec`` or ``supervise`` is refused by the trainer)."""
+    """Seeded fault injection + recovery supervision: ``spec`` is a chaos
+    plan for ``core.faults.plan_from_spec``, ``seed`` its own seed,
+    ``supervise`` routes the CLI's run through
+    ``train.supervisor.run_supervised`` within ``max_restarts``."""
 
     spec: str = ""
     seed: int = 0
@@ -310,7 +312,8 @@ class TrainConfig:
     microbatch: int = 0               # 0 => derive from shape & mesh
     # iterations per device dispatch: the port runs 1 (the per-step path)
     chunk_size: int = 1
-    # 'host' (numpy straggler streams) is the port's only backend so far
+    # 'host' (numpy straggler streams, bit-equal to the reference) or
+    # 'device' (arrivals, batches and masks drawn on the device per chunk)
     straggler_backend: str = "host"
     prefetch_depth: int = 1
 

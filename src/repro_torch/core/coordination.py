@@ -1,7 +1,8 @@
 """Coordination strategies, the discrete-event arrival queue and the event
 engine. Reference: ``src/repro/core/coordination.py``
 (``CoordinationStrategy``, ``MaskStrategy``, ``FullSync``,
-``BackupWorkers``, ``Timeout``, :84-232; ``Arrival``, ``ReadyUpdate``,
+``BackupWorkers``, ``Timeout``, ``DynamicBackup``, :84-360; ``Arrival``,
+``ReadyUpdate``,
 ``encode_rng``, ``decode_rng``, ``EventScheduler``, ``SerialScheduler``,
 :367-491; ``EventStrategy``, ``Async``, ``SoftSync``,
 ``staleness_schedule``, ``Staleness``, :493-753; ``PlanVerdict``,
@@ -14,9 +15,14 @@ engine. Reference: ``src/repro/core/coordination.py``
   mask is data to the train step, and dropped workers still compute, as
   in the paper. ``FullSync`` waits for everyone, ``BackupWorkers(N, b)``
   takes the first N arrivals (Alg. 3/4), ``Timeout(d)`` everything within
-  d of the first. Only the host ``select`` is ported: the chunked loop
-  stacks per-step selections, and the traceable ``select_jax`` belongs to
-  the device straggler backend (ROADMAP Queue 1 item 6, its remainder).
+  d of the first, ``DynamicBackup`` adapts N online (arXiv:2102.06280).
+  ``select`` is the host rule (the chunked loop stacks a chunk's
+  selections, row by row); ``select_device`` is the reference's
+  ``select_jax`` for a whole chunk at once, on the trainer's device, for
+  the device straggler backend (``BackupWorkers`` sorts stably, as
+  ``jnp.argsort`` does, so ties and dead ``+inf`` rows pick the workers
+  ``select`` picks). ``DynamicBackup`` is stateful and selects on the
+  host only (``device_select_supported = False``).
 * **Event strategies** (``kind == "event"``): the scheduler pops gradient
   arrivals one at a time and the strategy decides, per arrival, whether a
   parameter-server (PS) update applies. ``Async`` (paper Alg. 1/2) applies
@@ -88,6 +94,12 @@ class MaskStrategy(CoordinationStrategy):
         """arrivals: [W] seconds -> (mask bool [W], iteration_time)."""
         raise NotImplementedError
 
+    def select_device(self, arrivals: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[K, W] f32 seconds on a device -> (masks bool [K, W], times f32
+        [K]) on that device, with no host sync."""
+        raise NotImplementedError
+
     def effective_n(self) -> int:
         raise NotImplementedError
 
@@ -105,6 +117,10 @@ class FullSync(MaskStrategy):
     def select(self, arrivals):
         mask = np.ones_like(arrivals, dtype=bool)
         return mask, float(arrivals.max())
+
+    def select_device(self, arrivals):
+        return (torch.ones_like(arrivals, dtype=torch.bool),
+                torch.amax(arrivals, dim=-1))
 
     def effective_n(self) -> int:
         return self.num_workers
@@ -130,6 +146,13 @@ class BackupWorkers(MaskStrategy):
         mask[order[:n]] = True
         return mask, float(arrivals[order[n - 1]])
 
+    def select_device(self, arrivals):
+        n = self.num_workers
+        order = torch.argsort(arrivals, dim=-1, stable=True)
+        masks = torch.zeros_like(arrivals, dtype=torch.bool).scatter_(
+            -1, order[:, :n], True)
+        return masks, torch.gather(arrivals, -1, order[:, n - 1:n])[:, 0]
+
     def effective_n(self) -> int:
         return self.num_workers
 
@@ -153,8 +176,123 @@ class Timeout(MaskStrategy):
         mask = arrivals <= cutoff
         return mask, float(min(arrivals.max(), cutoff))
 
+    def select_device(self, arrivals):
+        cutoff = torch.amin(arrivals, dim=-1) + self.deadline_s
+        return (arrivals <= cutoff[:, None],
+                torch.minimum(torch.amax(arrivals, dim=-1), cutoff))
+
     def effective_n(self) -> int:
         return self.num_workers     # varies per step; N is the upper bound
+
+
+@dataclasses.dataclass
+class DynamicBackup(MaskStrategy):
+    """Adaptive backup cutoff (Dynamic Backup Workers, arXiv:2102.06280).
+
+    The backup-worker protocol with the cutoff n re-estimated online:
+    after every step the sorted arrival row joins a window of the last
+    ``window`` steps, and n becomes the argmax of ``n / E[t_(n)]``
+    (gradients aggregated per simulated second), E[t_(n)] the window's
+    mean n-th order statistic. Dead workers arrive at +inf, so every n
+    beyond the live count has zero throughput. ``min_workers`` floors n.
+
+    Stateful across steps: ``state_dict`` / ``load_state_dict`` travel in
+    the checkpoint's metadata, and selection stays on the host where the
+    window lives (``device_select_supported = False``). ``min_alive`` is
+    the trainer's liveness floor. ``latency_source='measured'`` adapts
+    from the trainer's fenced wall-clock rows (``observe_measured``)
+    instead of the simulated arrivals ``select`` sees.
+    """
+
+    num_workers: int          # initial n (= paper's N)
+    backups: int              # b — total_workers = N + b
+    window: int = 32
+    min_workers: int = 0      # floor for the adapted n (0 -> 1)
+    latency_source: str = "sim"   # sim | measured
+
+    name = "dynamic_backup"
+    device_select_supported = False
+
+    def __post_init__(self):
+        if self.latency_source not in ("sim", "measured"):
+            raise ValueError(
+                f"latency_source must be 'sim' or 'measured' "
+                f"(got {self.latency_source!r})")
+        self.n = int(self.num_workers)
+        self.history: List[np.ndarray] = []   # sorted arrival rows [W]
+        self.measured = None
+        if self.latency_source == "measured":
+            from repro_torch.obs.latency import EmpiricalLatencyModel
+            self.measured = EmpiricalLatencyModel(
+                self.total_workers, window=max(self.window * 8, 64))
+
+    @property
+    def total_workers(self) -> int:
+        return self.num_workers + self.backups
+
+    @property
+    def min_alive(self) -> int:
+        return max(self.min_workers, 1)
+
+    def select(self, arrivals):
+        # clamp to the live count: right after a crash (before the window
+        # has seen it) the adapted n may exceed the finite arrivals
+        n = max(1, min(self.n, int(np.isfinite(arrivals).sum()) or 1))
+        order = np.argsort(arrivals, kind="stable")
+        mask = np.zeros_like(arrivals, dtype=bool)
+        mask[order[:n]] = True
+        t = float(arrivals[order[n - 1]])
+        if self.latency_source == "sim":
+            self._observe(arrivals)
+        return mask, t
+
+    # a chunk's rows are selected one by one (StragglerSimulator.
+    # next_events): each folds into the window before the next's cutoff
+
+    def effective_n(self) -> int:
+        return self.n
+
+    def _observe(self, arrivals: np.ndarray) -> None:
+        self.history.append(np.sort(np.asarray(arrivals, np.float64)))
+        if len(self.history) > self.window:
+            self.history.pop(0)
+        h = np.stack(self.history)                   # [H, W] sorted rows
+        with np.errstate(invalid="ignore"):
+            mean_t = h.mean(axis=0)                  # E[t_(n)], n = 1..W
+        ns = np.arange(1, h.shape[1] + 1, dtype=np.float64)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            throughput = np.where(np.isfinite(mean_t), ns / mean_t, 0.0)
+        floor = max(self.min_workers, 1)
+        throughput[:floor - 1] = -np.inf
+        self.n = int(np.argmax(throughput)) + 1
+
+    def observe_measured(self, times: np.ndarray) -> None:
+        """Fold one measured per-worker step-time row (seconds; +inf for
+        dead workers): into the adaptation window and the
+        :class:`~repro_torch.obs.latency.EmpiricalLatencyModel`."""
+        if self.latency_source != "measured":
+            raise RuntimeError(
+                "observe_measured is only valid with "
+                "latency_source='measured'")
+        times = np.asarray(times, np.float64)
+        self.measured.record(times)
+        self._observe(times)
+
+    # -- checkpointable state (saved as manifest "strategy_state") ----------
+
+    def state_dict(self) -> Dict:
+        d = {"n": int(self.n),
+             "history": [[float(x) for x in row] for row in self.history],
+             "latency_source": self.latency_source}
+        if self.measured is not None:
+            d["measured"] = self.measured.state_dict()
+        return d
+
+    def load_state_dict(self, d: Dict) -> None:
+        self.n = int(d["n"])
+        self.history = [np.asarray(row, np.float64) for row in d["history"]]
+        if self.measured is not None and d.get("measured") is not None:
+            self.measured.load_state_dict(d["measured"])
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,10 @@ that makes resume exact with no simulator state to persist. Masks,
 iteration times and arrivals equal the reference's bit for bit, and the
 chunked loop's ``next_events(k)`` equals k ``next_event()`` calls.
 ``estimate_time_to_converge`` composes the mean iteration time of each
-(N, b) split with an iteration count per N: paper Fig. 6. The
-latency spikes and revivals of fault injection come with fault tolerance
-(ROADMAP Queue 1 item 7).
+(N, b) split with an iteration count per N: paper Fig. 6. Fault
+injection's primitives act on the simulator: ``kill_worker`` (latency
++inf), ``revive_worker`` and ``set_slowdown`` (a latency multiplier
+applied after sampling, so the RNG streams are untouched).
 """
 from __future__ import annotations
 
@@ -47,7 +48,8 @@ class ChunkEvents:
 
 class StragglerSimulator:
     """Yields one StepEvent per training step; deterministic in seed.
-    ``dead`` workers never arrive (latency +inf)."""
+    ``dead`` workers never arrive (latency +inf); ``slowdown`` scales a
+    worker's latencies."""
 
     def __init__(self, strategy: MaskStrategy,
                  latency: Optional[LatencyModel] = None,
@@ -56,10 +58,18 @@ class StragglerSimulator:
         self.latency = latency or PaperCalibrated()
         self.seed = seed
         self.dead = np.zeros(strategy.total_workers, dtype=bool)
+        self.slowdown = np.ones(strategy.total_workers, dtype=np.float64)
         self._step = start_step
 
     def kill_worker(self, w: int) -> None:
         self.dead[w] = True
+
+    def revive_worker(self, w: int) -> None:
+        self.dead[w] = False
+
+    def set_slowdown(self, w: int, factor: float) -> None:
+        """Transient slowdown spike (factor=1.0 restores health)."""
+        self.slowdown[w] = float(factor)
 
     @property
     def step(self) -> int:
@@ -81,7 +91,7 @@ class StragglerSimulator:
 
     def next_event(self) -> StepEvent:
         arrivals = np.where(self.dead, np.inf,
-                            self._raw_arrivals(self._step))
+                            self._raw_arrivals(self._step) * self.slowdown)
         mask, t = self.strategy.select(arrivals)
         mask = mask & ~self.dead
         ev = StepEvent(self._step, mask, t, arrivals)
@@ -89,14 +99,15 @@ class StragglerSimulator:
         return ev
 
     def next_events(self, k: int) -> ChunkEvents:
-        """The next k events stacked: k ``next_event()`` calls."""
+        """The next k events stacked: k ``next_event()`` calls (a stateful
+        strategy folds each row in before the next row's selection, as in
+        the reference's ``select_batch`` fallback)."""
         start = self._step
         evs = [self.next_event() for _ in range(k)]
         return ChunkEvents(start, np.stack([e.mask for e in evs]),
                            np.array([e.iteration_time for e in evs],
                                     np.float64),
                            np.stack([e.arrivals for e in evs]))
-
 
 def mean_iteration_time(strategy: MaskStrategy, latency: LatencyModel,
                         iters: int = 1000, seed: int = 0) -> float:

@@ -2,11 +2,11 @@
 Reference: ``src/repro/core/registry.py``.
 
 ``get_strategy(cfg)`` is the trainer's only construction path. The port
-registers the mask strategies (full_sync, backup, timeout) and the event
-strategies (async, softsync, staleness); ``dynamic_backup`` raises
-``NotImplementedError`` naming its ROADMAP item, and an unknown name
-raises ``ValueError`` listing the valid ones. ``supports_spmd`` and
-``supports_event_scan`` are the reference's capability checks.
+registers every strategy of the reference: the mask strategies
+(full_sync, backup, timeout, dynamic_backup) and the event strategies
+(async, softsync, staleness); an unknown name raises ``ValueError``
+listing the valid ones. ``supports_spmd`` and ``supports_event_scan`` are
+the reference's capability checks.
 """
 from __future__ import annotations
 
@@ -15,11 +15,6 @@ from typing import Callable, Dict, List
 from repro_torch.core import coordination
 
 _BUILDERS: Dict[str, Callable] = {}
-
-# the reference's other strategies, and the queue item that ports each
-_NOT_PORTED = {
-    "dynamic_backup": "ROADMAP Queue 1 item 7 (fault tolerance)",
-}
 
 
 def register(name: str) -> Callable:
@@ -42,8 +37,8 @@ def supports_spmd(strategy: coordination.CoordinationStrategy,
     strategy, unless it opts out with ``spmd_supported = False``; with an
     ``ExecutionConfig`` of ``mesh_model > 1`` it must also allow tensor
     parallelism (``spmd_tp_supported``, default True). Event strategies
-    never run there. (The reference's trainer falls back to the sim
-    backend when this is False; the port's refuses.)"""
+    never run there. When this is False the trainer warns and falls back
+    to the sim backend, as the reference's does."""
     ok = (getattr(strategy, "kind", "") == "mask"
           and bool(getattr(strategy, "spmd_supported", True)))
     if ok and exec_cfg is not None and getattr(exec_cfg, "mesh_model", 1) > 1:
@@ -63,10 +58,6 @@ def supports_event_scan(strategy: coordination.CoordinationStrategy) -> bool:
 def get_strategy(agg_cfg) -> coordination.CoordinationStrategy:
     """Build the strategy named by ``agg_cfg.strategy``."""
     name = agg_cfg.strategy
-    if name in _NOT_PORTED and name not in _BUILDERS:
-        raise NotImplementedError(
-            f"strategy {name!r} is not ported to repro_torch yet "
-            f"({_NOT_PORTED[name]}); ported: {', '.join(available())}")
     try:
         builder = _BUILDERS[name]
     except KeyError:
@@ -89,6 +80,13 @@ def _backup(cfg) -> coordination.BackupWorkers:
 @register("timeout")
 def _timeout(cfg) -> coordination.Timeout:
     return coordination.Timeout(cfg.num_workers, cfg.deadline_s)
+
+
+@register("dynamic_backup")
+def _dynamic_backup(cfg) -> coordination.DynamicBackup:
+    return coordination.DynamicBackup(
+        cfg.num_workers, cfg.backup_workers, cfg.dynamic_window,
+        cfg.dynamic_min_workers, latency_source=cfg.latency_source)
 
 
 @register("async")

@@ -7,8 +7,10 @@ with uniform noise — seeded per (worker, step), so every worker draws a
 disjoint shard and the stream replays exactly from (seed, step). Batches
 equal the reference's bit for bit. The chunked loop takes its K stacked
 batches from ``chunk_batches`` through the ``ChunkPrefetcher``. The device
-twin ``device_batch_fn`` belongs to the device straggler backend (ROADMAP
-Queue 1 item 6).
+twin ``device_batch_fn`` (reference :88-120) draws the same chain and
+noise with a ``torch.Generator`` on the device, for the device straggler
+backend: the same distribution and per-(seed, step) determinism, not the
+same stream.
 """
 from __future__ import annotations
 
@@ -74,6 +76,40 @@ def global_batch(cfg: SyntheticLMConfig, step: int) -> Dict[str, np.ndarray]:
     [w*B/W, (w+1)*B/W), the blocking the backup mask indexes."""
     shards = [worker_batch(cfg, w, step) for w in range(cfg.num_workers)]
     return {k: np.concatenate([s[k] for s in shards], axis=0) for k in shards[0]}
+
+
+def device_batch_fn(cfg: SyntheticLMConfig, device=None):
+    """The device twin of ``global_batch``: batch_fn(step) -> {tokens,
+    labels} ``[B, S]`` int32 tensors on ``device``, drawn from the
+    generator of ``(seed, DATA_TAG, step)`` (a stream apart from the
+    arrivals'), with no host work but the launches. Same chain and noise
+    rate as the numpy pipeline, not the same stream. ``device`` None means
+    the card."""
+    if cfg.vocab_size > 46340:   # pow_a * start must fit int32 (no x64)
+        raise NotImplementedError(
+            "device_batch_fn needs vocab_size <= 46340; use the host pipeline")
+    import torch
+    from repro_torch.core.straggler_device import DATA_TAG, step_generator
+    from repro_torch.models.common import resolve_device
+    device = resolve_device(device)
+    pow_a_np, offset_np = _chain_tables(cfg.vocab_size, cfg.seed, cfg.seq_len)
+    pow_a = torch.from_numpy(pow_a_np.astype(np.int32)).to(device)
+    offset = torch.from_numpy(offset_np.astype(np.int32)).to(device)
+    shape = (cfg.global_batch, cfg.seq_len + 1)
+
+    def batch_fn(step: int):
+        gen = step_generator(cfg.seed, DATA_TAG, step, device)
+        start = torch.randint(0, cfg.vocab_size, (cfg.global_batch, 1),
+                              generator=gen, device=device,
+                              dtype=torch.int32)
+        seq = (pow_a[None, :] * start + offset[None, :]) % cfg.vocab_size
+        noise = torch.rand(shape, generator=gen, device=device) < cfg.noise
+        noise_toks = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                                   device=device, dtype=torch.int32)
+        seq = torch.where(noise, noise_toks, seq)
+        return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+
+    return batch_fn
 
 
 def chunk_batches(cfg: SyntheticLMConfig, start_step: int, k: int

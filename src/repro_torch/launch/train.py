@@ -11,6 +11,14 @@
     python -m repro_torch.launch.train --smoke --steps 50 \
         --execution spmd --mesh-data 2 [--mesh-model 2] [--grad-batch 2] \
         [--device cpu]
+    python -m repro_torch.launch.train --smoke --steps 50 \
+        --strategy backup --workers 6 --backups 2 \
+        --faults 'crash@10:w2,slow@5:w0,preempt@30' --supervise
+    python -m repro_torch.launch.train --smoke --steps 50 --chunk-size 8 \
+        --straggler-backend device
+    python -m repro_torch.launch.train --smoke --steps 50 \
+        --strategy dynamic_backup [--dynamic-window 16] \
+        [--latency-source measured]
 
 The reference's flags, plus ``--device``: the run is on the card unless
 ``--device cpu`` is given (without a card it raises). Everything routes
@@ -33,12 +41,20 @@ strategies; one captured CUDA graph replayed per step or arrival on the
 card, a loop on the CPU), with ``--prefetch-depth`` chunks of batches built
 ahead on a thread in mask mode, as in the reference.
 
-The reference's flags of later slices are refused by name, with the
-ROADMAP item that ports them: ``--straggler-backend device``,
-``dynamic_backup`` (with ``--dynamic-window`` / ``--latency-source``),
-``--faults`` / ``--supervise`` (``--fault-seed``, ``--max-restarts``),
-``--trace`` / ``--metrics`` and ``--platform``; so is ``--execution
-spmd`` with an event strategy, which the reference refuses too.
+``--straggler-backend device`` draws each chunk's batches, arrivals and
+masks on the device. ``--faults`` attaches a seeded chaos plan
+(``core.faults``; ``--fault-seed``) and ``--supervise`` runs it under the
+recovery supervisor (``train.supervisor``, ``--max-restarts``), which
+restores the last good checkpoint after a crash or preemption; the
+recovery log is printed. ``dynamic_backup`` adapts its cutoff over
+``--dynamic-window`` steps of simulated arrivals, or of the fenced wall
+clock with ``--latency-source measured``. The reference's cross-flag
+checks hold, with its messages; ``--execution spmd`` with an event
+strategy is refused, as there.
+
+Not ported, and refused by name: ``--trace`` / ``--metrics`` (ROADMAP
+Queue 1 item 7, telemetry) and ``--platform`` (PyTorch picks the card by
+``--device``).
 """
 from __future__ import annotations
 
@@ -50,29 +66,24 @@ import torch
 
 from repro_torch import configs
 from repro_torch.configs.base import (AggregationConfig, CheckpointConfig,
-                                      ExecutionConfig, OptimizerConfig,
-                                      ShapeConfig, TrainConfig)
+                                      ExecutionConfig, FaultConfig,
+                                      OptimizerConfig, ShapeConfig,
+                                      TrainConfig)
 from repro_torch.core.straggler import PaperCalibrated
 from repro_torch.distributed import mesh
 from repro_torch.distributed.spmd_engine import validate_grad_batch
 from repro_torch.models.common import resolve_device
 from repro_torch.train import checkpoint as ckpt_lib
-from repro_torch.train.loop import run_experiment
+from repro_torch.train.loop import falls_back_to_sim, run_experiment
+from repro_torch.train.supervisor import run_supervised
 
 MASK_STRATEGIES = ("backup", "full_sync", "timeout", "dynamic_backup")
 EVENT_STRATEGIES = ("async", "softsync")
-PORTED_STRATEGIES = ("backup", "full_sync", "timeout", "async", "softsync")
 
-_Q = "ROADMAP Queue 1 item"
-# flag -> (argparse dest, the ROADMAP item that ports it); refused when set
+# flag -> (argparse dest, why it is refused); refused when set
 DEFERRED_FLAGS = {
-    "--dynamic-window": ("dynamic_window", f"{_Q} 7, dynamic_backup"),
-    "--faults": ("faults", f"{_Q} 7, fault tolerance"),
-    "--fault-seed": ("fault_seed", f"{_Q} 7, fault tolerance"),
-    "--supervise": ("supervise", f"{_Q} 7, fault tolerance"),
-    "--max-restarts": ("max_restarts", f"{_Q} 7, fault tolerance"),
-    "--trace": ("trace", f"{_Q} 7, telemetry"),
-    "--metrics": ("metrics", f"{_Q} 7, telemetry"),
+    "--trace": ("trace", "ROADMAP Queue 1 item 7, telemetry"),
+    "--metrics": ("metrics", "ROADMAP Queue 1 item 7, telemetry"),
     "--platform": ("platform", "none: PyTorch picks the card by --device"),
 }
 
@@ -101,7 +112,10 @@ def build_config(args) -> TrainConfig:
                                       num_workers=args.workers,
                                       backup_workers=backups,
                                       deadline_s=deadline,
-                                      softsync_c=softsync_c),
+                                      softsync_c=softsync_c,
+                                      dynamic_window=(args.dynamic_window
+                                                      or 32),
+                                      latency_source=args.latency_source),
         optimizer=OptimizerConfig(name=args.optimizer,
                                   learning_rate=args.lr,
                                   scale_lr_with_workers=True,
@@ -116,38 +130,43 @@ def build_config(args) -> TrainConfig:
         seed=args.seed, total_steps=args.steps, log_every=10,
         chunk_size=args.chunk_size,
         straggler_backend=args.straggler_backend,
-        prefetch_depth=args.prefetch_depth)
+        prefetch_depth=args.prefetch_depth,
+        faults=FaultConfig(spec=args.faults or "", seed=args.fault_seed,
+                           supervise=args.supervise,
+                           max_restarts=args.max_restarts))
 
 
 def _validate(ap: argparse.ArgumentParser, args) -> None:
-    """Reject flags of later slices and combinations that would silently
-    do nothing."""
+    """Reject flags that are not ported and combinations that would
+    silently do nothing (the reference's checks, with its messages)."""
     for flag, (dest, item) in DEFERRED_FLAGS.items():
         if getattr(args, dest) not in (None, False):
             ap.error(f"{flag} is not ported to repro_torch yet ({item})")
-    if args.strategy not in PORTED_STRATEGIES:
-        ap.error(f"--strategy {args.strategy} is not ported to repro_torch "
-                 f"yet ({_Q} 7, dynamic_backup); ported: "
-                 f"{', '.join(PORTED_STRATEGIES)}")
-    if args.latency_source != "sim":
-        ap.error(f"--latency-source {args.latency_source} is not ported to "
-                 f"repro_torch yet ({_Q} 7, dynamic_backup)")
-    if args.straggler_backend != "host":
-        ap.error(f"--straggler-backend {args.straggler_backend} is not "
-                 f"ported to repro_torch yet ({_Q} 6)")
-    if args.strategy in EVENT_STRATEGIES and args.execution == "spmd":
-        ap.error(f"--execution spmd only applies to mask strategies (got "
-                 f"--strategy {args.strategy}); event strategies run on the "
-                 f"sim backend ({_Q} 6)")
-    if args.backups is not None and args.strategy != "backup":
-        ap.error(f"--backups only applies to --strategy backup "
-                 f"(got --strategy {args.strategy})")
+    if args.backups is not None and args.strategy not in ("backup",
+                                                          "dynamic_backup"):
+        ap.error(f"--backups only applies to --strategy backup or "
+                 f"dynamic_backup (got --strategy {args.strategy})")
+    if args.dynamic_window is not None and args.strategy != "dynamic_backup":
+        ap.error(f"--dynamic-window only applies to --strategy "
+                 f"dynamic_backup (got --strategy {args.strategy})")
+    if args.strategy == "dynamic_backup" and args.straggler_backend != "host":
+        ap.error("--strategy dynamic_backup selects on the host (stateful "
+                 "adaptation): --straggler-backend must be host")
+    if args.latency_source != "sim" and args.strategy != "dynamic_backup":
+        ap.error(f"--latency-source measured only applies to --strategy "
+                 f"dynamic_backup (got --strategy {args.strategy})")
+    if args.faults and args.straggler_backend != "host":
+        ap.error("--faults composes with host-planned arrivals only: "
+                 "--straggler-backend must be host")
     if args.deadline is not None and args.strategy != "timeout":
         ap.error(f"--deadline only applies to --strategy timeout "
                  f"(got --strategy {args.strategy})")
     if args.softsync_c is not None and args.strategy != "softsync":
         ap.error(f"--softsync-c only applies to --strategy softsync "
                  f"(got --strategy {args.strategy})")
+    if args.strategy in EVENT_STRATEGIES and args.straggler_backend != "host":
+        ap.error(f"--straggler-backend device only applies to mask "
+                 f"strategies (got --strategy {args.strategy})")
     for flag, value in (("--mesh-data", args.mesh_data),
                         ("--mesh-model", args.mesh_model),
                         ("--grad-batch", args.grad_batch),
@@ -155,6 +174,12 @@ def _validate(ap: argparse.ArgumentParser, args) -> None:
         if value is not None and args.execution != "spmd":
             ap.error(f"{flag} only applies to --execution spmd")
     if args.execution == "spmd":
+        if args.strategy in EVENT_STRATEGIES:
+            ap.error(f"--execution spmd only applies to mask strategies "
+                     f"(got --strategy {args.strategy})")
+        if args.straggler_backend != "host":
+            ap.error("--execution spmd consumes host-planned masks: "
+                     "--straggler-backend must be host")
         _, total = _resolved_workers(args)
         if total % (args.mesh_data or 1):
             ap.error(f"total workers ({total}) must be divisible by "
@@ -175,10 +200,18 @@ def _run(args) -> None:
     say = mesh.is_leader()
     if resume and say:
         print(f"[train] resumed at step {ckpt_lib.latest_step(args.ckpt)}")
-    res = run_experiment(cfg, latency=PaperCalibrated(), device=args.device,
-                         resume=resume, save_final=True)
+    if args.supervise:
+        res = run_supervised(cfg, latency=PaperCalibrated(),
+                             device=args.device)
+    else:
+        res = run_experiment(cfg, latency=PaperCalibrated(),
+                             device=args.device, resume=resume,
+                             save_final=True)
     if not say:
         return
+    for e in res.recovery_log:
+        fields = " ".join(f"{k}={v}" for k, v in e.items() if k != "event")
+        print(f"[train] recovery: {e['event']} {fields}")
     for m in res.metrics:
         print(f"[train] step {m['step']:5d} loss {m['loss']:.4f} "
               f"sim {m['sim_time']:8.1f}s selected {m['selected']} "
@@ -228,7 +261,9 @@ def main(argv=None) -> None:
                     help="steps per chunk: one CUDA graph replayed per step "
                          "on the card (1 = the eager per-step loop)")
     ap.add_argument("--straggler-backend", choices=["host", "device"],
-                    default="host")
+                    default="host",
+                    help="'device' draws each chunk's batches, arrivals and "
+                         "masks on the device (chunk size > 1)")
     ap.add_argument("--execution", choices=["sim", "spmd"], default="sim",
                     help="'spmd' computes each worker's own gradient and "
                          "aggregates them with the backup_reduce kernel; "
@@ -255,18 +290,35 @@ def main(argv=None) -> None:
     ap.add_argument("--prefetch-depth", type=int, default=1,
                     help="chunks of batches built ahead on a thread "
                          "(chunked loop; 1 = double buffering)")
-    ap.add_argument("--dynamic-window", type=int, default=None)
-    ap.add_argument("--faults", default=None)
-    ap.add_argument("--fault-seed", type=int, default=None)
-    ap.add_argument("--supervise", action="store_true")
-    ap.add_argument("--max-restarts", type=int, default=None)
+    ap.add_argument("--dynamic-window", type=int, default=None,
+                    help="steps the adaptive cutoff is estimated over "
+                         "(dynamic_backup only; default 32)")
+    ap.add_argument("--faults", default=None,
+                    help="chaos plan spec, e.g. 'crash@10:w2,slow@5:w0,"
+                         "ckpt_io@20,preempt@30', or 'crash=2,slow=3' for "
+                         "seeded-random placement")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of random fault placement")
+    ap.add_argument("--supervise", action="store_true",
+                    help="run under the recovery supervisor: a crash or "
+                         "preemption restores the last good checkpoint "
+                         "and continues")
+    ap.add_argument("--max-restarts", type=int, default=3,
+                    help="the supervisor's restart budget")
     ap.add_argument("--latency-source", choices=["sim", "measured"],
-                    default="sim")
+                    default="sim",
+                    help="dynamic_backup's adaptation window: the "
+                         "simulated arrivals, or the fenced wall clock a "
+                         "step")
     ap.add_argument("--trace", default=None, metavar="PATH")
     ap.add_argument("--metrics", default=None, metavar="PATH")
     args = ap.parse_args(argv)
     _validate(ap, args)
     d, m = args.mesh_data or 1, args.mesh_model or 1
+    # a strategy the spmd engine does not take runs 'sim' (with the
+    # trainer's warning) and starts no world
+    if d * m > 1 and falls_back_to_sim(build_config(args)):
+        d = m = 1
     if d * m > 1 and not torch.distributed.is_initialized():
         if args.device is None:
             resolve_device(None)          # raises without a card

@@ -29,7 +29,7 @@ import tempfile
 import time
 import zipfile
 import zlib
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -106,9 +106,11 @@ def _fsync_path(path: str) -> None:
         os.close(fd)
 
 
-def _write_attempt(tmp: str, flat: Dict[str, np.ndarray],
-                   manifest: Dict) -> None:
+def _write_attempt(tmp: str, flat: Dict[str, np.ndarray], manifest: Dict,
+                   io_check: Optional[Callable[[], None]]) -> None:
     """One durable write of arrays + manifest into ``tmp`` (no rename)."""
+    if io_check is not None:
+        io_check()                 # the chaos engine's ckpt_io fault
     with open(os.path.join(tmp, "arrays.npz"), "wb") as f:
         np.savez(f, **flat)
         f.flush()
@@ -143,9 +145,18 @@ def save(directory: str, step: int, tree: Mapping,
          metadata: Optional[Dict] = None, keep: int = 3, *,
          retries: int = 3, backoff_s: float = 0.01,
          max_backoff_s: float = 0.25, jitter: float = 0.5,
-         backoff_seed: int = 0) -> str:
+         backoff_seed: int = 0,
+         io_check: Optional[Callable[[], None]] = None,
+         on_retry: Optional[Callable[[int, BaseException], None]] = None,
+         sleep: Callable[[float], None] = time.sleep) -> str:
     """Write one checkpoint of the nested dict ``tree`` (leaves: tensors
-    or arrays) durably and atomically; returns its directory."""
+    or arrays) durably and atomically; returns its directory.
+
+    ``io_check`` is called at the start of every write attempt and may
+    raise ``OSError`` (fault injection). A failed attempt retries up to
+    ``retries`` times after the delays of :func:`retry_delays` (slept
+    through ``sleep``), each observed by ``on_retry(attempt, exc)``, then
+    re-raises."""
     os.makedirs(directory, exist_ok=True)
     final = step_dir(directory, step)
     flat = {k: to_numpy(v) for k, v in _flatten_with_paths(tree).items()}
@@ -158,17 +169,19 @@ def save(directory: str, step: int, tree: Mapping,
     while True:
         tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_")
         try:
-            _write_attempt(tmp, flat, manifest)
+            _write_attempt(tmp, flat, manifest, io_check)
             if os.path.exists(final):
                 shutil.rmtree(final)
             os.rename(tmp, final)              # atomic commit
             _fsync_path(directory)
             break
-        except OSError:
+        except OSError as e:
             shutil.rmtree(tmp, ignore_errors=True)
             if attempt >= len(delays):
                 raise
-            time.sleep(delays[attempt])
+            if on_retry is not None:
+                on_retry(attempt, e)
+            sleep(delays[attempt])
             attempt += 1
         except BaseException:
             shutil.rmtree(tmp, ignore_errors=True)

@@ -1,12 +1,14 @@
 """The Trainer: the paper's coordination regimes behind one entry point.
-Reference: ``src/repro/train/loop.py`` (``TrainResult``, ``Trainer`` —
-``_build``, ``_build_mask``, ``_build_event``, ``init_state``,
-``_init_event_state``, ``_state_tree``, ``save_checkpoint``,
-``restore_checkpoint``, ``_restore_event_state``, ``_template``, ``run``,
-``_chunk_len_at``, ``_next_chunk_specs``, ``_run_one_step``,
-``_run_chunk`` on the host straggler backend, ``_run_event``,
-``_run_event_chunked`` — and ``run_experiment``; :97-606, 738-1117,
-1122-1162).
+Reference: ``src/repro/train/loop.py`` (``TrainResult``,
+``_normalize_kills``, ``Trainer`` — ``_build``, ``_build_mask``,
+``_build_event``, ``init_state``, ``_init_event_state``, ``_state_tree``,
+``save_checkpoint``, ``restore_checkpoint``, ``_restore_event_state``,
+``_template``, ``rescale``, ``fault_kill`` / ``fault_slowdown`` /
+``fault_revive``, ``_apply_faults``, ``run``, ``_chunk_len_at``,
+``_next_chunk_specs``, ``_fence`` / ``_observe_chunk`` for the measured
+latency feed, ``_run_one_step``, ``_run_chunk`` on both straggler
+backends, ``_kill_event_worker``, ``_run_event``, ``_run_event_chunked``
+— and ``run_experiment``; :97-1162).
 
 The token stream comes from ``data_cfg`` (a ``SyntheticLMConfig``; by
 default the config's vocabulary, sequence, batch and seed at the default
@@ -14,9 +16,12 @@ noise), with its worker count set to the strategy's, as in the
 reference.
 
 The strategy, built from ``cfg.aggregation`` by
-``core.registry.get_strategy``, picks the mode.
+``core.registry.get_strategy``, picks the mode. A strategy the spmd
+engine does not take (``registry.supports_spmd``: event strategies,
+plugins that opt out) warns and runs on the ``sim`` backend, as in the
+reference.
 
-**Mask mode** (full_sync, backup, timeout). Per step:
+**Mask mode** (full_sync, backup, timeout, dynamic_backup). Per step:
 
 1. the ``StragglerSimulator`` samples worker arrival times and the
    strategy selects the mask and the iteration time (simulated seconds);
@@ -57,8 +62,30 @@ step (``train_step.build_chunk_step``, ``spmd_engine.
 build_spmd_chunk_step``) replays one captured CUDA graph per step on the
 card and loops on the CPU; its metrics are read back once per chunk, and
 only when a logged step falls inside it. Chunk boundaries fall on the run
-target and the checkpoint cadence, so resume is unchanged, and a chunk of
-one step still takes the chunk path, as in the reference.
+target, the checkpoint cadence, kill steps and pending faults, so resume
+and failure handling are unchanged, and a chunk of one step still takes
+the chunk path, as in the reference.
+
+With ``straggler_backend='device'`` (``sim`` backend, ``chunk_size >
+1``) a chunk draws its K batches (``data.synthetic_lm.device_batch_fn``)
+and its ``[K, W]`` arrivals (``core.straggler_device``, dead workers at
++inf) on the device, selects the masks there (``select_device``), ANDs
+them with the live workers and replays the same step graph K times; the
+host reads back the chunk's times, masks and logged metrics in one copy.
+Each step's draws are a function of ``(seed, step)``, so any chunking and
+a resume see the same arrivals and batches.
+
+**Faults** (``core.faults``): the injector's events fire at chunk
+boundaries (``_apply_faults``): a crash gives the worker +inf arrivals
+(on the spmd engine its row of the stack is masked out of
+``backup_reduce``), a slowdown scales its latencies for ``duration``
+steps, a restart revives it with the current parameters, ``ckpt_io``
+fails the next checkpoint writes, ``preempt`` checkpoints and raises
+``Preemption`` for ``train.supervisor.run_supervised``. While the live
+workers stay at the strategy's floor (N; ``min_alive`` for
+``dynamic_backup``) the protocol absorbs losses; below it ``rescale``
+checkpoints, rebuilds for fewer workers (``train.elastic``) and
+restores. ``kill_worker_at`` is the plain form of a crash.
 
 **Event mode** (async, softsync, staleness): the discrete-event
 parameter server. The scheduler pops gradient arrivals, the strategy
@@ -75,23 +102,23 @@ arrival on the card (the branch the plan names), a loop on the CPU.
 Checkpoints carry the reference's ``workers`` and ``stale_buffer`` trees
 and its ``meta["event"]``, so event runs resume across the packages. The
 ``model=`` and ``batch_fn=`` overrides plug non-LM rigs (the §2.1 MNIST
-CNN) into the event mode.
+CNN) into the event mode. A killed worker leaves the scheduler; a
+slowdown scales its service times.
 
 The optimizer state and the EMA are dicts of f32 tensors keyed like the
 parameters. Everything runs on ``device`` (``None`` = the card; ``"cpu"``
 must be asked for).
 
-Refused, each with ``NotImplementedError`` naming its ROADMAP item, and
-never run another way: the device straggler backend (with its
-``device_batch_fn``), event strategies on the ``spmd`` backend (the
-reference falls back to ``sim`` with a warning), ``dynamic_backup`` (the
-registry), fault injection and supervision, failure injection
-(``kill_worker_at``) and elastic rescale.
+Refused, with ``NotImplementedError`` naming ROADMAP Queue 1 item 7: a
+rescale on the spmd engine whose new worker count ``mesh_data`` does not
+divide (the reference shrinks the mesh's ``'data'`` axis and idles the
+freed devices).
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import time
 import warnings
 from typing import Any, Callable, Dict, List, Optional
@@ -103,12 +130,15 @@ from torch.profiler import record_function
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import coordination
 from repro_torch.core import ema as ema_lib
+from repro_torch.core import faults as faults_lib
 from repro_torch.core import registry
+from repro_torch.core import straggler_device
 from repro_torch.core.events import StragglerSimulator
 from repro_torch.core.straggler import LatencyModel, PaperCalibrated
 from repro_torch.data.synthetic_lm import (ChunkPrefetcher, PipelineState,
                                            SyntheticLMConfig,
-                                           SyntheticLMPipeline, worker_batch)
+                                           SyntheticLMPipeline,
+                                           device_batch_fn, worker_batch)
 from repro_torch.distributed import mesh, spmd_engine
 from repro_torch.models import from_jax_tree, get_model, to_jax_tree
 from repro_torch.models import convert
@@ -116,11 +146,10 @@ from repro_torch.models.common import resolve_device
 from repro_torch.optim import make_optimizer, schedules
 from repro_torch.optim.optimizers import stage_scalars
 from repro_torch.train import checkpoint as ckpt_lib
+from repro_torch.train import elastic
 from repro_torch.train.train_step import (build_chunk_step,
                                           build_event_chunk_step,
                                           build_train_step)
-
-_FAULTS = "fault tolerance, ROADMAP Queue 1 item 7"
 
 
 @dataclasses.dataclass
@@ -143,22 +172,21 @@ class TrainResult:
     step_times_s: List[float] = dataclasses.field(default_factory=list)
     # event mode: gradient arrivals this run processed
     arrivals: int = 0
+    # the chaos engine's and the supervisor's structured events (the
+    # reference's schema; steps and workers only, no wall clock)
+    recovery_log: List[Dict] = dataclasses.field(default_factory=list)
 
 
-def _refuse_deferred(cfg: TrainConfig) -> None:
-    """Options of later slices: refused by name, never run another way."""
-    if cfg.straggler_backend == "device":
-        raise NotImplementedError(
-            "straggler_backend='device' (arrivals and batches sampled on "
-            "the device inside the chunk: straggler_jax, device_batch_fn) "
-            "is not ported yet (ROADMAP Queue 1 item 6); use 'host'")
-    if cfg.straggler_backend != "host":
-        raise ValueError(f"unknown straggler_backend "
-                         f"{cfg.straggler_backend!r} (host|device)")
-    if cfg.faults.spec or cfg.faults.supervise:
-        raise NotImplementedError(
-            f"fault injection / supervision (cfg.faults) is not ported yet "
-            f"({_FAULTS})")
+def _normalize_kills(kill_worker_at: Optional[Dict[int, Any]]
+                     ) -> Dict[int, List[int]]:
+    """{step: worker | [workers]} -> {step: [workers]}."""
+    out: Dict[int, List[int]] = {}
+    for s, ws in (kill_worker_at or {}).items():
+        if isinstance(ws, (list, tuple, np.ndarray)):
+            out[int(s)] = [int(w) for w in ws]
+        else:
+            out[int(s)] = [int(ws)]
+    return out
 
 
 def _host(v) -> np.ndarray:
@@ -167,11 +195,20 @@ def _host(v) -> np.ndarray:
         else np.asarray(v)
 
 
+def falls_back_to_sim(cfg: TrainConfig) -> bool:
+    """True when ``cfg`` asks for the spmd backend with a strategy it does
+    not take: the trainer then warns and runs ``sim``. The CLI asks before
+    it starts a world of ranks, so a fallen-back run never starts one."""
+    return (cfg.execution.backend == "spmd" and not registry.supports_spmd(
+        registry.get_strategy(cfg.aggregation), cfg.execution))
+
+
 class Trainer:
     def __init__(self, cfg: TrainConfig,
                  latency: Optional[LatencyModel] = None, *, device=None,
                  data_cfg: Optional[SyntheticLMConfig] = None,
-                 model=None, batch_fn: Optional[Callable] = None):
+                 model=None, batch_fn: Optional[Callable] = None,
+                 injector: Optional[faults_lib.FaultInjector] = None):
         """``data_cfg`` sets the synthetic token stream (its
         ``num_workers`` is replaced by the strategy's). ``model`` /
         ``batch_fn`` override the config's model and the
@@ -179,10 +216,13 @@ class Trainer:
         non-LM rigs such as the §2.1 MNIST staleness experiment route
         through ``run_experiment``. ``batch_fn(worker, draw_index)`` ->
         batch dict (numpy arrays or tensors). ``model`` must live on
-        ``device``."""
+        ``device``. ``injector`` attaches a chaos plan
+        (``core.faults``); the supervisor owns it across restarts, so
+        faults fire at most once."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.latency = latency or PaperCalibrated()
+        self.injector = injector
         self.restarts = 0
         self.sim_time = 0.0
         self.metrics: List[Dict] = []
@@ -200,12 +240,14 @@ class Trainer:
             global_batch=cfg.shape.global_batch,
             num_workers=cfg.aggregation.total_workers, seed=cfg.seed)
         self._build()
+        # measured mode: fenced wall-clock rows feed the strategy's window
+        self._measured_feed = (
+            getattr(self.strategy, "latency_source", "sim") == "measured")
 
     # -- construction ---------------------------------------------------------
 
     def _build(self) -> None:
         cfg = self.cfg
-        _refuse_deferred(cfg)
         self.strategy = registry.get_strategy(cfg.aggregation)
         backend = cfg.execution.backend
         if backend not in ("sim", "spmd"):
@@ -215,14 +257,17 @@ class Trainer:
         # the spmd mesh's world, if any, and its 'model' group under TP
         self._world = False
         self._model_group = None
+        # several processes write one checkpoint directory: rank 0 writes
+        self._shared_ckpt = False
         if self._spmd and not registry.supports_spmd(self.strategy,
                                                      cfg.execution):
-            raise NotImplementedError(
-                f"strategy {cfg.aggregation.strategy!r} ({self.strategy.kind}"
-                f" mode) does not run on the spmd engine, which takes the "
-                f"mask strategies (registry.supports_spmd); the reference "
-                f"falls back to backend='sim' with a warning, the port "
-                f"refuses (ROADMAP Queue 1 item 6): use backend='sim'")
+            warnings.warn(
+                f"strategy {cfg.aggregation.strategy!r} has no SPMD "
+                "support (registry.supports_spmd); falling back to the "
+                "single-device simulated backend", stacklevel=3)
+            self._spmd = False
+            # a torchrun world is joined before the trainer exists
+            self._shared_ckpt = torch.distributed.is_initialized()
         if self.strategy.kind == "mask":
             self._build_mask()
         elif self.strategy.kind == "event":
@@ -240,11 +285,41 @@ class Trainer:
             generator=torch.Generator(device=self.device).manual_seed(
                 self.cfg.seed))
 
+    def _check_straggler_backend(self) -> bool:
+        """The reference's rules for ``straggler_backend``, with its
+        messages; True for the device backend."""
+        cfg = self.cfg
+        if cfg.straggler_backend not in ("host", "device"):
+            raise ValueError(f"unknown straggler_backend "
+                             f"{cfg.straggler_backend!r} (host|device)")
+        device = cfg.straggler_backend == "device"
+        if device and not getattr(self.strategy, "device_select_supported",
+                                  True):
+            raise ValueError(
+                f"strategy {cfg.aggregation.strategy!r} selects on the host "
+                "(stateful adaptation has no traceable select_jax); use "
+                "straggler_backend='host'")
+        if self.injector is not None and device:
+            raise ValueError(
+                "fault injection composes with host-planned arrivals only: "
+                "straggler_backend must be 'host' when cfg.faults is active")
+        if self._spmd and device:
+            raise ValueError(
+                "straggler_backend='device' applies to the simulated "
+                "backend only: the spmd engine consumes host-planned "
+                "masks (use straggler_backend='host')")
+        if device and cfg.chunk_size <= 1:
+            raise ValueError(
+                "straggler_backend='device' requires chunk_size > 1 — the "
+                "device backend lives inside the fused chunk dispatch")
+        return device
+
     def _build_mask(self) -> None:
         cfg = self.cfg
         if self._batch_fn_override is not None:
             raise ValueError("batch_fn overrides are only supported for "
                              "event strategies (async/softsync/staleness)")
+        self._device_backend = self._check_straggler_backend()
         self.model = self._make_model()
         self.sim = StragglerSimulator(self.strategy, self.latency, cfg.seed)
         sched = schedules.from_config(cfg.optimizer,
@@ -298,9 +373,20 @@ class Trainer:
                                               depth=cfg.prefetch_depth)
         else:
             self.train_step = step
+        if self._device_backend:
+            # the chunk's draws on the device: a sampler per latency model
+            # (NotImplementedError for one without) and the batch twin
+            self._sample_fn = straggler_device.sampler_for(self.latency)
+            self._device_batch = device_batch_fn(self.pipeline.cfg,
+                                                 self.device)
+            self._dead_key, self._dead_dev = None, None
 
     def _build_event(self) -> None:
         cfg = self.cfg
+        if cfg.straggler_backend != "host":
+            raise ValueError(
+                "event strategies (async/softsync/staleness) schedule "
+                "arrivals on the host: straggler_backend must be 'host'")
         self._event_fused = cfg.chunk_size > 1
         if self._event_fused and not registry.supports_event_scan(
                 self.strategy):
@@ -463,7 +549,8 @@ class Trainer:
 
     def save_checkpoint(self) -> str:
         ck = self.cfg.checkpoint
-        if self._world and mesh.rank() != 0:
+        shared = self._world or self._shared_ckpt
+        if shared and mesh.rank() != 0:
             # rank 0 writes (its model group gathers the sharded leaves
             # with it); every rank leaves once the write is committed
             if self._tp_slice is not None and mesh.data_index() == 0:
@@ -481,6 +568,10 @@ class Trainer:
                       "stal_sum": self._stal_sum,
                       "stal_count": self._stal_count},
         }
+        # an adaptive strategy's window and cutoff (dynamic_backup), so a
+        # restore resumes the adapted n
+        if hasattr(self.strategy, "state_dict"):
+            meta["strategy_state"] = self.strategy.state_dict()
         if self.strategy.kind == "event":
             # the loop checkpoints right after an applied update, where the
             # softsync window is empty; a mid-window snapshot would lose
@@ -508,13 +599,17 @@ class Trainer:
             meta["data_state"] = self.pipeline.state.save()
             meta["dead_workers"] = [int(w) for w in
                                     np.nonzero(self.sim.dead)[0]]
+        inj = self.injector
         with torch.no_grad():
             path = ckpt_lib.save(
                 ck.directory, self.step, self._state_tree(), meta, ck.keep,
                 retries=ck.write_retries, backoff_s=ck.retry_backoff_s,
                 max_backoff_s=ck.retry_max_backoff_s, jitter=ck.retry_jitter,
-                backoff_seed=self.cfg.seed)
-        if self._world:
+                backoff_seed=self.cfg.seed,
+                io_check=inj.ckpt_io_check if inj is not None else None,
+                on_retry=(inj.on_ckpt_retry(self.step)
+                          if inj is not None else None))
+        if shared:
             torch.distributed.barrier()
         return path
 
@@ -548,12 +643,17 @@ class Trainer:
         self._sel_count = int(means.get("sel_count", 0))
         self._stal_sum = float(means.get("stal_sum", 0.0))
         self._stal_count = int(means.get("stal_count", 0))
+        if (hasattr(self.strategy, "load_state_dict")
+                and manifest.get("strategy_state")):
+            self.strategy.load_state_dict(manifest["strategy_state"])
         if self.strategy.kind == "event":
             self._restore_event_state(tree, manifest["event"])
             return
         self.pipeline.state = PipelineState.restore(manifest["data_state"])
         # replay-exact resume: the simulator is deterministic in (seed, step)
         self.sim.reset_to_step(self.step)
+        # recorded deaths, while the cluster shape is unchanged (a rescale
+        # renumbers the workers and starts them all alive)
         if (manifest.get("num_workers") == self.cfg.aggregation.num_workers
                 and manifest.get("backup_workers")
                 == self.cfg.aggregation.backup_workers):
@@ -602,16 +702,158 @@ class Trainer:
         if rng is not None and ev_meta.get("strategy_rng"):
             coordination.decode_rng(rng, ev_meta["strategy_rng"])
 
+    # -- elastic rescale ------------------------------------------------------
+
+    def rescale(self, new_total: int) -> None:
+        """Checkpoint, rebuild for ``new_total`` workers, restore, continue.
+
+        ``new_total`` is rounded down to a divisor of the global batch, so
+        the per-worker shard stays whole. Mask strategies only. The old
+        model, its step graph and the spmd engine's ``[W, P]`` stack are
+        released before the rebuild, so their memory comes back; the new
+        W captures a new graph on its first chunk."""
+        if self.strategy.kind != "mask":
+            raise NotImplementedError("elastic rescale applies to mask "
+                                      "strategies only")
+        w = max(1, new_total)
+        while self.cfg.shape.global_batch % w:
+            w -= 1
+        md = self.cfg.execution.mesh_data
+        if self._spmd and w % md:
+            raise NotImplementedError(
+                f"elastic rescale to {w} workers on the spmd engine's "
+                f"'data' axis of {md} ranks: shrinking the mesh (the "
+                f"reference idles the freed devices) is not ported yet "
+                f"(ROADMAP Queue 1 item 7)")
+        self.save_checkpoint()
+        prev_restarts = self.restarts
+        prev_total = self.cfg.aggregation.total_workers
+        self.cfg = elastic.apply_rescale(self.cfg,
+                                         elastic.plan_rescale(self.cfg, w))
+        self._release()
+        self._build()
+        self.reset_optimizer_state()
+        self.restore_checkpoint()
+        self.restarts = prev_restarts + 1
+        if self.injector is not None:
+            self.injector.record("rescale", step=self.step,
+                                 from_workers=prev_total,
+                                 to_workers=self.cfg.aggregation.total_workers)
+            # the rescaled cluster is renumbered and starts healthy
+            self.injector.dead.clear()
+            self.injector.slow_active.clear()
+
+    def _release(self) -> None:
+        """Drop the model, the state and the steps (their graphs, pools
+        and the engine's stack; in event mode the read copies too) ahead
+        of a rebuild, and hand the memory back."""
+        for name in ("model", "opt_state", "ema", "chunk_step", "train_step",
+                     "prefetcher", "_device_batch", "_dead_dev",
+                     "_grad_model", "_grad_fn", "_update_fn", "_event_chunk",
+                     "_workers_stacked", "_scan_aux", "_reads"):
+            if hasattr(self, name):
+                setattr(self, name, None)
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+
+    # -- fault injection (the chaos engine's trainer-side primitives) ---------
+
+    def fault_kill(self, worker: int) -> None:
+        """Permanent worker crash, in whichever mode is running."""
+        if self.strategy.kind == "mask":
+            self.sim.kill_worker(worker)
+        else:
+            self._kill_event_worker(worker)
+
+    def fault_slowdown(self, worker: int, factor: float) -> None:
+        """Latency spike on one worker (factor=1.0 restores health)."""
+        if self.strategy.kind == "mask":
+            self.sim.set_slowdown(worker, factor)
+        else:
+            self._sched.set_slowdown(worker, factor)
+
+    @torch.no_grad()
+    def fault_revive(self, worker: int) -> None:
+        """A crashed worker rejoins with the *current* parameters."""
+        if self.strategy.kind == "mask":
+            self.sim.revive_worker(worker)
+            return
+        self._event_dead.discard(worker)
+        # a fresh read copy at the live version; next arrival from now
+        if self._event_fused:
+            for k, p in self.params.items():
+                self._workers_stacked[k][worker].copy_(p)
+            self._read_version[worker] = self.step
+        else:
+            self._reads.write(worker, self.params, self.step)
+        self._sched.revive_worker(worker, self.sim_time)
+
+    def _event_window_empty(self) -> bool:
+        """True when no softsync-style window is buffering gradients: the
+        precondition of an event checkpoint."""
+        if self.strategy.kind != "event":
+            return True
+        state = self._plan_state if self._event_fused else self._ev_state
+        return not (getattr(state, "pending", None)
+                    or getattr(state, "pending_stals", None))
+
+    def _apply_faults(self, step: int) -> None:
+        """Fire every due event of the chaos plan. Called at chunk
+        boundaries in every loop; ``_chunk_len_at`` forces a boundary at
+        each pending fault step, so faults land on the same step on every
+        path."""
+        if self.injector is None:
+            return
+        inj = self.injector
+        w_total = self.strategy.total_workers
+        for ev in inj.take_due(step):
+            w = ev.worker % w_total if ev.worker >= 0 else ev.worker
+            if (ev.kind in ("crash", "slowdown", "restart")
+                    and self.strategy.kind == "event"
+                    and not self.strategy.uses_clock):
+                raise ValueError("failure injection does not apply to serial "
+                                 "rigs (the staleness strategy has a single "
+                                 "logical worker)")
+            if ev.kind == "crash":
+                if w not in inj.dead:
+                    self.fault_kill(w)
+                    inj.note_crash(step, w)
+            elif ev.kind == "slowdown":
+                self.fault_slowdown(w, ev.factor)
+                inj.note_slowdown(step, w, ev.factor, ev.duration)
+            elif ev.kind == "slow_end":
+                inj.note_slow_end(w)
+                self.fault_slowdown(w, 1.0)
+            elif ev.kind == "restart":
+                if w in inj.dead:
+                    self.fault_revive(w)
+                    inj.note_restart(step, w)
+            elif ev.kind == "ckpt_io":
+                inj.arm_ckpt_failures(step, ev.fails)
+            elif ev.kind == "preempt":
+                if not self._event_window_empty():
+                    # an event checkpoint lands only right after an
+                    # applied update: push the notice to the next one
+                    inj.defer(ev, step + 1)
+                    continue
+                ckpted = False
+                if ev.grace:
+                    self.save_checkpoint()
+                    ckpted = True
+                inj.record("preempt", step=step, grace=ckpted)
+                raise faults_lib.Preemption(step, ckpted)
+
     # -- the loop -------------------------------------------------------------
 
     def run(self, num_steps: int,
             kill_worker_at: Optional[Dict[int, Any]] = None,
             min_alive_behavior: str = "rescale") -> TrainResult:
-        """``num_steps`` steps (PS updates in event mode)."""
-        if kill_worker_at:
-            raise NotImplementedError(
-                f"kill_worker_at (failure injection) is not ported yet "
-                f"({_FAULTS})")
+        """``num_steps`` steps (PS updates in event mode).
+        ``kill_worker_at``: {step: worker | [workers]} crashes (a
+        correlated outage kills several at once)."""
+        kill_worker_at = _normalize_kills(kill_worker_at)
         t0 = time.perf_counter()
         target = self.step + num_steps
         step_times: List[float] = []
@@ -619,11 +861,13 @@ class Trainer:
         try:
             if self.strategy.kind == "event":
                 if self._event_fused:
-                    self._run_event_chunked(target, step_times)
+                    self._run_event_chunked(target, kill_worker_at,
+                                            step_times)
                 else:
-                    self._run_event(target, step_times)
+                    self._run_event(target, kill_worker_at, step_times)
             else:
-                self._run_mask(target, min_alive_behavior, step_times)
+                self._run_mask(target, kill_worker_at, min_alive_behavior,
+                               step_times)
         finally:
             self._wall_s += time.perf_counter() - t0
         return TrainResult(
@@ -632,41 +876,59 @@ class Trainer:
             mean_selected=self._sel_sum / max(self._sel_count, 1),
             mean_staleness=self._stal_sum / max(self._stal_count, 1),
             wall_time_s=self._wall_s, step_times_s=step_times,
-            arrivals=getattr(self, "_arrival_count", 0) - arrivals0)
+            arrivals=getattr(self, "_arrival_count", 0) - arrivals0,
+            recovery_log=(list(self.injector.log)
+                          if self.injector is not None else []))
 
-    def _run_mask(self, target: int, min_alive_behavior: str,
-                  step_times: List[float]) -> None:
+    def _run_mask(self, target: int, kill_worker_at: Dict[int, List[int]],
+                  min_alive_behavior: str, step_times: List[float]) -> None:
         while self.step < target:
-            if self.sim.alive < self.cfg.aggregation.num_workers:
+            self._apply_faults(self.step)
+            if self.step in kill_worker_at:
+                # popped as applied: a rescale renumbers the workers
+                for w in kill_worker_at.pop(self.step):
+                    self.sim.kill_worker(w)
+            # an adaptive strategy's floor (dynamic_backup) is below N
+            min_alive = getattr(self.strategy, "min_alive",
+                                self.cfg.aggregation.num_workers)
+            if self.sim.alive < min_alive:
                 if min_alive_behavior == "rescale":
-                    raise NotImplementedError(
-                        f"{self.sim.alive} live workers < N: elastic "
-                        f"rescale is not ported yet ({_FAULTS})")
+                    self.rescale(self.sim.alive)
+                    continue
                 raise RuntimeError("insufficient live workers")
             ts = time.perf_counter()
+            k = self._chunk_len_at(self.step, target, kill_worker_at)
             if self.cfg.chunk_size > 1:
                 # k == 1 still goes through the chunk path
-                k = self._chunk_len_at(self.step, target)
-                self._run_chunk(k, target)
+                self._run_chunk(k, target, kill_worker_at)
             else:
-                k = 1
                 self._run_one_step(target)
             step_times += [(time.perf_counter() - ts) / k] * k
             every = self.cfg.checkpoint.every_steps
             if every > 0 and self.step % every == 0:
                 self.save_checkpoint()
 
-    def _chunk_len_at(self, step: int, target: int) -> int:
-        """Steps from ``step`` to the next forced boundary: the run target
-        or the checkpoint cadence (so resume is unchanged by chunking).
-        Also predicts the next chunks' lengths for the prefetcher."""
+    def _chunk_len_at(self, step: int, target: int,
+                      kill_worker_at: Dict[int, List[int]]) -> int:
+        """Steps from ``step`` to the next forced boundary: the run target,
+        the checkpoint cadence, a kill step or a pending fault (so resume
+        and failure handling are unchanged by chunking). Also predicts
+        the next chunks' lengths for the prefetcher."""
         k = min(self.cfg.chunk_size, target - step)
         every = self.cfg.checkpoint.every_steps
         if every > 0:
             k = min(k, every - step % every)
+        for s in kill_worker_at:
+            if step < s < step + k:
+                k = s - step
+        if self.injector is not None:
+            for s in self.injector.upcoming_steps():
+                if step < s < step + k:
+                    k = s - step
         return max(k, 1)
 
-    def _next_chunk_specs(self, k: int, target: int) -> List:
+    def _next_chunk_specs(self, k: int, target: int,
+                          kill_worker_at: Dict[int, List[int]]) -> List:
         """Predicted (data step, length) of the ``prefetch_depth`` chunks
         after the current one, by the same boundary rules, so speculation
         hits at ragged boundaries too; a miss costs only the speculated
@@ -677,7 +939,7 @@ class Trainer:
         for _ in range(max(self.cfg.prefetch_depth, 0)):
             if s >= target:
                 break
-            kk = self._chunk_len_at(s, target)
+            kk = self._chunk_len_at(s, target, kill_worker_at)
             specs.append((d, kk))
             s += kk
             d += kk
@@ -700,17 +962,39 @@ class Trainer:
     def _logged(self, target: int) -> bool:
         return self.step % self.cfg.log_every == 0 or self.step == target
 
+    # -- the measured latency feed (dynamic_backup, latency_source=measured)
+
+    def _now(self) -> Optional[float]:
+        return time.perf_counter() if self._measured_feed else None
+
+    def _observe_chunk(self, k: int, t0: Optional[float],
+                       data_s: float) -> None:
+        """One measured per-worker row per chunk: the wall time per step,
+        fenced at the chunk edge (the one sync this mode adds), for every
+        live worker (on a lockstep card they all take it); dead workers
+        at +inf."""
+        if t0 is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        per_step = (time.perf_counter() - t0 - data_s) / k
+        self.strategy.observe_measured(
+            np.where(self.sim.dead, np.inf, per_step))
+
     def _run_one_step(self, target: int) -> None:
         """One step: plan the mask, build the batch, run the train step;
         the metrics are read back (one sync) only on a logged step."""
+        t0 = self._now()
         ev = self.sim.next_event()
         batch = {k: torch.from_numpy(v[self._rows]).to(self.device)
                  for k, v in self.pipeline.next().items()}
+        data_s = time.perf_counter() - t0 if t0 is not None else 0.0
         mask = torch.from_numpy(ev.mask).to(self.device)
         lr = self.optimizer.scalars(self.step)["lr"]
         scalars = {k: v[0] for k, v in stage_scalars(
             self.optimizer, [self.step], self.device).items()}
         m = self.train_step(self.opt_state, self.ema, scalars, batch, mask)
+        self._observe_chunk(1, t0, data_s)
         self.sim_time += ev.iteration_time
         self.step += 1
         selected = int(ev.mask.sum())
@@ -719,23 +1003,30 @@ class Trainer:
         if self._logged(target):
             self._log(selected, {k: float(v) for k, v in m.items()}, lr)
 
-    def _run_chunk(self, k: int, target: int) -> None:
+    def _run_chunk(self, k: int, target: int,
+                   kill_worker_at: Dict[int, List[int]]) -> None:
         """k steps through the chunk step: one copy each of the stacked
         batches, masks and scalars, one metrics read when a logged step
         falls inside the chunk."""
+        if self._device_backend:
+            self._run_device_chunk(k, target)
+            return
         steps = list(range(self.step, self.step + k))
+        t0 = self._now()
         chunk_np = self.prefetcher.get(
             self.pipeline.state.step, k,
-            next_specs=self._next_chunk_specs(k, target))
+            next_specs=self._next_chunk_specs(k, target, kill_worker_at))
         self.pipeline.state.step += k
-        events = self.sim.next_events(k)
         batches = {key: self._to_device(
             np.ascontiguousarray(v[:, self._rows]))
             for key, v in chunk_np.items()}
+        data_s = time.perf_counter() - t0 if t0 is not None else 0.0
+        events = self.sim.next_events(k)
         masks = self._to_device(events.masks)
         scalars = stage_scalars(self.optimizer, steps, self.device)
         ms = self.chunk_step(self.opt_state, self.ema, scalars, batches,
                              masks)
+        self._observe_chunk(k, t0, data_s)
         selected = events.masks.sum(axis=1)
         self._sel_sum += float(selected.sum())
         self._sel_count += k
@@ -748,6 +1039,59 @@ class Trainer:
                     ms_np = {key: v.cpu().numpy() for key, v in ms.items()}
                 self._log(int(selected[i]),
                           {key: float(v[i]) for key, v in ms_np.items()},
+                          self.optimizer.scalars(step)["lr"])
+
+    def _dead_on_device(self) -> torch.Tensor:
+        """The simulator's dead workers as a bool tensor on the device,
+        copied again only when the set changes."""
+        key = self.sim.dead.tobytes()
+        if key != self._dead_key:
+            self._dead_key = key
+            self._dead_dev = self._to_device(self.sim.dead.copy())
+        return self._dead_dev
+
+    def _run_device_chunk(self, k: int, target: int) -> None:
+        """k steps on the device backend, in the reference's order: the K
+        batches, the ``[K, W]`` arrivals (dead workers at +inf), the
+        selection on the device, the masks ANDed with the live workers,
+        then the step graph replayed K times over the stacked buffers.
+        Draws are per step (``(seed, step)``), never per chunk. The host
+        reads back times, masks and any logged metrics in one copy."""
+        steps = list(range(self.step, self.step + k))
+        dead = self._dead_on_device()
+        rows = [self._device_batch(s) for s in steps]
+        batches = {key: torch.stack([r[key] for r in rows])
+                   for key in rows[0]}
+        del rows
+        arrivals = straggler_device.chunk_arrivals(
+            self._sample_fn, self.cfg.seed, steps,
+            self.strategy.total_workers, dead, self.device)
+        masks, times = self.strategy.select_device(arrivals)
+        masks = masks & ~dead[None, :]
+        scalars = stage_scalars(self.optimizer, steps, self.device)
+        ms = self.chunk_step(self.opt_state, self.ema, scalars, batches,
+                             masks)
+        self.pipeline.state.step += k
+        self.sim.reset_to_step(self.sim.step + k)
+        logged = [i for i in range(k)
+                  if (steps[i] + 1) % self.cfg.log_every == 0
+                  or steps[i] + 1 == target]
+        names = list(ms) if logged else []
+        host = torch.cat([times.double()[:, None], masks.double()]
+                         + [ms[n].double()[:, None] for n in names],
+                         dim=1).cpu().numpy()
+        w = masks.shape[1]
+        selected = host[:, 1:1 + w].sum(axis=1)
+        self._sel_sum += float(selected.sum())
+        self._sel_count += k
+        for i, step in enumerate(steps):
+            self.sim_time += float(host[i, 0])
+            self.step += 1
+            if logged and i == logged[0]:
+                logged.pop(0)
+                self._log(int(selected[i]),
+                          {n: float(host[i, 1 + w + j])
+                           for j, n in enumerate(names)},
                           self.optimizer.scalars(step)["lr"])
 
     # -- the event loop -------------------------------------------------------
@@ -763,18 +1107,46 @@ class Trainer:
                              "selected": int(selected),
                              "staleness": float(staleness)})
 
-    def _run_event(self, target: int, step_times: List[float]) -> None:
+    def _event_alive(self) -> int:
+        return self.strategy.total_workers - len(self._event_dead)
+
+    def _kill_event_worker(self, worker: int) -> None:
+        if worker in self._event_dead:
+            return
+        self._event_dead.add(worker)
+        self._sched.drop_worker(worker)
+        if self._event_alive() == 0 or not self._sched.queue:
+            raise RuntimeError("insufficient live workers")
+
+    def _event_faults(self, kill_worker_at: Dict[int, List[int]]) -> None:
+        """Due faults and kills at the current PS version."""
+        self._apply_faults(self.step)
+        if self.step in kill_worker_at:
+            for kw in kill_worker_at.pop(self.step):
+                self._kill_event_worker(kw)
+
+    def _refuse_serial_kills(self, kill_worker_at) -> None:
+        if kill_worker_at and not self.strategy.uses_clock:
+            raise ValueError("failure injection does not apply to serial "
+                             "rigs (the staleness strategy has a single "
+                             "logical worker)")
+
+    def _run_event(self, target: int, kill_worker_at: Dict[int, List[int]],
+                   step_times: List[float]) -> None:
         """The discrete-event PS loop, one arrival at a time:
         ``coordination.run_events`` arrival for arrival, plus the
-        checkpoint cadence and the metrics records. A record's loss is
+        checkpoint cadence, faults and kills, and the metrics records. A
+        record's loss is
         read back (one sync) only on a logged update. The arrival's
         phases are ``torch.profiler`` ranges (``event/grad``,
         ``event/update``, ``event/read_copy``), which
         ``launch/profile_train.py`` reads."""
         every = self.cfg.checkpoint.every_steps
         ema_decay = self.cfg.optimizer.ema_decay
+        self._refuse_serial_kills(kill_worker_at)
         ts = time.perf_counter()
         while self.step < target:
+            self._event_faults(kill_worker_at)
             t, w = self._sched.pop()
             batch = self._event_batch(w, int(self._draws[w]))
             self._draws[w] += 1
@@ -823,6 +1195,7 @@ class Trainer:
                 ts = time.perf_counter()
 
     def _run_event_chunked(self, target: int,
+                           kill_worker_at: Dict[int, List[int]],
                            step_times: List[float]) -> None:
         """Chunks of host-planned arrivals through the event chunk step.
         A chunk's length is counted in PS updates (``_chunk_len_at``) and
@@ -832,9 +1205,11 @@ class Trainer:
         in one copy each; the losses are read back only when a logged
         update falls in the chunk."""
         every = self.cfg.checkpoint.every_steps
+        self._refuse_serial_kills(kill_worker_at)
         while self.step < target:
+            self._event_faults(kill_worker_at)
             ts = time.perf_counter()
-            u = self._chunk_len_at(self.step, target)
+            u = self._chunk_len_at(self.step, target, kill_worker_at)
             plan = coordination.plan_events(
                 self.strategy, self._sched, self._plan_state,
                 self._read_version, self._draws,
@@ -889,18 +1264,30 @@ def run_experiment(cfg: TrainConfig, *,
                    batch_fn: Optional[Callable] = None,
                    resume: bool = False, save_final: bool = False,
                    kill_worker_at: Optional[Dict[int, Any]] = None,
-                   min_alive_behavior: str = "rescale") -> TrainResult:
-    """Run a coordination regime (full_sync, backup, timeout, async,
-    softsync, staleness) from ``cfg`` alone: build the Trainer, initialize
-    or resume its state, run ``cfg.total_steps`` steps (PS updates in
-    event mode) and return the :class:`TrainResult`. ``data_cfg`` sets
-    the token stream (``Trainer``); ``model`` / ``batch_fn`` plug non-LM
-    problems into the event regimes (the MNIST staleness rig)."""
+                   min_alive_behavior: str = "rescale",
+                   injector: Optional[faults_lib.FaultInjector] = None
+                   ) -> TrainResult:
+    """Run a coordination regime (full_sync, backup, timeout,
+    dynamic_backup, async, softsync, staleness) from ``cfg`` alone: build
+    the Trainer, initialize or resume its state, run ``cfg.total_steps``
+    steps (PS updates in event mode) and return the :class:`TrainResult`.
+    ``data_cfg`` sets the token stream (``Trainer``); ``model`` /
+    ``batch_fn`` plug non-LM problems into the event regimes (the MNIST
+    staleness rig). ``cfg.faults.spec`` attaches a chaos plan (an
+    ``injector`` overrides it); an injected preemption or crash
+    propagates out of this call, and ``train.supervisor.run_supervised``
+    is the entry point that recovers from it."""
+    if injector is None:
+        injector = faults_lib.build_injector(
+            cfg.faults, num_steps=cfg.total_steps,
+            num_workers=cfg.aggregation.total_workers)
     tr = Trainer(cfg, latency=latency, device=device, data_cfg=data_cfg,
-                 model=model, batch_fn=batch_fn)
+                 model=model, batch_fn=batch_fn, injector=injector)
     if resume and ckpt_lib.latest_step(cfg.checkpoint.directory) is not None:
         tr.reset_optimizer_state()
         tr.restore_checkpoint()
+        if injector is not None:
+            injector.resync(tr)
     else:
         tr.init_state()
     res = tr.run(cfg.total_steps, kill_worker_at=kill_worker_at,

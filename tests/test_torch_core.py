@@ -110,19 +110,29 @@ def test_masks_and_sim_time_bit_exact(strategy, kw, latency):
 
 
 def test_registry_refuses_unported_strategies():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        tregistry.get_strategy(tbase.AggregationConfig(
-            strategy="dynamic_backup"))
-    with pytest.raises(ValueError, match="valid strategies"):
+    """Every strategy of the reference is built now (``dynamic_backup``
+    with its window, floor and latency source); an unknown name raises the
+    reference's ValueError, listing the valid ones."""
+    dyn = tregistry.get_strategy(tbase.AggregationConfig(
+        strategy="dynamic_backup", num_workers=5, backup_workers=3,
+        dynamic_window=7, dynamic_min_workers=2, latency_source="measured"))
+    assert (dyn.name, dyn.total_workers, dyn.window, dyn.min_alive,
+            dyn.latency_source) == ("dynamic_backup", 8, 7, 2, "measured")
+    with pytest.raises(ValueError, match="valid strategies") as got:
         tregistry.get_strategy(tbase.AggregationConfig(strategy="nope"))
+    with pytest.raises(ValueError) as want:
+        jregistry.get_strategy(jbase.AggregationConfig(strategy="nope"))
+    # the lists after it name what each process registered
+    assert str(got.value).split(";")[0] == str(want.value).split(";")[0]
     backup = tregistry.get_strategy(tbase.AggregationConfig(
         strategy="backup", num_workers=3, backup_workers=1))
     assert tregistry.supports_spmd(backup)
     for name in ("async", "softsync", "staleness"):
         event = tregistry.get_strategy(tbase.AggregationConfig(strategy=name))
         assert event.kind == "event" and not tregistry.supports_spmd(event)
-    assert tregistry.available() == ["async", "backup", "full_sync",
-                                     "softsync", "staleness", "timeout"]
+    assert tregistry.available() == [
+        "async", "backup", "dynamic_backup", "full_sync", "softsync",
+        "staleness", "timeout"]
 
 
 # ---------------------------------------------------------------------------

@@ -54,6 +54,13 @@ where only PyTorch is installed:
   anew, never replayed on the old tensors, and a restore keeps it; the
   launch counters count replays (the eager loop's counts); graph decode
   gives the eager decode's greedy tokens, fp and int8, with one capture.
+* The device straggler backend: a chunk's batches, arrivals and masks
+  drawn on the card, then the step graph replayed, against the same
+  inputs through the eager step (bit-equal state and metrics), and chunks
+  of 4 + 4 against one of 8 (bit-equal). A rescale inside a graph run
+  (crashes past the backup pool, 8 -> 4 workers on the spmd engine): the
+  old graph is released and a new one captured, the run bit-equal to the
+  eager per-step run on the card, the recovery log the CPU port's.
 * The event regimes' chunked path (one captured graph per branch: an
   arrival that applies the update, one that only buffers) against the
   per-arrival loop on the card: async, softsync and staleness on qwen3
@@ -82,6 +89,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import dataclasses
+import gc
+import weakref
 
 import numpy as np
 
@@ -879,3 +888,85 @@ def test_tp_ranks_match_one_card(cuda_device, tmp_path):
             assert torch.equal(ranks[1]["local"][k], ranks[0]["local"][k]), k
         np.testing.assert_allclose(v.numpy(), want[k].detach().cpu().numpy(),
                                    atol=1e-5, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# The device straggler backend and a rescale inside a graph run
+# ---------------------------------------------------------------------------
+
+
+def _eager_chunk(tr):
+    """The trainer's chunk step as the eager step in a loop (what the
+    graph replays), for ``tr``'s own model and optimizer."""
+    from repro_torch.train.train_step import build_train_step
+    agg = tr.cfg.aggregation
+    step = build_train_step(tr.model, tr.optimizer,
+                            num_workers=agg.total_workers,
+                            n_aggregate=agg.num_workers,
+                            ema_decay=tr.cfg.optimizer.ema_decay,
+                            clip_norm=tr.cfg.optimizer.clip_global_norm)
+
+    def chunk(opt_state, ema, scalars, batches, masks):
+        rows = {}
+        for i in range(masks.shape[0]):
+            m = step(opt_state, ema, {k: v[i] for k, v in scalars.items()},
+                     {k: v[i] for k, v in batches.items()}, masks[i])
+            for k, v in m.items():
+                rows.setdefault(k, []).append(v.detach())
+        return {k: torch.stack(v) for k, v in rows.items()}
+
+    return chunk
+
+
+def test_device_backend_graph_matches_eager(cuda_device):
+    cfg = dataclasses.replace(_chunk_cfg("qwen3-0.6b", "sim", 4),
+                              straggler_backend="device")
+    runs = {}
+    for tag, chunk in (("graph", 4), ("eager", 4), ("one", 8)):
+        tr = Trainer(dataclasses.replace(cfg, chunk_size=chunk),
+                     device=cuda_device)
+        tr.init_state()
+        if tag == "eager":
+            tr.chunk_step = _eager_chunk(tr)
+        runs[tag] = (tr, tr.run(8))
+    (g, rg), (e, re_), (o, ro) = runs["graph"], runs["eager"], runs["one"]
+    assert rg.metrics == re_.metrics == ro.metrics
+    assert rg.sim_time == re_.sim_time == ro.sim_time
+    _state_equal(g, e)
+    _state_equal(g, o)
+    assert (g.chunk_step.graph.captures, g.chunk_step.graph.replays) == (1, 7)
+    assert all(m["selected"] == 6 for m in rg.metrics)
+
+
+def test_rescale_inside_a_graph_run(cuda_device, tmp_path):
+    from repro_torch.configs import FaultConfig
+    from repro_torch.core import faults
+    spec = "crash@2:w1,slow@2:w0:x3:d2,crash@3:w2,crash@5:w3"
+    runs = {}
+    for tag, chunk, device in (("graph", 3, cuda_device),
+                               ("eager", 1, cuda_device),
+                               ("cpu", 3, "cpu")):
+        cfg = dataclasses.replace(
+            _chunk_cfg("qwen3-0.6b", "spmd", chunk,
+                       directory=str(tmp_path / tag), every=4),
+            faults=FaultConfig(spec=spec))
+        tr = Trainer(cfg, device=device, injector=faults.build_injector(
+            cfg.faults, num_steps=8, num_workers=8))
+        tr.init_state()
+        old = weakref.ref(tr.chunk_step.graph) if tag == "graph" else None
+        runs[tag] = (tr, tr.run(8), old)
+    (g, rg, old), (e, re_, _), (_, rc, _) = (runs["graph"], runs["eager"],
+                                             runs["cpu"])
+    assert rg.recovery_log == re_.recovery_log == rc.recovery_log
+    assert [ev["event"] for ev in rg.recovery_log].count("rescale") == 1
+    assert g.cfg.aggregation.total_workers == 4 and rg.restarts == 1
+    assert rg.metrics == re_.metrics
+    _state_equal(g, e)
+    # the old W's graph was captured and replayed before the rescale ...
+    assert next(ev["step"] for ev in rg.recovery_log
+                if ev["event"] == "rescale") >= 3
+    # ... and nothing holds it (nor its pool and stack) after it
+    gc.collect()
+    assert old() is None
+    new = g.chunk_step.graph
+    assert new.captures == 1 and new.replays > 0

@@ -706,19 +706,51 @@ def _refusal_cfg(tmp_path, **change):
 
 @pytest.mark.parametrize("change,match", [
     (dict(execution=jbase.ExecutionConfig(backend="spmd", grad_batch=1)),
-     "Queue 1 item 6"),
-    (dict(straggler_backend="device"), "Queue 1 item 6"),
+     "no SPMD support"),
+    (dict(straggler_backend="device"), "must be 'host'"),
 ])
 def test_event_refusals(tmp_path, change, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tloop.Trainer(_refusal_cfg(tmp_path, **change), device="cpu")
-
-
-def test_event_kill_injection_is_refused(tmp_path):
-    tr = tloop.Trainer(_refusal_cfg(tmp_path), device="cpu")
+    """As in the reference: the spmd backend warns and falls back to sim
+    (the run equals a sim run), the device straggler backend raises its
+    ValueError."""
+    cfg = _refusal_cfg(tmp_path, **change)
+    if "execution" not in change:
+        with pytest.raises(ValueError, match=match):
+            tloop.Trainer(cfg, device="cpu")
+        return
+    with pytest.warns(UserWarning, match=match):
+        tr = tloop.Trainer(cfg, latency=Uniform(1.0, 2.0), device="cpu")
+    assert not tr._spmd
     tr.init_state()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tr.run(2, kill_worker_at={1: 0})
+    _, sim = _port_run(_refusal_cfg(tmp_path / "sim"), steps=3)
+    _assert_same(tr.run(3).params, sim.params)
+
+
+def test_event_kill_injection_is_refused(tmp_path, jax_init):
+    """A kill at update 2 (a list: worker 1) and update 4 (a scalar:
+    worker 3) through ``kill_worker_at``, per arrival and chunked, against
+    the JAX Trainer: the killed workers leave the scheduler."""
+    kills = {2: [1], 4: 3}
+    jcfg = _jax_cfg("qwen3-0.6b", dict(strategy="async", num_workers=4),
+                    steps=6)
+    _jax_params(jcfg.model)
+    want = jloop.run_experiment(jcfg, latency=JUniform(1.0, 2.0),
+                                kill_worker_at=kills)
+    for chunk in (1, 3):
+        tr = tloop.Trainer(port_config(dataclasses.replace(
+            jcfg, chunk_size=chunk)), latency=Uniform(1.0, 2.0),
+            device="cpu")
+        tr.init_state()
+        got = tr.run(6, kill_worker_at=kills)
+        assert tr._event_dead == {1, 3}
+        assert [(m["step"], m["sim_time"], m["staleness"])
+                for m in got.metrics] == [(m["step"], m["sim_time"],
+                                           m["staleness"])
+                                          for m in want.metrics]
+        np.testing.assert_allclose([m["loss"] for m in got.metrics],
+                                   [m["loss"] for m in want.metrics],
+                                   rtol=1e-5)
+        _assert_close_per_tensor(got.params, want.params)
 
 
 def test_plugin_without_the_scan_protocol_runs_per_arrival(tmp_path,

@@ -18,12 +18,19 @@ from them. qwen3 smoke config (f32, 2 layers).
 * Checkpoints across packages: a JAX checkpoint at step 2 resumes in the
   port and a port checkpoint resumes in JAX; both end within atol 1e-5 of
   the uninterrupted 4-step JAX run.
-* The trainer and the CLI refuse the options of later slices by name, a
-  ``'data'`` or ``'model'`` axis without its world of ranks (naming
-  ``mesh.spawn``) and a ``grad_batch`` that does not divide the
-  local workers (listing the divisors); the CLI runs with ``--device cpu``
+* The trainer refuses a ``'data'`` or ``'model'`` axis without its world
+  of ranks (naming ``mesh.spawn``) and a ``grad_batch`` that does not
+  divide the local workers (listing the divisors); the options that later
+  slices brought run, or raise the reference's own error: the device
+  straggler backend at chunk size 1, faults (the recovery log equal to
+  JAX's), an event strategy on the spmd backend (the reference's warning,
+  then a sim run equal to JAX's), a plugin without spmd support, and
+  ``kill_worker_at`` (held to JAX). The CLI refuses only ``--trace`` /
+  ``--metrics`` / ``--platform`` by name, and the flags that later slices
+  brought run or fail as the JAX CLI does; it runs with ``--device cpu``
   and raises without a card otherwise.
 """
+import contextlib
 import dataclasses
 import os
 
@@ -41,6 +48,7 @@ from repro.models import common as jcommon
 from repro.models import get_model as jget_model
 from repro.optim import optimizers as jopt
 from repro.optim import schedules as jsched
+from repro.launch import train as jcli
 from repro.train import loop as jloop
 from repro.train import train_step as jtrain_step
 
@@ -326,9 +334,9 @@ def test_checkpoint_bf16_roundtrip_and_corruption(tmp_path):
 
 
 @pytest.mark.parametrize("change,err,match", [
-    (dict(straggler_backend="device"), NotImplementedError, "Queue 1 item 6"),
-    (dict(faults=jbase.FaultConfig(spec="crash@2:w1")), NotImplementedError,
-     "Queue 1 item 7"),
+    (dict(straggler_backend="device"), ValueError, "requires chunk_size > 1"),
+    (dict(faults=jbase.FaultConfig(spec="crash@2:w1,slow@1:w3:d2")), None,
+     "worker_crash"),
     (dict(execution=jbase.ExecutionConfig(backend="spmd", mesh_data=2,
                                           grad_batch=1)),
      RuntimeError, "mesh.spawn"),
@@ -340,42 +348,103 @@ def test_checkpoint_bf16_roundtrip_and_corruption(tmp_path):
     (dict(execution=jbase.ExecutionConfig(backend="spmd", grad_batch=1,
                                           use_kernel=True)),
      ValueError, "needs the card"),
-    (dict(aggregation=jbase.AggregationConfig(strategy="async"),
+    (dict(aggregation=jbase.AggregationConfig(strategy="async",
+                                              num_workers=8),
           execution=jbase.ExecutionConfig(backend="spmd", grad_batch=1)),
-     NotImplementedError, "Queue 1 item 6"),
+     None, "no SPMD support"),
     (dict(execution=jbase.ExecutionConfig(backend="tpu_pod")), ValueError,
      "unknown execution backend"),
 ])
-def test_trainer_refuses_later_slices(tmp_path, change, err, match):
+def test_trainer_refuses_later_slices(tmp_path, change, err, match,
+                                      jax_params, monkeypatch):
+    """The refusals that stand, the reference's own errors, and (``err``
+    None) the options that now run: each against the same JAX run from
+    the same init (the log of a faulted run bit-identical; the async run
+    on the spmd backend warns as the reference does and runs sim)."""
+    jcfg = dataclasses.replace(_jax_cfg("sim", tmp_path / "jax"), **change)
     cfg = port_config(dataclasses.replace(_jax_cfg("sim", tmp_path),
                                           **change))
-    with pytest.raises(err, match=match):
-        tloop.Trainer(cfg, device="cpu")
+    if err is not None:
+        with pytest.raises(err, match=match):
+            tloop.Trainer(cfg, device="cpu")
+        return
+    cfg = _port_cfg(cfg)
+    _load_jax_init(monkeypatch, jax_params)
+    with pytest.warns(UserWarning, match=match) if "execution" in change \
+            else _no_warning():
+        want = jloop.run_experiment(jcfg)
+        got = tloop.run_experiment(cfg, device="cpu")
+    assert got.recovery_log == want.recovery_log
+    assert [(m["step"], m["selected"], m["sim_time"]) for m in got.metrics] \
+        == [(m["step"], m["selected"], m["sim_time"]) for m in want.metrics]
+    np.testing.assert_allclose([m["loss"] for m in got.metrics],
+                               [m["loss"] for m in want.metrics], rtol=1e-5)
+    _assert_state_close(got, want.params, want.ema)
+
+
+def _load_jax_init(monkeypatch, jax_params):
+    orig = tloop.Trainer.init_state
+
+    def init_state(self, seed=None):
+        orig(self, seed)
+        load_jax_params(self.model, jax_params)
+        self.reset_optimizer_state()
+        if self.strategy.kind == "event":
+            self._init_event_state()
+
+    monkeypatch.setattr(tloop.Trainer, "init_state", init_state)
+
+
+@contextlib.contextmanager
+def _no_warning():
+    yield
 
 
 def test_spmd_refuses_a_strategy_it_does_not_take(tmp_path, monkeypatch):
-    """A strategy outside mask mode is refused on the spmd backend, never
-    moved to the sim backend."""
+    """A mask strategy that opts out of the spmd engine
+    (``spmd_supported = False``) warns with the reference's text and runs
+    on the sim backend: the same run as asking for sim."""
     from repro_torch.core import coordination, registry
 
-    class EventPlugin(coordination.CoordinationStrategy):
-        kind, name, total_workers = "event", "event_plugin", 8
+    class SimOnly(coordination.BackupWorkers):
+        spmd_supported = False
 
-    monkeypatch.setitem(registry._BUILDERS, "event_plugin",
-                        lambda cfg: EventPlugin())
-    cfg = _port_cfg(dataclasses.replace(
-        _jax_cfg("spmd", tmp_path),
-        aggregation=jbase.AggregationConfig(strategy="event_plugin")))
+    monkeypatch.setitem(registry._BUILDERS, "sim_only",
+                        lambda cfg: SimOnly(6, 2))
+    agg = jbase.AggregationConfig(strategy="sim_only", num_workers=6,
+                                  backup_workers=2)
+    cfg = _port_cfg(dataclasses.replace(_jax_cfg("spmd", tmp_path),
+                                        aggregation=agg))
     assert not registry.supports_spmd(registry.get_strategy(cfg.aggregation))
-    with pytest.raises(NotImplementedError, match="event_plugin"):
-        tloop.Trainer(cfg, device="cpu")
+    assert tloop.falls_back_to_sim(cfg)
+    with pytest.warns(UserWarning, match="'sim_only' has no SPMD support"):
+        tr = tloop.Trainer(cfg, device="cpu")
+    assert not tr._spmd
+    tr.init_state()
+    sim = tloop.Trainer(dataclasses.replace(cfg, execution=dataclasses.replace(
+        cfg.execution, backend="sim")), device="cpu")
+    sim.init_state()
+    a, b = tr.run(2), sim.run(2)
+    assert a.metrics == b.metrics
+    for k, v in a.params.items():
+        assert torch.equal(v, b.params[k]), k
 
 
-def test_kill_injection_is_refused(tmp_path):
+def test_kill_injection_is_refused(tmp_path, jax_params, monkeypatch):
+    """``kill_worker_at`` (a list and a scalar) against the JAX run from
+    the same init: the two kills leave 6 live workers of 8, N = 6, so the
+    protocol absorbs them."""
+    kills = {1: [3], 2: 5}
+    _load_jax_init(monkeypatch, jax_params)
+    want = jloop.run_experiment(_jax_cfg("sim", tmp_path / "jax"),
+                                kill_worker_at=kills)
     tr = tloop.Trainer(_port_cfg(_jax_cfg("sim", tmp_path)), device="cpu")
     tr.init_state()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tr.run(2, kill_worker_at={1: 3})
+    got = tr.run(4, kill_worker_at=kills)
+    assert list(np.nonzero(tr.sim.dead)[0]) == [3, 5] and got.restarts == 0
+    assert [(m["selected"], m["sim_time"]) for m in got.metrics] == \
+        [(m["selected"], m["sim_time"]) for m in want.metrics]
+    _assert_state_close(got, want.params, want.ema)
 
 
 # ---------------------------------------------------------------------------
@@ -400,19 +469,57 @@ def test_cli_runs_on_cpu_and_resumes(tmp_path, capsys, backend):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--straggler-backend", "device"], ["--strategy", "dynamic_backup"],
-    ["--strategy", "async", "--execution", "spmd"],
-    ["--strategy", "softsync", "--straggler-backend", "device"],
-    ["--dynamic-window", "8"], ["--strategy", "softsync", "--faults", "x"],
-    ["--latency-source", "measured"], ["--faults", "crash@2:w1"],
-    ["--fault-seed", "1"], ["--supervise"], ["--max-restarts", "2"],
     ["--trace", "t.json"], ["--metrics", "m.jsonl"], ["--platform", "gpu"],
 ])
 def test_cli_refuses_deferred_flags(tmp_path, capsys, extra):
     with pytest.raises(SystemExit):
         tcli.main(_CLI + ["--device", "cpu", "--ckpt", str(tmp_path)] + extra)
     err = capsys.readouterr().err
-    assert "not ported" in err or "Queue 1 item" in err
+    assert "not ported" in err and (
+        "Queue 1 item 7, telemetry" in err
+        or "PyTorch picks the card by --device" in err)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--straggler-backend", "device"],
+    ["--straggler-backend", "device", "--chunk-size", "2"],
+    ["--strategy", "dynamic_backup"],
+    ["--strategy", "dynamic_backup", "--latency-source", "measured",
+     "--dynamic-window", "8"],
+    ["--strategy", "async", "--execution", "spmd"],
+    ["--strategy", "softsync", "--straggler-backend", "device"],
+    ["--dynamic-window", "8"], ["--strategy", "softsync", "--faults", "x"],
+    ["--latency-source", "measured"], ["--faults", "crash@2:w1"],
+    ["--fault-seed", "1"], ["--supervise"], ["--max-restarts", "2"],
+    ["--faults", "crash@1:w0", "--straggler-backend", "device"],
+    ["--strategy", "dynamic_backup", "--straggler-backend", "device"],
+])
+def test_cli_runs_the_flags_of_later_slices(tmp_path, capsys, extra):
+    """The flags the port used to refuse: each runs, or fails with the JAX
+    CLI's own error (a usage error with its message, or the trainer's
+    exception with its text)."""
+    def outcome(main, argv):
+        try:
+            main(argv)
+        except SystemExit as e:
+            return "usage", capsys.readouterr().err.splitlines()[-1]
+        except (ValueError, NotImplementedError) as e:
+            capsys.readouterr()
+            return type(e).__name__, str(e)
+        return "ran", capsys.readouterr().out
+
+    want = outcome(jcli.main, _CLI + ["--ckpt", str(tmp_path / "jax")]
+                   + extra)
+    got = outcome(tcli.main, _CLI + ["--device", "cpu", "--ckpt",
+                                     str(tmp_path / "torch")] + extra)
+    assert got[0] == want[0]
+    if got[0] != "ran":
+        assert got[1].replace("repro_torch.launch.train",
+                              "repro.launch.train") == want[1]
+        return
+    assert "done: 4 steps" in got[1]
+    rec = [ln for ln in got[1].splitlines() if "recovery:" in ln]
+    assert rec == [ln for ln in want[1].splitlines() if "recovery:" in ln]
 
 
 def test_cli_without_card_raises(tmp_path, monkeypatch):

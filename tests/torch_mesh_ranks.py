@@ -1,4 +1,5 @@
-"""Rank functions for ``tests/test_torch_spmd.py``: what each spawned rank
+"""Rank functions for ``tests/test_torch_spmd.py`` and
+``tests/test_torch_faults.py``: what each spawned rank
 of a ``'data'`` world runs (``repro_torch.distributed.mesh.spawn``). They
 import no JAX (a rank imports this module, not the test file) and write
 their results to ``out_dir/rank<r>.pt``, which the test reads back.
@@ -9,6 +10,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import faults
 from repro_torch.core.straggler import Uniform
 from repro_torch.kernels import bucketed_reduce
 from repro_torch.models import load_jax_params
@@ -90,3 +92,24 @@ def mesh_rank(rank: int, device, out_dir: str, params, reduce_cases,
     out["resume_step"] = tr.step
     out["resume"] = _state(tr.run(resume_to - resume_at))
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def chaos_rank(rank: int, device, out_dir: str, params, cfg,
+               steps: int) -> None:
+    """One rank of a faulted run: ``cfg``'s chaos plan over ``steps`` steps
+    from ``params``, then a rescale that the data axis would have to
+    shrink for (its refusal text is kept)."""
+    inj = faults.build_injector(cfg.faults, num_steps=cfg.total_steps,
+                                num_workers=cfg.aggregation.total_workers)
+    tr = tloop.Trainer(cfg, latency=Uniform(1.0, 2.0), device="cpu",
+                       injector=inj)
+    tr.init_state()
+    load_jax_params(tr.model, params)
+    tr.reset_optimizer_state()
+    res = tr.run(steps)
+    out = dict(_state(res), recovery_log=res.recovery_log, refused="")
+    try:
+        tr.rescale(3)
+    except NotImplementedError as e:
+        out["refused"] = str(e)
+    torch.save(out, os.path.join(out_dir, f"chaos{rank}.pt"))
