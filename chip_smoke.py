@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-only     # phases 18-19 alone (several cards)
     python3 chip_smoke.py --faults-only   # phases 20-21 alone
+    python3 chip_smoke.py --serve-only    # phases 22-24 and 18's shrink
 
 Drives the port (``src/repro_torch``) through its own entry points and
 fails (non-zero exit, no result line) if any phase fails:
@@ -132,10 +133,11 @@ fails (non-zero exit, no result line) if any phase fails:
    least ``FALL_NATS`` below its first. Printed, not gated: steps,
    sim_time and card wall to the target loss, the final held-out loss,
    host wall per step or update, peak memory, and the paper's claims.
-   Then rwkv6-1.6b at full width (backup 3 + 1, spmd, the same stream and
-   base lr, 12 steps through the graph) through the wkv kernels (counted:
-   2 x 24 x 4 forwards a step, half writing chunk states, 24 x 4
-   backwards, one reduce) and with ``model.use_kernel = False`` (no wkv
+   Then rwkv6-1.6b at full width cut to ``RWKV_CONVERGING_LAYERS`` of its
+   24 layers (backup 3 + 1, spmd, the same stream and base lr, 12 steps
+   through the graph) through the wkv kernels (counted: 2 x 4 x 4
+   forwards a step, half writing chunk states, 4 x 4 backwards, one
+   reduce) and with ``model.use_kernel = False`` (no wkv
    launch): both loss trajectories and the relative gap per step are
    printed (every loss finite). Then the ROADMAP Queue 3 controls on the
    same bf16 run, each printed per step beside the kernel's gap: (i) the
@@ -174,8 +176,19 @@ fails (non-zero exit, no result line) if any phase fails:
    finite, one backup_reduce a step on every rank. With one card: 2 ranks
    over gloo on CUDA tensors on it (a line says NCCL was not run and why).
    Both: at 2 layers in f32 the mesh run within atol 1e-5 of the one-card
-   run. Any rank that fails fails the script. ``python3 chip_smoke.py
-   --mesh-only`` runs the build and this phase alone.
+   run. Any rank that fails fails the script. Last, the rescale that
+   shrinks the ``'data'`` axis (``Trainer.rescale`` over ranks): with one
+   card 2 gloo ranks at 2 layers f32, chunk 1, full sync over 4 workers at
+   a global batch of 12, one worker killed at step 2 (3 workers,
+   ``mesh_data`` 2 -> 1): rank 1 idles (no step after the kill, every
+   barrier), rank 0's losses within atol 1e-5 of the same plan on the
+   card alone; with four cards 4 NCCL ranks at full width (the phase-6
+   cell at grad_batch 0, chunks of 2 through the graph), 5 workers killed
+   at step 2 (3 alive, 2 for the 16 sequences, ``mesh_data`` 4 -> 2): the
+   live ranks bit-identical, the rebuilt graph (the shrunk data group's
+   all-reduce inside) captured once and replayed, ``backup_reduce`` on
+   each live rank's ``[1, P]``. ``python3 chip_smoke.py --mesh-only``
+   runs the build and phases 18-19 alone.
 19. The ``'model'`` axis (tensor parallelism) over ranks: with one card 2
    gloo ranks at mesh 1 x 2, with 2 or more NCCL over one card a rank
    (``--mesh-only`` on four cards: 1 x 2, 1 x 4, 2 x 2).
@@ -204,19 +217,50 @@ fails (non-zero exit, no result line) if any phase fails:
    workers), equals its plain twin bit for bit; the peak device memory
    after the rescale lies within 1 GiB of the peak before it less the
    stack's freed rows ((8 - 4) x P x 4 bytes). Checkpoint bytes and save /
-   restore seconds are printed. Then ``dynamic_backup`` at all 28 layers
-   (N = 8, b = 0, workers 6 and 7 slowed 5x, 16 steps, no checkpoints): its adapted n below 8 and equal
+   restore seconds are printed. Then ``dynamic_backup`` at the same
+   ``FAULT_LAYERS`` (cut from 28 for the call's time: its n is host
+   logic, not the model's) (N = 8, b = 0, workers 6 and 7 slowed 5x, 16
+   steps, no checkpoints): its adapted n below 8 and equal
    to the CPU port's host logic at the same seed; once more with
    ``latency_source='measured'``, n printed (a record).
-22. A JSON line of per-kernel numbers (``launches`` is the count of one
+22. Telemetry: the phase-6 cell, ``TELEMETRY_STEPS`` steps in chunks of
+   ``TELEMETRY_CHUNK`` through the step graph, untraced and then with an
+   ``obs.Tracer`` and an ``obs.MetricsRegistry``: losses, masks and
+   parameter checksums bit-equal; span names within ``SPAN_NAMES``; one
+   ``train/chunk`` root a chunk holding ``train/data_wait``,
+   ``spmd/dispatch``, ``spmd/collective_wait`` and ``train/device_wait``;
+   ``train/steps`` and the ``train/chunk_time_s`` count; the JSONL and the
+   Chrome trace read back. The host wall a step of the replays-only chunk
+   (untraced, traced, untraced again, in turns) and the fences' durations
+   are printed.
+23. The restore bridge: one step of the phase-6 cell, its checkpoint
+   (8.35 GB, saved and deleted here), ``serve.restore_params`` of the
+   params and of the EMA: every tensor bit-equal to the trainer's (the
+   EMA cast to bf16); the restored model and the trainer's in-memory model
+   serve phase 4's 16 requests to the same greedy tokens. Save and restore
+   seconds are printed.
+24. The replica router: ``ROUTER_REPLICAS`` ``StepSession`` replicas over
+   one fp engine at full width (phase 4's geometry), ``ROUTER_REQUESTS``
+   requests, hedging over ``ROUTER_HEDGE_AFTER``, the chaos plan
+   ``ROUTER_FAULTS``: nothing lost, every completed request's tokens equal
+   the single engine's, a second run's report bit-identical, page_gather
+   and flash_attention counted (set to 0 just before, read just after)
+   and each session's decode graph captured once; then an SLO shed run
+   (target half the first run's p50): sheds, nothing lost, the same
+   tokens. The router's counters, virtual p50 / p99 and wall tokens/s are
+   printed.
+25. A JSON line of per-kernel numbers (``launches`` is the count of one
    run of the main path that launches the kernel, named by
    ``launches_run``: the graph-decode serve runs, whose prefills stay
    eager, and the graph training runs; ``launches_batched_and_mesh``: those
-   of phases 17 and 18's runs; ``launches_faults``: phase 21's supervised
-   run), then, as the last line, ``{"ok": true, "device": {...}}``.
+   of phases 17 and 18's runs, the shrink's included; ``launches_faults``:
+   phase 21's supervised run; ``launches_telemetry``: phase 22's three
+   runs;
+   ``launches_router``: phase 24's first router run), then, as the last
+   line, ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero when ``torch.cuda.is_available()`` is false.
-A line ``[time] phase N: s`` follows each of phases 16-21.
+A line ``[time] phase N: s`` follows each of phases 16-24.
 """
 from __future__ import annotations
 
@@ -240,7 +284,7 @@ GATHER_SHAPE = dict(b=8, ps=16, kv=8, hd=128)
 FLASH_HEADS = dict(h=16, kv=8, d=128)
 FLASH_SHORT_S = 128                # a short prompt of the serve trace
 REDUCE_WORKERS = 8                 # backup 6 + 2
-REDUCE_EDGES = dict(w=(2, 3, 8), p=(1, 3, 4097, 65536),
+REDUCE_EDGES = dict(w=(1, 2, 3, 8), p=(1, 3, 4097, 65536),
                     masks=("zeros", "ones", "mixed"))
 WKV_SHAPE = dict(b=2, s=256, h=32, d=64)    # rwkv6-1.6b's training call
 WKV_EDGES = dict(d=(16, 32, 64), s=(1, 16, 40, 100))
@@ -251,6 +295,9 @@ FIG5_HOLD = dict(n=2, steps=20, atol=1e-4)
 # ln(151,936) = 11.93 the swept base reaches ~6.3 (PERF.md, Findings)
 FALL_NATS = 3.0
 RWKV_CONVERGING_STEPS = 12
+# phase 16's rwkv6-1.6b runs, cut in depth (of 24 layers) so that phases
+# 22-24 fit the call: five bf16 runs and the controls took ~130 s at 24
+RWKV_CONVERGING_LAYERS = 4
 # phase 17: (arch, grad_batch values) of the batched full-width runs.
 # rwkv6-1.6b at 0 (all 4 workers) runs out of the card's memory: at 2 it
 # peaks at 69.1 GB allocated, 82.2 GB reserved (PERF.md, Findings)
@@ -295,6 +342,19 @@ FAULT_LOG = [
     {"event": "restore", "step": 9, "attempt": 1},
 ]
 DYNAMIC_STEPS = 16
+# phase 18's last part: steps of the run whose kill shrinks the data axis
+SHRINK_STEPS = 6
+# phase 22: the phase-6 cell's steps and chunk, traced and untraced
+TELEMETRY_STEPS = 8
+TELEMETRY_CHUNK = 4
+# phase 24: the router's replicas, trace (arrivals 4 virtual units apart on
+# average, so the SLO run's gate trips while requests still arrive),
+# hedging floor and chaos plan (virtual units: decode steps)
+ROUTER_REPLICAS = 3
+ROUTER_REQUESTS = 32
+ROUTER_RATE = 0.25
+ROUTER_HEDGE_AFTER = 24.0
+ROUTER_FAULTS = "crash@30:r1,restart@60:r1,slowdown@10:r2:x3:d40"
 
 
 def _log(msg: str) -> None:
@@ -1641,6 +1701,8 @@ def _rwkv_converging(torch, backup_reduce, rwkv6_scan):
     cfg, data_cfg = sva.full_width_cfg(
         "backup", arch="rwkv6-1.6b", workers=3, backups=1, steps=steps,
         lr=sva.FULL_BASE_LR * 3)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, num_layers=RWKV_CONVERGING_LAYERS))
     f32 = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, num_layers=2, dtype="float32"))
     counters = ((rwkv6_scan, "launches_fwd"), (rwkv6_scan, "launches_bwd"),
@@ -2670,7 +2732,7 @@ def _faults_phase(torch, backup_reduce):
     lat = DeterministicStragglers(slow_workers=(6, 7), slowdown=5.0)
     ns = {}
     for source in ("sim", "measured"):
-        cfg = _fault_cfg("", "", steps=DYNAMIC_STEPS, layers=28)
+        cfg = _fault_cfg("", "", steps=DYNAMIC_STEPS)
         cfg = dataclasses.replace(
             cfg, checkpoint=dataclasses.replace(cfg.checkpoint,
                                                 every_steps=0),
@@ -2690,7 +2752,8 @@ def _faults_phase(torch, backup_reduce):
             sim.next_events(DYNAMIC_STEPS)
             cpu_n = sim.strategy.n
     n, selected, loss = ns["sim"]
-    _log(f"[faults] dynamic_backup, qwen3-0.6b full width (28 layers), N = "
+    _log(f"[faults] dynamic_backup, qwen3-0.6b full width ({FAULT_LAYERS} "
+         f"layers), N = "
          f"8, b = 0, workers 6 and 7 slowed 5x, {DYNAMIC_STEPS} steps: "
          f"adapted n {n} (the CPU port's host logic: "
          f"{cpu_n}); selected per step {selected}; last loss {loss:.6f}")
@@ -2732,11 +2795,495 @@ def _eps_record(torch):
          f"steps 2-3 {'stay' if held else 'do not stay'} within rel 1e-3")
 
 
+# ---------------------------------------------------------------------------
+# Phase 18's last part: the rescale that shrinks the 'data' axis
+# ---------------------------------------------------------------------------
+
+
+def _shrink_cfg(cards: int, directory: str):
+    """The shrink run's config and kill plan. One card: qwen3-0.6b at 2
+    layers f32 (``_small_cfg``), full sync over 4 workers, global batch 12,
+    ``mesh_data`` 2 over gloo, chunk 1, one worker killed at step 2 (the
+    count becomes 3, ``mesh_data`` 2 -> 1). Four cards: the full-width
+    phase-6 cell (backup 6 + 2, grad_batch 0, ``mesh_data`` 4 over NCCL,
+    chunks of 2 through the graph), 5 workers killed at step 2 (3 alive,
+    rounded to 2 for the 16 sequences, ``mesh_data`` 4 -> 2)."""
+    from repro_torch.configs import AggregationConfig, CheckpointConfig
+    from repro_torch.launch.profile_train import train_config
+    ck = CheckpointConfig(directory=directory, every_steps=0)
+    if cards >= 4:
+        cfg = dataclasses.replace(
+            train_config("qwen3-0.6b", grad_batch=0, mesh_data=4,
+                         steps=SHRINK_STEPS), chunk_size=2, checkpoint=ck)
+        return cfg, {2: [1, 2, 3, 4, 5]}
+    cfg = _small_cfg("qwen3-0.6b", 0, mesh_data=2, chunk=1)
+    return dataclasses.replace(
+        cfg, aggregation=AggregationConfig(strategy="full_sync",
+                                           num_workers=4),
+        shape=dataclasses.replace(cfg.shape, global_batch=12),
+        total_steps=SHRINK_STEPS, checkpoint=ck), {2: [1]}
+
+
+def _shrink_rank(rank, device, out_dir, cfg, kills):
+    """One rank of the shrink run: ``cfg``'s steps with ``kills``, the
+    backup_reduce counter set to 0 just before and read just after; its
+    losses, parameter sums, whether it idles, the shrunk mesh and the
+    rebuilt graph's numbers go to ``out_dir/shrink<r>.json``."""
+    import torch
+    from repro_torch.core.straggler import PaperCalibrated
+    from repro_torch.kernels import backup_reduce
+    from repro_torch.train.loop import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tr = Trainer(cfg, latency=PaperCalibrated(), device=device)
+    tr.init_state()
+    backup_reduce.launches = 0
+    t0 = time.perf_counter()
+    res = tr.run(cfg.total_steps, kill_worker_at=kills)
+    torch.cuda.synchronize(device)
+    ex, agg = tr.cfg.execution, tr.cfg.aggregation
+    g = getattr(tr.chunk_step, "graph", None) if cfg.chunk_size > 1 \
+        else None
+    out = dict(losses=[m["loss"] for m in res.metrics],
+               steps=[m["step"] for m in res.metrics],
+               sums=_param_sums(torch, res.params).tolist(),
+               idle=tr._idle, mesh_data=ex.mesh_data,
+               workers=agg.total_workers,
+               w_local=agg.total_workers // ex.mesh_data,
+               restarts=res.restarts, launches=backup_reduce.launches,
+               captures=g.captures if g else 0,
+               replays=g.replays if g else 0,
+               wall_s=time.perf_counter() - t0,
+               peak=torch.cuda.max_memory_allocated(device))
+    with open(os.path.join(out_dir, f"shrink{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _shrink_phase(torch):
+    """The rescale on the spmd engine over ranks that shrinks
+    ``mesh_data``: the freed ranks idle (no step, every barrier), the live
+    ranks bit-identical; with one card rank 0 is held to a one-card run of
+    the same plan (atol 1e-5), with four the shrunk data group's
+    all-reduce is captured in the rebuilt graph and ``backup_reduce``
+    reduces each live rank's ``[1, P]``."""
+    from repro_torch.core.straggler import PaperCalibrated
+    from repro_torch.distributed import mesh
+    from repro_torch.train.loop import Trainer
+    cards = torch.cuda.device_count()
+    ranks = 4 if cards >= 4 else 2
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        cfg, kills = _shrink_cfg(cards, os.path.join(d, "ck"))
+        mesh.spawn(_shrink_rank, ranks, "cuda", args=(d, cfg, kills),
+                   timeout_s=MESH_TIMEOUT_S)
+        out = []
+        for r in range(ranks):
+            with open(os.path.join(d, f"shrink{r}.json")) as f:
+                out.append(json.load(f))
+        one = None
+        if ranks == 2:                 # the same plan on one card alone
+            one_cfg = dataclasses.replace(cfg, execution=dataclasses.replace(
+                cfg.execution, mesh_data=1), checkpoint=dataclasses.replace(
+                cfg.checkpoint, directory=os.path.join(d, "one")))
+            tr = Trainer(one_cfg, latency=PaperCalibrated(), device="cuda")
+            tr.init_state()
+            one = [m["loss"] for m in tr.run(
+                one_cfg.total_steps, kill_worker_at=dict(kills)).metrics]
+            del tr
+    md = cfg.execution.mesh_data
+    want_md = md
+    while out[0]["workers"] % want_md:    # the reference's rule
+        want_md -= 1
+    live = [o for o in out if not o["idle"]]
+    tag = (f"[mesh shrink] {'nccl' if cards >= ranks else 'gloo'}, {ranks} "
+           f"ranks")
+    if [o["idle"] for o in out] != [r >= want_md for r in range(ranks)] \
+            or {o["mesh_data"] for o in out} != {want_md} \
+            or want_md == md or {o["restarts"] for o in out} != {1}:
+        raise AssertionError(f"{tag}: idle {[o['idle'] for o in out]}, "
+                             f"mesh_data {[o['mesh_data'] for o in out]} "
+                             f"(expected {md} -> {want_md})")
+    for r, o in enumerate(live[1:], 1):
+        if o["sums"] != live[0]["sums"] or o["losses"] != live[0]["losses"]:
+            raise AssertionError(f"{tag}: live rank {r}'s parameters or "
+                                 f"losses differ from rank 0's")
+    steps = cfg.total_steps
+    kill_at = min(kills)
+    for r, o in enumerate(out):
+        want = kill_at if o["idle"] else steps
+        if o["launches"] != want or (o["idle"] and max(
+                o["steps"], default=0) > kill_at):
+            raise AssertionError(f"{tag}: rank {r} launched backup_reduce "
+                                 f"{o['launches']} times (expected {want}),"
+                                 f" logged steps {o['steps']}")
+    if not all(math.isfinite(v) for v in live[0]["losses"]):
+        raise AssertionError(f"{tag}: non-finite loss")
+    detail = ""
+    if one is not None:
+        worst = max(abs(a - b) for a, b in zip(live[0]["losses"], one))
+        if len(one) != len(live[0]["losses"]) or not worst <= 1e-5:
+            raise AssertionError(f"{tag}: rank 0's losses vs the one-card "
+                                 f"run max abs {worst}")
+        detail = f"; rank 0's losses vs one card max abs {worst:.3g} (atol " \
+                 f"1e-5)"
+    else:
+        if {o["w_local"] for o in live} != {1} or {
+                (o["captures"], o["replays"]) for o in live} != {
+                (1, steps - kill_at - 1)}:
+            raise AssertionError(
+                f"{tag}: live ranks' stacks "
+                f"{[o['w_local'] for o in live]} workers, rebuilt graph "
+                f"captures / replays "
+                f"{[(o['captures'], o['replays']) for o in live]}")
+        detail = (f"; the rebuilt graph (its NCCL all-reduce over the "
+                  f"shrunk data group inside): 1 capture, "
+                  f"{live[0]['replays']} replays a live rank; backup_reduce "
+                  f"on [1, P] a live rank after the shrink")
+    _log(f"{tag}: {cfg.aggregation.total_workers} workers, kill "
+         f"{kills[kill_at]} at step {kill_at} -> {out[0]['workers']} "
+         f"workers, mesh_data {md} -> {want_md}; ranks "
+         f"{[r for r, o in enumerate(out) if o['idle']]} idle (no step "
+         f"after {kill_at}, every barrier); live ranks' {len(live[0]['sums'])}"
+         f" parameter sums and losses bit-identical; losses "
+         f"{' '.join(f'{v:.6f}' for v in live[0]['losses'])}; backup_reduce "
+         f"launches per rank {[o['launches'] for o in out]}{detail} | rank "
+         f"0 wall {out[0]['wall_s']:.1f} s (the rescale's checkpoint "
+         f"included), peak {out[0]['peak']} bytes | "
+         f"{time.perf_counter() - t0:.1f} s")
+    return {f"shrink mesh {md}->{want_md}": dict(
+        backup_reduce=live[0]["launches"], wkv6_fwd=0, wkv6_bwd=0,
+        wkv6_fwd_states=0)}
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: telemetry on the spmd step graph
+# ---------------------------------------------------------------------------
+
+
+def _telemetry_phase(torch, backup_reduce):
+    """Phase 22: the phase-6 cell, ``TELEMETRY_STEPS`` steps in chunks of
+    ``TELEMETRY_CHUNK`` through the step graph, untraced and then with a
+    ``Tracer`` and a ``MetricsRegistry``: bit-equal runs, the reference's
+    spans and registry, the files read back."""
+    import gc
+    from repro_torch import obs
+    from repro_torch.core.straggler import PaperCalibrated
+    from repro_torch.launch.profile_train import train_config
+    from repro_torch.train.loop import Trainer
+    cfg = dataclasses.replace(train_config(steps=TELEMETRY_STEPS),
+                              chunk_size=TELEMETRY_CHUNK)
+    runs = {}
+    # in turns, so the card's state between runs does not pass for the
+    # tracer's cost
+    for tag in ("untraced", "traced", "untraced again"):
+        tracer, reg = ((obs.Tracer(), obs.MetricsRegistry())
+                       if tag == "traced" else (None, None))
+        torch.cuda.synchronize()
+        tr = Trainer(cfg, latency=PaperCalibrated(), device="cuda",
+                     tracer=tracer, metrics=reg)
+        tr.init_state()
+        backup_reduce.launches = 0
+        with _planned_masks() as masks:
+            res = tr.run(cfg.total_steps)
+        torch.cuda.synchronize()
+        runs[tag] = dict(
+            metrics=list(res.metrics), sums=_param_sums(torch, res.params),
+            masks=masks, launches=backup_reduce.launches,
+            # the second chunk is replays only
+            replay_ms=1e3 * statistics.mean(
+                res.step_times_s[TELEMETRY_CHUNK:]),
+            phase=res.phase_times, tracer=tracer, reg=reg)
+        del tr, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    plain, traced, again = (runs[t] for t in ("untraced", "traced",
+                                              "untraced again"))
+    for tag, run in (("traced", traced), ("untraced again", again)):
+        if not _same_masks(plain["masks"], run["masks"]) or \
+                run["metrics"] != plain["metrics"] or \
+                not run["sums"].equal(plain["sums"]):
+            raise AssertionError(f"[telemetry] the {tag} run's masks, "
+                                 f"metrics or parameter checksums differ "
+                                 f"from the untraced run's")
+    if not all(math.isfinite(m["loss"]) for m in traced["metrics"]):
+        raise AssertionError("[telemetry] non-finite loss")
+    if {r["launches"] for r in runs.values()} != {TELEMETRY_STEPS}:
+        raise AssertionError(f"[telemetry] backup_reduce launches "
+                             f"{[r['launches'] for r in runs.values()]}")
+    tracer, reg = traced["tracer"], traced["reg"]
+    events = list(tracer.events)
+    names = {e["name"] for e in events}
+    if not names <= set(obs.SPAN_NAMES):
+        raise AssertionError(f"[telemetry] span names outside SPAN_NAMES: "
+                             f"{sorted(names - set(obs.SPAN_NAMES))}")
+    roots = [r for r in obs.span_tree(events) if r["name"] == "train/chunk"]
+    kids = [[c["name"] for c in r["children"]] for r in roots]
+    want = ["train/data_wait", "spmd/dispatch", "spmd/collective_wait",
+            "train/device_wait"]
+    if len(roots) != TELEMETRY_STEPS // TELEMETRY_CHUNK or \
+            any(k != want for k in kids):
+        raise AssertionError(f"[telemetry] chunk roots {kids}, expected "
+                             f"{TELEMETRY_STEPS // TELEMETRY_CHUNK} of "
+                             f"{want}")
+    if reg.counter("train/steps").value != TELEMETRY_STEPS or \
+            reg.histogram("train/chunk_time_s").count != len(roots):
+        raise AssertionError("[telemetry] registry train/steps "
+                             f"{reg.counter('train/steps').value}, "
+                             f"chunk_time_s count "
+                             f"{reg.histogram('train/chunk_time_s').count}")
+    with tempfile.TemporaryDirectory() as d:
+        tpath, mpath = os.path.join(d, "t.json"), os.path.join(d, "m.jsonl")
+        tracer.export(tpath)
+        reg.dump_jsonl(mpath)
+        rows = obs.load_jsonl(mpath)
+        back = obs.load_trace(tpath)["traceEvents"]
+        if [r["name"] for r in rows] != [n for n, _ in reg] or \
+                len(back) != len(events):
+            raise AssertionError("[telemetry] the files do not read back")
+
+    def dur_ms(name):
+        return [e["dur"] / 1e3 for e in events if e["name"] == name]
+
+    fence = dur_ms("spmd/collective_wait") + dur_ms("train/device_wait")
+    _log(f"[telemetry] qwen3-0.6b full width, backup 6+2 spmd, "
+         f"{TELEMETRY_STEPS} steps in chunks of {TELEMETRY_CHUNK} through "
+         f"the graph: traced run == untraced run ({TELEMETRY_STEPS} losses,"
+         f" masks and {traced['sums'].numel()} parameter checksums "
+         f"bit-equal); {len(events)} spans, names within SPAN_NAMES; "
+         f"{len(roots)} train/chunk roots of {' + '.join(want)}; registry "
+         f"train/steps {reg.counter('train/steps').value:.0f}, chunk_time_s "
+         f"count {reg.histogram('train/chunk_time_s').count}; JSONL "
+         f"({len(rows)} series) and Chrome trace read back")
+    _log(f"[telemetry] host wall a step, the replays-only chunk, in turns: "
+         f"untraced {plain['replay_ms']:.3f} ms, traced "
+         f"{traced['replay_ms']:.3f} ms, untraced {again['replay_ms']:.3f} "
+         f"ms"
+         f" | the fences (spmd/collective_wait + train/device_wait) per "
+         f"chunk: {' '.join(f'{v:.3f}' for v in fence)} ms | chunk spans "
+         f"{' '.join(f'{v:.1f}' for v in dur_ms('train/chunk'))} ms | "
+         f"phase_times "
+         f"{ {k: round(v, 4) for k, v in traced['phase'].items()} }")
+    return dict(launches=sum(r["launches"] for r in runs.values()))
+
+
+# ---------------------------------------------------------------------------
+# Phase 23: the restore bridge (train -> checkpoint -> serve)
+# ---------------------------------------------------------------------------
+
+
+def _serve_cfg():
+    """Phase 4's serving geometry: 8 slots, pages of 16, prompts to 512,
+    up to 128 new tokens."""
+    return dict(num_slots=8, page_size=16, max_prompt_len=512,
+                max_new_cap=128)
+
+
+def _serve_trace(cfg, n, seed, rate=1000.0):
+    from repro_torch.serve import TraceConfig, make_trace
+    return make_trace(TraceConfig(
+        num_requests=n, rate=rate, prompt_len_min=64, prompt_len_max=512,
+        max_new_min=32, max_new_max=128, vocab=cfg.vocab_size, seed=seed))
+
+
+def _restore_phase(torch):
+    """Phase 23: one step of the phase-6 cell, its checkpoint, then
+    ``restore_params`` (params, then EMA): bit-equal tensors, and the
+    restored model serves the trainer's in-memory model's greedy tokens."""
+    import gc
+    from repro_torch.configs import CheckpointConfig
+    from repro_torch.core.straggler import PaperCalibrated
+    from repro_torch.launch.profile_train import train_config
+    from repro_torch.serve import ServeEngine, restore_params
+    from repro_torch.train.loop import Trainer
+    with tempfile.TemporaryDirectory() as d:
+        cfg = dataclasses.replace(train_config(steps=1),
+                                  checkpoint=CheckpointConfig(directory=d))
+        tr = Trainer(cfg, latency=PaperCalibrated(), device="cuda")
+        tr.init_state()
+        tr.run(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = tr.save_checkpoint()
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        restored, secs = {}, {}
+        for use_ema in (False, True):
+            t0 = time.perf_counter()
+            model, manifest = restore_params(d, cfg.model, use_ema=use_ema)
+            torch.cuda.synchronize()
+            secs[use_ema] = time.perf_counter() - t0
+            src = tr.ema if use_ema else tr.params
+            for k, v in model.named_parameters():
+                if not torch.equal(v, src[k].to(v.dtype)):
+                    raise AssertionError(
+                        f"[restore] {'ema' if use_ema else 'params'} {k}: "
+                        f"restored tensor differs from the trainer's")
+            if manifest["step"] != 1:
+                raise AssertionError(f"[restore] step {manifest['step']}")
+            restored[use_ema] = model
+        del restored[True]
+    # the checkpoint directory is gone: serve the restored and the
+    # trainer's in-memory weights on the same trace (the step, its [W, P]
+    # stack and the optimizer state dropped first)
+    tr.train_step = tr.opt_state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    trace = _serve_trace(cfg.model, 16, seed=0)
+    toks = {}
+    for tag, model in (("restored", restored[False]), ("trained", tr.model)):
+        eng = ServeEngine(cfg.model, model, clock="wall", **_serve_cfg())
+        rep = eng.run(trace)
+        if rep.metrics["completed"] != len(trace):
+            raise AssertionError(f"[restore] {tag}: {rep.metrics['completed']}"
+                                 f" of {len(trace)} completed")
+        toks[tag] = rep.tokens_by_rid()
+    if toks["restored"] != toks["trained"]:
+        raise AssertionError("[restore] the restored weights serve other "
+                             "greedy tokens than the trainer's")
+    _log(f"[restore] qwen3-0.6b full width, 1 step of the phase-6 cell: "
+         f"checkpoint {nbytes} bytes saved in {save_s:.2f} s; "
+         f"restore_params {secs[False]:.2f} s (params), {secs[True]:.2f} s "
+         f"(ema); every restored tensor bit-equal to the trainer's (EMA "
+         f"cast to bf16, as the reference); {len(trace)} requests served, "
+         f"{sum(len(t) for t in toks['trained'].values())} greedy tokens "
+         f"equal to the trainer's in-memory weights'; checkpoint deleted")
+    del tr, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(save_s=save_s, restore_s=secs[False], bytes=nbytes)
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: the replica router over StepSessions
+# ---------------------------------------------------------------------------
+
+
+def _router_phase(torch, kernels):
+    """Phase 24: ``ROUTER_REPLICAS`` StepSessions over one fp engine at full
+    width, ``ROUTER_REQUESTS`` requests, hedging on, the chaos plan
+    ``ROUTER_FAULTS``; a replay of the same seed; then an SLO shed run.
+    Gates: nothing lost, every completed request's tokens equal the single
+    engine's, the replay bit-identical, the kernels counted, one decode
+    graph capture a session."""
+    from unittest import mock
+    from repro_torch import configs
+    from repro_torch.models import get_model
+    from repro_torch.serve import (ReplicaRouter, RouterConfig, ServeEngine,
+                                   SLOConfig, StepSession)
+    from repro_torch.serve import router as router_lib
+    page_gather, flash_attention = kernels
+    cfg = configs.get_config("qwen3-0.6b")
+    model = get_model(cfg, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    engine = ServeEngine(cfg, model, clock="virtual", **_serve_cfg())
+    trace = _serve_trace(cfg, ROUTER_REQUESTS, seed=4, rate=ROUTER_RATE)
+    single = engine.run(trace)
+    want = single.tokens_by_rid()
+    sessions = []
+
+    class Session(StepSession):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            sessions.append(self)
+
+    rcfg = RouterConfig(num_replicas=ROUTER_REPLICAS,
+                        hedge_after=ROUTER_HEDGE_AFTER, faults=ROUTER_FAULTS)
+
+    def route(slo=None):
+        sessions.clear()
+        for c in (page_gather, flash_attention):
+            c.launches = 0
+        t0 = time.perf_counter()
+        with mock.patch.object(router_lib, "StepSession", Session):
+            rep = ReplicaRouter(engine, rcfg, slo=slo).run(trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return rep, wall, (page_gather.launches, flash_attention.launches), \
+            [s.decode_captures for s in sessions]
+
+    def plain(rep):
+        return dict(completed=[dataclasses.asdict(c) for c in rep.completed],
+                    rejected=rep.rejected, metrics=rep.metrics,
+                    events=rep.events, health=rep.health)
+
+    runs = [route() for _ in range(2)]
+    (rep, wall, (n_gather, n_flash), caps), (rep2, *_rest) = runs
+    m = rep.metrics
+    if m["lost_requests"] != 0 or m["completed"] + m["rejected"] != \
+            len(trace):
+        raise AssertionError(f"[router] lost {m['lost_requests']}")
+    got = rep.tokens_by_rid()
+    bad = [rid for rid, t in got.items() if t != want[rid]]
+    if bad or not got:
+        raise AssertionError(f"[router] rids {bad} served other tokens than "
+                             f"the single engine")
+    if plain(rep2) != plain(rep):
+        raise AssertionError("[router] a second run of the same seed gave "
+                             "another report")
+    if n_gather == 0 or n_flash == 0 or caps != [1] * ROUTER_REPLICAS:
+        raise AssertionError(f"[router] launches page_gather {n_gather} "
+                             f"flash_attention {n_flash}, decode captures "
+                             f"{caps}")
+    if not (m["hedges"] and m["crashes"] and m["restarts"]):
+        raise AssertionError(f"[router] the plan did not fire: {m}")
+    tokens = sum(len(t) for t in got.values())
+    _log(f"[router] qwen3-0.6b full width fp, {ROUTER_REPLICAS} StepSessions"
+         f" x {engine.pool_cfg.num_slots} slots, {len(trace)} requests, "
+         f"hedge floor {ROUTER_HEDGE_AFTER}, faults {ROUTER_FAULTS}: "
+         f"{m['completed']} completed, {m['rejected']} rejected, "
+         f"{m['lost_requests']} lost | hedges {m['hedges']} (won "
+         f"{m['hedge_wins']}), drained {m['drained']}, crashes "
+         f"{m['crashes']}, restarts {m['restarts']} | virtual p50 "
+         f"{m['p50_latency']:.2f} p99 {m['p99_latency']:.2f} units | "
+         f"{tokens} tokens in {wall:.3f} s wall -> {tokens / wall:.1f} "
+         f"tokens/s | every completed request's tokens == the single "
+         f"engine's; the replay's report bit-identical | launches "
+         f"page_gather {n_gather}, flash_attention {n_flash}; decode "
+         f"graph captures per session {caps}")
+    slo = SLOConfig(target_p99=0.5 * m["p50_latency"], mode="shed",
+                    window=16, min_samples=4)
+    srep, swall, _, scaps = route(slo)
+    sm = srep.metrics
+    bad = [c.rid for c in srep.completed if c.tokens != want[c.rid]]
+    if sm["lost_requests"] != 0 or not sm["shed"] or bad or \
+            scaps != [1] * ROUTER_REPLICAS:
+        raise AssertionError(f"[router slo] lost {sm['lost_requests']}, "
+                             f"shed {sm['shed']}, other tokens {bad}")
+    _log(f"[router slo] shed at windowed p99 > {slo.target_p99:.2f} units: "
+         f"{sm['completed']} completed, {sm['shed']} shed, "
+         f"{sm['lost_requests']} lost, trips {sm['slo_trips']} | virtual "
+         f"p99 {sm['p99_latency']:.2f} units (unshed {m['p99_latency']:.2f})"
+         f" | {swall:.3f} s wall")
+    del engine, model, sessions
+    torch.cuda.empty_cache()
+    return dict(gather=n_gather, flash=n_flash, tokens_per_s=tokens / wall,
+                p99=m["p99_latency"])
+
+
+def _slice_phases(torch, backup_reduce, page_gather, flash_attention):
+    """Phases 22-24, each timed; returns phase 24's numbers and phase 22's
+    backup_reduce launches."""
+    t0 = time.perf_counter()
+    telemetry = _telemetry_phase(torch, backup_reduce)
+    _log(f"[time] phase 22: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    _restore_phase(torch)
+    _log(f"[time] phase 23: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        router = _router_phase(torch, (page_gather, flash_attention))
+    _log(f"[time] phase 24: {time.perf_counter() - t0:.1f} s")
+    return dict(router, telemetry=telemetry["launches"])
+
+
 def main(argv) -> int:
     # cuBLAS picks the same algorithms run to run (the kernel and plain
     # training runs must compute the same first-step gradients)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    entries = ("--mesh-only", "--faults-only")
+    entries = ("--mesh-only", "--faults-only", "--serve-only")
     if argv and (len(argv) > 1 or argv[0] not in entries):
         print(f"chip_smoke: unknown arguments {argv} (none, or one of "
               f"{', '.join(entries)})", file=sys.stderr)
@@ -2771,6 +3318,7 @@ def main(argv) -> int:
     if mesh_only:         # phases 18 and 19 alone (the multi-card check)
         t0 = time.perf_counter()
         _mesh_phase(torch)
+        _shrink_phase(torch)
         _log(f"[time] phase 18: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         _tp_phase(torch, _tp_ref_loss(torch))
@@ -2783,6 +3331,11 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         _faults_phase(torch, backup_reduce)
         _log(f"[time] phase 21: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if argv == ["--serve-only"]:        # phases 22-24 and the shrink alone
+        _slice_phases(torch, backup_reduce, page_gather, flash_attention)
+        torch.cuda.empty_cache()
+        _shrink_phase(torch)
         return 0
 
     # 3. the serve kernels at the serve path's shapes (its maxp and pool)
@@ -2868,6 +3421,8 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     meshed = _mesh_phase(torch)
+    torch.cuda.empty_cache()
+    meshed.update(_shrink_phase(torch))
     _log(f"[time] phase 18: {time.perf_counter() - t0:.1f} s")
 
     # 19. the 'model' axis over ranks: NCCL with a card each, else gloo
@@ -2888,6 +3443,15 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     rows[3]["launches_faults"] = _faults_phase(torch, backup_reduce)
     _log(f"[time] phase 21: {time.perf_counter() - t0:.1f} s")
+
+    # 22-24. telemetry, the restore bridge and the replica router
+    torch.cuda.empty_cache()
+    router = _slice_phases(torch, backup_reduce, page_gather,
+                           flash_attention)
+    rows[3]["launches_telemetry"] = router["telemetry"]
+    for row, key in zip(rows[:3], ("gather", "gather", "flash")):
+        if row["name"] != "page_gather_dequant":
+            row["launches_router"] = router[key]
     for row in rows[3:]:
         key = {"backup_reduce": "backup_reduce",
                "rwkv6_wkv_fwd": "wkv6_fwd",
@@ -2897,9 +3461,10 @@ def main(argv) -> int:
                 tag: n[key] for tag, n in {**batched, **meshed}.items()
                 if n[key]}
 
-    # 22. results
+    # 25. results
     keys = ("name", "route", "source", "replaces", "launches", "launches_run",
-            "launches_batched_and_mesh", "launches_faults", "max_abs_err",
+            "launches_batched_and_mesh", "launches_faults",
+            "launches_telemetry", "launches_router", "max_abs_err",
             "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

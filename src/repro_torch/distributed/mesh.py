@@ -25,13 +25,18 @@ world has ``mesh_data * mesh_model`` ranks, laid out as
   first call makes every group of the mesh with ``dist.new_group`` in one
   fixed order, on every rank (a rank that skipped one would hang the
   others).
+* A shrunk ``'data'`` axis (the reference's elastic rescale on the mesh)
+  is a ``mesh_data' x mesh_model`` sub-mesh of the world: the ranks at
+  data index < ``mesh_data'`` keep their positions and the others idle.
+  :func:`in_mesh` makes its groups on every rank and tells a rank whether
+  it is on it; :func:`current_shape` is the mesh the world last joined.
 """
 from __future__ import annotations
 
 import datetime
 import os
 import tempfile
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -90,10 +95,14 @@ def is_leader() -> bool:
 
 
 def _mesh_groups(mesh_data: int, mesh_model: int) -> Dict:
-    """The mesh's groups, made on the first call for this world: every
-    ``'data'`` group (one per model index), then every ``'model'`` group
-    (one per data index), each through ``dist.new_group`` on every rank;
-    an axis that spans the world is the world itself."""
+    """The groups of the ``mesh_data x mesh_model`` mesh, made on the first
+    call for it. The first call in a world fixes the world's mesh, whose
+    size must be the world's; later calls may ask for a sub-mesh with
+    fewer data positions (the first ``mesh_data`` of them, the freed ranks
+    idle: ``Trainer.rescale``). New groups are made through
+    ``dist.new_group`` on every rank in one order, the ranks outside a
+    group included; a group that spans the world is the world itself, and
+    a sub-mesh reuses the world's ``'model'`` groups."""
     ranks = mesh_data * mesh_model
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError(
@@ -102,32 +111,67 @@ def _mesh_groups(mesh_data: int, mesh_model: int) -> Dict:
             f"world of {ranks} ranks and none is initialized in this "
             f"process; start the ranks with repro_torch.distributed.mesh."
             f"spawn (or torchrun, then mesh.join)")
-    size = dist.get_world_size()
-    if size != ranks:
-        raise ValueError(f"mesh {mesh_data} x {mesh_model} needs {ranks} "
-                         f"ranks but the world has {size}")
     world = dist.group.WORLD
-    if _mesh.get("world") is world and \
-            _mesh.get("shape") == (mesh_data, mesh_model):
-        return _mesh
-    if _mesh.get("world") is world:
+    size = dist.get_world_size()
+    shape = (mesh_data, mesh_model)
+    if _mesh.get("world") is not world:
+        if size != ranks:
+            raise ValueError(f"mesh {mesh_data} x {mesh_model} needs "
+                             f"{ranks} ranks but the world has {size}")
+        _mesh.clear()
+        _mesh.update(world=world, shape=shape, meshes={})
+    full_d, full_m = _mesh["shape"]
+    if mesh_model != full_m or not 1 <= mesh_data <= full_d:
         raise ValueError(f"this world's mesh is {_mesh['shape']}, not "
-                         f"{(mesh_data, mesh_model)}")
+                         f"{shape} (a sub-mesh keeps the 'model' axis and "
+                         f"at most the world's data positions)")
+    if shape in _mesh["meshes"]:
+        return _mesh["meshes"][shape]
 
     def axis(members):
-        return [world if len(m) == ranks else dist.new_group(m)
+        return [world if len(m) == size else dist.new_group(m)
                 for m in members]
 
     r = dist.get_rank()
-    data = axis([[d * mesh_model + m for d in range(mesh_data)]
-                 for m in range(mesh_model)]) if mesh_data > 1 else None
-    model = axis([[d * mesh_model + m for m in range(mesh_model)]
-                  for d in range(mesh_data)]) if mesh_model > 1 else None
-    _mesh.clear()
-    _mesh.update(world=world, shape=(mesh_data, mesh_model),
-                 data=data[r % mesh_model] if data else None,
-                 model=model[r // mesh_model] if model else None)
-    return _mesh
+    d, m = r // mesh_model, r % mesh_model
+    data = axis([[dd * mesh_model + mm for dd in range(mesh_data)]
+                 for mm in range(mesh_model)]) if mesh_data > 1 else None
+    full = _mesh["meshes"].get((full_d, full_m))
+    if full is not None:            # a sub-mesh: the world's model groups
+        model = full["model_groups"]
+    else:
+        model = axis([[dd * mesh_model + mm for mm in range(mesh_model)]
+                      for dd in range(mesh_data)]) if mesh_model > 1 \
+            else None
+    inside = d < mesh_data
+    groups = dict(data=data[m] if data and inside else None,
+                  model=model[d] if model and inside else None,
+                  model_groups=model, inside=inside)
+    _mesh["meshes"][shape] = groups
+    return groups
+
+
+def current_shape() -> Optional[Tuple[int, int]]:
+    """The ``(mesh_data, mesh_model)`` (sub-)mesh this process's world
+    last joined through :func:`in_mesh` (None before, and without a
+    world): after a rescale that shrank the ``'data'`` axis, the shrunk
+    one, which a trainer rebuilt for it (a restart) joins again."""
+    if dist.is_initialized() and _mesh.get("world") is dist.group.WORLD:
+        return _mesh.get("current")
+    return None
+
+
+def in_mesh(mesh_data: int, mesh_model: int = 1) -> bool:
+    """Makes the ``mesh_data x mesh_model`` (sub-)mesh's groups, on every
+    rank of the world, records it as the world's current mesh
+    (:func:`current_shape`) and tells whether this rank is on it (False: a
+    rank freed by a shrunk ``'data'`` axis, which idles). True without a
+    world."""
+    if not dist.is_initialized():
+        return True
+    inside = _mesh_groups(mesh_data, mesh_model)["inside"]
+    _mesh["current"] = (mesh_data, mesh_model)
+    return inside
 
 
 def data_group(mesh_data: int, mesh_model: int = 1):

@@ -3,9 +3,9 @@ reduce, over a ``('data', 'model')`` mesh of ranks.
 Reference: ``src/repro/distributed/spmd_engine.py`` (``validate_layout``,
 ``validate_grad_batch``, ``flatten_stacked`` / ``unflatten_vector``,
 ``make_worker_loss``, ``resolve_tp``, ``build_spmd_step``,
-``build_spmd_chunk_step``; :109-420. The reference's ``make_train_step``
-and ``make_chunk_step`` (:499-516) wrap those in ``jax.jit`` with
-shardings; the trainer installs ``build_spmd_step`` and
+``build_spmd_chunk_step``, ``_traced``; :109-476. The reference's
+``make_train_step`` and ``make_chunk_step`` (:478-516) wrap those in
+``jax.jit`` with shardings; the trainer installs ``build_spmd_step`` and
 ``build_spmd_chunk_step`` directly, and the chunk step's CUDA graph is
 the port's counterpart of the jitted K-step scan).
 
@@ -312,7 +312,7 @@ def build_spmd_step(model, optimizer: opt_lib.Optimizer, *,
                     interpret: Optional[bool] = None,
                     grad_batch: int = 0, bucket_size: int = 0,
                     mesh_data: int = 1, mesh_model: int = 1,
-                    model_cfg=None) -> Callable:
+                    model_cfg=None, tracer=None) -> Callable:
     """Twin of ``train_step.build_train_step`` — same signature:
 
         step(opt_state, ema, scalars, batch, mask) -> metrics
@@ -326,7 +326,8 @@ def build_spmd_step(model, optimizer: opt_lib.Optimizer, *,
     ``mesh_model > 1`` and a plan for ``model_cfg`` (the config ``model``
     was built from; None for a model without one) ``model`` is made this
     rank's slice in place (``convert.shard_model``) before anything else:
-    build the optimizer state and EMA after this call."""
+    build the optimizer state and EMA after this call. A live ``tracer``
+    brackets each call with the ``spmd/*`` spans (``_traced``)."""
     check_mesh(mesh_data, mesh_model)
     if num_workers % mesh_data:
         raise ValueError(
@@ -410,11 +411,33 @@ def build_spmd_step(model, optimizer: opt_lib.Optimizer, *,
                 ema_lib.update(ema_state, params.items(), ema_decay)
         return metrics
 
-    return step_fn
+    return _traced(step_fn, tracer, model.device)
 
 
-def build_spmd_chunk_step(model, optimizer: opt_lib.Optimizer,
-                          **step_kwargs) -> Callable:
+def _traced(fn: Callable, tracer, device) -> Callable:
+    """``fn`` (a step or a chunk) with its call under ``spmd/dispatch`` and
+    then a ``torch.cuda.synchronize`` under ``spmd/collective_wait``
+    (reference: ``spmd_engine._traced``). Only with a live tracer: the
+    fence serializes the host against the card, so an untraced run keeps
+    the bare ``fn``. A chunk's ``graph`` attribute is kept."""
+    if tracer is None or not tracer.enabled:
+        return fn
+    device = torch.device(device)
+
+    def call(*args):
+        with tracer.span("spmd/dispatch"):
+            out = fn(*args)
+        with tracer.span("spmd/collective_wait"):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        return out
+
+    call.graph = getattr(fn, "graph", None)
+    return call
+
+
+def build_spmd_chunk_step(model, optimizer: opt_lib.Optimizer, *,
+                          tracer=None, **step_kwargs) -> Callable:
     """Twin of the host-mask ``train_step.build_chunk_step``: K engine
     steps per call,
 
@@ -422,7 +445,9 @@ def build_spmd_chunk_step(model, optimizer: opt_lib.Optimizer,
               ...]}, masks [K, W]) -> metrics {name: [K]}
 
     The body is the unmodified ``build_spmd_step`` step, so chunking
-    changes only how the steps are dispatched."""
-    return step_graph.chunk_step(
-        build_spmd_step(model, optimizer, **step_kwargs), model)
+    changes only how the steps are dispatched. A live ``tracer`` brackets
+    the chunk, never a step inside the captured graph."""
+    return _traced(step_graph.chunk_step(
+        build_spmd_step(model, optimizer, **step_kwargs), model), tracer,
+        model.device)
 

@@ -87,9 +87,9 @@ def backup_reduce(grads: torch.Tensor, mask: torch.Tensor, n_aggregate: int,
     w, p = grads.shape
     if p > 1 and grads.stride(1) != 1:
         raise ValueError("grads must have unit stride along P")
-    if not 2 <= w <= MAX_WORKERS:
-        raise ValueError(f"the kernel reduces 2..{MAX_WORKERS} workers, got "
-                         f"{w} (one worker is a scalar rescale)")
+    if not 1 <= w <= MAX_WORKERS:
+        raise ValueError(f"the kernel reduces 1..{MAX_WORKERS} workers, got "
+                         f"{w}")
     if mask.shape != (w,) or mask.device != grads.device:
         raise ValueError(f"mask {tuple(mask.shape)} on {mask.device} does "
                          f"not match grads {tuple(grads.shape)} on "

@@ -5,9 +5,10 @@ Reference: ``src/repro/kernels/bucketed_reduce.py`` (``ref_masked_mean``,
 The flattened ``[W, P]`` gradient stack is cut into buckets of
 ``bucket`` lanes and each bucket is masked-reduced: by the
 ``backup_reduce`` CUDA kernel (``use_kernel=True``, CUDA tensors only) or
-by its plain twin (``use_kernel=False``). As in the reference, ``W == 1``
-is a scalar rescale of the one row and an empty bucket takes the plain
-path. The per-step monitoring scalars (``tail``) ride the last bucket:
+by its plain twin (``use_kernel=False``). On the plain path, as in the
+reference, ``W == 1`` is a scalar rescale of the one row; the kernel takes
+``W == 1`` too (a rank of a shrunk ``'data'`` axis holds one worker), and
+an empty bucket takes the plain path. The per-step monitoring scalars (``tail``) ride the last bucket:
 the buckets are reduced straight into one ``[P + E]`` output whose last
 ``E`` lanes hold the tail.
 
@@ -68,11 +69,13 @@ def reduce_then_psum(grads: torch.Tensor, mask: torch.Tensor,
     bounds = bucket_bounds(p, bucket)
     for i, (lo, hi) in enumerate(bounds):
         chunk = grads[:, lo:hi]
-        if w == 1:
+        if use_kernel and hi > lo:
+            # the kernel also takes one local worker (a rank of a shrunk
+            # 'data' axis): the path keeps its kernel on the card
+            backup_reduce(chunk, mf, n_aggregate, out=out[lo:hi])
+        elif w == 1:
             # one local worker: the masked mean is a rescale of its row
             out[lo:hi] = chunk[0].float() * (mf[0] / n_aggregate)
-        elif use_kernel and hi > lo:
-            backup_reduce(chunk, mf, n_aggregate, out=out[lo:hi])
         else:
             out[lo:hi] = backup_reduce_plain(chunk, mf, n_aggregate)
         if i == len(bounds) - 1:

@@ -1,17 +1,28 @@
 """Serving launcher CLI: continuous batching over the paged KV cache.
-Reference: ``src/repro/launch/serve.py`` (the engine path, one replica).
+Reference: ``src/repro/launch/serve.py`` (the engine path and the replica
+router).
 
     # replay a seeded open-loop trace through the serve engine on the card
     python -m repro_torch.launch.serve --arch qwen3-0.6b --requests 16 \
-        --rate 8 [--policy continuous|static] [--cache-int8] [--device cpu]
+        --rate 8 [--policy continuous|static] [--cache-int8] [--device cpu] \
+        [--restore /path/to/ckpt [--step N] [--ema]] [--faults slowdown@4] \
+        [--slo-p99-ms 20] [--trace t.json] [--metrics m.jsonl]
+
+    # replica router: hedging, timeouts, SLO admission, replica-scope chaos
+    python -m repro_torch.launch.serve --arch qwen3-0.6b --replicas 3 \
+        --hedge-after 6 --timeout 40 --slo-p99-ms 20 \
+        --faults 'slowdown@0:r0:x8:d32,crash@10:r1,restart@30:r1'
 
 Same flags and printed lines as the reference CLI, plus ``--device``
 (default ``cuda``; without a card the CLI raises unless ``--device cpu``
-is given). It serves the arch's smoke config with seeded random weights,
-as the reference does. Flags of paths not ported yet (``--toy``,
-``--replicas > 1``, ``--restore``, ``--mesh-model > 1``, ``--faults``,
-``--slo-p99-ms``, ``--metrics``) are refused with a message naming the
-slice that brings them.
+is given). It serves the arch's smoke config, with seeded random weights
+or, with ``--restore``, a training checkpoint of either package through
+the verified restore bridge (``serve.engine.restore_params``).
+``--replicas N`` (N > 1) fronts N replica sessions with the
+``serve.ReplicaRouter`` on its virtual clock; ``--faults`` then takes the
+replica-scope grammar (``kind@step:rN``). The reference's cross-flag
+errors hold. Refused by name: ``--toy`` (ROADMAP Queue 1 item 8, the toy
+path) and ``--mesh-model > 1`` (ROADMAP Queue 1 item 8, TP decode).
 """
 from __future__ import annotations
 
@@ -23,16 +34,15 @@ import torch
 from repro_torch import configs
 from repro_torch.models import get_model
 from repro_torch.models.common import resolve_device
+from repro_torch.obs import MetricsRegistry, Tracer
+from repro_torch.serve import (ReplicaRouter, RouterConfig, ServeEngine,
+                               SLOConfig, TraceConfig, make_trace,
+                               restore_params)
 
-# flag -> the port slice that brings it
+# flag -> the ROADMAP item that brings it
 _LATER = {
-    "--toy": "serving resilience (legacy toy path)",
-    "--replicas > 1": "serving resilience (replica router)",
-    "--restore": "trainer and checkpoint",
-    "--mesh-model > 1": "distributed serving (ROADMAP Queue 1 item 8)",
-    "--faults": "fault-tolerance",
-    "--slo-p99-ms": "serving resilience",
-    "--metrics": "telemetry",
+    "--toy": "ROADMAP Queue 1 item 8, the toy path",
+    "--mesh-model > 1": "ROADMAP Queue 1 item 8, TP decode",
 }
 
 
@@ -67,21 +77,29 @@ def _build_parser() -> argparse.ArgumentParser:
                     help="kept for the reference CLI's sake: the CUDA "
                     "kernels are always used on the card")
     ap.add_argument("--faults", default="",
-                    help="chaos spec (not ported yet)")
+                    help="chaos spec, slowdown/preempt kinds only "
+                    "(e.g. 'slowdown@4:w0,preempt@9'); with --replicas > 1 "
+                    "the replica scope (kind@step:rN)")
     # -- replica router -------------------------------------------------------
     ap.add_argument("--replicas", type=int, default=1,
                     help="front N replica sessions with the router "
-                    "(not ported yet)")
+                    "(virtual clock; --faults takes kind@step:rN)")
     ap.add_argument("--hedge-after", type=float, default=None,
-                    help="[router] hedge threshold floor")
+                    help="[router] hedge stragglers past max(windowed p95, "
+                    "this floor) virtual units")
     ap.add_argument("--timeout", type=float, default=None,
-                    help="[router] per-attempt deadline")
+                    help="[router] per-attempt deadline before a jittered "
+                    "backoff retry")
     ap.add_argument("--slo-p99-ms", type=float, default=None,
-                    help="SLO: windowed-p99 latency target (not ported yet)")
+                    help="SLO: windowed-p99 latency target. With --replicas "
+                    "> 1 the router gates on its virtual clock (1 unit = "
+                    "1 ms); with one replica the engine gates on measured "
+                    "wall-clock seconds")
     ap.add_argument("--slo-mode", choices=("shed", "queue"), default="shed",
                     help="action while the SLO is violated")
     ap.add_argument("--restore", default="",
-                    help="checkpoint dir (not ported yet)")
+                    help="checkpoint dir: serve trained weights via the "
+                    "verified restore bridge")
     ap.add_argument("--step", type=int, default=None,
                     help="checkpoint step (default: latest good)")
     ap.add_argument("--ema", action="store_true",
@@ -95,41 +113,88 @@ def _build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--tokens", type=int, default=16,
                     help="[toy] tokens to decode")
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="record prefill/decode/admit spans, exported as "
+                    help="record prefill/decode/admit/evict (and router "
+                    "dispatch/hedge/timeout/failover) spans, exported as "
                     "Chrome-trace JSON (load at ui.perfetto.dev)")
     ap.add_argument("--metrics", default=None, metavar="PATH",
-                    help="dump the metrics registry as JSONL "
-                    "(not ported yet)")
+                    help="dump the metrics registry as JSONL (one object "
+                    "per metric)")
     return ap
 
 
 def _validate(args) -> None:
-    refused = {
-        "--toy": args.toy,
-        "--replicas > 1": args.replicas > 1,
-        "--restore": bool(args.restore),
-        "--mesh-model > 1": args.mesh_model > 1,
-        "--faults": bool(args.faults),
-        "--slo-p99-ms": args.slo_p99_ms is not None,
-        "--metrics": args.metrics is not None,
-    }
+    refused = {"--toy": args.toy, "--mesh-model > 1": args.mesh_model > 1}
     for flag, used in refused.items():
         if used:
-            raise SystemExit(f"{flag} is not ported to repro_torch yet (it "
-                             f"comes with the {_LATER[flag]} slice)")
-    if args.step is not None or args.ema:
-        raise SystemExit("--step/--ema need --restore")
+            raise SystemExit(f"{flag} is not ported to repro_torch yet "
+                             f"({_LATER[flag]})")
+    if args.step is not None and not args.restore:
+        raise SystemExit("--step needs --restore")
+    if args.ema and not args.restore:
+        raise SystemExit("--ema needs --restore")
     if args.replicas < 1:
         raise SystemExit("--replicas must be >= 1")
-    for flag, val in (("--hedge-after", args.hedge_after),
-                      ("--timeout", args.timeout)):
-        if val is not None:
-            raise SystemExit(f"{flag} needs --replicas > 1 (the router path)")
-    if args.trace is not None:
-        parent = os.path.dirname(os.path.abspath(args.trace))
+    if args.replicas == 1:
+        for flag, val in (("--hedge-after", args.hedge_after),
+                          ("--timeout", args.timeout)):
+            if val is not None:
+                raise SystemExit(f"{flag} needs --replicas > 1 "
+                                 "(the router path)")
+    elif args.policy == "static":
+        raise SystemExit("--replicas > 1 is the router path: continuous "
+                         "policy only, no --toy")
+    for flag, value in (("--trace", args.trace),
+                        ("--metrics", args.metrics)):
+        if value is None:
+            continue
+        parent = os.path.dirname(os.path.abspath(value))
         if not os.path.isdir(parent):
-            raise SystemExit(f"--trace {args.trace}: directory {parent} "
+            raise SystemExit(f"{flag} {value}: directory {parent} "
                              "does not exist")
+
+
+def _router_main(args, engine, trace, tracer=None, metrics=None) -> None:
+    slo = None
+    if args.slo_p99_ms is not None:
+        slo = SLOConfig(target_p99=args.slo_p99_ms, mode=args.slo_mode)
+    router = ReplicaRouter(
+        engine,
+        RouterConfig(num_replicas=args.replicas, timeout=args.timeout,
+                     hedge_after=args.hedge_after, seed=args.seed,
+                     faults=args.faults or None, fault_seed=args.seed),
+        slo=slo, tracer=tracer, metrics=metrics)
+    report = router.run(trace)
+    m = report.metrics
+    print(f"[serve] {args.arch} router replicas={args.replicas} "
+          f"slots={args.slots}x{args.replicas}"
+          f"{f' hedge>{args.hedge_after}' if args.hedge_after else ''}"
+          f"{f' timeout={args.timeout}' if args.timeout else ''}"
+          f"{f' slo-p99={args.slo_p99_ms}({args.slo_mode})' if slo else ''}")
+    print(f"  {m['completed']}/{m['total']} completed, {m['rejected']} "
+          f"rejected, {m['lost_requests']} lost in {m['duration']:.1f} "
+          f"virtual units -> goodput {m['goodput']:.3f} req/unit")
+    print(f"  latency p50 {m['p50_latency']:.2f} p99 {m['p99_latency']:.2f}"
+          f" | hedges {m['hedges']} (won {m['hedge_wins']})"
+          f" | retries {m['retries']} | drained {m['drained']}"
+          f" | crashes {m['crashes']} preempts {m['preempts']} "
+          f"restarts {m['restarts']}")
+    for ev in report.health:
+        print(f"  health: {ev}")
+    for rej in report.rejected[:4]:
+        print(f"  rejected: {rej}")
+    for c in report.completed[:4]:
+        print(f"  rid={c.rid} replica={c.replica}"
+              f"{' hedged' if c.hedged else ''} {c.tokens}")
+
+
+def _export_obs(args, tracer, metrics) -> None:
+    if tracer is not None:
+        tracer.export(args.trace)
+        print(f"[serve] trace: {args.trace} ({len(tracer)} events, "
+              f"{tracer.dropped} dropped)")
+    if metrics is not None:
+        metrics.dump_jsonl(args.metrics)
+        print(f"[serve] metrics: {args.metrics} ({len(metrics)} series)")
 
 
 def main(argv=None) -> None:
@@ -137,24 +202,38 @@ def main(argv=None) -> None:
     _validate(args)
     device = resolve_device(args.device)
     cfg = configs.get_smoke_config(args.arch)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    model = get_model(cfg, device=device, generator=gen)
-
-    from repro_torch.serve import ServeEngine, TraceConfig, make_trace
-    tracer = None
-    if args.trace:
-        from repro_torch.obs import Tracer
-        tracer = Tracer()
+    if args.restore:
+        model, manifest = restore_params(args.restore, cfg, step=args.step,
+                                         use_ema=args.ema, device=device)
+        print(f"[serve] restored step {manifest['step']} from {args.restore}"
+              f"{' (ema)' if args.ema else ''}")
+    else:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        model = get_model(cfg, device=device, generator=gen)
+    tracer = Tracer() if args.trace else None
+    metrics = MetricsRegistry() if args.metrics else None
+    engine_slo = None
+    if args.slo_p99_ms is not None and args.replicas == 1:
+        # one replica: the gate runs inside the engine on its wall clock
+        engine_slo = SLOConfig(target_p99=args.slo_p99_ms,
+                               mode=args.slo_mode)
     engine = ServeEngine(
         cfg, model, num_slots=args.slots, page_size=args.page_size,
         max_prompt_len=args.max_prompt, max_new_cap=args.max_new,
-        cache_int8=args.cache_int8, device=device, clock="wall",
-        tracer=tracer)
+        cache_int8=args.cache_int8, device=device,
+        faults=None if args.replicas > 1 else (args.faults or None),
+        fault_seed=args.seed,
+        clock="virtual" if args.replicas > 1 else "wall",
+        slo=engine_slo, tracer=tracer, metrics=metrics)
     trace = make_trace(TraceConfig(
         num_requests=args.requests, rate=args.rate,
         prompt_len_min=2, prompt_len_max=args.max_prompt,
         max_new_min=2, max_new_max=args.max_new,
         vocab=cfg.vocab_size, seed=args.seed))
+    if args.replicas > 1:
+        _router_main(args, engine, trace, tracer=tracer, metrics=metrics)
+        _export_obs(args, tracer, metrics)
+        return
     report = engine.run(trace, policy=args.policy)
     m = report.metrics
     print(f"[serve] {args.arch} policy={args.policy} slots={args.slots} "
@@ -167,16 +246,16 @@ def main(argv=None) -> None:
           f" | occupancy {m['mean_occupancy']:.2f}"
           f" | compiles prefill={m['prefill_compiles']} "
           f"decode={m['decode_compiles']}")
+    if engine_slo is not None:
+        print(f"  slo: shed {m['rejected_slo_shed']} trips {m['slo_trips']}"
+              f" estimate {m['slo_estimate']:.3f}s")
     print(f"  wall {m['wall_time_s']:.2f}s (prefill {m['prefill_s']:.2f}s "
           f"decode {m['decode_s']:.2f}s)")
     for ev in report.events:
         print(f"  chaos: {ev}")
     for c in report.completed[:4]:
         print(f"  rid={c.rid} {c.tokens}")
-    if tracer is not None:
-        tracer.export(args.trace)
-        print(f"[serve] trace: {args.trace} ({len(tracer)} events, "
-              f"{tracer.dropped} dropped)")
+    _export_obs(args, tracer, metrics)
 
 
 if __name__ == "__main__":

@@ -19,6 +19,8 @@
     python -m repro_torch.launch.train --smoke --steps 50 \
         --strategy dynamic_backup [--dynamic-window 16] \
         [--latency-source measured]
+    python -m repro_torch.launch.train --smoke --steps 50 --chunk-size 8 \
+        --trace /tmp/train_trace.json --metrics /tmp/train_metrics.jsonl
 
 The reference's flags, plus ``--device``: the run is on the card unless
 ``--device cpu`` is given (without a card it raises). Everything routes
@@ -48,13 +50,15 @@ recovery supervisor (``train.supervisor``, ``--max-restarts``), which
 restores the last good checkpoint after a crash or preemption; the
 recovery log is printed. ``dynamic_backup`` adapts its cutoff over
 ``--dynamic-window`` steps of simulated arrivals, or of the fenced wall
-clock with ``--latency-source measured``. The reference's cross-flag
-checks hold, with its messages; ``--execution spmd`` with an event
-strategy is refused, as there.
+clock with ``--latency-source measured``. ``--trace PATH`` records the
+host spans (``obs.Tracer``, a fence at each chunk edge) and exports them
+as Chrome-trace JSON; ``--metrics PATH`` dumps the ``obs.MetricsRegistry``
+as JSONL; in a world of ranks rank 0 records and writes them, as it writes
+the checkpoints. The reference's cross-flag checks hold, with its
+messages; ``--execution spmd`` with an event strategy is refused, as
+there.
 
-Not ported, and refused by name: ``--trace`` / ``--metrics`` (ROADMAP
-Queue 1 item 7, telemetry) and ``--platform`` (PyTorch picks the card by
-``--device``).
+Refused by name: ``--platform`` (PyTorch picks the card by ``--device``).
 """
 from __future__ import annotations
 
@@ -73,6 +77,7 @@ from repro_torch.core.straggler import PaperCalibrated
 from repro_torch.distributed import mesh
 from repro_torch.distributed.spmd_engine import validate_grad_batch
 from repro_torch.models.common import resolve_device
+from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.loop import falls_back_to_sim, run_experiment
 from repro_torch.train.supervisor import run_supervised
@@ -82,8 +87,6 @@ EVENT_STRATEGIES = ("async", "softsync")
 
 # flag -> (argparse dest, why it is refused); refused when set
 DEFERRED_FLAGS = {
-    "--trace": ("trace", "ROADMAP Queue 1 item 7, telemetry"),
-    "--metrics": ("metrics", "ROADMAP Queue 1 item 7, telemetry"),
     "--platform": ("platform", "none: PyTorch picks the card by --device"),
 }
 
@@ -198,15 +201,19 @@ def _run(args) -> None:
     cfg = build_config(args)
     resume = args.resume and ckpt_lib.latest_step(args.ckpt) is not None
     say = mesh.is_leader()
+    # rank 0 records and writes the telemetry, as it writes the checkpoints
+    tracer = Tracer() if args.trace and say else None
+    metrics = MetricsRegistry() if args.metrics and say else None
     if resume and say:
         print(f"[train] resumed at step {ckpt_lib.latest_step(args.ckpt)}")
     if args.supervise:
         res = run_supervised(cfg, latency=PaperCalibrated(),
-                             device=args.device)
+                             device=args.device, tracer=tracer,
+                             metrics=metrics)
     else:
         res = run_experiment(cfg, latency=PaperCalibrated(),
                              device=args.device, resume=resume,
-                             save_final=True)
+                             save_final=True, tracer=tracer, metrics=metrics)
     if not say:
         return
     for e in res.recovery_log:
@@ -220,7 +227,21 @@ def _run(args) -> None:
           f"mean_selected {res.mean_selected:.2f}, "
           f"mean_staleness {res.mean_staleness:.2f}, "
           f"restarts {res.restarts}, checkpoint {args.ckpt}")
-    print(f"[train] wall {res.wall_time_s:.2f}s", flush=True)
+    if res.phase_times:
+        breakdown = " ".join(f"{k} {v:.2f}s"
+                             for k, v in sorted(res.phase_times.items()))
+        print(f"[train] wall {res.wall_time_s:.2f}s ({breakdown})",
+              flush=True)
+    else:
+        print(f"[train] wall {res.wall_time_s:.2f}s", flush=True)
+    if tracer is not None:
+        tracer.export(args.trace)
+        print(f"[train] trace: {args.trace} ({len(tracer)} events, "
+              f"{tracer.dropped} dropped)", flush=True)
+    if metrics is not None:
+        metrics.dump_jsonl(args.metrics)
+        print(f"[train] metrics: {args.metrics} ({len(metrics)} series)",
+              flush=True)
 
 
 def _rank_main(rank: int, device, args) -> None:
@@ -310,8 +331,13 @@ def main(argv=None) -> None:
                     help="dynamic_backup's adaptation window: the "
                          "simulated arrivals, or the fenced wall clock a "
                          "step")
-    ap.add_argument("--trace", default=None, metavar="PATH")
-    ap.add_argument("--metrics", default=None, metavar="PATH")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record host-side spans and export Chrome-trace "
+                         "JSON here (load at ui.perfetto.dev); fences the "
+                         "card at chunk edges")
+    ap.add_argument("--metrics", default=None, metavar="PATH",
+                    help="dump the metrics registry as JSONL here (one "
+                         "object per metric)")
     args = ap.parse_args(argv)
     _validate(ap, args)
     d, m = args.mesh_data or 1, args.mesh_model or 1

@@ -29,7 +29,7 @@ from repro_torch.models import common, rwkv6
 from repro_torch.models.transformer import dots_contexts, run_remat
 
 _SERVE = ("RWKV decode and prefill are not ported yet: they come with the "
-          "toy serve path (ROADMAP Queue 1 item 8)")
+          "toy serve path (ROADMAP Queue 1 item 8, the toy path)")
 
 
 @contextlib.contextmanager

@@ -49,8 +49,8 @@ def segments(cfg) -> List[Tuple[str, int, int]]:
     """[(kind, count, first_layer_index)] — homogeneous layer groups."""
     if cfg.moe.enabled:
         raise NotImplementedError(
-            "MoE layers are not ported yet (the remaining model families "
-            "slice); repro_torch serves the dense family")
+            "MoE layers are not ported yet (the remaining model families, "
+            "ROADMAP Queue 1 item 9); repro_torch serves the dense family")
     return [("dense", cfg.num_layers, 0)]
 
 
@@ -69,7 +69,7 @@ def block_init(gen, cfg, kind: str, dtype, device=None) -> nn.ModuleDict:
     if kind != "dense" or cfg.attention_kind != "gqa":
         raise NotImplementedError(
             f"{kind}/{cfg.attention_kind} blocks are not ported yet (the "
-            f"remaining model families slice)")
+            f"remaining model families, ROADMAP Queue 1 item 9)")
     return nn.ModuleDict({
         "ln1": common.rmsnorm_init(cfg.d_model, dtype, device),
         "attn": attention.gqa_init(gen, cfg, dtype, device),
@@ -148,7 +148,8 @@ class TransformerLM(nn.Module):
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (the remaining "
-                f"model families slice); repro_torch serves the dense family")
+                f"model families, ROADMAP Queue 1 item 9); repro_torch "
+                f"serves the dense family")
         self.cfg = cfg
         self.dtype = common.dtype_of(cfg.dtype)
         self.device = common.resolve_device(device)

@@ -1,11 +1,13 @@
 """Host-side tracer: nested spans, ring-buffered, Chrome-trace export.
-Reference: ``src/repro/obs/trace.py`` (``NullTracer``, ``as_tracer``,
-``Tracer``), copied unchanged so the engine's spans keep their names
-(``serve/admit``, ``serve/prefill``, ``serve/decode``, ``serve/evict``).
+Reference: ``src/repro/obs/trace.py`` (``SPAN_NAMES``, ``NullTracer``,
+``as_tracer``, ``Tracer``, ``load_trace``, ``span_tree``), copied unchanged
+so every span keeps its name (docs/observability.md pins them).
 
 Spans are host wall-clock intervals (``time.perf_counter_ns``). Device
-work inside a span is fenced by the caller where it reads a result back
-(the engine's token reads), so a span covers the device time it launched.
+work inside a span is fenced by the caller: the trainer's
+``train/device_wait`` and the spmd engine's ``spmd/collective_wait`` are
+``torch.cuda.synchronize`` at a chunk edge, and the serve engine's token
+reads fence its spans, so a span covers the device time it launched.
 Disabled tracing is the shared :data:`NULL` no-op singleton. Stdlib only.
 """
 from __future__ import annotations
@@ -13,7 +15,31 @@ from __future__ import annotations
 import collections
 import json
 import time
-from typing import Any, Deque, Dict
+from typing import Any, Deque, Dict, List
+
+# The span taxonomy: every name an instrumentation site emits. cat is
+# the prefix; docs/observability.md documents each name.
+SPAN_NAMES = (
+    # train/loop.py
+    "train/step",             # per-step dispatch (chunk_size=1)
+    "train/chunk",            # one K-step chunk (graph replays on the card)
+    "train/device_wait",      # torch.cuda.synchronize at the chunk edge
+    "train/data_wait",        # prefetcher / batch staging
+    "train/ckpt_save",        # atomic checkpoint commit
+    # distributed/spmd_engine.py
+    "spmd/dispatch",          # the engine's step/chunk call
+    "spmd/collective_wait",   # torch.cuda.synchronize: collectives + compute
+    # serve/engine.py (+ StepSession)
+    "serve/admit",            # admission: slot+pages grant, incl. prefill
+    "serve/prefill",          # the bucketed prefill call
+    "serve/decode",           # one decode step over every active slot
+    "serve/evict",            # instant: preempt evicted the batch
+    # serve/router.py (instants on the virtual-clock event loop)
+    "router/dispatch",        # primary copy dispatched to a replica
+    "router/hedge",           # backup copy issued past the p95 threshold
+    "router/timeout",         # attempt cancelled at its deadline
+    "router/failover",        # unhealthy replica drained back to the queue
+)
 
 
 class _NullSpan:
@@ -148,3 +174,49 @@ class Tracer:
         with open(path, "w") as f:
             json.dump(self.to_dict(), f)
         return path
+
+
+def load_trace(path: str) -> Dict:
+    """Load + structurally validate a Chrome-trace JSON file.
+
+    The round-trip check the tests and the CI sample-trace step use:
+    the object form with a ``traceEvents`` list whose entries carry the
+    required ``name``/``ph``/``ts`` keys.
+    """
+    with open(path) as f:
+        data = json.load(f)
+    if not isinstance(data, dict) or "traceEvents" not in data:
+        raise ValueError(f"{path}: not a Chrome-trace JSON object "
+                         "(missing 'traceEvents')")
+    for i, ev in enumerate(data["traceEvents"]):
+        for key in ("name", "ph", "ts"):
+            if key not in ev:
+                raise ValueError(f"{path}: traceEvents[{i}] missing {key!r}")
+        if ev["ph"] == "X" and "dur" not in ev:
+            raise ValueError(f"{path}: traceEvents[{i}] is a complete "
+                             "event without 'dur'")
+    return data
+
+
+def span_tree(events: List[Dict]) -> List[Dict]:
+    """Nest "X" events by interval containment (per pid/tid track).
+
+    Returns the roots; each node gains a ``children`` list. Used by the
+    round-trip tests to assert the recorded nesting is well-formed.
+    """
+    spans = [dict(e) for e in events if e.get("ph") == "X"]
+    spans.sort(key=lambda e: (e.get("pid", 0), e.get("tid", 0),
+                              e["ts"], -e["dur"]))
+    roots: List[Dict] = []
+    stack: List[Dict] = []
+    for ev in spans:
+        ev["children"] = []
+        while stack and not (
+                stack[-1].get("pid", 0) == ev.get("pid", 0)
+                and stack[-1].get("tid", 0) == ev.get("tid", 0)
+                and ev["ts"] + ev["dur"]
+                <= stack[-1]["ts"] + stack[-1]["dur"] + 1e-6):
+            stack.pop()
+        (stack[-1]["children"] if stack else roots).append(ev)
+        stack.append(ev)
+    return roots

@@ -1,16 +1,26 @@
 """The serve engine: continuous batching over the paged KV cache.
 Reference: ``src/repro/serve/engine.py`` (``ServeEngine.run`` with the
-``continuous`` and ``static`` policies and both clocks, ``ServeReport``,
-``CompletedRequest``, ``validate_request``, ``pages_needed``, ``_metrics``).
+``continuous`` and ``static`` policies, both clocks, chaos, the SLO gate
+and the metrics mirror, ``ServeReport``, ``CompletedRequest``,
+``validate_request``, ``pages_needed``, ``_metrics``, ``StepSession`` and
+``restore_params``).
 
 One engine owns a bucketed prefill (one shape per power-of-two prompt
 bucket) and a single decode step over all ``num_slots`` slots
 (``paged_model``). The host loop is the scheduler: it admits requests from
 the open-loop arrival queue whenever a slot AND enough pool pages are free
 (continuous batching), or only when the whole batch has drained
-(``policy="static"``), and evicts at decode-step granularity.
+(``policy="static"``), and evicts at decode-step granularity: on
+completion, and under the chaos engine's ``preempt`` fault (``faults=``,
+``core.faults``' grammar, ``slowdown`` and ``preempt`` only), which throws
+every in-flight request back to the queue (recomputed on readmission;
+greedy decode makes the retry token-identical). ``slo=``
+(``serve.slo.SLOConfig``) gates arrivals on the windowed p99 of the
+engine's own clock; ``metrics=`` (``obs.MetricsRegistry``) mirrors the
+report into the ``serve/*`` schema.
 
-Two clocks: ``"wall"`` (real seconds, the measurement path) and
+Two clocks: ``"wall"`` (real seconds, the measurement path; a chaos
+slowdown stretches each decode step by sleeping the residual) and
 ``"virtual"`` (fixed units per step, the test path).
 
 A decode step costs one packed int32 host->device transfer
@@ -27,12 +37,18 @@ engine's pool, which persists across runs (zeroed at the start of each).
 ``decode_graph=False`` runs the step eagerly (the comparison runs), and
 the CPU always does. Prefill stays eager, one shape per bucket.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the slice
-that brings them: ``mesh_model > 1`` (tensor-parallel decode, ROADMAP
-Queue 1 item 8; the trainer's tensor parallelism is ported), ``faults``
-(chaos), ``slo`` (admission gate), ``metrics`` (the telemetry registry),
-``restore_params`` (checkpoint bridge) and ``StepSession`` (the router's
-per-replica surface).
+:class:`StepSession` is one replica of the replica router
+(``serve.router``): it shares the engine's weights and prefill / decode
+functions but owns its pool, page table and slots, and on the card its own
+decode graph, captured over its own pool (R sessions never share one).
+
+:func:`restore_params` is the checkpoint -> serve bridge: the ``params``
+(or ``ema``) subtree of a training checkpoint (the reference's format,
+written by either package; replicated, TP and sim checkpoints are all
+stored full) loaded into a model for the engine.
+
+Refused with ``NotImplementedError``: ``mesh_model > 1`` (tensor-parallel
+decode, ROADMAP Queue 1 item 8's TP decode).
 """
 from __future__ import annotations
 
@@ -44,15 +60,20 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import faults as faults_lib
 from repro_torch.core.step_graph import StepGraph
+from repro_torch.models import from_jax_tree, get_model, to_jax_tree
 from repro_torch.models.common import resolve_device
+from repro_torch.models.convert import load_named
 from repro_torch.obs.trace import as_tracer
 from repro_torch.serve import pages as pages_lib
 from repro_torch.serve import trace as trace_lib
 from repro_torch.serve.paged_model import (build_paged_decode,
                                            build_paged_prefill,
                                            supports_paged)
+from repro_torch.serve.slo import SLOController
 
+SERVE_FAULT_KINDS = ("slowdown", "preempt")
 SERVE_POLICIES = ("continuous", "static")
 
 
@@ -105,12 +126,6 @@ class _Slot:
         self.preemptions = preemptions
 
 
-def _not_ported(what: str, slice_name: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (it comes with the "
-        f"{slice_name} slice)")
-
-
 class ServeEngine:
     """Continuous-batching inference over a paged, optionally int8, pool.
 
@@ -120,7 +135,8 @@ class ServeEngine:
     hand-written kernels for their plain versions (used by the tests and
     the kernel-vs-plain comparison only). ``decode_graph`` (default: on
     the card) replays decode as a captured CUDA graph; True on the CPU
-    raises."""
+    raises. ``faults`` (with ``fault_horizon`` / ``fault_seed``), ``slo``,
+    ``tracer`` and ``metrics`` are the reference's."""
 
     def __init__(self, model_cfg, model, *, num_slots: int = 4,
                  page_size: int = 8, max_prompt_len: int = 32,
@@ -129,6 +145,7 @@ class ServeEngine:
                  use_kernel: bool = True, device=None,
                  clock: str = "wall", step_time: float = 1.0,
                  prefill_time: float = 1.0, faults: Optional[str] = None,
+                 fault_horizon: int = 256, fault_seed: int = 0,
                  eos_id: Optional[int] = None,
                  max_queue: Optional[int] = None,
                  strict_capacity: bool = True,
@@ -142,16 +159,9 @@ class ServeEngine:
         if mesh_model > 1:
             # the trainer's TP plan and hooks exist; the paged decode's
             # sharded caches do not yet
-            raise _not_ported("tensor-parallel decode (mesh_model > 1)",
-                              "distributed serving (ROADMAP Queue 1 item 8)")
-        if faults:
-            raise _not_ported("serve chaos injection (faults=)",
-                              "fault-tolerance")
-        if slo is not None:
-            raise _not_ported("the SLO admission gate (slo=)",
-                              "serving resilience")
-        if metrics is not None:
-            raise _not_ported("the metrics registry (metrics=)", "telemetry")
+            raise NotImplementedError(
+                "tensor-parallel decode (mesh_model > 1) is not ported to "
+                "repro_torch yet (ROADMAP Queue 1 item 8, TP decode)")
         self.device = resolve_device(device)
         model_device = next(model.parameters()).device
         if model.cfg != model_cfg:
@@ -162,7 +172,11 @@ class ServeEngine:
                              f"serves on {self.device}")
         self.cfg = model_cfg
         self.model = model
+        # the SLO gate controls on the engine's clock; tracer / metrics are
+        # observability only
+        self.slo_cfg = slo
         self.tracer = as_tracer(tracer)
+        self.registry = metrics
         self._prefill_s = 0.0
         self._decode_s = 0.0
         self.clock = clock
@@ -199,22 +213,58 @@ class ServeEngine:
         self._bufs: Optional[Dict[str, torch.Tensor]] = None
         if decode_graph is None:
             decode_graph = self.device.type == "cuda"
-        self._decode_graph = (StepGraph(self._decode_on_static, self.device)
-                              if decode_graph else None)
+        self._graph_decode = decode_graph
+        self._decode_graph = self.decode_graph_for(lambda: self._bufs)
+        self.fault_plan = None
+        if faults:
+            plan = faults_lib.plan_from_spec(
+                faults, num_steps=fault_horizon, num_workers=num_slots,
+                seed=fault_seed)
+            bad = sorted({e.kind for e in plan.events
+                          if e.kind not in SERVE_FAULT_KINDS})
+            if bad:
+                raise ValueError(
+                    f"serve wires only {SERVE_FAULT_KINDS} of the fault "
+                    f"taxonomy (decode is lockstep — no per-worker crash/"
+                    f"restart/ckpt_io surface); got {bad}")
+            self.fault_plan = plan
 
-    def _decode_on_static(self, static):
-        return {"tokens": self._decode(static["state"], self._bufs)}
+    def decode_graph_for(self, bufs) -> Optional[StepGraph]:
+        """A decode graph over the pool ``bufs()`` returns (the engine's,
+        or a session's), None when decode runs eagerly."""
+        if not self._graph_decode:
+            return None
+        return StepGraph(lambda static: {"tokens": self._decode(
+            static["state"], bufs())}, self.device)
 
-    def _decode_step(self, state: np.ndarray) -> torch.Tensor:
-        """One decode step over every slot from the packed host state
-        ``[slots, 2 + max_pages]`` int32: the next tokens ``[slots]`` on
-        the device (a graph replay on the card)."""
+    def _decode_step(self, state: np.ndarray, bufs: Dict[str, torch.Tensor],
+                     graph: Optional[StepGraph]) -> torch.Tensor:
+        """One decode step over every slot of the pool ``bufs`` from the
+        packed host state ``[slots, 2 + max_pages]`` int32: the next
+        tokens ``[slots]`` on the device (a replay of ``graph``, captured
+        over ``bufs``, on the card)."""
         state_t = torch.from_numpy(state)
-        if self._decode_graph is None:
-            return self._decode(state_t.to(self.device), self._bufs)
-        weights_and_pool = [*self.model.parameters(), *self._bufs.values()]
-        return self._decode_graph({"state": state_t},
-                                  weights_and_pool)["tokens"]
+        if graph is None:
+            return self._decode(state_t.to(self.device), bufs)
+        weights_and_pool = [*self.model.parameters(), *bufs.values()]
+        return graph({"state": state_t}, weights_and_pool)["tokens"]
+
+    def _prefill_into(self, req: trace_lib.Request, slot: int,
+                      pool: pages_lib.PagePool) -> int:
+        """Prefill ``req`` into ``slot``'s pages of ``pool`` (allocated by
+        the caller); returns the greedy first token."""
+        bucket = trace_lib.bucket_for(req.prompt_len, floor=self.page_size,
+                                      cap=self.max_bucket)
+        n_pages = bucket // self.page_size
+        # [true_len, *page_ids, *bucket-padded tokens]: one transfer
+        packed = np.zeros((1 + n_pages + bucket,), np.int32)
+        packed[0] = req.prompt_len
+        packed[1:1 + n_pages] = pool.page_table[slot, :n_pages]
+        packed[1 + n_pages:1 + n_pages + req.prompt_len] = req.prompt
+        tok_dev = self._prefill(torch.from_numpy(packed).to(self.device),
+                                req.prompt_len, n_pages, pool.buffers)
+        self._buckets_run.add(bucket)
+        return int(tok_dev.item())
 
     # -- shape counters (the reference's compile counters) -------------------
 
@@ -246,9 +296,13 @@ class ServeEngine:
         else:
             self._vnow = max(self._vnow, t)
 
-    def _advance_decode(self) -> None:
-        if self.clock == "virtual":
-            self._vnow += self.step_time
+    def _advance_decode(self, elapsed: float, factor: float) -> None:
+        if self.clock == "wall":
+            extra = elapsed * (factor - 1.0)
+            if extra > 0:
+                time.sleep(extra)
+        else:
+            self._vnow += self.step_time * factor
 
     def _advance_prefill(self) -> None:
         if self.clock == "virtual":
@@ -303,14 +357,20 @@ class ServeEngine:
         completed: List[CompletedRequest] = []
         events: List[Dict[str, Any]] = []
         rejected: List[Dict[str, Any]] = []
+        preempt_counts: Dict[int, int] = {}
+        slo = SLOController(self.slo_cfg) if self.slo_cfg else None
+        held: List[trace_lib.Request] = []     # the SLO "queue" pen
         self._prefill_s = 0.0
         self._decode_s = 0.0
         wall_t0 = time.perf_counter()
         self._t0 = time.perf_counter()
         self._vnow = 0.0
         step_idx = 0
+        slow_factor, slow_until = 1.0, -1
 
         def complete(slot: int, st: _Slot, now: float) -> None:
+            if slo is not None:
+                slo.observe(now - st.req.arrival)
             pool.free_slot(slot)
             free_slots.append(slot)
             completed.append(CompletedRequest(
@@ -325,15 +385,31 @@ class ServeEngine:
             events.append({"event": "reject", "rid": req.rid,
                            "reason": reason, "step": step_idx})
 
-        while pending or queue or active:
+        while pending or queue or active or held:
             now = self._now()
             while pending and pending[0].arrival <= now:
                 req = pending.popleft()
                 if (self.max_queue is not None
                         and len(queue) >= self.max_queue):
+                    # shed at the door (requeued preemptions re-enter at
+                    # the queue head and are never shed)
                     reject(req, "queue_overflow", now)
                     continue
-                queue.append(req)
+                verdict = slo.admit(now) if slo is not None else "admit"
+                if verdict == "shed":
+                    reject(req, "slo_shed", now)
+                elif verdict == "queue":
+                    held.append(req)
+                else:
+                    queue.append(req)
+            if held and not slo.violating:
+                # the gate re-opened: release the pen in arrival order
+                queue.extend(held)
+                held.clear()
+            elif held and not queue and not active and not pending:
+                # gate shut and the engine idle: nothing in flight can feed
+                # the estimator, so probe with the oldest held request
+                queue.append(held.pop(0))
             # -- admission ---------------------------------------------------
             may_admit = bool(queue) and (policy == "continuous"
                                          or not active)
@@ -349,7 +425,8 @@ class ServeEngine:
                     break
                 queue.popleft()
                 slot = free_slots.pop()
-                st = self._admit(req, slot, need, pool)
+                st = self._admit(req, slot, need, pool,
+                                 preempt_counts.get(req.rid, 0))
                 if st.produced >= req.max_new or (
                         self.eos_id is not None
                         and st.last_token == self.eos_id):
@@ -364,6 +441,34 @@ class ServeEngine:
                     raise RuntimeError("scheduler wedged: empty slots but "
                                        "queue not admissible")
                 continue
+            # -- chaos at decode-step granularity ----------------------------
+            if self.fault_plan:
+                for ev in self.fault_plan.events:
+                    if ev.step != step_idx:
+                        continue
+                    if ev.kind == "slowdown":
+                        slow_factor, slow_until = ev.factor, \
+                            step_idx + ev.duration
+                        events.append({"event": "slowdown", "step": step_idx,
+                                       "factor": ev.factor,
+                                       "duration": ev.duration})
+                    elif ev.kind == "preempt":
+                        evicted = sorted(active.items())
+                        for slot, st in evicted:
+                            pool.free_slot(slot)
+                            free_slots.append(slot)
+                            preempt_counts[st.req.rid] = st.preemptions + 1
+                        active.clear()
+                        for _, st in reversed(evicted):
+                            queue.appendleft(st.req)
+                        events.append({"event": "preempt", "step": step_idx,
+                                       "evicted": len(evicted)})
+                        self.tracer.instant("serve/evict", step=step_idx,
+                                            evicted=len(evicted))
+                if not active:
+                    step_idx += 1
+                    continue
+            factor = slow_factor if step_idx <= slow_until else 1.0
             # -- one decode step over every slot -----------------------------
             n_slots = self.pool_cfg.num_slots
             state = np.zeros((n_slots, 2 + self.pool_cfg.max_pages_per_slot),
@@ -375,10 +480,14 @@ class ServeEngine:
             t_start = time.perf_counter()
             with self.tracer.span("serve/decode", step=step_idx,
                                   n_active=len(active)):
-                next_tokens = self._decode_step(state).cpu().numpy()
+                next_tokens = self._decode_step(
+                    state, self._bufs, self._decode_graph).cpu().numpy()
+            dt = time.perf_counter() - t_start
             self._decode_ran = True
-            self._decode_s += time.perf_counter() - t_start
-            self._advance_decode()
+            self._decode_s += dt
+            if self.registry is not None:
+                self.registry.histogram("serve/decode_s").observe(dt)
+            self._advance_decode(dt, factor)
             pool.note_occupancy()
             now = self._now()
             for slot in sorted(active):
@@ -399,35 +508,42 @@ class ServeEngine:
         metrics["wall_time_s"] = time.perf_counter() - wall_t0
         metrics["prefill_s"] = self._prefill_s
         metrics["decode_s"] = self._decode_s
-        metrics["rejected_slo_shed"] = 0
+        metrics["rejected_slo_shed"] = sum(
+            1 for r in rejected if r["reason"] == "slo_shed")
+        if slo is not None:
+            metrics["slo_trips"] = slo.trips
+            metrics["slo_estimate"] = slo.estimate()
+        if self.registry is not None:
+            reg = self.registry
+            reg.counter("serve/completed").inc(len(completed))
+            reg.counter("serve/rejected").inc(len(rejected))
+            reg.counter("serve/slo_shed").inc(metrics["rejected_slo_shed"])
+            reg.counter("serve/tokens").inc(
+                sum(len(c.tokens) for c in completed))
+            hl = reg.histogram("serve/latency")
+            ht = reg.histogram("serve/ttft")
+            for c in completed:
+                hl.observe(c.latency)
+                ht.observe(c.ttft)
+            reg.gauge("serve/wall_time_s").set(metrics["wall_time_s"])
         return ServeReport(policy=policy, completed=completed,
                            metrics=metrics, events=events, rejected=rejected)
 
-    def _admit(self, req, slot: int, need: int,
-               pool: pages_lib.PagePool) -> _Slot:
+    def _admit(self, req, slot: int, need: int, pool: pages_lib.PagePool,
+               preemptions: int) -> _Slot:
         pool.alloc(slot, need)
-        bucket = trace_lib.bucket_for(req.prompt_len, floor=self.page_size,
-                                      cap=self.max_bucket)
-        n_pages = bucket // self.page_size
-        # [true_len, *page_ids, *bucket-padded tokens]: one transfer
-        packed = np.zeros((1 + n_pages + bucket,), np.int32)
-        packed[0] = req.prompt_len
-        packed[1:1 + n_pages] = pool.page_table[slot, :n_pages]
-        packed[1 + n_pages:1 + n_pages + req.prompt_len] = req.prompt
         admitted = self._now()
         with self.tracer.span("serve/admit", rid=req.rid):
             t_start = time.perf_counter()
             with self.tracer.span("serve/prefill", rid=req.rid,
                                   prompt_len=req.prompt_len):
-                tok_dev = self._prefill(
-                    torch.from_numpy(packed).to(self.device),
-                    req.prompt_len, n_pages, self._bufs)
-                first_tok = int(tok_dev.item())
+                first_tok = self._prefill_into(req, slot, pool)
             dt = time.perf_counter() - t_start
-        self._buckets_run.add(bucket)
         self._prefill_s += dt
+        if self.registry is not None:
+            self.registry.histogram("serve/prefill_s").observe(dt)
         self._advance_prefill()
-        return _Slot(req, admitted, self._now(), first_tok, 0)
+        return _Slot(req, admitted, self._now(), first_tok, preemptions)
 
     def _metrics(self, trace, completed, pool, decode_steps, events,
                  rejected=()):
@@ -460,16 +576,159 @@ class ServeEngine:
         }
 
 
+# ---------------------------------------------------------------------------
+# Incremental per-replica surface (the router drives R of these)
+# ---------------------------------------------------------------------------
+
+
 class StepSession:
-    """The router's per-replica admit/tick surface (reference:
-    ``repro.serve.engine.StepSession``); not ported yet."""
+    """One serving replica as an incremental admit / tick surface.
+
+    Sessions share one engine's weights and prefill / decode functions (R
+    replicas of one server build), but each owns its KV pool, page table
+    and decode slots, so replicas fail and drain independently; on the
+    card each also owns its decode graph, captured over its own pool on
+    its first tick and replayed after (``decode_captures``). The caller
+    owns all timekeeping: ``admit`` takes explicit timestamps and ``tick``
+    only reports which requests finished, so the router's virtual clock
+    decides every report and same-seed replays are bit-identical. Greedy
+    decode makes a request's tokens the same on whichever replica (or
+    however many hedged copies) ran it."""
 
     def __init__(self, engine: ServeEngine, name: str = ""):
-        raise _not_ported("StepSession", "serving resilience")
+        self.engine = engine
+        self.name = name
+        self.pool = pages_lib.PagePool(engine.pool_cfg,
+                                       dtype=engine.model.dtype,
+                                       device=engine.device)
+        self.free_slots = list(range(engine.pool_cfg.num_slots - 1, -1, -1))
+        self.active: Dict[int, _Slot] = {}
+        self._slot_of: Dict[int, int] = {}
+        self._graph = engine.decode_graph_for(lambda: self.pool.buffers)
+
+    @property
+    def n_active(self) -> int:
+        return len(self.active)
+
+    @property
+    def decode_captures(self) -> int:
+        """Captures of this session's decode graph (0 when eager)."""
+        return self._graph.captures if self._graph is not None else 0
+
+    def can_admit(self, req: trace_lib.Request) -> bool:
+        need = self.engine.pages_needed(req)
+        return (bool(self.free_slots) and need <= self.engine.page_capacity
+                and self.pool.can_alloc(need))
+
+    @torch.inference_mode()
+    def admit(self, req: trace_lib.Request, admitted_t: float,
+              first_token_t: float, preemptions: int = 0) -> _Slot:
+        """Prefill ``req`` into a free slot (the caller checked
+        ``can_admit`` and stamps both times). The returned slot state may
+        already be ``done()``: a one-token request finishes at prefill."""
+        eng = self.engine
+        need = eng.pages_needed(req)
+        slot = self.free_slots.pop()
+        self.pool.alloc(slot, need)
+        with eng.tracer.span("serve/prefill", rid=req.rid,
+                             replica=self.name):
+            first_tok = eng._prefill_into(req, slot, self.pool)
+        st = _Slot(req, admitted_t, first_token_t, first_tok, preemptions)
+        self.active[slot] = st
+        self._slot_of[req.rid] = slot
+        return st
+
+    def done(self, st: _Slot) -> bool:
+        return st.produced >= st.req.max_new or (
+            self.engine.eos_id is not None
+            and st.last_token == self.engine.eos_id)
+
+    def release(self, rid: int) -> _Slot:
+        """Free ``rid``'s slot and pages (completion, a hedge loser
+        cancelled, or an unhealthy replica draining); returns its slot
+        state."""
+        slot = self._slot_of.pop(rid)
+        st = self.active.pop(slot)
+        self.pool.free_slot(slot)
+        self.free_slots.append(slot)
+        return st
+
+    def evict_all(self) -> List[_Slot]:
+        """Crash / preempt: drop every in-flight request, freeing all
+        pages. Returns the slot states in slot order, for a deterministic
+        requeue."""
+        sts = [st for _, st in sorted(self.active.items())]
+        for slot in list(self.active):
+            self.pool.free_slot(slot)
+            self.free_slots.append(slot)
+        self.active.clear()
+        self._slot_of.clear()
+        return sts
+
+    @torch.inference_mode()
+    def tick(self) -> List[int]:
+        """One decode step over every active slot (one token each).
+        Returns the rids that finished this step; the caller stamps their
+        finish time and calls :meth:`release`."""
+        if not self.active:
+            return []
+        eng = self.engine
+        n_slots = eng.pool_cfg.num_slots
+        state = np.zeros((n_slots, 2 + eng.pool_cfg.max_pages_per_slot),
+                         np.int32)
+        for slot, st in self.active.items():
+            if self.done(st):
+                continue   # finished at prefill: it holds its slot until
+                           # the caller's scheduled release, never decodes
+            state[slot, 0] = st.last_token
+            state[slot, 1] = st.length
+        state[:, 2:] = self.pool.page_table
+        with eng.tracer.span("serve/decode", replica=self.name,
+                             n_active=len(self.active)):
+            next_tokens = eng._decode_step(state, self.pool.buffers,
+                                           self._graph).cpu().numpy()
+        eng._decode_ran = True
+        finished: List[int] = []
+        for slot in sorted(self.active):
+            st = self.active[slot]
+            if self.done(st):
+                continue
+            st.length += 1
+            tok = int(next_tokens[slot])
+            st.tokens.append(tok)
+            st.last_token = tok
+            st.produced += 1
+            if self.done(st):
+                finished.append(st.req.rid)
+        self.pool.note_occupancy()
+        return finished
 
 
+# ---------------------------------------------------------------------------
+# Checkpoint -> serve bridge
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
 def restore_params(directory: str, model_cfg, *, step: Optional[int] = None,
-                   use_ema: bool = False):
-    """Checkpoint -> serve bridge (reference:
-    ``repro.serve.engine.restore_params``); not ported yet."""
-    raise _not_ported("restore_params", "trainer and checkpoint")
+                   use_ema: bool = False, device=None):
+    """Load the weights of a training checkpoint for serving.
+
+    Every backend stores its checkpoints full (sim, replicated spmd and
+    TP-sharded alike, in the reference's format, from either package), so
+    one template, the model's parameters, restores all three, through
+    ``checkpoint.restore``'s checksum-verified walk-back path (``step``:
+    the latest good one when None). ``use_ema`` loads the ``ema`` subtree
+    instead, cast to the parameters' dtype as in the reference. Returns
+    ``(model, manifest)``: a model for ``model_cfg`` on ``device`` (None:
+    the card) holding the weights, which the port's engine takes where the
+    reference's takes the parameter tree."""
+    from repro_torch.train import checkpoint as ckpt_lib
+    model = get_model(model_cfg, device=resolve_device(device))
+    template = to_jax_tree({
+        k: torch.empty(p.shape, dtype=p.dtype, device="meta")
+        for k, p in model.named_parameters()})
+    key = "ema" if use_ema else "params"
+    tree, manifest = ckpt_lib.restore(directory, {key: template}, step)
+    load_named(model, from_jax_tree(tree[key]))
+    return model, manifest

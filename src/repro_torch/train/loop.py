@@ -5,10 +5,11 @@ Reference: ``src/repro/train/loop.py`` (``TrainResult``,
 ``save_checkpoint``, ``restore_checkpoint``, ``_restore_event_state``,
 ``_template``, ``rescale``, ``fault_kill`` / ``fault_slowdown`` /
 ``fault_revive``, ``_apply_faults``, ``run``, ``_chunk_len_at``,
-``_next_chunk_specs``, ``_fence`` / ``_observe_chunk`` for the measured
-latency feed, ``_run_one_step``, ``_run_chunk`` on both straggler
+``_next_chunk_specs``, ``_fence`` / ``_observe_chunk`` for the spans,
+the registry and the measured latency feed, ``_run_one_step``, ``_run_chunk`` on both straggler
 backends, ``_kill_event_worker``, ``_run_event``, ``_run_event_chunked``
-— and ``run_experiment``; :97-1162).
+— and ``run_experiment``; :97-1162, the telemetry at :140-185,
+:475-490, :742-757 and :850-975, the mesh shrink at :625-635).
 
 The token stream comes from ``data_cfg`` (a ``SyntheticLMConfig``; by
 default the config's vocabulary, sequence, batch and seed at the default
@@ -105,14 +106,29 @@ and its ``meta["event"]``, so event runs resume across the packages. The
 CNN) into the event mode. A killed worker leaves the scheduler; a
 slowdown scales its service times.
 
+**Telemetry** (``obs``): with a ``tracer`` the loop records the
+reference's spans (``train/step`` per step or ``train/chunk`` per chunk,
+each holding ``train/data_wait`` and ``train/device_wait``, and
+``train/ckpt_save``; the spmd engine adds ``spmd/dispatch`` and
+``spmd/collective_wait``), and a ``metrics`` registry takes
+``train/steps``, ``train/wall_time_s`` and the ``train/dispatch_s`` /
+``data_s`` / ``ckpt_s`` phases at the end of a run, ``train/chunk_time_s``
+and ``train/step_time_s`` per chunk and, in measured mode,
+``spmd/worker_step_s``. Either turns on one fence a chunk
+(``torch.cuda.synchronize`` inside ``train/device_wait``, after the
+chunk's replays), so the spans cover the device time; nothing in a step
+changes, and with both off the loop is untouched. Event mode gets the
+checkpoint span and the registry's totals, as in the reference.
+
+A rescale on the spmd engine over ranks shrinks ``mesh_data`` to the
+largest size the new worker count divides over (the reference's rule): the
+ranks whose data index falls outside go idle. They plan every step on the
+host and take none, so they reach the live ranks' checkpoint barriers,
+group creations and the supervisor's restore barrier.
+
 The optimizer state and the EMA are dicts of f32 tensors keyed like the
 parameters. Everything runs on ``device`` (``None`` = the card; ``"cpu"``
 must be asked for).
-
-Refused, with ``NotImplementedError`` naming ROADMAP Queue 1 item 7: a
-rescale on the spmd engine whose new worker count ``mesh_data`` does not
-divide (the reference shrinks the mesh's ``'data'`` axis and idles the
-freed devices).
 """
 from __future__ import annotations
 
@@ -143,6 +159,7 @@ from repro_torch.distributed import mesh, spmd_engine
 from repro_torch.models import from_jax_tree, get_model, to_jax_tree
 from repro_torch.models import convert
 from repro_torch.models.common import resolve_device
+from repro_torch.obs.trace import as_tracer
 from repro_torch.optim import make_optimizer, schedules
 from repro_torch.optim.optimizers import stage_scalars
 from repro_torch.train import checkpoint as ckpt_lib
@@ -175,6 +192,9 @@ class TrainResult:
     # the chaos engine's and the supervisor's structured events (the
     # reference's schema; steps and workers only, no wall clock)
     recovery_log: List[Dict] = dataclasses.field(default_factory=list)
+    # host seconds per phase (dispatch_s, data_s, ckpt_s) when a tracer, a
+    # registry or the measured feed is on; {} otherwise
+    phase_times: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 def _normalize_kills(kill_worker_at: Optional[Dict[int, Any]]
@@ -208,7 +228,8 @@ class Trainer:
                  latency: Optional[LatencyModel] = None, *, device=None,
                  data_cfg: Optional[SyntheticLMConfig] = None,
                  model=None, batch_fn: Optional[Callable] = None,
-                 injector: Optional[faults_lib.FaultInjector] = None):
+                 injector: Optional[faults_lib.FaultInjector] = None,
+                 tracer=None, metrics=None):
         """``data_cfg`` sets the synthetic token stream (its
         ``num_workers`` is replaced by the strategy's). ``model`` /
         ``batch_fn`` override the config's model and the
@@ -218,7 +239,14 @@ class Trainer:
         batch dict (numpy arrays or tensors). ``model`` must live on
         ``device``. ``injector`` attaches a chaos plan
         (``core.faults``); the supervisor owns it across restarts, so
-        faults fire at most once."""
+        faults fire at most once.
+
+        ``tracer`` (``obs.Tracer``) records the ``train/*`` spans (and the
+        spmd engine's ``spmd/*``); ``metrics`` (``obs.MetricsRegistry``)
+        takes the ``train/*`` schema. Either, or the measured latency
+        feed, turns on the fence at chunk edges (``torch.cuda.
+        synchronize`` inside ``train/device_wait``, never inside a
+        chunk's replays); with neither the loop is untouched."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.latency = latency or PaperCalibrated()
@@ -235,6 +263,9 @@ class Trainer:
         self._stal_sum = 0.0
         self._stal_count = 0
         self._wall_s = 0.0
+        self.tracer = as_tracer(tracer)
+        self.registry = metrics
+        self._phase = {"dispatch_s": 0.0, "data_s": 0.0, "ckpt_s": 0.0}
         self.data_cfg = data_cfg or SyntheticLMConfig(
             vocab_size=cfg.model.vocab_size, seq_len=cfg.shape.seq_len,
             global_batch=cfg.shape.global_batch,
@@ -243,6 +274,8 @@ class Trainer:
         # measured mode: fenced wall-clock rows feed the strategy's window
         self._measured_feed = (
             getattr(self.strategy, "latency_source", "sim") == "measured")
+        self._obs = (self.tracer.enabled or self.registry is not None
+                     or self._measured_feed)
 
     # -- construction ---------------------------------------------------------
 
@@ -254,8 +287,10 @@ class Trainer:
             raise ValueError(f"unknown execution backend {backend!r} "
                              f"(valid: sim, spmd)")
         self._spmd = backend == "spmd"
-        # the spmd mesh's world, if any, and its 'model' group under TP
+        # the spmd mesh's world, if any, and its 'model' group under TP; a
+        # rank off a shrunk 'data' axis idles
         self._world = False
+        self._idle = False
         self._model_group = None
         # several processes write one checkpoint directory: rank 0 writes
         self._shared_ckpt = False
@@ -339,8 +374,14 @@ class Trainer:
             spmd_engine.check_mesh(ex.mesh_data, ex.mesh_model)
             spmd_engine.validate_layout(cfg.aggregation.total_workers,
                                         cfg.shape.global_batch, ex.mesh_data)
-            self._world = ex.mesh_data * ex.mesh_model > 1
+            # a mesh of ranks, or the 'data' axis a rescale shrank inside
+            # one (also for a restart after it)
+            self._world = (ex.mesh_data * ex.mesh_model > 1
+                           or mesh.current_shape() == (ex.mesh_data,
+                                                       ex.mesh_model))
             if self._world:
+                # every rank makes the (sub-)mesh's groups, idle ones too
+                self._idle = not mesh.in_mesh(ex.mesh_data, ex.mesh_model)
                 self._model_group = mesh.model_group(ex.mesh_data,
                                                      ex.mesh_model)
                 per_rank = cfg.shape.global_batch // ex.mesh_data
@@ -357,16 +398,20 @@ class Trainer:
             build = (spmd_engine.build_spmd_chunk_step if chunked
                      else spmd_engine.build_spmd_step)
             # a model override has no config: its 'model' axis stays
-            # replicated, as in the reference
+            # replicated, as in the reference; the engine's spans only
+            # with a live tracer (its fence serializes the dispatch)
             step_kwargs.update(
                 use_kernel=ex.use_kernel, interpret=ex.interpret,
                 grad_batch=ex.grad_batch, bucket_size=ex.bucket_size,
                 mesh_data=ex.mesh_data, mesh_model=ex.mesh_model,
                 model_cfg=(None if self._model_override is not None
-                           else cfg.model))
+                           else cfg.model),
+                tracer=self.tracer if self.tracer.enabled else None)
         else:
             build = build_chunk_step if chunked else build_train_step
-        step = build(self.model, self.optimizer, **step_kwargs)
+        # an idle rank builds no step: it takes no part in the data axis
+        step = None if self._idle else build(self.model, self.optimizer,
+                                             **step_kwargs)
         if chunked:
             self.chunk_step = step
             self.prefetcher = ChunkPrefetcher(self.pipeline.cfg,
@@ -600,7 +645,9 @@ class Trainer:
             meta["dead_workers"] = [int(w) for w in
                                     np.nonzero(self.sim.dead)[0]]
         inj = self.injector
-        with torch.no_grad():
+        t0 = self._now()
+        with torch.no_grad(), self.tracer.span("train/ckpt_save",
+                                               step=int(self.step)):
             path = ckpt_lib.save(
                 ck.directory, self.step, self._state_tree(), meta, ck.keep,
                 retries=ck.write_retries, backoff_s=ck.retry_backoff_s,
@@ -609,6 +656,8 @@ class Trainer:
                 io_check=inj.ckpt_io_check if inj is not None else None,
                 on_retry=(inj.on_ckpt_retry(self.step)
                           if inj is not None else None))
+        if t0 is not None:
+            self._phase["ckpt_s"] += time.perf_counter() - t0
         if shared:
             torch.distributed.barrier()
         return path
@@ -708,28 +757,40 @@ class Trainer:
         """Checkpoint, rebuild for ``new_total`` workers, restore, continue.
 
         ``new_total`` is rounded down to a divisor of the global batch, so
-        the per-worker shard stays whole. Mask strategies only. The old
-        model, its step graph and the spmd engine's ``[W, P]`` stack are
-        released before the rebuild, so their memory comes back; the new
-        W captures a new graph on its first chunk."""
+        the per-worker shard stays whole. Mask strategies only. On the spmd
+        engine ``mesh_data`` shrinks to the largest size the new count
+        divides over, as in the reference: the ranks past it idle (they
+        plan every step on the host, take none, and reach every barrier
+        and group creation of the live ranks). The old model, its step
+        graph and the spmd engine's ``[W, P]`` stack are released before
+        the rebuild, so their memory comes back; the new W captures a new
+        graph on its first chunk (after an eager step that makes a new
+        data group's communicator live)."""
         if self.strategy.kind != "mask":
             raise NotImplementedError("elastic rescale applies to mask "
                                       "strategies only")
         w = max(1, new_total)
         while self.cfg.shape.global_batch % w:
             w -= 1
-        md = self.cfg.execution.mesh_data
-        if self._spmd and w % md:
-            raise NotImplementedError(
-                f"elastic rescale to {w} workers on the spmd engine's "
-                f"'data' axis of {md} ranks: shrinking the mesh (the "
-                f"reference idles the freed devices) is not ported yet "
-                f"(ROADMAP Queue 1 item 7)")
         self.save_checkpoint()
         prev_restarts = self.restarts
         prev_total = self.cfg.aggregation.total_workers
         self.cfg = elastic.apply_rescale(self.cfg,
                                          elastic.plan_rescale(self.cfg, w))
+        if self._spmd:
+            # shrink the 'data' axis to the largest size the new worker
+            # count still divides over; the freed ranks idle
+            md = self.cfg.execution.mesh_data
+            while w % md:
+                md -= 1
+            if md != self.cfg.execution.mesh_data:
+                self.cfg = dataclasses.replace(
+                    self.cfg, execution=dataclasses.replace(
+                        self.cfg.execution, mesh_data=md))
+                if self._world:
+                    # every rank makes the shrunk mesh's groups and joins
+                    # it, the freed ones too
+                    mesh.in_mesh(md, self.cfg.execution.mesh_model)
         self._release()
         self._build()
         self.reset_optimizer_state()
@@ -855,6 +916,7 @@ class Trainer:
         correlated outage kills several at once)."""
         kill_worker_at = _normalize_kills(kill_worker_at)
         t0 = time.perf_counter()
+        step0 = self.step
         target = self.step + num_steps
         step_times: List[float] = []
         arrivals0 = getattr(self, "_arrival_count", 0)
@@ -870,6 +932,11 @@ class Trainer:
                                step_times)
         finally:
             self._wall_s += time.perf_counter() - t0
+            if self.registry is not None:
+                self.registry.counter("train/steps").inc(self.step - step0)
+                self.registry.gauge("train/wall_time_s").set(self._wall_s)
+                for key, v in self._phase.items():
+                    self.registry.gauge(f"train/{key}").set(v)
         return TrainResult(
             self.params, self.ema, self.metrics, self.sim_time, self.step,
             self.restarts,
@@ -878,7 +945,8 @@ class Trainer:
             wall_time_s=self._wall_s, step_times_s=step_times,
             arrivals=getattr(self, "_arrival_count", 0) - arrivals0,
             recovery_log=(list(self.injector.log)
-                          if self.injector is not None else []))
+                          if self.injector is not None else []),
+            phase_times=dict(self._phase) if self._obs else {})
 
     def _run_mask(self, target: int, kill_worker_at: Dict[int, List[int]],
                   min_alive_behavior: str, step_times: List[float]) -> None:
@@ -898,7 +966,9 @@ class Trainer:
                 raise RuntimeError("insufficient live workers")
             ts = time.perf_counter()
             k = self._chunk_len_at(self.step, target, kill_worker_at)
-            if self.cfg.chunk_size > 1:
+            if self._idle:
+                self._idle_steps(k)
+            elif self.cfg.chunk_size > 1:
                 # k == 1 still goes through the chunk path
                 self._run_chunk(k, target, kill_worker_at)
             else:
@@ -962,38 +1032,71 @@ class Trainer:
     def _logged(self, target: int) -> bool:
         return self.step % self.cfg.log_every == 0 or self.step == target
 
-    # -- the measured latency feed (dynamic_backup, latency_source=measured)
+    # -- observability hooks (no-ops unless tracer / metrics / measured) ---
 
     def _now(self) -> Optional[float]:
-        return time.perf_counter() if self._measured_feed else None
+        return time.perf_counter() if self._obs else None
+
+    def _fence(self) -> None:
+        """The card's queue drained at the chunk edge, inside
+        ``train/device_wait``: the only sync observability adds, so a
+        chunk's replays are never split and nothing waits when it is
+        off."""
+        with self.tracer.span("train/device_wait"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     def _observe_chunk(self, k: int, t0: Optional[float],
                        data_s: float) -> None:
-        """One measured per-worker row per chunk: the wall time per step,
-        fenced at the chunk edge (the one sync this mode adds), for every
-        live worker (on a lockstep card they all take it); dead workers
-        at +inf."""
+        """The fenced chunk's host seconds into the phase breakdown and the
+        registry; in measured mode one per-worker row: the wall time per
+        step for every live worker (on a lockstep card they all take it),
+        dead workers at +inf."""
         if t0 is None:
             return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        per_step = (time.perf_counter() - t0 - data_s) / k
-        self.strategy.observe_measured(
-            np.where(self.sim.dead, np.inf, per_step))
+        dt = time.perf_counter() - t0
+        self._phase["dispatch_s"] += dt - data_s
+        self._phase["data_s"] += data_s
+        if self.registry is not None:
+            self.registry.histogram("train/chunk_time_s").observe(dt)
+            self.registry.histogram("train/step_time_s").observe(dt / k)
+        if self._measured_feed:
+            row = np.where(self.sim.dead, np.inf, (dt - data_s) / k)
+            self.strategy.observe_measured(row)
+            if self.registry is not None:
+                h = self.registry.histogram("spmd/worker_step_s")
+                for v in row[np.isfinite(row)]:
+                    h.observe(float(v))
+
+    def _idle_steps(self, k: int) -> None:
+        """k steps of a rank off a shrunk 'data' axis: the host plan every
+        rank makes (masks, data position, simulated time) and no device
+        work, so the rank reaches the live ranks' checkpoints and
+        rescales at the same steps."""
+        events = self.sim.next_events(k)
+        self.pipeline.state.step += k
+        for i in range(k):
+            self.sim_time += float(events.times[i])
+            self.step += 1
 
     def _run_one_step(self, target: int) -> None:
         """One step: plan the mask, build the batch, run the train step;
         the metrics are read back (one sync) only on a logged step."""
         t0 = self._now()
-        ev = self.sim.next_event()
-        batch = {k: torch.from_numpy(v[self._rows]).to(self.device)
-                 for k, v in self.pipeline.next().items()}
-        data_s = time.perf_counter() - t0 if t0 is not None else 0.0
-        mask = torch.from_numpy(ev.mask).to(self.device)
-        lr = self.optimizer.scalars(self.step)["lr"]
-        scalars = {k: v[0] for k, v in stage_scalars(
-            self.optimizer, [self.step], self.device).items()}
-        m = self.train_step(self.opt_state, self.ema, scalars, batch, mask)
+        with self.tracer.span("train/step", step=int(self.step)):
+            with self.tracer.span("train/data_wait"):
+                ev = self.sim.next_event()
+                batch = {k: torch.from_numpy(v[self._rows]).to(self.device)
+                         for k, v in self.pipeline.next().items()}
+            data_s = time.perf_counter() - t0 if t0 is not None else 0.0
+            mask = torch.from_numpy(ev.mask).to(self.device)
+            lr = self.optimizer.scalars(self.step)["lr"]
+            scalars = {k: v[0] for k, v in stage_scalars(
+                self.optimizer, [self.step], self.device).items()}
+            m = self.train_step(self.opt_state, self.ema, scalars, batch,
+                                mask)
+            if self._obs:
+                self._fence()
         self._observe_chunk(1, t0, data_s)
         self.sim_time += ev.iteration_time
         self.step += 1
@@ -1013,19 +1116,24 @@ class Trainer:
             return
         steps = list(range(self.step, self.step + k))
         t0 = self._now()
-        chunk_np = self.prefetcher.get(
-            self.pipeline.state.step, k,
-            next_specs=self._next_chunk_specs(k, target, kill_worker_at))
-        self.pipeline.state.step += k
-        batches = {key: self._to_device(
-            np.ascontiguousarray(v[:, self._rows]))
-            for key, v in chunk_np.items()}
-        data_s = time.perf_counter() - t0 if t0 is not None else 0.0
-        events = self.sim.next_events(k)
-        masks = self._to_device(events.masks)
-        scalars = stage_scalars(self.optimizer, steps, self.device)
-        ms = self.chunk_step(self.opt_state, self.ema, scalars, batches,
-                             masks)
+        with self.tracer.span("train/chunk", k=k, step=int(self.step)):
+            with self.tracer.span("train/data_wait"):
+                chunk_np = self.prefetcher.get(
+                    self.pipeline.state.step, k,
+                    next_specs=self._next_chunk_specs(k, target,
+                                                      kill_worker_at))
+                self.pipeline.state.step += k
+                batches = {key: self._to_device(
+                    np.ascontiguousarray(v[:, self._rows]))
+                    for key, v in chunk_np.items()}
+            data_s = time.perf_counter() - t0 if t0 is not None else 0.0
+            events = self.sim.next_events(k)
+            masks = self._to_device(events.masks)
+            scalars = stage_scalars(self.optimizer, steps, self.device)
+            ms = self.chunk_step(self.opt_state, self.ema, scalars, batches,
+                                 masks)
+            if self._obs:
+                self._fence()
         self._observe_chunk(k, t0, data_s)
         selected = events.masks.sum(axis=1)
         self._sel_sum += float(selected.sum())
@@ -1058,19 +1166,24 @@ class Trainer:
         Draws are per step (``(seed, step)``), never per chunk. The host
         reads back times, masks and any logged metrics in one copy."""
         steps = list(range(self.step, self.step + k))
-        dead = self._dead_on_device()
-        rows = [self._device_batch(s) for s in steps]
-        batches = {key: torch.stack([r[key] for r in rows])
-                   for key in rows[0]}
-        del rows
-        arrivals = straggler_device.chunk_arrivals(
-            self._sample_fn, self.cfg.seed, steps,
-            self.strategy.total_workers, dead, self.device)
-        masks, times = self.strategy.select_device(arrivals)
-        masks = masks & ~dead[None, :]
-        scalars = stage_scalars(self.optimizer, steps, self.device)
-        ms = self.chunk_step(self.opt_state, self.ema, scalars, batches,
-                             masks)
+        t0 = self._now()
+        with self.tracer.span("train/chunk", k=k, step=int(self.step)):
+            dead = self._dead_on_device()
+            rows = [self._device_batch(s) for s in steps]
+            batches = {key: torch.stack([r[key] for r in rows])
+                       for key in rows[0]}
+            del rows
+            arrivals = straggler_device.chunk_arrivals(
+                self._sample_fn, self.cfg.seed, steps,
+                self.strategy.total_workers, dead, self.device)
+            masks, times = self.strategy.select_device(arrivals)
+            masks = masks & ~dead[None, :]
+            scalars = stage_scalars(self.optimizer, steps, self.device)
+            ms = self.chunk_step(self.opt_state, self.ema, scalars, batches,
+                                 masks)
+            if self._obs:
+                self._fence()
+        self._observe_chunk(k, t0, 0.0)
         self.pipeline.state.step += k
         self.sim.reset_to_step(self.sim.step + k)
         logged = [i for i in range(k)
@@ -1265,8 +1378,8 @@ def run_experiment(cfg: TrainConfig, *,
                    resume: bool = False, save_final: bool = False,
                    kill_worker_at: Optional[Dict[int, Any]] = None,
                    min_alive_behavior: str = "rescale",
-                   injector: Optional[faults_lib.FaultInjector] = None
-                   ) -> TrainResult:
+                   injector: Optional[faults_lib.FaultInjector] = None,
+                   tracer=None, metrics=None) -> TrainResult:
     """Run a coordination regime (full_sync, backup, timeout,
     dynamic_backup, async, softsync, staleness) from ``cfg`` alone: build
     the Trainer, initialize or resume its state, run ``cfg.total_steps``
@@ -1276,13 +1389,15 @@ def run_experiment(cfg: TrainConfig, *,
     staleness rig). ``cfg.faults.spec`` attaches a chaos plan (an
     ``injector`` overrides it); an injected preemption or crash
     propagates out of this call, and ``train.supervisor.run_supervised``
-    is the entry point that recovers from it."""
+    is the entry point that recovers from it. ``tracer`` / ``metrics``
+    record the run's spans and registry (``Trainer``)."""
     if injector is None:
         injector = faults_lib.build_injector(
             cfg.faults, num_steps=cfg.total_steps,
             num_workers=cfg.aggregation.total_workers)
     tr = Trainer(cfg, latency=latency, device=device, data_cfg=data_cfg,
-                 model=model, batch_fn=batch_fn, injector=injector)
+                 model=model, batch_fn=batch_fn, injector=injector,
+                 tracer=tracer, metrics=metrics)
     if resume and ckpt_lib.latest_step(cfg.checkpoint.directory) is not None:
         tr.reset_optimizer_state()
         tr.restore_checkpoint()

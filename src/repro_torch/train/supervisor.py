@@ -22,8 +22,9 @@ In a world of ranks every rank runs its own supervisor: the plan is
 seeded, so every rank fails at the same step, and each restores, after a
 barrier, from the checkpoint rank 0 wrote. The old Trainer (its model,
 state and step graph) is released before the next is built. A refusal
-(``NotImplementedError``) is not a fault and is re-raised at once. The
-trainer's telemetry (``tracer=`` / ``metrics=``) is not ported yet.
+(``NotImplementedError``) is not a fault and is re-raised at once.
+``tracer=`` / ``metrics=`` go to every Trainer it builds, so one trace and
+one registry span the restarts.
 """
 from __future__ import annotations
 
@@ -59,11 +60,6 @@ def run_supervised(cfg: TrainConfig, *,
     ``run_experiment``'s keywords; ``max_restarts`` overrides
     ``cfg.faults.max_restarts``. Raises the final error (after logging
     ``give_up``) once the restart budget is spent."""
-    if tracer is not None or metrics is not None:
-        raise NotImplementedError(
-            "run_supervised(tracer=, metrics=): the trainer's spans and the "
-            "metrics registry are not ported yet (ROADMAP Queue 1 item 7, "
-            "telemetry)")
     if injector is None:
         injector = faults_lib.build_injector(
             cfg.faults, num_steps=cfg.total_steps,
@@ -74,7 +70,8 @@ def run_supervised(cfg: TrainConfig, *,
     crash_t: Optional[float] = None
     while True:
         tr = Trainer(cfg, latency=latency, device=device, data_cfg=data_cfg,
-                     model=model, batch_fn=batch_fn, injector=injector)
+                     model=model, batch_fn=batch_fn, injector=injector,
+                     tracer=tracer, metrics=metrics)
         if resume:
             if torch.distributed.is_initialized():
                 torch.distributed.barrier()    # rank 0's write is whole

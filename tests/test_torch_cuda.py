@@ -20,7 +20,7 @@ where only PyTorch is installed:
 * The card's ``ServeEngine`` (kernels) gives the CPU port's greedy tokens
   (which ``tests/test_torch_serve.py`` holds to the JAX engine).
 * ``backup_reduce``: the kernel equals its plain version bit for bit over
-  W in {2, 3, 8}, P in {1, 3, 4097, 65536}, masks all-zero, all-one and
+  W in {2, 3, 8} (and 1, below), P in {1, 3, 4097, 65536}, masks all-zero, all-one and
   mixed, on both the float4 path and the scalar path (ragged P, a base
   off 16 bytes, a bucket sliced out of a wider stack); it refuses CPU
   tensors and counts one launch per call.
@@ -83,6 +83,12 @@ where only PyTorch is installed:
   gloo ranks sharing the one card (chunk 1); the parameters gathered over
   the model group within atol 1e-5 of one card, the replicated leaves
   bit-identical on both ranks.
+* Telemetry and the router: a traced, metered graph run (sim and spmd)
+  bit-equal to the untraced one, its chunk spans holding their waits;
+  three router replicas each capture one decode graph over their own pool
+  and serve the eager engine's tokens through a crash; ``backup_reduce``
+  on one worker's ``[1, P]`` (a rank of a shrunk data axis) equals its
+  plain version.
 """
 import pytest
 
@@ -970,3 +976,92 @@ def test_rescale_inside_a_graph_run(cuda_device, tmp_path):
     assert old() is None
     new = g.chunk_step.graph
     assert new.captures == 1 and new.replays > 0
+
+
+# ---------------------------------------------------------------------------
+# Telemetry and the replica router on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("backend", ["sim", "spmd"])
+def test_traced_graph_run_is_bit_equal(cuda_device, backend):
+    """A traced, metered run through the step graph (2 chunks of 4) equals
+    the untraced one bit for bit; the chunk spans hold their data and
+    device waits (and the spmd spans), one capture serves both chunks."""
+    from repro_torch import obs
+    runs = {}
+    for tag in ("plain", "traced"):
+        tracer, reg = (obs.Tracer(), obs.MetricsRegistry()) \
+            if tag == "traced" else (None, None)
+        tr = Trainer(_chunk_cfg("qwen3-0.6b", backend, 4),
+                     device=cuda_device, tracer=tracer, metrics=reg)
+        tr.init_state()
+        runs[tag] = (tr, tr.run(8), tracer, reg)
+    (p, rp, _, _), (t, rt, tracer, reg) = runs["plain"], runs["traced"]
+    assert rt.metrics == rp.metrics and rp.phase_times == {}
+    _state_equal(p, t)
+    roots = [r for r in obs.span_tree(list(tracer.events))
+             if r["name"] == "train/chunk"]
+    want = ["train/data_wait", "train/device_wait"]
+    if backend == "spmd":
+        want[1:1] = ["spmd/dispatch", "spmd/collective_wait"]
+    assert len(roots) == 2 and all(
+        [c["name"] for c in r["children"]] == want for r in roots)
+    assert reg.counter("train/steps").value == 8
+    assert reg.histogram("train/chunk_time_s").count == 2
+    g = t.chunk_step.graph
+    assert (g.captures, g.replays) == (1, 7)
+
+
+def test_sessions_capture_their_own_decode_graphs(cuda_device):
+    """Three router replicas over one engine: each session captures one
+    decode graph over its own pool; the router's tokens equal the eager
+    engine's; a crash drains a replica and loses nothing."""
+    from repro_torch.serve import ReplicaRouter, RouterConfig, StepSession
+    cfg = configs.get_smoke_config("qwen3-0.6b")
+    model = TransformerLM(cfg, device=cuda_device,
+                          generator=torch.Generator(
+                              device=cuda_device).manual_seed(7))
+    kw = dict(num_slots=2, page_size=4, max_prompt_len=12, max_new_cap=8,
+              clock="virtual")
+    trace = make_trace(TraceConfig(
+        num_requests=12, rate=2.0, prompt_len_min=2, prompt_len_max=12,
+        max_new_min=2, max_new_max=8, vocab=cfg.vocab_size, seed=7))
+    want = ServeEngine(cfg, model, decode_graph=False, **kw).run(
+        trace).tokens_by_rid()
+    eng = ServeEngine(cfg, model, **kw)
+    made = []
+
+    class Session(StepSession):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    from unittest import mock
+    from repro_torch.serve import router as router_lib
+    with mock.patch.object(router_lib, "StepSession", Session):
+        before = tgather.launches
+        rep = ReplicaRouter(eng, RouterConfig(
+            num_replicas=3, hedge_after=4.0,
+            faults="crash@4:r1,restart@12:r1")).run(trace)
+        torch.cuda.synchronize()
+    assert rep.metrics["lost_requests"] == 0
+    assert rep.metrics["completed"] == len(trace)
+    assert rep.tokens_by_rid() == want
+    assert tgather.launches > before
+    assert [s.decode_captures for s in made] == [1, 1, 1]
+    assert len({s._graph.graph for s in made}) == 3
+    ptrs = {s.pool.buffers["k"].data_ptr() for s in made}
+    assert len(ptrs) == 3
+
+
+def test_backup_reduce_takes_one_worker(cuda_device):
+    """A rank of a shrunk 'data' axis holds one worker: the kernel reduces
+    [1, P] (masked in and out) to its plain version's value."""
+    g = torch.randn((1, 4099), device=cuda_device)
+    for bit in (1.0, 0.0):
+        m = torch.tensor([bit], device=cuda_device)
+        before = treduce.launches
+        got = treduce.backup_reduce(g, m, 3)
+        assert treduce.launches == before + 1
+        assert torch.equal(got, treduce.backup_reduce_plain(g, m, 3))

@@ -24,7 +24,11 @@ reference:
   backend refused; ``windowed_quantile`` / ``WindowedQuantile`` /
   ``EmpiricalLatencyModel`` bit-equal;
 * a crash and a slowdown at ``mesh_data`` 2 over two spawned gloo ranks
-  (``tests/torch_mesh_ranks.py``) against the JAX sim Trainer;
+  (``tests/torch_mesh_ranks.py``) against the JAX sim Trainer, and a
+  rescale there that shrinks the data axis (2 -> 1, rank 1 idle, through
+  checkpoints, a preemption and the supervisor's restore);
+* ``run_supervised(tracer=, metrics=)`` against the JAX supervisor's
+  trace and registry;
 * the CLI with ``--faults ... --supervise`` against the JAX CLI;
 * ``chip_smoke.py`` phase 21's recovery-log literal, from JAX and the
   port on its plan and layout.
@@ -49,6 +53,8 @@ from repro.core.straggler import DeterministicStragglers as JDeterministic
 from repro.core.straggler import Uniform as JUniform
 from repro.launch import train as jcli
 from repro.models import get_model as jget_model
+from repro.obs import MetricsRegistry as JMetricsRegistry
+from repro.obs import Tracer as JTracer
 from repro.obs import latency as jlatency
 from repro.obs import quantiles as jquantiles
 from repro.train import elastic as jelastic
@@ -61,6 +67,7 @@ from repro_torch.core.coordination import DynamicBackup
 from repro_torch.core.straggler import DeterministicStragglers, Uniform
 from repro_torch.distributed import mesh
 from repro_torch.launch import train as tcli
+from repro_torch import obs as tobs
 from repro_torch.models import from_jax_tree, load_jax_params
 from repro_torch.obs import latency as tlatency
 from repro_torch.obs import quantiles as tquantiles
@@ -489,9 +496,32 @@ def test_corrupt_latest_checkpoint_walks_back_on_recovery(tmp_path):
 
 
 def test_supervisor_refuses_telemetry(tmp_path):
-    for kw in (dict(tracer=object()), dict(metrics=object())):
-        with pytest.raises(NotImplementedError, match="item 7, telemetry"):
-            _run_sup(_sup_cfg(tmp_path), **kw)
+    """``run_supervised(tracer=, metrics=)`` hands both to every trainer it
+    builds, as the reference does: one trace and one registry across the
+    preemption and the restore, equal to the JAX supervisor's (the
+    recovery log, the span-name multiset, the step count, the chunk
+    histogram's count); the files they write read back."""
+    got = {}
+    for tag, sup, tracer, reg in (
+            ("jax", jsupervisor.run_supervised, JTracer(), JMetricsRegistry()),
+            ("torch", _run_sup, tobs.Tracer(), tobs.MetricsRegistry())):
+        cfg = _jcfg(tmp_path / tag, spec=SPEC)
+        if tag == "torch":
+            res = sup(_tcfg(cfg), tracer=tracer, metrics=reg)
+        else:
+            res = sup(cfg, latency=JUniform(1.0, 2.0), tracer=tracer,
+                      metrics=reg)
+        tracer.export(str(tmp_path / f"{tag}.json"))
+        reg.dump_jsonl(str(tmp_path / f"{tag}.jsonl"))
+        rows = {r["name"]: r for r in tobs.load_jsonl(
+            str(tmp_path / f"{tag}.jsonl"))}
+        got[tag] = (res.recovery_log, sorted(
+            e["name"] for e in tobs.load_trace(
+                str(tmp_path / f"{tag}.json"))["traceEvents"]),
+            rows["train/steps"]["value"],
+            rows["train/chunk_time_s"]["count"], set(res.phase_times))
+    assert got["torch"] == got["jax"]
+    assert "train/ckpt_save" in got["torch"][1]
 
 
 def test_checkpoint_save_fault_hooks(tmp_path):
@@ -681,7 +711,8 @@ def test_mesh_chaos_matches_jax(tmp_path):
     """A crash and a slowdown at ``mesh_data`` 2 over two gloo ranks: the
     dead worker's row is masked out of each rank's reduce. Rank 0 against
     the JAX sim Trainer with the same plan; the ranks bit-identical; a
-    rescale the data axis would have to shrink for is refused."""
+    rescale to 3 workers shrinks the data axis by the reference's rule
+    (2 -> 1, the JAX rescale's worker count) and rank 1 idles."""
     spec = "crash@3:w1,slow@2:w4:x3:d3"
     jcfg = _jcfg(tmp_path / "j", spec=spec, every=0, steps=8, chunk=1)
     jres = jloop.run_experiment(jcfg, latency=JUniform(1.0, 2.0))
@@ -706,7 +737,60 @@ def test_mesh_chaos_matches_jax(tmp_path):
         for k, v in from_jax_tree(want).items():
             np.testing.assert_allclose(got[k].numpy(), np.asarray(v),
                                        rtol=RTOL, atol=ATOL, err_msg=k)
-    assert all("Queue 1 item 7" in o["refused"] for o in out)
+    jtr = jloop.Trainer(dataclasses.replace(
+        jcfg, checkpoint=dataclasses.replace(
+            jcfg.checkpoint, directory=str(tmp_path / "jr"))),
+        latency=JUniform(1.0, 2.0))
+    jtr.init_state()
+    jtr.rescale(3)
+    md = 2
+    while jtr.cfg.aggregation.total_workers % md:   # the reference's rule
+        md -= 1
+    assert [(o["workers"], o["mesh_data"], o["idle"]) for o in out] == \
+        [(jtr.cfg.aggregation.total_workers, md, False),
+         (jtr.cfg.aggregation.total_workers, md, True)] == \
+        [(3, 1, False), (3, 1, True)]
+
+
+def test_mesh_rescale_shrinks_the_data_axis(tmp_path):
+    """Full sync over 4 workers at ``mesh_data`` 2 on two spawned gloo
+    ranks under ``run_supervised``: a crash takes the live workers below
+    N, the rescale to 3 shrinks the data axis to 1 (the reference's rule,
+    ``tests/test_spmd_engine.py``'s rescale case) and rank 1 idles, taking
+    no step but every checkpoint barrier, the preemption after the shrink
+    and the supervisor's restore barrier. Rank 0 against the JAX sim
+    supervisor with the same plan: the log bit-identical, selected and
+    sim_time equal, losses and state within rtol 2e-4 / atol 2e-5; rank 1
+    logs nothing after the shrink."""
+    spec = "crash@3:w1,preempt@6"
+    jcfg = _jcfg(tmp_path / "j", strategy="full_sync", spec=spec, every=4,
+                 steps=10, chunk=2)
+    jres = jsupervisor.run_supervised(jcfg, latency=JUniform(1.0, 2.0))
+    tcfg = _tcfg(dataclasses.replace(
+        jcfg, checkpoint=dataclasses.replace(
+            jcfg.checkpoint, directory=str(tmp_path / "t")),
+        execution=dataclasses.replace(jcfg.execution, backend="spmd",
+                                      mesh_data=2)))
+    mesh.spawn(ranks.shrink_rank, 2, "cpu",
+               args=(str(tmp_path), _jax_params(tcfg.model), tcfg),
+               threads=1, timeout_s=120.0)
+    out = [torch.load(tmp_path / f"shrink{r}.pt") for r in range(2)]
+    assert [(o["mesh_data"], o["idle"], o["steps"]) for o in out] == \
+        [(1, False, 10), (1, True, 10)]
+    assert out[0]["recovery_log"] == out[1]["recovery_log"] == \
+        jres.recovery_log
+    assert any(e["event"] == "rescale" for e in jres.recovery_log)
+    assert [(m["step"], m["selected"], m["sim_time"])
+            for m in out[0]["metrics"]] == \
+        [(m["step"], m["selected"], m["sim_time"]) for m in jres.metrics]
+    np.testing.assert_allclose([m["loss"] for m in out[0]["metrics"]],
+                               [m["loss"] for m in jres.metrics], rtol=RTOL)
+    assert out[1]["metrics"] == [] and out[1]["sim_time"] == jres.sim_time
+    for got, want in ((out[0]["params"], jres.params),
+                      (out[0]["ema"], jres.ema)):
+        for k, v in from_jax_tree(want).items():
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(v),
+                                       rtol=RTOL, atol=ATOL, err_msg=k)
 
 
 _LINE = re.compile(r"\[train\] step\s+(\d+) loss (\S+) sim\s+(\S+)s "

@@ -10,11 +10,18 @@
   decodes past the window.
 * The weights are trainable parameters, yet serving runs under
   ``torch.inference_mode``: no activation of a run requires grad.
+* The engine's chaos (``faults=``), SLO gate (``slo=``) and metrics
+  mirror (``metrics=``) equal the JAX engine's; ``StepSession`` decodes
+  the engine's tokens; ``restore_params`` serves a checkpoint in the
+  reference's format, params or EMA.
 * The CLI runs with ``--device cpu`` and raises without it when there is
-  no CUDA; paths not ported yet are refused by name.
+  no CUDA; ``--replicas``, ``--restore``, ``--faults``, ``--slo-p99-ms``
+  and ``--metrics`` run against the JAX CLI; ``--toy`` and
+  ``--mesh-model 2`` are refused by name.
 """
 import dataclasses
 import json
+import re
 
 import numpy as np
 import pytest
@@ -31,12 +38,20 @@ from repro.serve import ServeEngine as JServeEngine
 from repro.serve import TraceConfig as JTraceConfig
 from repro.serve import make_trace as jmake_trace
 
+from repro.launch import serve as jcli
+from repro.obs import MetricsRegistry as JMetricsRegistry
+from repro.obs import load_jsonl as jload_jsonl
+from repro.serve import SLOConfig as JSLOConfig
+from repro.train import checkpoint as jckpt
+
 from repro_torch import configs as tconfigs
 from repro_torch.launch import serve as tcli
-from repro_torch.models import TransformerLM, load_jax_params
+from repro_torch.models import TransformerLM, load_jax_params, to_jax_tree
+from repro_torch.obs import MetricsRegistry
 from repro_torch.serve import (PagePool, PoolConfig, ServeEngine,
-                               StepSession, TraceConfig, make_trace,
-                               restore_params)
+                               SLOConfig, StepSession, TraceConfig,
+                               make_trace, restore_params)
+from repro_torch.train import checkpoint as tckpt
 
 ARCH = "qwen3-0.6b"
 ENGINE_KW = dict(num_slots=3, page_size=4, max_prompt_len=12, max_new_cap=8,
@@ -228,21 +243,92 @@ def test_engine_validation(qwen):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(mesh_model=2), "Queue 1 item 8"),
-    (dict(faults="slowdown@1"), "fault"),
-    (dict(slo=object()), "resilience"), (dict(metrics=object()), "telemetry")])
+    pytest.param(dict(faults="slowdown@1:x3:d2,preempt@3"), None,
+                 id="kw1-fault"),
+    pytest.param(dict(slo="shed"), None, id="kw2-resilience"),
+    pytest.param(dict(metrics=True), None, id="kw3-telemetry")])
 def test_unported_engine_options_raise(qwen, kw, match):
-    _, _, tcfg, tmodel = qwen
-    with pytest.raises(NotImplementedError, match=match):
-        ServeEngine(tcfg, tmodel, device="cpu", **dict(ENGINE_KW, **kw))
+    """``mesh_model > 1`` stays refused by name; the options that later
+    slices brought run and equal the JAX engine's on the same trace: chaos
+    (a slowdown and a preemption: events, tokens and virtual-clock
+    metrics), the SLO gate (the same sheds and trips) and the metrics
+    registry (the same summary on the virtual clock, the wall-clock
+    histograms by count)."""
+    jcfg, params, tcfg, tmodel = qwen
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            ServeEngine(tcfg, tmodel, device="cpu", **dict(ENGINE_KW, **kw))
+        return
+    regs = {}
+    if kw.get("slo"):
+        kw = dict(slo=None, _slo=True)
+    if kw.get("metrics"):
+        regs = {"jax": JMetricsRegistry(), "torch": MetricsRegistry()}
+    jkw, tkw = dict(ENGINE_KW), dict(ENGINE_KW, device="cpu")
+    if "faults" in kw:
+        jkw["faults"] = tkw["faults"] = kw["faults"]
+    if "_slo" in kw:
+        jkw["slo"] = JSLOConfig(target_p99=4.0, window=8, min_samples=2,
+                                probe_every=2)
+        tkw["slo"] = SLOConfig(target_p99=4.0, window=8, min_samples=2,
+                               probe_every=2)
+    if regs:
+        jkw["metrics"], tkw["metrics"] = regs["jax"], regs["torch"]
+    # the SLO case spreads its arrivals, so some come after the trip
+    trep = _assert_same_run(JServeEngine(jcfg, params, **jkw),
+                            ServeEngine(tcfg, tmodel, **tkw),
+                            _trace_kw(12 if "_slo" in kw else 9,
+                                      tcfg.vocab_size, seed=4,
+                                      rate=1.0 if "_slo" in kw else 100.0),
+                            "continuous")
+    if "faults" in kw:
+        assert {e["event"] for e in trep.events} == {"slowdown", "preempt"}
+        assert trep.metrics["preemptions"] == 1
+    if "_slo" in kw:
+        assert trep.metrics["slo_trips"] >= 1
+        assert trep.metrics["rejected_slo_shed"] >= 1
+    if regs:
+        jsum, tsum = (r.summary() for r in (regs["jax"], regs["torch"]))
+        wall = {"serve/prefill_s", "serve/decode_s", "serve/wall_time_s"}
+        assert set(tsum) == set(jsum)
+        assert {k: v for k, v in tsum.items() if k not in wall} == \
+            {k: v for k, v in jsum.items() if k not in wall}
+        for k in wall - {"serve/wall_time_s"}:
+            assert tsum[k]["count"] == jsum[k]["count"] > 0
 
 
-def test_unported_surfaces_raise(qwen):
+def test_unported_surfaces_raise(qwen, tmp_path):
+    """The surfaces that used to be refused run: ``StepSession`` admits and
+    ticks to the engine's greedy tokens, and ``restore_params`` serves a
+    checkpoint in the reference's format (the raw parameters, then the
+    EMA subtree cast to their dtype); a missing one raises
+    ``FileNotFoundError`` as in the reference."""
     _, _, tcfg, tmodel = qwen
     eng = ServeEngine(tcfg, tmodel, device="cpu", **ENGINE_KW)
-    with pytest.raises(NotImplementedError, match="StepSession"):
-        StepSession(eng)
-    with pytest.raises(NotImplementedError, match="restore_params"):
-        restore_params("/nonexistent", tcfg)
+    trace = make_trace(TraceConfig(**_trace_kw(5, tcfg.vocab_size, seed=6)))
+    want = eng.run(trace).tokens_by_rid()
+    sess = StepSession(eng, name="r0")
+    got, queue = {}, list(trace)
+    while queue or sess.active:
+        while queue and sess.can_admit(queue[0]):
+            st = sess.admit(queue.pop(0), 0.0, 0.0)
+            if sess.done(st):
+                got[st.req.rid] = sess.release(st.req.rid).tokens
+        for rid in sess.tick():
+            got[rid] = sess.release(rid).tokens
+    assert got == want and sess.decode_captures == 0
+    named = {k: v.detach() for k, v in tmodel.named_parameters()}
+    ema = {k: v.float() * 0.5 for k, v in named.items()}
+    tckpt.save(str(tmp_path), 3, {"params": to_jax_tree(named),
+                                  "ema": to_jax_tree(ema)}, {})
+    for use_ema, src in ((False, named), (True, ema)):
+        model, manifest = restore_params(str(tmp_path), tcfg,
+                                         use_ema=use_ema, device="cpu")
+        assert manifest["step"] == 3
+        for k, v in model.named_parameters():
+            assert torch.equal(v.detach(), src[k].to(v.dtype)), k
+    with pytest.raises(FileNotFoundError):
+        restore_params(str(tmp_path / "none"), tcfg, device="cpu")
 
 
 def test_engine_without_cuda_raises_unless_cpu(qwen, monkeypatch):
@@ -276,12 +362,67 @@ def test_cli_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--toy"], "toy"), (["--replicas", "2"], "router"),
-    (["--restore", "ck"], "checkpoint"),
+    (["--toy"], "toy"),
+    pytest.param(["--replicas", "2", "--hedge-after", "3", "--faults",
+                  "crash@2:r1,restart@6:r1"], None, id="argv1-router"),
+    pytest.param(["--restore", "ck"], None, id="argv2-checkpoint"),
     (["--mesh-model", "2"], "Queue 1 item 8"),
-    (["--faults", "slowdown@1"], "fault"), (["--slo-p99-ms", "5"], "resilience"),
-    (["--metrics", "m.jsonl"], "telemetry"), (["--ema"], "--restore"),
+    pytest.param(["--faults", "slowdown@1:x2:d2,preempt@3"], None,
+                 id="argv4-fault"),
+    pytest.param(["--slo-p99-ms", "5000"], None, id="argv5-resilience"),
+    pytest.param(["--metrics", "m.jsonl"], None, id="argv6-telemetry"),
+    (["--ema"], "--restore"),
     (["--timeout", "3"], "--replicas")])
-def test_cli_refuses_unported_paths(argv, match):
-    with pytest.raises(SystemExit, match=match):
-        tcli.main(["--device", "cpu"] + argv)
+def test_cli_refuses_unported_paths(argv, match, tmp_path, capsys):
+    """``--toy`` and ``--mesh-model 2`` stay refused by name, and the
+    reference's cross-flag errors hold. The flags that later slices
+    brought run through both CLIs (the JAX one on its own init): the
+    router's virtual-clock lines equal the JAX CLI's; a checkpoint of the
+    reference's format serves the same greedy tokens in both; the chaos
+    events, the SLO line and the metrics file read back as the JAX CLI's
+    do."""
+    if match is not None:
+        with pytest.raises(SystemExit, match=match):
+            tcli.main(["--device", "cpu"] + argv)
+        return
+    base = ["--requests", "4", "--rate", "1000", "--max-new", "6"]
+    if argv[0] == "--restore":
+        jcfg = jconfigs.get_smoke_config(ARCH)
+        params = jget_model(jcfg).init(jax.random.PRNGKey(5))
+        jckpt.save(str(tmp_path / "ck"), 2, {"params": params}, {})
+        argv = ["--restore", str(tmp_path / "ck")]
+    if argv[0] == "--metrics":
+        argv = ["--metrics", str(tmp_path / "m.jsonl")]
+    out = {}
+    for tag, main in (("jax", jcli.main), ("torch", tcli.main)):
+        extra = ["--device", "cpu"] if tag == "torch" else []
+        main(base + argv + extra)
+        out[tag] = capsys.readouterr().out
+        if argv[0] == "--metrics":
+            out[tag + "_metrics"] = {
+                r["name"]: r.get("count", r.get("value"))
+                for r in jload_jsonl(str(tmp_path / "m.jsonl"))}
+    lines = {t: o.splitlines() for t, o in out.items() if "_" not in t}
+    if argv[0] == "--replicas":
+        assert [ln for ln in lines["torch"] if "rid=" not in ln] == \
+            [ln for ln in lines["jax"] if "rid=" not in ln]
+    elif argv[0] == "--restore":
+        assert f"[serve] restored step 2 from {tmp_path / 'ck'}" in \
+            lines["torch"][0]
+        toks = {t: dict(re.findall(r"rid=(\d+) (\[.*\])", o))
+                for t, o in out.items()}
+        assert toks["torch"].keys() & toks["jax"].keys()
+        for rid in toks["torch"].keys() & toks["jax"].keys():
+            assert toks["torch"][rid] == toks["jax"][rid]
+    elif argv[0] == "--faults":
+        chaos = {t: sorted(ln for ln in ls if "chaos:" in ln)
+                 for t, ls in lines.items()}
+        assert chaos["torch"] == chaos["jax"] and len(chaos["jax"]) == 2
+    elif argv[0] == "--slo-p99-ms":
+        assert any(ln.startswith("  slo: shed 0 trips 0")
+                   for ln in lines["torch"])
+        assert "4 requests" in out["torch"]
+    else:
+        assert out["torch_metrics"].keys() == out["jax_metrics"].keys()
+        for k in ("serve/completed", "serve/tokens", "serve/latency"):
+            assert out["torch_metrics"][k] == out["jax_metrics"][k] > 0

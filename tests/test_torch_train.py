@@ -25,14 +25,16 @@ from them. qwen3 smoke config (f32, 2 layers).
   straggler backend at chunk size 1, faults (the recovery log equal to
   JAX's), an event strategy on the spmd backend (the reference's warning,
   then a sim run equal to JAX's), a plugin without spmd support, and
-  ``kill_worker_at`` (held to JAX). The CLI refuses only ``--trace`` /
-  ``--metrics`` / ``--platform`` by name, and the flags that later slices
-  brought run or fail as the JAX CLI does; it runs with ``--device cpu``
-  and raises without a card otherwise.
+  ``kill_worker_at`` (held to JAX). The CLI refuses only ``--platform`` by
+  name; ``--trace`` / ``--metrics`` write what the JAX CLI writes (span
+  names and tree, metric names and counts), and the flags that later
+  slices brought run or fail as the JAX CLI does; it runs with ``--device
+  cpu`` and raises without a card otherwise.
 """
 import contextlib
 import dataclasses
 import os
+import re
 
 import numpy as np
 import pytest
@@ -53,6 +55,7 @@ from repro.train import loop as jloop
 from repro.train import train_step as jtrain_step
 
 from repro_torch import configs as tconfigs
+from repro_torch import obs as tobs
 from repro_torch.launch import train as tcli
 from repro_torch.models import (TransformerLM, common as tcommon,
                                 from_jax_tree, load_jax_params, to_jax_tree)
@@ -472,12 +475,42 @@ def test_cli_runs_on_cpu_and_resumes(tmp_path, capsys, backend):
     ["--trace", "t.json"], ["--metrics", "m.jsonl"], ["--platform", "gpu"],
 ])
 def test_cli_refuses_deferred_flags(tmp_path, capsys, extra):
-    with pytest.raises(SystemExit):
-        tcli.main(_CLI + ["--device", "cpu", "--ckpt", str(tmp_path)] + extra)
-    err = capsys.readouterr().err
-    assert "not ported" in err and (
-        "Queue 1 item 7, telemetry" in err
-        or "PyTorch picks the card by --device" in err)
+    """``--platform`` stays refused by name. ``--trace`` and ``--metrics``
+    run through both CLIs (files under ``tmp_path``): the same printed
+    trace / metrics line shape, the same span-name multiset and span tree
+    shape, the same metric names and step counts."""
+    if extra[0] == "--platform":
+        with pytest.raises(SystemExit):
+            tcli.main(_CLI + ["--device", "cpu", "--ckpt", str(tmp_path)]
+                      + extra)
+        err = capsys.readouterr().err
+        assert "not ported" in err and \
+            "PyTorch picks the card by --device" in err
+        return
+    got = {}
+    for tag, main in (("jax", jcli.main), ("torch", tcli.main)):
+        path = str(tmp_path / f"{tag}_{extra[1]}")
+        argv = _CLI + ["--ckpt", str(tmp_path / tag), extra[0], path]
+        main(argv + (["--device", "cpu"] if tag == "torch" else []))
+        out = capsys.readouterr().out
+        assert f"[train] {extra[0][2:]}: {path} (" in out
+        assert re.search(r"\[train\] wall \S+s \(ckpt_s \S+s data_s \S+s "
+                         r"dispatch_s \S+s\)", out)
+        if extra[0] == "--trace":
+            events = tobs.load_trace(path)["traceEvents"]
+
+            def shape(n):
+                return (n["name"], tuple(shape(c) for c in n["children"]))
+
+            got[tag] = (sorted(e["name"] for e in events),
+                        [shape(r) for r in tobs.span_tree(events)])
+        else:
+            rows = tobs.load_jsonl(path)
+            got[tag] = ([r["name"] for r in rows],
+                        [r.get("count") for r in rows],
+                        [r["value"] for r in rows
+                         if r["name"] == "train/steps"])
+    assert got["torch"] == got["jax"]
 
 
 @pytest.mark.parametrize("extra", [

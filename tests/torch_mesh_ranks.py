@@ -6,6 +6,7 @@ their results to ``out_dir/rank<r>.pt``, which the test reads back.
 """
 import os
 from typing import Dict, List, Sequence
+from unittest import mock
 
 import numpy as np
 import torch
@@ -15,6 +16,7 @@ from repro_torch.core.straggler import Uniform
 from repro_torch.kernels import bucketed_reduce
 from repro_torch.models import load_jax_params
 from repro_torch.train import loop as tloop
+from repro_torch.train import supervisor
 
 
 def stack_case(seed: int, w: int, p: int):
@@ -97,8 +99,8 @@ def mesh_rank(rank: int, device, out_dir: str, params, reduce_cases,
 def chaos_rank(rank: int, device, out_dir: str, params, cfg,
                steps: int) -> None:
     """One rank of a faulted run: ``cfg``'s chaos plan over ``steps`` steps
-    from ``params``, then a rescale that the data axis would have to
-    shrink for (its refusal text is kept)."""
+    from ``params``, then a rescale to 3 workers, which shrinks the data
+    axis (its ``mesh_data`` and whether this rank idles are kept)."""
     inj = faults.build_injector(cfg.faults, num_steps=cfg.total_steps,
                                 num_workers=cfg.aggregation.total_workers)
     tr = tloop.Trainer(cfg, latency=Uniform(1.0, 2.0), device="cpu",
@@ -107,9 +109,36 @@ def chaos_rank(rank: int, device, out_dir: str, params, cfg,
     load_jax_params(tr.model, params)
     tr.reset_optimizer_state()
     res = tr.run(steps)
-    out = dict(_state(res), recovery_log=res.recovery_log, refused="")
-    try:
-        tr.rescale(3)
-    except NotImplementedError as e:
-        out["refused"] = str(e)
+    out = dict(_state(res), recovery_log=res.recovery_log)
+    tr.rescale(3)
+    out.update(mesh_data=tr.cfg.execution.mesh_data, idle=tr._idle,
+               workers=tr.cfg.aggregation.total_workers)
     torch.save(out, os.path.join(out_dir, f"chaos{rank}.pt"))
+
+
+
+def shrink_rank(rank: int, device, out_dir: str, params, cfg) -> None:
+    """One rank of a supervised run whose chaos plan takes the live
+    workers below N: the rescale shrinks the ``'data'`` axis and the freed
+    rank idles through the rest (checkpoints, a preemption and the
+    restore included). From ``params``; the rank's state, log, final
+    ``mesh_data`` and idle flag go to ``out_dir/shrink<r>.pt``."""
+    built = []
+
+    class Trainer(tloop.Trainer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            built.append(self)
+
+        def init_state(self, seed=None):
+            super().init_state(seed)
+            load_jax_params(self.model, params)
+            self.reset_optimizer_state()
+
+    with mock.patch.object(supervisor, "Trainer", Trainer):
+        res = supervisor.run_supervised(cfg, latency=Uniform(1.0, 2.0),
+                                        device="cpu")
+    tr = built[-1]
+    out = dict(_state(res), recovery_log=res.recovery_log, steps=res.steps,
+               mesh_data=tr.cfg.execution.mesh_data, idle=tr._idle)
+    torch.save(out, os.path.join(out_dir, f"shrink{rank}.pt"))
