@@ -2,9 +2,10 @@
 """Chip smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --mesh-only     # phases 18-19 alone (several cards)
+    python3 chip_smoke.py --mesh-only     # phases 18, 19, 27 (several cards)
     python3 chip_smoke.py --faults-only   # phases 20-21 alone
     python3 chip_smoke.py --serve-only    # phases 22-24 and 18's shrink
+    python3 chip_smoke.py --tp-decode-only    # phase 27 alone
 
 Drives the port (``src/repro_torch``) through its own entry points and
 fails (non-zero exit, no result line) if any phase fails:
@@ -24,15 +25,17 @@ fails (non-zero exit, no result line) if any phase fails:
    its plain version and the library yardstick (flash also at S 128 against
    SDPA, printed only).
 4. Serve qwen3-0.6b at full width (28 layers, d_model 1024, bf16, seeded
-   random weights) through ``ServeEngine`` on a 16-request trace, with an
-   fp pool and with an int8 pool, each with eager decode and then with
+   random weights) through ``ServeEngine`` on a 16-request trace with
    graph decode (the engine's default on the card: one captured CUDA graph
-   per engine, warmed up and captured on a 2-request trace first). Launch
-   counters are set to 0 just before each run and read just after; the
-   run must complete every request, capture decode once, and launch each
-   kernel of its path (page gather twice per layer per decode step, also
-   inside graph replays; flash attention once per layer per admission).
-   Graph-decode tokens must equal eager-decode tokens.
+   per engine, warmed up and captured on a 2-request trace first), with an
+   fp pool and with an int8 pool; an eager-decode engine serves a short
+   trace (``SHORT_REQUESTS`` requests of ``SHORT_NEW`` new tokens), and
+   the graph engine must serve it to
+   the same tokens. Launch counters are set to 0 just before each run and
+   read just after; the run must complete every request, capture decode
+   once, and launch each kernel of its path (page gather twice per layer
+   per decode step, also inside graph replays; flash attention once per
+   layer per admission).
 5. End to end, kernel vs plain: a 2-layer full-width f32 model serves one
    short trace with ``use_kernel=True`` and ``use_kernel=False`` (fp and
    int8 pools), and the smoke model serves one on the card (eager and
@@ -123,7 +126,8 @@ fails (non-zero exit, no result line) if any phase fails:
    machines from that fit (or the paper's, when the fit is too flat to
    extrapolate).
 16. Figs. 8/9 at full width (``bench_sync_vs_async.run_full_width``):
-   qwen3-0.6b (28 layers, bf16) on the synthetic stream cut to 512 ids,
+   qwen3-0.6b (cut to ``FIGS89_LAYERS`` of 28 layers for the call's time,
+   width unchanged; bf16) on the synthetic stream cut to 512 ids,
    2 x 256 tokens a worker, SGD at the swept base lr, backup 6 + 2 and
    full sync 8 (40 steps each, spmd: ``backup_reduce`` every step) and
    async W = 8 (160 updates) and softsync W = 8, c = 2 (80 updates) on
@@ -165,8 +169,9 @@ fails (non-zero exit, no result line) if any phase fails:
    states, and one backward). Host wall a step, device busy, peak memory
    and the capture time are printed. Then at 2 layers, full width, f32,
    TF32 off: grad_batch 0 and 2 against 1, parameters within atol 1e-5.
-   Last, a record (not gated): qwen3-0.6b grad_batch 0 against 1 at
-   RMSProp eps 1e-3, the loss rel gap per step.
+   Last, a record (not gated): qwen3-0.6b at ``EPS_RECORD_LAYERS`` of 28
+   layers, grad_batch 0 against 1 at RMSProp eps 1e-3, the loss rel gap
+   per step.
 18. The spmd engine's ``'data'`` axis over ranks (``distributed.mesh.
    spawn``, one process each). With 2 or more cards: NCCL over 2 ranks
    (and 4 with 4 cards), one card each: qwen3-0.6b backup 6 + 2 at full
@@ -188,9 +193,10 @@ fails (non-zero exit, no result line) if any phase fails:
    live ranks bit-identical, the rebuilt graph (the shrunk data group's
    all-reduce inside) captured once and replayed, ``backup_reduce`` on
    each live rank's ``[1, P]``. ``python3 chip_smoke.py --mesh-only``
-   runs the build and phases 18-19 alone.
+   runs the build and phases 18, 19 and 27 alone.
 19. The ``'model'`` axis (tensor parallelism) over ranks: with one card 2
-   gloo ranks at mesh 1 x 2, with 2 or more NCCL over one card a rank
+   gloo ranks at mesh 1 x 2 (the full-width run cut to ``TP_GLOO_LAYERS``
+   layers), with 2 or more NCCL over one card a rank
    (``--mesh-only`` on four cards: 1 x 2, 1 x 4, 2 x 2).
 20. The device straggler backend (``straggler_backend='device'``):
    each of the four samplers at ``SAMPLER_DRAWS`` f32 draws on the card
@@ -233,12 +239,14 @@ fails (non-zero exit, no result line) if any phase fails:
    Chrome trace read back. The host wall a step of the replays-only chunk
    (untraced, traced, untraced again, in turns) and the fences' durations
    are printed.
-23. The restore bridge: one step of the phase-6 cell, its checkpoint
-   (8.35 GB, saved and deleted here), ``serve.restore_params`` of the
-   params and of the EMA: every tensor bit-equal to the trainer's (the
-   EMA cast to bf16); the restored model and the trainer's in-memory model
-   serve phase 4's 16 requests to the same greedy tokens. Save and restore
-   seconds are printed.
+23. The restore bridge: one step of the phase-6 cell cut to
+   ``RESTORE_LAYERS`` layers (width unchanged; at 28 layers the 8.35 GB
+   checkpoint's save and two reads took 62 s of the call), its checkpoint
+   (saved and deleted here), ``serve.restore_params`` of the params and of
+   the EMA: every tensor bit-equal to the trainer's (the EMA cast to
+   bf16); the restored model and the trainer's in-memory model serve phase
+   4's 16 requests to the same greedy tokens. Save and restore seconds are
+   printed.
 24. The replica router: ``ROUTER_REPLICAS`` ``StepSession`` replicas over
    one fp engine at full width (phase 4's geometry), ``ROUTER_REQUESTS``
    requests, hedging over ``ROUTER_HEDGE_AFTER``, the chaos plan
@@ -249,18 +257,56 @@ fails (non-zero exit, no result line) if any phase fails:
    (target half the first run's p50): sheds, nothing lost, the same
    tokens. The router's counters, virtual p50 / p99 and wall tokens/s are
    printed.
-25. A JSON line of per-kernel numbers (``launches`` is the count of one
+25. The dense configs on the paged path. Flash attention at head_dim 256
+   (``FLASH256_HEADS``, gemma3-1b's): the f32 and bf16 kernels against the
+   plain twin (S 77 / 512 / 1000, causal, window 512, softcap 2; phase 3's
+   tolerances), device times at gemma3-1b's prefill shape (B 1, S 512,
+   bf16) against the plain twin, SDPA and the bound, and the registers and
+   spills ``nvcc -Xptxas -v`` reports for both D = 256 kernels (compiled
+   beside the build). gemma3-1b at full width (26 layers, d_model 1152,
+   head_dim 256, one kv head, windows of 512, vocab 262,144) serves phase
+   4's 16 requests as phase 4 does (fp and int8 pools, graph decode, the
+   short trace eager, counters from 0, graph == eager), and at 2 layers f32
+   the kernel path serves the plain path's tokens past its window.
+   minitron-4b at full
+   width and command-r-plus at ``COMMAND_R_LAYERS`` of 64 layers (width
+   unchanged) serve ``DENSE_FEW`` requests each through the decode graph,
+   launches counted.
+26. The toy path (``train.serve_step.greedy_generate`` over contiguous
+   caches): gemma3-1b and qwen3-0.6b at full width (``TOY_RUNS``), fp and
+   int8 caches; the stepped decode's last logits against ``prefill``'s
+   within rel L2 ``TOY_LOGITS_REL`` (bf16); rwkv6-1.6b's ``prefill`` (the
+   wkv6 forward kernel, one launch a layer) against ``TOY_RWKV_PROMPT``
+   decode steps carrying the state, at full width within
+   ``TOY_RWKV_CONTROL_FACTOR`` times the plain twin's own gap (bf16) and
+   at 2 layers f32 within ``TOY_F32_REL``; gemma3-1b at 2 layers f32 past
+   its window of 512 (the local layers' ring buffers wrap): the stepped
+   decode's last logits against ``prefill``'s within ``TOY_F32_REL`` and
+   ``greedy_generate`` with fp and int8 caches; at 2 layers f32 the card's
+   greedy tokens equal the CPU port's (gemma3, qwen3, rwkv6).
+27. Tensor-parallel decode, ``ServeEngine(mesh_model=M)``: with one card 2
+   gloo ranks on it, qwen3-0.6b at 2 layers f32, fp and int8 pools, eager
+   decode: tokens equal the one-card engine's, the first decode step's
+   logits within ``TP_SMALL_LOGITS_REL``; with 2 or more cards
+   (``--mesh-only`` / ``--tp-decode-only`` on four) NCCL at M = 2 and 4,
+   qwen3-0.6b at full width on phase 4's 16 requests, the decode graph
+   capturing the model group's all-reduces and the vocab all-gather: the
+   first decode step's logits within ``TP_LOGITS_REL`` of one card's (the
+   gate), tokens compared and the first differing step printed, ms a
+   decode step and GB a card.
+28. A JSON line of per-kernel numbers (``launches`` is the count of one
    run of the main path that launches the kernel, named by
    ``launches_run``: the graph-decode serve runs, whose prefills stay
    eager, and the graph training runs; ``launches_batched_and_mesh``: those
    of phases 17 and 18's runs, the shrink's included; ``launches_faults``:
    phase 21's supervised run; ``launches_telemetry``: phase 22's three
-   runs;
-   ``launches_router``: phase 24's first router run), then, as the last
-   line, ``{"ok": true, "device": {...}}``.
+   runs; ``launches_router``: phase 24's first router run;
+   ``launches_dense``: phase 25's runs; ``launches_toy``: phase 26's rwkv6
+   prefill; flash at head_dim 256 is its own row, with ``ptxas``), then, as
+   the last line, ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero when ``torch.cuda.is_available()`` is false.
-A line ``[time] phase N: s`` follows each of phases 16-24.
+A line ``[time] phase N: s`` follows each of phases 16-27.
 """
 from __future__ import annotations
 
@@ -274,6 +320,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -281,6 +328,13 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 GATHER_SHAPE = dict(b=8, ps=16, kv=8, hd=128)
+# phases 4 and 25: the eager decode runs serve this short trace (requests,
+# new tokens a request), held to the graph engine on it; the graph runs
+# serve the 16-request trace (eager steps cost 40-90 ms each, host-bound:
+# on the 16-request trace, qwen3-0.6b's and gemma3-1b's eager runs took
+# ~80 s of the call)
+SHORT_REQUESTS = 8
+SHORT_NEW = (4, 8)
 FLASH_HEADS = dict(h=16, kv=8, d=128)
 FLASH_SHORT_S = 128                # a short prompt of the serve trace
 REDUCE_WORKERS = 8                 # backup 6 + 2
@@ -298,11 +352,20 @@ RWKV_CONVERGING_STEPS = 12
 # phase 16's rwkv6-1.6b runs, cut in depth (of 24 layers) so that phases
 # 22-24 fit the call: five bf16 runs and the controls took ~130 s at 24
 RWKV_CONVERGING_LAYERS = 4
+# phase 16's Figs. 8/9 regimes on qwen3-0.6b and phase 17's eps record,
+# cut in depth (of 28 layers) so that phases 25-27 fit the call: the
+# regimes took 72 s at 28 layers
+FIGS89_LAYERS = 4
+EPS_RECORD_LAYERS = 4
 # phase 17: (arch, grad_batch values) of the batched full-width runs.
 # rwkv6-1.6b at 0 (all 4 workers) runs out of the card's memory: at 2 it
 # peaks at 69.1 GB allocated, 82.2 GB reserved (PERF.md, Findings)
 BATCHED_RUNS = (("qwen3-0.6b", (0, 2)), ("rwkv6-1.6b", (2,)))
 MESH_TIMEOUT_S = 300.0
+# phase 19 on one card: the full-width run over 2 gloo ranks (1,856 gloo
+# all-reduces a step at 28 layers, through host memory) cut in depth for
+# the call's time; its one-card reference is cut alike
+TP_GLOO_LAYERS = 4
 # phase 17: a batched run's first aggregated gradient may lie at most this
 # factor farther (relative L2) from the same step's gradient computed in
 # f32 than grad_batch 1's bf16 gradient does: the batched products round
@@ -329,8 +392,9 @@ SAMPLER_QUANTILES = (0.1, 0.5, 0.9, 0.99)
 FAULT_SPEC = "crash@2:w1,slowdown@3:w0:x4:d3,crash@5:w2,crash@6:w3,preempt@9"
 FAULT_STEPS = 12
 # the supervised part's depth: a full-width (28-layer) checkpoint holds
-# 8.35 GB and the plan writes 7 of them, past a chip call's disk budget
-FAULT_LAYERS = 4
+# 8.35 GB and the plan writes 7 of them, past a chip call's disk budget;
+# 2 layers (4 before) for the call's time: 9 saves and 3 restores
+FAULT_LAYERS = 2
 FAULT_LOG = [
     {"event": "worker_crash", "step": 2, "worker": 1},
     {"event": "worker_slowdown", "step": 3, "worker": 0, "factor": 4.0,
@@ -355,6 +419,45 @@ ROUTER_REQUESTS = 32
 ROUTER_RATE = 0.25
 ROUTER_HEDGE_AFTER = 24.0
 ROUTER_FAULTS = "crash@30:r1,restart@60:r1,slowdown@10:r2:x3:d40"
+
+
+# phase 23's depth (of 28 layers): the restore bridge saves and reads one
+# checkpoint twice, and at full width (8.35 GB) that took 62 s of the call
+RESTORE_LAYERS = 4
+# phase 25: gemma3-1b's heads (flash at head_dim 256), command-r-plus's
+# depth (of 64 layers: the whole model is over 200 GB in bf16), and the
+# requests of the minitron-4b and command-r-plus runs
+FLASH256_HEADS = dict(h=4, kv=1, d=256)
+COMMAND_R_LAYERS = 2
+DENSE_FEW = 4
+# phase 26: (prompt, new tokens) of the full-width toy runs, their batch
+# (each eager step costs 30-90 ms of the call, host-bound), (prompt, new
+# tokens) of gemma3-1b's run past its window of 512 at 2 layers f32, and
+# the bf16 gate on the stepped decode's last logits against prefill's
+# (rel L2):
+# bf16 keeps 8 mantissa bits (2^-8 = 3.9e-3 a rounding), rounded at other
+# places by the two paths through 26-28 layers
+TOY_RUNS = {"gemma3-1b": (16, 8), "qwen3-0.6b": (16, 8)}
+TOY_BATCH = 2
+TOY_WINDOW_RUN = (516, 4)
+TOY_LOGITS_REL = 3e-2
+# phase 26's rwkv6-1.6b: the prompt, and its gate on the stepped decode's
+# last logits against the kernel prefill's at full width bf16: at most
+# this factor times the gap the plain twin's prefill shows against the
+# same steps (the bf16 roundings of a [1, S] and a [1, 1] product, not
+# the kernel, make that gap, ~3.5e-2 at full width); at 2 layers f32
+# (rwkv6, and gemma3 past its window) a fixed rel L2
+TOY_RWKV_PROMPT = 64
+TOY_RWKV_CONTROL_FACTOR = 1.5
+TOY_F32_REL = 1e-4
+# phase 27: the first decode step's logits of the TP engine against one
+# card's (rel L2): bf16 at full width (the row-parallel partial sums are
+# rounded to bf16 before the all-reduce); at 2 layers f32 the fp pool
+# differs by summation order alone, while the int8 pool's quantizer turns
+# an f32 ulp of K / V at a rounding boundary into one int8 step (1/127 of
+# the head's largest value), so its limit is an eighth of a step
+TP_LOGITS_REL = 3e-2
+TP_SMALL_LOGITS_REL = {"fp": 1e-5, "int8": 1e-3}
 
 
 def _log(msg: str) -> None:
@@ -639,87 +742,142 @@ def _serve(torch, engine, trace, counters):
     return report, [c.launches for c in counters]
 
 
-def _serve_phase(torch, kernels):
-    from repro_torch import configs
+def _full_width_model(torch, cfg, seed=0, label=None):
+    """``cfg``'s model on the card with seeded random weights, its size
+    and init time logged."""
     from repro_torch.models import get_model
-    from repro_torch.serve import ServeEngine, TraceConfig, make_trace
-    page_gather, flash_attention = kernels
-    cfg = configs.get_config("qwen3-0.6b")
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     t0 = time.perf_counter()
     model = get_model(cfg, device="cuda", generator=gen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    _log(f"[serve] qwen3-0.6b full width: {cfg.num_layers} layers, "
+    _log(f"[serve] {label or cfg.name} full width: {cfg.num_layers} layers, "
          f"d_model {cfg.d_model}, {n_params} params in {cfg.dtype}, init "
          f"{time.perf_counter() - t0:.2f} s")
-    trace = make_trace(TraceConfig(
-        num_requests=16, rate=1000.0, prompt_len_min=64, prompt_len_max=512,
-        max_new_min=32, max_new_max=128, vocab=cfg.vocab_size, seed=0))
+    return model
+
+
+def _serve_phase(torch, kernels):
+    from repro_torch import configs
+    cfg = configs.get_config("qwen3-0.6b")
+    model = _full_width_model(torch, cfg)
+    return _serve_runs(torch, cfg, model, kernels, "serve",
+                       _serve_trace(cfg, 16, seed=0),
+                       short=_serve_trace(cfg, SHORT_REQUESTS, seed=0,
+                                          new=SHORT_NEW))
+
+
+def _serve_runs(torch, cfg, model, kernels, label, trace,
+                pools=("fp", "int8"), short=None):
+    """Serve ``trace`` through ``ServeEngine`` with graph decode at phase
+    4's geometry, one run a pool of ``pools`` (each engine warmed up and
+    its graph captured on a 2-request trace first). With ``short`` (a
+    trace of a few new tokens a request: eager decode steps cost the call
+    40-90 ms each, host-bound), an eager engine serves it too, and so does
+    the graph engine, to the same tokens. Counters are set to 0 just
+    before each run and read just after. Every run must complete, capture
+    decode once and launch page gather twice a layer a decode step and
+    flash once a layer an admission. Returns {tag: report and counts}
+    (tags "fp graph", "int8 graph" for ``trace``, "fp", "int8" for the
+    eager run on ``short``)."""
+    from repro_torch.serve import ServeEngine, TraceConfig, make_trace
+    page_gather, flash_attention = kernels
     warm = make_trace(TraceConfig(
         num_requests=2, rate=1000.0, prompt_len_min=64, prompt_len_max=512,
         max_new_min=4, max_new_max=4, vocab=cfg.vocab_size, seed=1))
     runs = {}
-    for int8, graph in ((False, False), (False, True), (True, False),
-                        (True, True)):
-        engine = ServeEngine(cfg, model, num_slots=8, page_size=16,
-                             max_prompt_len=512, max_new_cap=128,
-                             cache_int8=int8, clock="wall",
-                             decode_graph=graph)
-        engine.run(warm)              # graph decode: warmup and capture
-        torch.cuda.reset_peak_memory_stats()
-        report, (n_gather, n_flash) = _serve(
-            torch, engine, trace, (page_gather, flash_attention))
-        m = report.metrics
-        tag = ("int8" if int8 else "fp") + (" graph" if graph else "")
-        if m["decode_compiles"] != 1:
-            raise AssertionError(f"[serve {tag}] decode_compiles "
-                                 f"{m['decode_compiles']}, expected 1")
-        if m["completed"] != len(trace):
-            raise AssertionError(f"[serve {tag}] {m['completed']} of "
-                                 f"{len(trace)} requests completed")
-        for c in report.completed:
-            req = next(r for r in trace if r.rid == c.rid)
-            if len(c.tokens) != req.max_new or not all(
-                    0 <= t < cfg.vocab_size for t in c.tokens):
-                raise AssertionError(f"[serve {tag}] rid {c.rid}: bad tokens")
-        want_gather = 2 * cfg.num_layers * m["decode_steps"]
-        want_flash = cfg.num_layers * len(trace)
-        if n_gather != want_gather or n_flash != want_flash:
-            raise AssertionError(
-                f"[serve {tag}] launches gather={n_gather} (expected "
-                f"{want_gather}) flash={n_flash} (expected {want_flash})")
-        runs[tag] = dict(report=report, gather=n_gather, flash=n_flash)
-        if graph:
-            g = engine._decode_graph
-            _log(f"[serve {tag}] decode graph: {g.captures} capture in "
-                 f"{g.capture_s:.3f} s (the capture alone), {g.replays} "
-                 f"replays")
-        _log(f"[serve {tag}] {m['completed']} requests, {m['total_tokens']} "
-             f"tokens in {m['duration']:.3f} s -> {m['tokens_per_s']:.1f} "
-             f"tok/s | latency p50 {m['p50_latency']:.4f} s p99 "
-             f"{m['p99_latency']:.4f} s | ttft p50 {m['p50_ttft']:.4f} s | "
-             f"prefill_s {m['prefill_s']:.4f} decode_s {m['decode_s']:.4f} | "
-             f"{m['decode_steps']} decode steps, mean "
-             f"{1e3 * m['decode_s'] / m['decode_steps']:.3f} ms/step | peak "
-             f"pages {m['peak_pages']} of {engine.pool_cfg.num_pages - 1} | "
-             f"pool {engine.pool_bytes} bytes | peak device memory "
-             f"{torch.cuda.max_memory_allocated()} bytes | launches "
-             f"page_gather={n_gather} flash_attention={n_flash}")
-    for pool in ("fp", "int8"):
-        eager = runs[pool]["report"].tokens_by_rid()
-        if runs[f"{pool} graph"]["report"].tokens_by_rid() != eager:
-            raise AssertionError(f"[serve {pool}] graph-decode tokens differ "
-                                 f"from eager decode")
-        _log(f"[serve {pool}] graph decode == eager decode: "
-             f"{sum(len(t) for t in eager.values())} greedy tokens equal")
-    fp_t = runs["fp"]["report"].tokens_by_rid()
-    q8_t = runs["int8"]["report"].tokens_by_rid()
-    same = sum(a == b for r in fp_t for a, b in zip(fp_t[r], q8_t[r]))
-    total = sum(len(v) for v in fp_t.values())
-    _log(f"[serve] int8 pool vs fp pool: {same}/{total} tokens equal "
-         f"(bf16 random weights; reported, not asserted)")
+    for pool in pools:
+        engines = [(True, trace), (False, short)] if short else [(True,
+                                                                  trace)]
+        for graph, tr in engines:
+            engine = ServeEngine(cfg, model, cache_int8=pool == "int8",
+                                 clock="wall", decode_graph=graph,
+                                 **_serve_cfg())
+            if graph:
+                engine.run(warm)          # warmup and capture
+                graph_engine = engine
+            torch.cuda.reset_peak_memory_stats()
+            report, (n_gather, n_flash) = _serve(
+                torch, engine, tr, (page_gather, flash_attention))
+            m = report.metrics
+            tag = pool + (" graph" if graph else "")
+            if m["decode_compiles"] != 1:
+                raise AssertionError(f"[{label} {tag}] decode_compiles "
+                                     f"{m['decode_compiles']}, expected 1")
+            if m["completed"] != len(tr):
+                raise AssertionError(f"[{label} {tag}] {m['completed']} of "
+                                     f"{len(tr)} requests completed")
+            for c in report.completed:
+                req = next(r for r in tr if r.rid == c.rid)
+                if len(c.tokens) != req.max_new or not all(
+                        0 <= t < cfg.vocab_size for t in c.tokens):
+                    raise AssertionError(f"[{label} {tag}] rid {c.rid}: bad "
+                                         f"tokens")
+            want_gather = 2 * cfg.num_layers * m["decode_steps"]
+            want_flash = cfg.num_layers * len(tr)
+            if n_gather != want_gather or n_flash != want_flash:
+                raise AssertionError(
+                    f"[{label} {tag}] launches gather={n_gather} (expected "
+                    f"{want_gather}) flash={n_flash} (expected {want_flash})")
+            runs[tag] = dict(report=report, gather=n_gather, flash=n_flash)
+            if graph:
+                g = engine._decode_graph
+                _log(f"[{label} {tag}] decode graph: {g.captures} capture "
+                     f"in {g.capture_s:.3f} s (the capture alone), "
+                     f"{g.replays} replays")
+            _log(f"[{label} {tag}] {m['completed']} requests, "
+                 f"{m['total_tokens']} tokens in {m['duration']:.3f} s -> "
+                 f"{m['tokens_per_s']:.1f} tok/s | latency p50 "
+                 f"{m['p50_latency']:.4f} s p99 {m['p99_latency']:.4f} s | "
+                 f"ttft p50 {m['p50_ttft']:.4f} s | prefill_s "
+                 f"{m['prefill_s']:.4f} decode_s {m['decode_s']:.4f} | "
+                 f"{m['decode_steps']} decode steps, mean "
+                 f"{1e3 * m['decode_s'] / m['decode_steps']:.3f} ms/step | "
+                 f"peak pages {m['peak_pages']} of "
+                 f"{engine.pool_cfg.num_pages - 1} | pool "
+                 f"{engine.pool_bytes} bytes | peak device memory "
+                 f"{torch.cuda.max_memory_allocated()} bytes | launches "
+                 f"page_gather={n_gather} flash_attention={n_flash}")
+        if short:
+            eager = runs[pool]["report"].tokens_by_rid()
+            if graph_engine.run(short).tokens_by_rid() != eager:
+                raise AssertionError(f"[{label} {pool}] graph-decode tokens "
+                                     f"differ from eager decode")
+            _log(f"[{label} {pool}] graph decode == eager decode on the "
+                 f"short trace: {sum(len(t) for t in eager.values())} "
+                 f"greedy tokens equal")
+    if "fp graph" in runs and "int8 graph" in runs:
+        fp_t = runs["fp graph"]["report"].tokens_by_rid()
+        q8_t = runs["int8 graph"]["report"].tokens_by_rid()
+        same = sum(a == b for r in fp_t for a, b in zip(fp_t[r], q8_t[r]))
+        total = sum(len(v) for v in fp_t.values())
+        _log(f"[{label}] int8 pool vs fp pool: {same}/{total} tokens equal "
+             f"(bf16 random weights; reported, not asserted)")
     return runs
+
+
+def _hold_kernel_to_plain(torch, cfg, label, trace, **engine_kw):
+    """``cfg`` (f32 at reduced depth) serves ``trace`` with the kernels and
+    with their plain twins, fp and int8 pools: the same greedy tokens."""
+    from repro_torch.models import get_model
+    from repro_torch.serve import ServeEngine
+    model = get_model(cfg, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(1))
+    for int8 in (False, True):
+        toks = [ServeEngine(cfg, model, cache_int8=int8,
+                            use_kernel=use_kernel, clock="virtual",
+                            **engine_kw).run(trace).tokens_by_rid()
+                for use_kernel in (True, False)]
+        pool = "int8" if int8 else "fp"
+        if toks[0] != toks[1]:
+            raise AssertionError(f"[e2e] {label} {cfg.num_layers} layers f32 "
+                                 f"{pool}: kernel-path tokens differ from "
+                                 f"plain")
+        longest = max(r.prompt_len + r.max_new for r in trace)
+        _log(f"[e2e] {label} {cfg.num_layers}-layer full-width f32 {pool} "
+             f"pool: kernel-path tokens == plain-path tokens "
+             f"({sum(len(t) for t in toks[0].values())} tokens, sequences to "
+             f"{longest} positions; window {cfg.sliding_window})")
 
 
 def _kernel_vs_plain_phase(torch):
@@ -728,23 +886,11 @@ def _kernel_vs_plain_phase(torch):
     from repro_torch.serve import ServeEngine, TraceConfig, make_trace
     full = configs.get_config("qwen3-0.6b")
     cfg = dataclasses.replace(full, num_layers=2, dtype="float32")
-    model = get_model(cfg, device="cuda",
-                      generator=torch.Generator(device="cuda").manual_seed(1))
     trace = make_trace(TraceConfig(
         num_requests=8, rate=1000.0, prompt_len_min=16, prompt_len_max=128,
         max_new_min=8, max_new_max=16, vocab=cfg.vocab_size, seed=2))
-    for int8 in (False, True):
-        toks = [ServeEngine(cfg, model, num_slots=4, page_size=16,
-                            max_prompt_len=128, max_new_cap=16,
-                            cache_int8=int8, use_kernel=use_kernel,
-                            clock="virtual").run(trace).tokens_by_rid()
-                for use_kernel in (True, False)]
-        if toks[0] != toks[1]:
-            raise AssertionError(f"2-layer f32 {'int8' if int8 else 'fp'}: "
-                                 f"kernel-path tokens differ from plain")
-        _log(f"[e2e] 2-layer full-width f32 {'int8' if int8 else 'fp'} pool: "
-             f"kernel-path tokens == plain-path tokens "
-             f"({sum(len(t) for t in toks[0].values())} tokens)")
+    _hold_kernel_to_plain(torch, cfg, "qwen3-0.6b", trace, num_slots=4,
+                          page_size=16, max_prompt_len=128, max_new_cap=16)
     # the card against the CPU port (itself held to the JAX reference by
     # tests/test_torch_serve.py) on the smoke config
     smoke = configs.get_smoke_config("qwen3-0.6b")
@@ -1654,9 +1800,15 @@ def _full_width_phase(torch, backup_reduce, rwkv6_scan):
     import gc
     from repro_torch.benchmarks import bench_sync_vs_async as sva
     from repro_torch.train.loop import Trainer
+    from unittest import mock
     t0 = time.perf_counter()
     backup_reduce.launches = 0
-    out, rows = sva.run_full_width(device="cuda", log=_log)
+    get = sva.configs.get_config
+    cut = dataclasses.replace(get(sva.FULL_ARCH), num_layers=FIGS89_LAYERS)
+    with mock.patch.object(sva.configs, "get_config",
+                           lambda arch: cut if arch == sva.FULL_ARCH
+                           else get(arch)):
+        out, rows = sva.run_full_width(device="cuda", log=_log)
     launches = backup_reduce.launches
     mask_steps = sum(out[k]["res"].steps for k in ("sync_backup",
                                                    "sync_full"))
@@ -1674,7 +1826,8 @@ def _full_width_phase(torch, backup_reduce, rwkv6_scan):
         raise AssertionError(f"[full width] backup_reduce launches "
                              f"{launches}, expected {mask_steps}")
     b, f, a = (out[k] for k in ("sync_backup", "sync_full", "async"))
-    _log(f"[full width] every loss finite; every regime's train loss fell "
+    _log(f"[full width] qwen3-0.6b at {FIGS89_LAYERS} of 28 layers: every "
+         f"loss finite; every regime's train loss fell "
          f"more than {FALL_NATS} nats; backup_reduce launches {launches} = "
          f"the mask regimes' {mask_steps} steps, replays counted "
          f"({time.perf_counter() - t0:.1f} s). The paper's claims (not "
@@ -2149,14 +2302,17 @@ def _mesh_phase(torch):
 # ---------------------------------------------------------------------------
 
 
-def _tp_full_cfg(shape, grad_batch, chunk, steps=3):
-    """qwen3-0.6b at full width (``train_config``) over the ``shape`` =
-    (mesh_data, mesh_model) mesh, ``steps`` steps in chunks of ``chunk``."""
+def _tp_full_cfg(shape, grad_batch, chunk, steps=3, layers=None):
+    """qwen3-0.6b at full width (``train_config``; ``layers`` cuts its
+    depth) over the ``shape`` = (mesh_data, mesh_model) mesh, ``steps``
+    steps in chunks of ``chunk``."""
     from repro_torch.launch.profile_train import train_config
-    return dataclasses.replace(
-        train_config("qwen3-0.6b", grad_batch=grad_batch, steps=steps,
-                     mesh_data=shape[0], mesh_model=shape[1]),
-        chunk_size=chunk)
+    cfg = train_config("qwen3-0.6b", grad_batch=grad_batch, steps=steps,
+                       mesh_data=shape[0], mesh_model=shape[1])
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, num_layers=layers))
+    return dataclasses.replace(cfg, chunk_size=chunk)
 
 
 def _tp_small_cfg(shape, chunk):
@@ -2260,14 +2416,14 @@ def _tp_rank(rank, device, out_dir, runs):
         json.dump(out, f)
 
 
-def _tp_ref_loss(torch):
+def _tp_ref_loss(torch, layers=None):
     """Step 1's loss of the full-width one-card run at grad_batch 1 (phase
-    6's run), for ``--mesh-only``."""
+    6's run; ``layers`` cuts its depth), for ``--mesh-only`` and the
+    one-card gloo run."""
     import gc
     from repro_torch.core.straggler import PaperCalibrated
-    from repro_torch.launch.profile_train import train_config
     from repro_torch.train.loop import Trainer
-    tr = Trainer(train_config("qwen3-0.6b", steps=1),
+    tr = Trainer(_tp_full_cfg((1, 1), 1, 1, steps=1, layers=layers),
                  latency=PaperCalibrated(), device="cuda")
     tr.init_state()
     loss = tr.run(1).metrics[0]["loss"]
@@ -2280,12 +2436,13 @@ def _tp_ref_loss(torch):
 def _tp_phase(torch, ref_loss):
     """Phase 19: the 'model' axis over ranks. With one card: 2 gloo ranks
     on it at mesh 1 x 2, chunk 1 (gloo cannot be captured): 2 layers f32
-    held to the one-card run, then qwen3-0.6b at full width for 2 steps at
-    grad_batch 1. With 2 or more cards: NCCL at 1 x 2 (and 1 x 4, 2 x 2
-    with 4), one card per rank, 2 layers f32 then full width at
-    grad_batch 0, each one chunk of 3 through the graph with the model
-    group's all-reduces captured. ``ref_loss``: step 1's loss of the
-    one-card full-width run."""
+    held to the one-card run, then qwen3-0.6b at full width cut to
+    ``TP_GLOO_LAYERS`` layers for 2 steps at grad_batch 1, its step 1 loss
+    held to the one-card run's at that depth. With 2 or more cards: NCCL
+    at 1 x 2 (and 1 x 4, 2 x 2 with 4), one card per rank, 2 layers f32
+    then full width at grad_batch 0, each one chunk of 3 through the graph
+    with the model group's all-reduces captured. ``ref_loss``: step 1's
+    loss of the one-card full-width run."""
     from repro_torch.distributed import mesh
     cards = torch.cuda.device_count()
     nccl = cards >= 2
@@ -2294,7 +2451,9 @@ def _tp_phase(torch, ref_loss):
     if not nccl:
         _log("[tp] one card visible: NCCL not run (it needs a card per "
              "rank); 2 ranks over gloo on CUDA tensors on the one card, "
-             "chunk_size 1 (a gloo all-reduce cannot be captured)")
+             "chunk_size 1 (a gloo all-reduce cannot be captured), the "
+             f"full-width run cut to {TP_GLOO_LAYERS} of 28 layers")
+        ref_loss = _tp_ref_loss(torch, TP_GLOO_LAYERS)
     launches = {}
     for shape in shapes:
         d, m = shape
@@ -2302,9 +2461,12 @@ def _tp_phase(torch, ref_loss):
         chunk = 3 if nccl else 1
         runs = [(f"qwen3-0.6b 2 layers f32 {name}",
                  _tp_small_cfg(shape, chunk), "small"),
-                (f"qwen3-0.6b {name}",
+                (f"qwen3-0.6b {name}" if nccl else
+                 f"qwen3-0.6b {TP_GLOO_LAYERS} layers {name}",
                  _tp_full_cfg(shape, 0 if nccl else 1, chunk,
-                              steps=3 if nccl else 2), "full")]
+                              steps=3 if nccl else 2,
+                              layers=None if nccl else TP_GLOO_LAYERS),
+                 "full")]
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             mesh.spawn(_tp_rank, d, "cuda", args=(tmp, runs), mesh_model=m,
@@ -2768,6 +2930,7 @@ def _faults_phase(torch, backup_reduce):
 
 def _eps_record(torch):
     """Phase 17's record of ROADMAP Queue 3's closed control: qwen3-0.6b
+    (cut to ``EPS_RECORD_LAYERS`` layers for the call's time)
     grad_batch 0 against 1 at RMSProp eps 1e-3 (the parity setting), one
     chunk of 3 steps through the graph each; the loss rel gaps per step
     are printed beside phase 17's at eps 1e-8 and gate nothing."""
@@ -2780,7 +2943,9 @@ def _eps_record(torch):
         cfg = train_config(grad_batch=gb)
         cfg = dataclasses.replace(
             cfg, chunk_size=cfg.total_steps, optimizer=dataclasses.replace(
-                cfg.optimizer, eps=1e-3))
+                cfg.optimizer, eps=1e-3),
+            model=dataclasses.replace(cfg.model,
+                                      num_layers=EPS_RECORD_LAYERS))
         tr = Trainer(cfg, latency=PaperCalibrated(), device="cuda")
         tr.init_state()
         losses[gb] = [m["loss"] for m in tr.run(cfg.total_steps).metrics]
@@ -2789,8 +2954,8 @@ def _eps_record(torch):
         torch.cuda.empty_cache()
     gaps = [abs(a - b) / abs(a) for a, b in zip(losses[1], losses[0])]
     held = max(gaps[1:]) <= 1e-3
-    _log(f"[batched qwen3-0.6b grad_batch 0, eps 1e-3] vs grad_batch 1 at "
-         f"eps 1e-3: loss rel gap per step "
+    _log(f"[batched qwen3-0.6b grad_batch 0, eps 1e-3, {EPS_RECORD_LAYERS} "
+         f"of 28 layers] vs grad_batch 1 at eps 1e-3: loss rel gap per step "
          f"{' '.join(f'{g:.3g}' for g in gaps)} (a record, not a gate): "
          f"steps 2-3 {'stay' if held else 'do not stay'} within rel 1e-3")
 
@@ -3078,11 +3243,12 @@ def _serve_cfg():
                 max_new_cap=128)
 
 
-def _serve_trace(cfg, n, seed, rate=1000.0):
+def _serve_trace(cfg, n, seed, rate=1000.0, new=(32, 128)):
     from repro_torch.serve import TraceConfig, make_trace
     return make_trace(TraceConfig(
         num_requests=n, rate=rate, prompt_len_min=64, prompt_len_max=512,
-        max_new_min=32, max_new_max=128, vocab=cfg.vocab_size, seed=seed))
+        max_new_min=new[0], max_new_max=new[1], vocab=cfg.vocab_size,
+        seed=seed))
 
 
 def _restore_phase(torch):
@@ -3096,8 +3262,10 @@ def _restore_phase(torch):
     from repro_torch.serve import ServeEngine, restore_params
     from repro_torch.train.loop import Trainer
     with tempfile.TemporaryDirectory() as d:
-        cfg = dataclasses.replace(train_config(steps=1),
-                                  checkpoint=CheckpointConfig(directory=d))
+        cfg = train_config(steps=1)
+        cfg = dataclasses.replace(
+            cfg, checkpoint=CheckpointConfig(directory=d),
+            model=dataclasses.replace(cfg.model, num_layers=RESTORE_LAYERS))
         tr = Trainer(cfg, latency=PaperCalibrated(), device="cuda")
         tr.init_state()
         tr.run(1)
@@ -3141,7 +3309,8 @@ def _restore_phase(torch):
     if toks["restored"] != toks["trained"]:
         raise AssertionError("[restore] the restored weights serve other "
                              "greedy tokens than the trainer's")
-    _log(f"[restore] qwen3-0.6b full width, 1 step of the phase-6 cell: "
+    _log(f"[restore] qwen3-0.6b full width at {RESTORE_LAYERS} of 28 "
+         f"layers, 1 step of the phase-6 cell: "
          f"checkpoint {nbytes} bytes saved in {save_s:.2f} s; "
          f"restore_params {secs[False]:.2f} s (params), {secs[True]:.2f} s "
          f"(ema); every restored tensor bit-equal to the trainer's (EMA "
@@ -3279,11 +3448,536 @@ def _slice_phases(torch, backup_reduce, page_gather, flash_attention):
     return dict(router, telemetry=telemetry["launches"])
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the dense configs on the paged path, flash attention at D = 256
+# ---------------------------------------------------------------------------
+
+
+def _ptxas_usage(report: str, key: str):
+    """(registers, spill store bytes, spill load bytes) of the kernel whose
+    mangled name holds ``key``, from ``nvcc -Xptxas -v``'s report."""
+    import re
+    lines = report.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and key in ln:
+            regs = spills = None
+            for nxt in lines[i + 1:]:
+                if "Compiling entry function" in nxt:
+                    break
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", nxt)
+                if m and spills is None:
+                    spills = (int(m.group(1)), int(m.group(2)))
+                m = re.search(r"Used (\d+) registers", nxt)
+                if m and regs is None:
+                    regs = int(m.group(1))
+            if regs is not None and spills is not None:
+                return regs, spills[0], spills[1]
+    raise AssertionError(f"ptxas report has no kernel {key}")
+
+
+def _flash256_phase(torch, flash_attention, ptxas_report):
+    """Flash attention at head_dim 256 (gemma3-1b: 4 heads, 1 kv head):
+    the f32 and the bf16 kernel against the plain twin (causal, window
+    512, softcap 2, ragged S), then device times at gemma3-1b's prefill
+    shape (B 1, S 512: the phase's largest bucket, bf16) against the
+    plain twin, SDPA and the bound; the registers and spills ptxas gave
+    each D = 256 kernel."""
+    import torch.nn.functional as F
+    f = FLASH256_HEADS
+    gen = torch.Generator(device="cuda").manual_seed(25)
+
+    def inputs(s, dt, copies=1):
+        return [tuple(torch.randn((1, s, n, f["d"]), generator=gen,
+                                  device="cuda").to(dt)
+                      for n in (f["h"], f["kv"], f["kv"]))
+                for _ in range(copies)]
+
+    errs = {}
+    for s in (77, 512, 1000):
+        for dt in (torch.bfloat16, torch.float32):
+            for window, cap in ((0, 0.0), (512, 0.0), (512, 2.0)):
+                q, k, v = inputs(s, dt)[0]
+                got = flash_attention.flash_attention(q, k, v, window=window,
+                                                      softcap=cap)
+                want = flash_attention.flash_attention(
+                    q, k, v, window=window, softcap=cap, use_kernel=False)
+                torch.cuda.synchronize()
+                tol = dict(atol=4e-3, rtol=8e-3) if dt == torch.bfloat16 \
+                    else dict(atol=1e-4, rtol=0.0)
+                torch.testing.assert_close(got.float(), want.float(), **tol)
+                errs[(s, dt, window, cap)] = \
+                    (got.float() - want.float()).abs().max().item()
+    _log(f"[kernels] flash_attention D=256 H={f['h']} KV={f['kv']}: "
+         f"{len(errs)} cases (S 77 / 512 / 1000, bf16 and f32, causal, "
+         f"window 0 / 512, softcap 0 / 2) match the plain twin (bf16 atol "
+         f"4e-3 rtol 8e-3, f32 atol 1e-4); max abs err bf16 "
+         f"{max(e for k, e in errs.items() if k[1] == torch.bfloat16):.3g}, "
+         f"f32 {max(e for k, e in errs.items() if k[1] == torch.float32):.3g}")
+    s, dt = 512, torch.bfloat16
+    ins = inputs(s, dt, 16)
+    ms = _time_ms(torch, [
+        (lambda a=a: flash_attention.flash_attention(*a, window=512))
+        for a in ins])
+    plain_ms = _time_ms(torch, [
+        (lambda a=a: flash_attention.flash_attention(
+            *a, window=512, use_kernel=False)) for a in ins])
+    library_ms = _time_ms(torch, [
+        (lambda a=a: F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in a), is_causal=True,
+            enable_gqa=True)) for a in ins])
+    pairs = s * (s + 1) // 2           # causal; the window of 512 cuts none
+    flops = 4 * pairs * f["d"] * f["h"]
+    nbytes = 2 * s * f["d"] * (2 * f["h"] + 2 * f["kv"])   # q, o, k, v
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    usage = {name: _ptxas_usage(ptxas_report, key) for name, key in (
+        ("bf16", "flash_fwd_bf16_kernelILi256E"),
+        ("f32", "flash_fwd_kernelIfLi256E"))}
+    row = dict(
+        name="flash_attention_d256", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:95",
+        max_abs_err=errs[(512, dt, 512, 0.0)], ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=library_ms,
+        ptxas={k: dict(registers=r, spill_stores=st, spill_loads=ld)
+               for k, (r, st, ld) in usage.items()})
+    _log(f"[kernels] flash_attention B=1 S={s} H={f['h']} KV={f['kv']} "
+         f"D={f['d']} bf16 causal window 512 (gemma3-1b's prefill): kernel "
+         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa) "
+         f"{library_ms:.4f} ms, bound {row['bound_ms']:.5f} ms "
+         f"({row['bound_by']}: {flops} flop, {nbytes} bytes) | ptxas "
+         + ", ".join(f"{k}: {r} registers, {st} / {ld} bytes spill stores / "
+                     f"loads" for k, (r, st, ld) in usage.items()))
+    return row
+
+
+def _dense_phase(torch, kernels):
+    """Phase 25's configs on the paged path: gemma3-1b at full width on
+    phase 4's 16 requests (fp and int8 pools, eager and graph decode:
+    flash at D = 256 in every prefill, page gather at hd 256 / kv 1), at 2
+    layers f32 kernel == plain past its window of 512; minitron-4b at full
+    width and command-r-plus at ``COMMAND_R_LAYERS`` of 64 layers (width
+    unchanged) on ``DENSE_FEW`` requests each, graph decode. Returns the
+    launch counts per run."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.serve import TraceConfig, make_trace
+    counts = {}
+    cfg = configs.get_config("gemma3-1b")
+    model = _full_width_model(torch, cfg)
+    runs = _serve_runs(torch, cfg, model, kernels, "dense gemma3-1b",
+                       _serve_trace(cfg, 16, seed=0),
+                       short=_serve_trace(cfg, SHORT_REQUESTS, seed=0,
+                                          new=SHORT_NEW))
+    counts["gemma3-1b"] = {t: (r["gather"], r["flash"])
+                           for t, r in runs.items()}
+    del model, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    _hold_kernel_to_plain(torch, small, "gemma3-1b", make_trace(TraceConfig(
+        num_requests=4, rate=1000.0, prompt_len_min=448, prompt_len_max=512,
+        max_new_min=64, max_new_max=128, vocab=cfg.vocab_size, seed=2)),
+        **_serve_cfg())
+    for arch, layers in (("minitron-4b", None),
+                         ("command-r-plus-104b", COMMAND_R_LAYERS)):
+        cfg = configs.get_config(arch)
+        label = arch
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+            label = f"{arch} ({layers} of 64 layers)"
+        model = _full_width_model(torch, cfg, label=label)
+        runs = _serve_runs(torch, cfg, model, kernels, f"dense {arch}",
+                           _serve_trace(cfg, DENSE_FEW, seed=0),
+                           pools=("fp",))
+        counts[arch] = {t: (r["gather"], r["flash"]) for t, r in runs.items()}
+        del model, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 26: the toy path (contiguous caches, RWKV's carried state)
+# ---------------------------------------------------------------------------
+
+
+def _rel_l2_logits(torch, a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _toy_phase(torch, rwkv6_scan):
+    """Phase 26: ``greedy_generate`` over the contiguous caches at full
+    width (gemma3-1b, qwen3-0.6b), fp and int8; the stepped decode's last
+    logits over the prompt against ``prefill``'s (rel L2
+    ``TOY_LOGITS_REL``, bf16); rwkv6-1.6b's ``prefill`` (the wkv6 kernel,
+    counted) against stepping ``decode_step`` over the same prompt (its
+    carried state), at full width against the plain twin's own gap and at
+    2 layers f32 within ``TOY_F32_REL``; gemma3-1b at 2 layers f32 past its
+    window of 512 (``TOY_WINDOW_RUN``: the local layers' ring buffers
+    wrap): the stepped decode's last logits against ``prefill``'s within
+    ``TOY_F32_REL``, and ``greedy_generate`` with the fp and int8 caches;
+    at 2 layers f32 the card's greedy tokens equal the CPU port's. Returns
+    the wkv6 forward launches of the full-width rwkv6 prefill."""
+    import gc
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.models import get_model
+    from repro_torch.train.serve_step import greedy_generate
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    out = {}
+    for arch, (plen, new) in TOY_RUNS.items():
+        cfg = configs.get_config(arch)
+        t0 = time.perf_counter()
+        model = _full_width_model(torch, cfg, label=f"toy {arch}")
+        prompt = torch.randint(0, cfg.vocab_size, (TOY_BATCH, plen),
+                               generator=gen, device="cuda")
+        with torch.inference_mode():
+            # the stepped decode's last logits against prefill's
+            cache = model.init_cache(1, plen)
+            for i in range(plen):
+                logits, cache = model.decode_step(prompt[:1, i:i + 1], cache)
+            gap = _rel_l2_logits(torch, logits, model.prefill(prompt[:1]))
+            if not gap <= TOY_LOGITS_REL:
+                raise AssertionError(f"[toy {arch}] stepped decode's last "
+                                     f"logits vs prefill's: rel L2 {gap} "
+                                     f"(limit {TOY_LOGITS_REL})")
+            for tag, dt in (("fp", None), ("int8", torch.int8)):
+                marks = []
+                toks = greedy_generate(model, prompt, new, plen + new + 1,
+                                       cache_dtype=dt, marks=marks)
+                if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+                    raise AssertionError(f"[toy {arch} {tag}] token ids out "
+                                         f"of range")
+                _log(f"[toy {arch} {tag}] greedy_generate batch "
+                     f"{TOY_BATCH}, prompt {plen}, {new} tokens "
+                     f"({plen + new} eager decode steps): prompt "
+                     f"{marks[1] - marks[0]:.2f} s, decode "
+                     f"{marks[2] - marks[1]:.2f} s "
+                     f"({1e3 * (marks[2] - marks[1]) / new:.2f} ms/step); "
+                     f"row 0 {toks[0, :12].tolist()}")
+        _log(f"[toy {arch}] stepped decode's last logits vs prefill's: rel "
+             f"L2 {gap:.3g} (limit {TOY_LOGITS_REL}, bf16; prompt {plen}); "
+             f"{time.perf_counter() - t0:.1f} s")
+        del model, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    # rwkv6-1.6b: prefill (the wkv6 kernel) against the carried state, at
+    # full width (bf16) and at 2 layers f32
+    for label, cfg in (
+            ("rwkv6-1.6b", configs.get_config("rwkv6-1.6b")),
+            ("rwkv6-1.6b 2 layers f32", dataclasses.replace(
+                configs.get_config("rwkv6-1.6b"), num_layers=2,
+                dtype="float32"))):
+        t0 = time.perf_counter()
+        model = _full_width_model(torch, cfg, label=f"toy {label}")
+        prompt = torch.randint(0, cfg.vocab_size, (1, TOY_RWKV_PROMPT),
+                               generator=gen, device="cuda")
+        with torch.inference_mode():
+            rwkv6_scan.launches_fwd = 0
+            pre = model.prefill(prompt)
+            torch.cuda.synchronize()
+            n_fwd = rwkv6_scan.launches_fwd
+            model.use_kernel = False
+            pre_plain = model.prefill(prompt)
+            model.use_kernel = True
+            if n_fwd != cfg.num_layers:
+                raise AssertionError(f"[toy {label}] prefill launched the "
+                                     f"wkv6 forward {n_fwd} times, expected "
+                                     f"{cfg.num_layers}")
+            cache = model.init_cache(1, TOY_RWKV_PROMPT)
+            for i in range(TOY_RWKV_PROMPT):
+                logits, cache = model.decode_step(prompt[:, i:i + 1], cache)
+            gap = _rel_l2_logits(torch, logits, pre)
+            control = _rel_l2_logits(torch, logits, pre_plain)
+            f32 = cfg.dtype == "float32"
+            limit = TOY_F32_REL if f32 else \
+                TOY_RWKV_CONTROL_FACTOR * control
+            if not gap <= limit:
+                raise AssertionError(
+                    f"[toy {label}] stepped decode's last logits vs the "
+                    f"kernel prefill's: rel L2 {gap} (limit {limit}; the "
+                    f"plain twin's prefill: {control})")
+            toks = greedy_generate(model, prompt[:, :16], 16, 33)
+        _log(f"[toy {label}] prefill over {TOY_RWKV_PROMPT} tokens (wkv6 "
+             f"kernel, {n_fwd} launches) vs {TOY_RWKV_PROMPT} decode steps "
+             f"carrying the state (plain scan): last logits rel L2 "
+             f"{gap:.3g}; the plain twin's prefill vs the same steps "
+             f"{control:.3g} (limit "
+             + (f"{TOY_F32_REL}, f32)" if f32 else
+                f"{TOY_RWKV_CONTROL_FACTOR} x the plain twin's gap = "
+                f"{limit:.3g}, bf16)")
+             + f"; greedy tokens {toks[0].tolist()}; "
+             f"{time.perf_counter() - t0:.1f} s")
+        if not f32:
+            out["rwkv6_prefill"] = n_fwd
+        del model, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    # gemma3-1b at 2 layers f32 past its window of 512 (both layers local:
+    # their 512-slot rings wrap): the stepped decode's last logits against
+    # prefill's (the dense windowed attention), and greedy_generate with
+    # the fp and the int8 cache
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get_config("gemma3-1b"), num_layers=2,
+                              dtype="float32")
+    model = _full_width_model(torch, cfg, label="toy gemma3-1b 2 layers f32")
+    plen, new = TOY_WINDOW_RUN
+    prompt = torch.randint(0, cfg.vocab_size, (1, plen), generator=gen,
+                           device="cuda")
+    with torch.inference_mode():
+        cache = model.init_cache(1, plen)
+        for i in range(plen):
+            logits, cache = model.decode_step(prompt[:, i:i + 1], cache)
+        gap = _rel_l2_logits(torch, logits, model.prefill(prompt))
+        toks = {tag: greedy_generate(model, prompt, new, plen + new + 1,
+                                     cache_dtype=dt).tolist()
+                for tag, dt in (("fp", None), ("int8", torch.int8))}
+    rings = sorted({c["k"].shape[1] for c in cache["seg_dense"]})
+    if not gap <= TOY_F32_REL:
+        raise AssertionError(f"[toy gemma3-1b 2 layers f32] stepped decode's "
+                             f"last logits past the window vs prefill's: rel "
+                             f"L2 {gap} (limit {TOY_F32_REL})")
+    _log(f"[toy gemma3-1b 2 layers f32] {plen} steps past the window of "
+         f"{cfg.sliding_window} (ring buffers of {rings}): last logits vs "
+         f"prefill's rel L2 {gap:.3g} (limit {TOY_F32_REL}); greedy_generate "
+         f"fp {toks['fp']}, int8 {toks['int8']}; "
+         f"{time.perf_counter() - t0:.1f} s")
+    del model, cache
+    # 2 layers f32: the card's greedy tokens equal the CPU port's
+    for arch in ("gemma3-1b", "qwen3-0.6b", "rwkv6-1.6b"):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(configs.get_config(arch), num_layers=2,
+                                  dtype="float32")
+        cpu = get_model(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(3))
+        card = get_model(cfg, device="cuda")
+        card.load_state_dict(cpu.state_dict())
+        prompt = torch.from_numpy(np.random.default_rng(4).integers(
+            0, cfg.vocab_size, (2, 8)))
+        with torch.inference_mode():
+            want = greedy_generate(cpu, prompt, 8, 17)
+            got = greedy_generate(card, prompt, 8, 17).cpu()
+        if not torch.equal(got, want):
+            raise AssertionError(f"[toy {arch} 2 layers f32] card tokens "
+                                 f"{got.tolist()} differ from the CPU "
+                                 f"port's {want.tolist()}")
+        _log(f"[toy {arch} 2 layers f32] card tokens == CPU port tokens "
+             f"({want.numel()} tokens); {time.perf_counter() - t0:.1f} s")
+        del cpu, card
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 27: tensor-parallel decode over ranks
+# ---------------------------------------------------------------------------
+
+
+def _first_decode_logits(torch, engine, req):
+    """The first decode step's full logits of ``req`` on ``engine``: its
+    prefill into a fresh pool of the engine's (slot 0), then one paged
+    decode step whose vocab-sharded logits are all-gathered (under TP)
+    and kept."""
+    import numpy as np
+    from repro_torch.distributed import tp
+    from repro_torch.serve import pages as pages_lib
+    from repro_torch.serve.paged_model import build_paged_decode
+    pool = pages_lib.PagePool(engine.pool_cfg, dtype=engine.model.dtype,
+                              device=engine.device)
+    pool.alloc(0, engine.pages_needed(req))
+    first = engine._prefill_into(req, 0, pool)
+    c = engine.pool_cfg
+    state = np.zeros((c.num_slots, 2 + c.max_pages_per_slot), np.int32)
+    state[0, 0], state[0, 1] = first, req.prompt_len
+    state[:, 2:] = pool.page_table
+    ctx, kept = engine._tp_ctx, []
+
+    def keep(logits):
+        if ctx is not None and ctx.vocab:
+            logits = tp.all_gather_last(logits, ctx.group)
+        kept.append(logits[0].float().cpu())
+        return logits
+
+    decode = build_paged_decode(engine.model, quantized=c.quantized,
+                                gather_logits=keep)
+    with tp.tensor_parallel(ctx):
+        decode(torch.from_numpy(state).to(engine.device), pool.buffers)
+    return kept[0]
+
+
+def _tp_serve(torch, cfg, device, mesh_model, int8, graph, trace, seed):
+    """One engine over ``cfg`` (seeded weights) at ``mesh_model``: the
+    trace served after a warm-up run (the graph's capture), counters set to
+    0 just before and read just after, then the first decode step's
+    logits of the trace's first request."""
+    from repro_torch.distributed import tp
+    from repro_torch.kernels import flash_attention, page_gather
+    from repro_torch.models import get_model
+    from repro_torch.serve import ServeEngine
+    model = get_model(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(seed))
+    engine = ServeEngine(cfg, model, mesh_model=mesh_model, cache_int8=int8,
+                         device=device, decode_graph=graph,
+                         clock="virtual", **_serve_cfg())
+    engine.run(trace[:2])
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    page_gather.launches = flash_attention.launches = 0
+    tp.all_reduces = tp.all_gathers = 0
+    t0 = time.perf_counter()
+    rep = engine.run(trace)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    m = rep.metrics
+    return dict(
+        tokens={str(k): v for k, v in rep.tokens_by_rid().items()},
+        decode_steps=m["decode_steps"], decode_s=m["decode_s"], wall_s=wall,
+        gather=page_gather.launches, flash=flash_attention.launches,
+        all_reduces=tp.all_reduces, all_gathers=tp.all_gathers,
+        captures=engine.decode_compiles,
+        peak=torch.cuda.max_memory_allocated(device),
+        plan=None if engine.tp_plan is None else dataclasses.asdict(
+            engine.tp_plan),
+        logits=_first_decode_logits(torch, engine, trace[0]).tolist())
+
+
+def _tp_decode_rank(rank, device, out_dir, runs):
+    """One rank of phase 27 (``mesh.spawn``): each of ``runs`` ((tag, cfg,
+    int8, graph, trace, seed)) through ``_tp_serve`` at the world's size;
+    writes ``out_dir/rank<r>.json``."""
+    import gc
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    size = torch.distributed.get_world_size()
+    out = {}
+    with torch.inference_mode():
+        for tag, cfg, int8, graph, trace, seed in runs:
+            out[tag] = _tp_serve(torch, cfg, device, size, int8, graph,
+                                 trace, seed)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.distributed.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _first_diff(got, want):
+    """The first (rid, decode step) where two token dicts differ, or None."""
+    for rid in sorted(want, key=int):
+        for i, (a, b) in enumerate(zip(got.get(rid, []), want[rid])):
+            if a != b:
+                return rid, i
+        if len(got.get(rid, [])) != len(want[rid]):
+            return rid, min(len(got.get(rid, [])), len(want[rid]))
+    return None
+
+
+def _tp_decode_phase(torch):
+    """Phase 27: ``ServeEngine(mesh_model=M)``. One card: 2 gloo ranks on
+    it, qwen3-0.6b at 2 layers f32, fp and int8 pools, eager decode (gloo
+    cannot be captured): the TP tokens equal the one-card engine's. Two or
+    more cards: NCCL, one card a rank, qwen3-0.6b at full width on phase
+    4's 16 requests at M = 2 (and 4 with four cards), the decode graph
+    capturing the all-reduces and the vocab all-gather: the first decode
+    step's logits within rel L2 ``TP_LOGITS_REL`` of the one-card engine's
+    (the gate), tokens compared (printed, with the first differing step),
+    ms a decode step and GB a card."""
+    from repro_torch import configs
+    from repro_torch.distributed import mesh
+    from repro_torch.serve import TraceConfig, make_trace
+    cards = torch.cuda.device_count()
+    nccl = cards >= 2
+    full = configs.get_config("qwen3-0.6b")
+    if nccl:
+        cfg, seed = full, 0
+        trace = _serve_trace(cfg, 16, seed=0)
+        sizes = [m for m in (2, 4) if m <= cards]
+        pools = [(False, True)]
+    else:
+        _log("[tp decode] one card visible: NCCL not run (it needs a card "
+             "per rank); 2 ranks over gloo on CUDA tensors on the one card, "
+             "eager decode (a gloo collective cannot be captured)")
+        cfg, seed = dataclasses.replace(full, num_layers=2,
+                                        dtype="float32"), 1
+        trace = make_trace(TraceConfig(
+            num_requests=8, rate=1000.0, prompt_len_min=16,
+            prompt_len_max=128, max_new_min=8, max_new_max=16,
+            vocab=cfg.vocab_size, seed=2))
+        sizes = [2]
+        pools = [(False, False), (True, False)]
+    backend = "nccl" if nccl else "gloo"
+    with torch.inference_mode():
+        ref = {int8: _tp_serve(torch, cfg, "cuda", 1, int8, graph, trace,
+                               seed) for int8, graph in pools}
+    torch.cuda.empty_cache()
+    for size in sizes:
+        runs = [(("int8" if int8 else "fp"), cfg, int8, graph, trace, seed)
+                for int8, graph in pools]
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            mesh.spawn(_tp_decode_rank, 1, "cuda", args=(tmp, runs),
+                       mesh_model=size, timeout_s=MESH_TIMEOUT_S)
+            ranks = []
+            for r in range(size):
+                with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+        for (tag, _, int8, graph, _, _) in runs:
+            one = ref[int8]
+            first = ranks[0][tag]
+            for r, other in enumerate(ranks):
+                o = other[tag]
+                if o["tokens"] != first["tokens"]:
+                    raise AssertionError(f"[tp decode {tag} M={size}] rank "
+                                         f"{r}'s tokens differ from rank 0's")
+                if not (o["all_reduces"] and o["gather"] and o["flash"]
+                        and o["captures"] == 1):
+                    raise AssertionError(f"[tp decode {tag} M={size}] rank "
+                                         f"{r}: no all-reduce, no kernel "
+                                         f"launch or not one decode "
+                                         f"capture: {o}")
+            gap = _rel_l2_logits(torch, torch.tensor(first["logits"]),
+                                 torch.tensor(one["logits"]))
+            diff = _first_diff(first["tokens"], one["tokens"])
+            limit = TP_LOGITS_REL if nccl else TP_SMALL_LOGITS_REL[tag]
+            if not gap <= limit:
+                raise AssertionError(f"[tp decode {tag} M={size}] first "
+                                     f"decode step's logits vs one card: "
+                                     f"rel L2 {gap} (limit {limit})")
+            if not nccl and diff is not None:
+                raise AssertionError(f"[tp decode {tag} M={size}] tokens "
+                                     f"differ from the one-card engine's at "
+                                     f"(rid, step) {diff}")
+            ms = 1e3 * first["decode_s"] / first["decode_steps"]
+            same = ("== the one-card engine's" if diff is None else
+                    f"first differ from the one-card engine's at (rid, "
+                    f"step) {diff}")
+            _log(f"[tp decode {tag} M={size}] {backend}, {size} ranks, "
+                 f"{'full width' if nccl else '2 layers f32'} qwen3-0.6b, "
+                 f"plan {first['plan']}: tokens {same}; first decode "
+                 f"step's logits rel L2 {gap:.3g} (limit "
+                 f"{limit}); per rank page_gather {first['gather']} "
+                 f"flash {first['flash']} all-reduces {first['all_reduces']} "
+                 f"all-gathers {first['all_gathers']} decode captures "
+                 f"{first['captures']}; {first['decode_steps']} decode steps, "
+                 f"{ms:.3f} ms a step (one card "
+                 f"{1e3 * one['decode_s'] / one['decode_steps']:.3f}); run "
+                 f"wall {first['wall_s']:.2f} s; peak "
+                 f"{first['peak'] / 1e9:.3f} GB a card (one card "
+                 f"{one['peak'] / 1e9:.3f})")
+        _log(f"[tp decode] M={size} over {backend}: "
+             f"{time.perf_counter() - t0:.1f} s")
+
+
 def main(argv) -> int:
     # cuBLAS picks the same algorithms run to run (the kernel and plain
     # training runs must compute the same first-step gradients)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    entries = ("--mesh-only", "--faults-only", "--serve-only")
+    entries = ("--mesh-only", "--faults-only", "--serve-only",
+               "--tp-decode-only")
     if argv and (len(argv) > 1 or argv[0] not in entries):
         print(f"chip_smoke: unknown arguments {argv} (none, or one of "
               f"{', '.join(entries)})", file=sys.stderr)
@@ -3310,12 +4004,19 @@ def main(argv) -> int:
          f"x{torch.cuda.device_count()}")
     _log(smi)
 
-    # 2. build
+    # 2. build (and, beside it, ptxas's report on the flash kernels, which
+    # phase 25 reads)
     t0 = time.perf_counter()
-    secs = _build.build()
-    _log(f"[build] {', '.join(f'{k}.cu {v:.1f} s' for k, v in secs.items())}"
-         f" (wall {time.perf_counter() - t0:.1f} s, parallel nvcc, sm_90a)")
-    if mesh_only:         # phases 18 and 19 alone (the multi-card check)
+    with ThreadPoolExecutor(1) as ex:
+        ptxas = ex.submit(_build.resource_usage, "flash_attention") \
+            if not argv else None
+        secs = _build.build()
+        _log(f"[build] "
+             f"{', '.join(f'{k}.cu {v:.1f} s' for k, v in secs.items())}"
+             f" (wall {time.perf_counter() - t0:.1f} s, parallel nvcc, "
+             f"sm_90a)")
+        ptxas_report = ptxas.result() if ptxas is not None else None
+    if mesh_only:         # phases 18, 19 and 27 (the multi-card check)
         t0 = time.perf_counter()
         _mesh_phase(torch)
         _shrink_phase(torch)
@@ -3323,6 +4024,11 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         _tp_phase(torch, _tp_ref_loss(torch))
         _log(f"[time] phase 19: {time.perf_counter() - t0:.1f} s")
+    if mesh_only or argv == ["--tp-decode-only"]:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        _tp_decode_phase(torch)
+        _log(f"[time] phase 27: {time.perf_counter() - t0:.1f} s")
         return 0
     if argv == ["--faults-only"]:       # phases 20 and 21 alone
         t0 = time.perf_counter()
@@ -3452,7 +4158,45 @@ def main(argv) -> int:
     for row, key in zip(rows[:3], ("gather", "gather", "flash")):
         if row["name"] != "page_gather_dequant":
             row["launches_router"] = router[key]
-    for row in rows[3:]:
+
+    # 25. the dense configs on the paged path, flash at head_dim 256
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    row256 = _flash256_phase(torch, flash_attention, ptxas_report)
+    with torch.inference_mode():
+        dense = _dense_phase(torch, (page_gather, flash_attention))
+    gemma = dense["gemma3-1b"]
+    row256["launches"] = gemma["fp graph"][1]
+    row256["launches_run"] = ("serve gemma3-1b fp (graph decode), prefill "
+                              "eager")
+    row256["launches_dense"] = {f"gemma3-1b {t}": n[1]
+                                for t, n in gemma.items()}
+    rows.insert(3, row256)
+    for row in rows[:3]:
+        if row["name"] == "flash_attention":      # D = 128
+            row["launches_dense"] = {
+                f"{arch} {t}": n[1] for arch, runs in dense.items()
+                if arch != "gemma3-1b" for t, n in runs.items()}
+        else:                                     # each gather its pool's
+            pool = "int8" if row["name"] == "page_gather_dequant" else "fp"
+            row["launches_dense"] = {
+                f"{arch} {t}": n[0] for arch, runs in dense.items()
+                for t, n in runs.items() if t.startswith(pool)}
+    _log(f"[time] phase 25: {time.perf_counter() - t0:.1f} s")
+
+    # 26. the toy path: contiguous caches and RWKV's carried state
+    t0 = time.perf_counter()
+    toy = _toy_phase(torch, rwkv6_scan)
+    next(r for r in rows if r["name"] == "rwkv6_wkv_fwd")[
+        "launches_toy"] = {"rwkv6-1.6b prefill": toy["rwkv6_prefill"]}
+    _log(f"[time] phase 26: {time.perf_counter() - t0:.1f} s")
+
+    # 27. tensor-parallel decode over ranks
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    _tp_decode_phase(torch)
+    _log(f"[time] phase 27: {time.perf_counter() - t0:.1f} s")
+    for row in rows[4:]:
         key = {"backup_reduce": "backup_reduce",
                "rwkv6_wkv_fwd": "wkv6_fwd",
                "rwkv6_wkv_bwd": "wkv6_bwd"}.get(row["name"])
@@ -3461,12 +4205,12 @@ def main(argv) -> int:
                 tag: n[key] for tag, n in {**batched, **meshed}.items()
                 if n[key]}
 
-    # 25. results
+    # 28. results
     keys = ("name", "route", "source", "replaces", "launches", "launches_run",
             "launches_batched_and_mesh", "launches_faults",
-            "launches_telemetry", "launches_router", "max_abs_err",
-            "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+            "launches_telemetry", "launches_router", "launches_dense",
+            "launches_toy", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "ptxas")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> (full config, smoke config).
 Reference: ``src/repro/configs/__init__.py``.
 
-Only the archs the port runs are listed; asking for any other raises a
-``KeyError`` that names the ported ones.
+Only the archs the port runs are listed, in the reference's order;
+asking for any other raises a ``KeyError`` that names the ported ones.
 """
 from __future__ import annotations
 
@@ -15,7 +15,10 @@ from repro_torch.configs.base import (  # noqa: F401
     SSMConfig, TrainConfig)
 
 _ARCH_MODULES: Dict[str, str] = {
+    "gemma3-1b": "gemma3_1b",
     "qwen3-0.6b": "qwen3_0_6b",
+    "minitron-4b": "minitron_4b",
+    "command-r-plus-104b": "command_r_plus_104b",
     "rwkv6-1.6b": "rwkv6_1_6b",
 }
 

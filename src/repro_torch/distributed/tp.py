@@ -49,6 +49,11 @@ the backward (and ``common.Remat``'s recompute, which calls the hooks
 again) on its own thread, which must see the same plan. A process is one
 rank, and only the engine enters the context.
 
+Serving's tensor-parallel decode (``serve.paged_model.build_tp_paged_fns``)
+runs the same hooks forward only, and reassembles the vocab-sharded
+logits with :func:`all_gather_last` (the reference's in-graph
+``all_gather(..., tiled=True)``), counted in ``all_gathers``.
+
 Each all-reduce issued here counts one in ``all_reduces`` (also inside a
 CUDA-graph capture, whose count ``kernels.counters`` adds again on every
 replay; ``launch/profile_train.py`` prints it per step) and runs inside a
@@ -67,6 +72,7 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 all_reduces = 0            # model-group all-reduces issued (kernels.counters)
+all_gathers = 0            # vocab all-gathers issued (kernels.counters)
 
 
 def _all_reduce(x: torch.Tensor, group, op) -> torch.Tensor:
@@ -76,6 +82,29 @@ def _all_reduce(x: torch.Tensor, group, op) -> torch.Tensor:
         dist.all_reduce(out, op=op, group=group)
     all_reduces += 1
     return out
+
+
+# one all-gather into a single tensor: ``all_gather_into_tensor``, named
+# ``all_gather_single`` by the torch releases that deprecate the old name
+_all_gather_single = getattr(dist, "all_gather_single",
+                             dist.all_gather_into_tensor)
+
+
+def all_gather_last(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` [..., n] of every rank of ``group``, concatenated in rank order
+    along the last dimension ([..., size * n]), forward only: one
+    all-gather into a single tensor (which concatenates along the first
+    dimension), then the rank axis moved last."""
+    global all_gathers
+    size = dist.get_world_size(group)
+    x = x.contiguous()
+    out = torch.empty((size * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    with record_function("tp/all_gather"):
+        _all_gather_single(out, x, group=group)
+    all_gathers += 1
+    out = out.view((size,) + tuple(x.shape))
+    return out.movedim(0, -2).reshape(*x.shape[:-1], size * x.shape[-1])
 
 
 class _Reduce(torch.autograd.Function):

@@ -85,6 +85,22 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     return seconds
 
 
+def resource_usage(name: str) -> str:
+    """What ptxas reports for each kernel of ``csrc/<name>.cu`` (registers,
+    spill stores and loads, shared memory): ``nvcc -Xptxas -v`` on a cubin,
+    compiled apart from the library and thrown away."""
+    src, _ = _target(name)
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
+                                                 "-fPIC")]
+    out = subprocess.run([_nvcc(), *flags, "-cubin", "-Xptxas", "-v",
+                          "-o", os.devnull, str(src)],
+                         capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v {name}.cu failed:\n"
+                           f"{out.stdout}{out.stderr}")
+    return out.stdout + out.stderr
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed."""
     lib = _LIBS.get(name)

@@ -4,7 +4,8 @@ Each wrapper adds one to a module-level count where it launches its
 kernel (``page_gather.launches``, ``flash_attention.launches``,
 ``backup_reduce.launches``, ``rwkv6_scan.launches_fwd`` /
 ``launches_fwd_states`` / ``launches_bwd``), and so does the tensor
-parallelism's all-reduce (``distributed.tp.all_reduces``). Under
+parallelism's all-reduce and vocab all-gather (``distributed.tp.
+all_reduces`` / ``all_gathers``). Under
 CUDA-graph capture a wrapper call records its kernel and launches nothing:
 ``core.step_graph.StepGraph`` takes back what the capture added and adds
 it again on every replay, so each count is the launches the card ran.
@@ -18,7 +19,8 @@ COUNTERS = (("page_gather", "launches"), ("flash_attention", "launches"),
             ("backup_reduce", "launches"), ("rwkv6_scan", "launches_fwd"),
             ("rwkv6_scan", "launches_fwd_states"),
             ("rwkv6_scan", "launches_bwd"),
-            ("repro_torch.distributed.tp", "all_reduces"))
+            ("repro_torch.distributed.tp", "all_reduces"),
+            ("repro_torch.distributed.tp", "all_gathers"))
 
 Counts = Tuple[int, ...]
 

@@ -39,13 +39,22 @@
 // with the heaviest q tiles (the last, under causal masking) first.
 // Needs 16-byte aligned rows: the wrapper checks base pointers and the b,
 // s, h strides (multiples of 8 elements) and raises otherwise.
+// Head dim 256 (gemma3-1b) takes a variant of the same kernel: the double-
+// buffered ring of [2 stages][2 groups] K/V tiles would need 304,128 B of
+// shared memory, over the 232,448 B a block may take, so D = 256 keeps one
+// stage (168,960 B: the next pair's copies wait for this pair's mma), and
+// it reloads each k-step's Q fragments from the resident Q tile by ldmatrix
+// instead of holding all D / 16 of them, which leaves the registers to the
+// D / 8 x 4 f32 accumulators (the register count and spills are printed
+// by chip_smoke.py's phase 25).
 //
 // f32: the plain f32 pipes (TF32 would break the f32 callers' 1e-4
 // tolerance). One block per (q tile of 32 rows, head, batch); K/V tiles of
 // 64 keys stream through shared memory; the scores tile, the running max
 // m, the running sum l and the rescale factor stay in shared memory and
 // the output accumulator in registers. Masked scores become -inf and
-// contribute exactly 0.
+// contribute exactly 0. At D = 256 the tiles take 172,928 B of dynamic
+// shared memory and each thread accumulates an 8 x 8 output tile.
 //
 // C interface (loaded with ctypes by repro_torch/kernels/flash_attention.py):
 // pointers and the stream as void*, returns cudaGetLastError().
@@ -266,10 +275,16 @@ constexpr int NT = 2 * GT;  // two groups, over the even and the odd key tiles
 constexpr int PAD = 8;    // bf16 of row padding (16 bytes): conflict-free ldmatrix
 constexpr float LOG2E = 1.4426950408889634f;
 
+// K/V ring stages: two (prefetch the next pair of tiles) up to D = 128,
+// one at D = 256, where two would not fit a block's shared memory
+template <int D>
+__host__ __device__ constexpr int stages() { return D > 128 ? 1 : 2; }
+
 template <int D>
 constexpr size_t smem_bytes() {
-  // the Q tile, then K and V tiles of [2 stages][2 groups]
-  return sizeof(__nv_bfloat16) * (size_t)(BQ + 8 * BK) * (D + PAD);
+  // the Q tile, then K and V tiles of [stages][2 groups]
+  return sizeof(__nv_bfloat16) * (size_t)(BQ + 4 * stages<D>() * BK) *
+         (D + PAD);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -368,10 +383,12 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int KSTEPS = D / 16;    // k-steps of Q.K^T
   constexpr int NTILES = D / 8;     // n-tiles of the output
   constexpr int NB = BK / 8;        // 8-key blocks of a tile
+  constexpr int ST = stages<D>();   // K/V ring stages
+  constexpr bool HOLD_Q = D <= 128; // Q fragments in registers for all tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BQ * RS;     // [stage][group][BK][RS]
-  __nv_bfloat16* Vs = Ks + 4 * TILE;    // [stage][group][BK][RS]
+  __nv_bfloat16* Ks = Qs + BQ * RS;       // [stage][group][BK][RS]
+  __nv_bfloat16* Vs = Ks + 2 * ST * TILE; // [stage][group][BK][RS]
 
   const int nq = (S + BQ - 1) / BQ;
   const int hb = blockIdx.x % (H * B);
@@ -392,9 +409,9 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_tiles = (k_end - k_begin + BK - 1) / BK;
   const int n_pairs = (n_tiles + 1) / 2;
   const float scale_log2 = scale * LOG2E;
-  // tile i of the band goes to stage (i / 2) % 2, group i % 2
+  // tile i of the band goes to stage (i / 2) % ST, group i % 2
   auto load_kv = [&](int i) {
-    const int slot = ((i / 2) % 2) * 2 + i % 2;
+    const int slot = ((i / 2) % ST) * 2 + i % 2;
     load_tile<D, BK>(Ks + slot * TILE, kb, ks.s, k_begin + i * BK, S);
     load_tile<D, BK>(Vs + slot * TILE, vb, vs.s, k_begin + i * BK, S);
   };
@@ -404,7 +421,12 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   if (n_tiles > 1) load_kv(1);
   cp_async_commit();
 
-  uint32_t qf[KSTEPS][4];
+  uint32_t qf[HOLD_Q ? KSTEPS : 1][4];
+  // the warp's Q fragment of k-step kk, from the resident Q tile
+  auto load_q = [&](int kk, uint32_t(&r)[4]) {
+    ldmatrix_x4(r, smem_addr(Qs + (warp * 16 + lane % 16) * RS + kk * 16 +
+                             (lane / 16) * 8));
+  };
   float acc[NTILES][4];
 #pragma unroll
   for (int n = 0; n < NTILES; ++n)
@@ -414,24 +436,33 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   float l_run[2] = {0.f, 0.f};               // this thread's columns only
 
   for (int pr = 0; pr < n_pairs; ++pr) {
-    if (pr + 1 < n_pairs) {     // the next pair streams in behind this one
-      load_kv(2 * pr + 2);
-      if (2 * pr + 3 < n_tiles) load_kv(2 * pr + 3);
+    if constexpr (ST == 2) {
+      if (pr + 1 < n_pairs) {   // the next pair streams in behind this one
+        load_kv(2 * pr + 2);
+        if (2 * pr + 3 < n_tiles) load_kv(2 * pr + 3);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {                    // one stage: this pair, after the last
+      if (pr > 0) {             // pair's readers (the loop's end barrier)
+        load_kv(2 * pr);
+        if (2 * pr + 1 < n_tiles) load_kv(2 * pr + 1);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
     }
-    cp_async_commit();
-    cp_async_wait<1>();
     __syncthreads();
-    if (pr == 0) {              // the warp's Q rows, held for every tile
+    if constexpr (HOLD_Q) {
+      if (pr == 0) {            // the warp's Q rows, held for every tile
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk)
-        ldmatrix_x4(qf[kk], smem_addr(Qs + (warp * 16 + lane % 16) * RS +
-                                      kk * 16 + (lane / 16) * 8));
+        for (int kk = 0; kk < KSTEPS; ++kk) load_q(kk, qf[kk]);
+      }
     }
     const int tile = 2 * pr + grp;
     if (tile < n_tiles) {
       const int k0 = k_begin + tile * BK;
-      const __nv_bfloat16* Kt = Ks + ((pr % 2) * 2 + grp) * TILE;
-      const __nv_bfloat16* Vt = Vs + ((pr % 2) * 2 + grp) * TILE;
+      const __nv_bfloat16* Kt = Ks + ((pr % ST) * 2 + grp) * TILE;
+      const __nv_bfloat16* Vt = Vs + ((pr % ST) * 2 + grp) * TILE;
 
       // scores: s[j] is the 16 x 8 block of keys 8j..8j+7
       float s[NB][4];
@@ -441,6 +472,13 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk) {
+        uint32_t qa[4];
+        if constexpr (HOLD_Q) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+        } else {
+          load_q(kk, qa);
+        }
 #pragma unroll
         for (int jp = 0; jp < NB / 2; ++jp) {
           uint32_t bk[4];
@@ -448,8 +486,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                     (jp * 16 + lane % 8 + (lane / 16) * 8) *
                                         RS +
                                     kk * 16 + ((lane / 8) % 2) * 8));
-          mma_16816(s[2 * jp], qf[kk], bk[0], bk[1]);
-          mma_16816(s[2 * jp + 1], qf[kk], bk[2], bk[3]);
+          mma_16816(s[2 * jp], qa, bk[0], bk[1]);
+          mma_16816(s[2 * jp + 1], qa, bk[2], bk[3]);
         }
       }
 
@@ -527,7 +565,11 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   // merge the groups: group 1 hands its rows' max, sum and accumulator to
-  // group 0 through shared memory (the K tiles, no longer read)
+  // group 0 through shared memory (the K tiles, no longer read; at D = 256
+  // the one stage's K tiles hold exactly the 67,584 bytes)
+  static_assert((D / 8) * 4 * GT * 4 + 4 * GT * 4 <=
+                    2 * ST * BK * (D + PAD) * 2,
+                "the merge buffer fits the K tiles");
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
@@ -631,6 +673,9 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
                            window, scale, softcap, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, S, H, KV, qs, ks, vs, causal,
+                            window, scale, softcap, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, B, S, H, KV, qs, ks, vs, causal,
                             window, scale, softcap, stream);
     default:
       return (int)cudaErrorInvalidValue;

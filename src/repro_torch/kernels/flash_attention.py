@@ -11,7 +11,7 @@ and ``qpos - kpos < window`` (window > 0), KV head ``h // (H // KV)``,
 f32 accumulation. Prefill routes every layer's attention through it.
 
 * CUDA tensors go to the hand-written kernels ``csrc/flash_attention.cu``
-  (head dims 16, 32, 64, 128; any S) or raise: bf16 to the tensor-core
+  (head dims 16, 32, 64, 128 and 256; any S) or raise: bf16 to the tensor-core
   kernel, which reads 16-byte rows (base pointers and the b, s, h strides
   of q, k and v must be multiples of 8 elements), f32 to the f32 one.
 * CPU tensors go to :func:`flash_attention_plain`, the same function in
@@ -34,7 +34,7 @@ launches = 0
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 _GRID_YZ_MAX = 65535
 _lib = None
 

@@ -1,6 +1,6 @@
 """Serving launcher CLI: continuous batching over the paged KV cache.
-Reference: ``src/repro/launch/serve.py`` (the engine path and the replica
-router).
+Reference: ``src/repro/launch/serve.py`` (the engine path, the replica
+router, tensor-parallel serving and the toy path).
 
     # replay a seeded open-loop trace through the serve engine on the card
     python -m repro_torch.launch.serve --arch qwen3-0.6b --requests 16 \
@@ -13,6 +13,13 @@ router).
         --hedge-after 6 --timeout 40 --slo-p99-ms 20 \
         --faults 'slowdown@0:r0:x8:d32,crash@10:r1,restart@30:r1'
 
+    # tensor-parallel serving over M ranks (spawned, or a torchrun world)
+    python -m repro_torch.launch.serve --arch qwen3-0.6b --mesh-model 2
+
+    # toy path (static batch, contiguous cache, greedy_generate)
+    python -m repro_torch.launch.serve --arch gemma3-1b --toy --batch 4 \
+        --tokens 16 [--cache-int8]
+
 Same flags and printed lines as the reference CLI, plus ``--device``
 (default ``cuda``; without a card the CLI raises unless ``--device cpu``
 is given). It serves the arch's smoke config, with seeded random weights
@@ -20,30 +27,34 @@ or, with ``--restore``, a training checkpoint of either package through
 the verified restore bridge (``serve.engine.restore_params``).
 ``--replicas N`` (N > 1) fronts N replica sessions with the
 ``serve.ReplicaRouter`` on its virtual clock; ``--faults`` then takes the
-replica-scope grammar (``kind@step:rN``). The reference's cross-flag
-errors hold. Refused by name: ``--toy`` (ROADMAP Queue 1 item 8, the toy
-path) and ``--mesh-model > 1`` (ROADMAP Queue 1 item 8, TP decode).
+replica-scope grammar (``kind@step:rN``). ``--mesh-model M`` (M > 1)
+serves tensor-parallel: the CLI spawns M ranks (``distributed.mesh.spawn``,
+NCCL with a card each, gloo on the CPU or on a shared card) or joins the
+world ``torchrun`` started; every rank builds the same model and runs the
+same scheduler on its slice (``serve.ServeEngine``), and rank 0 prints.
+``--toy`` runs the static-batch toy path through
+``train.serve_step.greedy_generate`` over the model's contiguous cache
+(``--cache-int8``: the int8 cache); its prompt is
+``numpy.random.default_rng(seed + 1).integers(0, vocab, (batch,
+prompt_len))``. The reference's cross-flag errors hold.
 """
 from __future__ import annotations
 
 import argparse
 import os
 
+import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.distributed import mesh
 from repro_torch.models import get_model
 from repro_torch.models.common import resolve_device
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.serve import (ReplicaRouter, RouterConfig, ServeEngine,
                                SLOConfig, TraceConfig, make_trace,
                                restore_params)
-
-# flag -> the ROADMAP item that brings it
-_LATER = {
-    "--toy": "ROADMAP Queue 1 item 8, the toy path",
-    "--mesh-model > 1": "ROADMAP Queue 1 item 8, TP decode",
-}
+from repro_torch.train.serve_step import bucketed_max_len, greedy_generate
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -71,8 +82,8 @@ def _build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--policy", choices=("continuous", "static"),
                     default="continuous")
     ap.add_argument("--mesh-model", type=int, default=1,
-                    help="TP-shard decode over the mesh 'model' axis "
-                    "(not ported yet)")
+                    help="TP-shard serving over the mesh 'model' axis "
+                    "(M ranks)")
     ap.add_argument("--use-kernel", action="store_true",
                     help="kept for the reference CLI's sake: the CUDA "
                     "kernels are always used on the card")
@@ -106,7 +117,7 @@ def _build_parser() -> argparse.ArgumentParser:
                     help="serve the EMA weights from the checkpoint")
     # -- legacy toy path -----------------------------------------------------
     ap.add_argument("--toy", action="store_true",
-                    help="legacy static-batch toy path (not ported yet)")
+                    help="legacy static-batch toy path (contiguous cache)")
     ap.add_argument("--batch", type=int, default=4, help="[toy] batch size")
     ap.add_argument("--prompt-len", type=int, default=8,
                     help="[toy] prompt length")
@@ -123,11 +134,9 @@ def _build_parser() -> argparse.ArgumentParser:
 
 
 def _validate(args) -> None:
-    refused = {"--toy": args.toy, "--mesh-model > 1": args.mesh_model > 1}
-    for flag, used in refused.items():
-        if used:
-            raise SystemExit(f"{flag} is not ported to repro_torch yet "
-                             f"({_LATER[flag]})")
+    if args.toy and (args.restore or args.mesh_model > 1 or args.faults):
+        raise SystemExit("--toy is the legacy static path: it has no "
+                         "--restore/--mesh-model/--faults support")
     if args.step is not None and not args.restore:
         raise SystemExit("--step needs --restore")
     if args.ema and not args.restore:
@@ -140,20 +149,53 @@ def _validate(args) -> None:
             if val is not None:
                 raise SystemExit(f"{flag} needs --replicas > 1 "
                                  "(the router path)")
-    elif args.policy == "static":
+        if args.slo_p99_ms is not None and args.toy:
+            raise SystemExit("--slo-p99-ms has no --toy support (the gate "
+                             "lives in the serve engine / router)")
+    elif args.toy or args.policy == "static":
         raise SystemExit("--replicas > 1 is the router path: continuous "
                          "policy only, no --toy")
     for flag, value in (("--trace", args.trace),
                         ("--metrics", args.metrics)):
         if value is None:
             continue
+        if args.toy:
+            raise SystemExit(f"{flag} has no --toy support (spans live in "
+                             "the serve engine / router)")
         parent = os.path.dirname(os.path.abspath(value))
         if not os.path.isdir(parent):
             raise SystemExit(f"{flag} {value}: directory {parent} "
                              "does not exist")
 
 
-def _router_main(args, engine, trace, tracer=None, metrics=None) -> None:
+def toy_prompt(seed: int, batch: int, prompt_len: int,
+               vocab: int) -> np.ndarray:
+    """The toy path's prompt ids [batch, prompt_len] from the seed."""
+    return np.random.default_rng(seed + 1).integers(
+        0, vocab, (batch, prompt_len), dtype=np.int64)
+
+
+def _toy_main(args, cfg, model, device) -> None:
+    prompt = torch.from_numpy(toy_prompt(args.seed, args.batch,
+                                         args.prompt_len, cfg.vocab_size))
+    # power-of-two cache bucket: mixed prompt lengths share one shape
+    max_len = bucketed_max_len(args.prompt_len + args.tokens + 1)
+    marks = []
+    out = greedy_generate(model, prompt.to(device), args.tokens, max_len,
+                          cache_dtype=torch.int8 if args.cache_int8
+                          else None, marks=marks)
+    prefill_s, decode_s = marks[1] - marks[0], marks[2] - marks[1]
+    cache = "int8" if args.cache_int8 else cfg.dtype
+    print(f"[serve] {args.arch} cache={cache} prefill {prefill_s:.2f}s, "
+          f"decode {args.tokens} toks x "
+          f"{args.batch} seqs in {decode_s:.2f}s "
+          f"({args.batch * args.tokens / max(decode_s, 1e-9):.1f} tok/s host)")
+    for row in out.cpu().tolist():
+        print(f"  {row}")
+
+
+def _router_main(args, engine, trace, tracer=None, metrics=None,
+                 say=print) -> None:
     slo = None
     if args.slo_p99_ms is not None:
         slo = SLOConfig(target_p99=args.slo_p99_ms, mode=args.slo_mode)
@@ -165,26 +207,26 @@ def _router_main(args, engine, trace, tracer=None, metrics=None) -> None:
         slo=slo, tracer=tracer, metrics=metrics)
     report = router.run(trace)
     m = report.metrics
-    print(f"[serve] {args.arch} router replicas={args.replicas} "
-          f"slots={args.slots}x{args.replicas}"
-          f"{f' hedge>{args.hedge_after}' if args.hedge_after else ''}"
-          f"{f' timeout={args.timeout}' if args.timeout else ''}"
-          f"{f' slo-p99={args.slo_p99_ms}({args.slo_mode})' if slo else ''}")
-    print(f"  {m['completed']}/{m['total']} completed, {m['rejected']} "
-          f"rejected, {m['lost_requests']} lost in {m['duration']:.1f} "
-          f"virtual units -> goodput {m['goodput']:.3f} req/unit")
-    print(f"  latency p50 {m['p50_latency']:.2f} p99 {m['p99_latency']:.2f}"
-          f" | hedges {m['hedges']} (won {m['hedge_wins']})"
-          f" | retries {m['retries']} | drained {m['drained']}"
-          f" | crashes {m['crashes']} preempts {m['preempts']} "
-          f"restarts {m['restarts']}")
+    say(f"[serve] {args.arch} router replicas={args.replicas} "
+        f"slots={args.slots}x{args.replicas}"
+        f"{f' hedge>{args.hedge_after}' if args.hedge_after else ''}"
+        f"{f' timeout={args.timeout}' if args.timeout else ''}"
+        f"{f' slo-p99={args.slo_p99_ms}({args.slo_mode})' if slo else ''}")
+    say(f"  {m['completed']}/{m['total']} completed, {m['rejected']} "
+        f"rejected, {m['lost_requests']} lost in {m['duration']:.1f} "
+        f"virtual units -> goodput {m['goodput']:.3f} req/unit")
+    say(f"  latency p50 {m['p50_latency']:.2f} p99 {m['p99_latency']:.2f}"
+        f" | hedges {m['hedges']} (won {m['hedge_wins']})"
+        f" | retries {m['retries']} | drained {m['drained']}"
+        f" | crashes {m['crashes']} preempts {m['preempts']} "
+        f"restarts {m['restarts']}")
     for ev in report.health:
-        print(f"  health: {ev}")
+        say(f"  health: {ev}")
     for rej in report.rejected[:4]:
-        print(f"  rejected: {rej}")
+        say(f"  rejected: {rej}")
     for c in report.completed[:4]:
-        print(f"  rid={c.rid} replica={c.replica}"
-              f"{' hedged' if c.hedged else ''} {c.tokens}")
+        say(f"  rid={c.rid} replica={c.replica}"
+            f"{' hedged' if c.hedged else ''} {c.tokens}")
 
 
 def _export_obs(args, tracer, metrics) -> None:
@@ -201,17 +243,37 @@ def main(argv=None) -> None:
     args = _build_parser().parse_args(argv)
     _validate(args)
     device = resolve_device(args.device)
+    if args.mesh_model > 1 and not torch.distributed.is_initialized():
+        if "RANK" not in os.environ:      # one new process per rank
+            mesh.spawn(_rank_main, 1, device, args=(args,),
+                       mesh_model=args.mesh_model)
+            return
+        mesh.join(1, device, mesh_model=args.mesh_model)   # from torchrun
+        device = mesh.rank_device(device, mesh.rank())
+    _serve(args, device)
+
+
+def _rank_main(rank: int, device, args) -> None:
+    _serve(args, device)
+
+
+def _serve(args, device) -> None:
+    leader = mesh.is_leader()
+    say = print if leader else (lambda *a, **k: None)
     cfg = configs.get_smoke_config(args.arch)
     if args.restore:
         model, manifest = restore_params(args.restore, cfg, step=args.step,
                                          use_ema=args.ema, device=device)
-        print(f"[serve] restored step {manifest['step']} from {args.restore}"
-              f"{' (ema)' if args.ema else ''}")
+        say(f"[serve] restored step {manifest['step']} from {args.restore}"
+            f"{' (ema)' if args.ema else ''}")
     else:
         gen = torch.Generator(device=device).manual_seed(args.seed)
         model = get_model(cfg, device=device, generator=gen)
-    tracer = Tracer() if args.trace else None
-    metrics = MetricsRegistry() if args.metrics else None
+    if args.toy:
+        _toy_main(args, cfg, model, device)
+        return
+    tracer = Tracer() if args.trace and leader else None
+    metrics = MetricsRegistry() if args.metrics and leader else None
     engine_slo = None
     if args.slo_p99_ms is not None and args.replicas == 1:
         # one replica: the gate runs inside the engine on its wall clock
@@ -220,7 +282,8 @@ def main(argv=None) -> None:
     engine = ServeEngine(
         cfg, model, num_slots=args.slots, page_size=args.page_size,
         max_prompt_len=args.max_prompt, max_new_cap=args.max_new,
-        cache_int8=args.cache_int8, device=device,
+        cache_int8=args.cache_int8, mesh_model=args.mesh_model,
+        device=device,
         faults=None if args.replicas > 1 else (args.faults or None),
         fault_seed=args.seed,
         clock="virtual" if args.replicas > 1 else "wall",
@@ -231,14 +294,19 @@ def main(argv=None) -> None:
         max_new_min=2, max_new_max=args.max_new,
         vocab=cfg.vocab_size, seed=args.seed))
     if args.replicas > 1:
-        _router_main(args, engine, trace, tracer=tracer, metrics=metrics)
+        _router_main(args, engine, trace, tracer=tracer, metrics=metrics,
+                     say=say)
         _export_obs(args, tracer, metrics)
         return
     report = engine.run(trace, policy=args.policy)
+    if not leader:
+        return
     m = report.metrics
     print(f"[serve] {args.arch} policy={args.policy} slots={args.slots} "
           f"pages={engine.pool_cfg.num_pages}x{args.page_size}"
-          f"{' int8' if args.cache_int8 else ''} device={device}")
+          f"{' int8' if args.cache_int8 else ''}"
+          f"{f' tp={args.mesh_model}' if args.mesh_model > 1 else ''}"
+          f" device={device}")
     print(f"  {m['completed']} requests, {m['total_tokens']} tokens in "
           f"{m['duration']:.2f}s -> {m['tokens_per_s']:.1f} tok/s")
     print(f"  latency p50 {m['p50_latency']:.3f}s p99 {m['p99_latency']:.3f}s"

@@ -1,11 +1,15 @@
 """GQA attention: projections, masks, dense attention, int8 KV quantization.
 Reference: ``src/repro/models/attention.py`` (the GQA subset: ``gqa_init``,
 ``_project_qkv``, ``_expand_kv``, ``_window_ok``, ``make_attention_mask``,
-``gqa_attend``, ``_quantize_kv``, ``_dequantize_kv``; the qk-norm scales
-pass ``distributed.tp.shared_param`` as in the reference).
+``gqa_attend``, ``_quantize_kv``, ``_dequantize_kv``, and the decode path
+``gqa_init_cache`` / ``gqa_decode``; the qk-norm scales pass
+``distributed.tp.shared_param`` as in the reference).
 
 Windows are per-layer Python ints here (the reference feeds them through
-``lax.scan`` as traced scalars); ``window <= 0`` means unlimited.
+``lax.scan`` as traced scalars); ``window <= 0`` means unlimited. The decode
+path's positions (``cache_len``, ``write_pos``) are host ints too, and
+``gqa_decode`` writes the new token's K/V into the cache tensors in place
+(the reference returns a new cache).
 """
 from __future__ import annotations
 
@@ -119,3 +123,73 @@ def _quantize_kv(x: torch.Tensor):
 def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
                    dtype) -> torch.Tensor:
     return (q.float() * scale.float()[..., None]).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode path (contiguous KV cache)
+# ---------------------------------------------------------------------------
+
+
+def gqa_init_cache(cfg, batch: int, max_len: int, dtype,
+                   device=None) -> dict:
+    """KV cache ``[B, max_len, kv, hd]``. ``dtype=torch.int8`` selects the
+    quantized layout: int8 payload and per-(position, head) f16 scales."""
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    shape = (batch, max_len, kv, hd)
+    if dtype == torch.int8:
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:3], dtype=torch.float16,
+                                   device=device),
+            "v_scale": torch.zeros(shape[:3], dtype=torch.float16,
+                                   device=device),
+        }
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def gqa_decode(params, cfg, x: torch.Tensor, cache: dict, cache_len: int,
+               *, window: int = 0, write_pos=None,
+               update_cache: bool = True):
+    """One-token decode. x: [B, 1, d]; cache k/v: [B, S, kv, hd].
+
+    ``cache_len`` is the true position of the new token (RoPE and
+    validity: ``kpos <= cache_len`` and the window). ``write_pos`` is where
+    its K/V lands, ``cache_len`` by default; ``cache_len % size`` for a
+    ring-buffer (sliding-window) cache, which is all valid once wrapped.
+    Returns (out [B, 1, d], cache), the cache updated in place."""
+    b = x.shape[0]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    if write_pos is None:
+        write_pos = cache_len
+    s = cache["k"].shape[1]
+    if update_cache and not 0 <= write_pos < s:
+        raise ValueError(f"write position {write_pos} is outside the "
+                         f"cache's {s} positions")
+    pos = torch.full((b, 1), cache_len, dtype=torch.long, device=x.device)
+    q, k_new, v_new = _project_qkv(params, cfg, x, pos)
+    quantized = cache["k"].dtype == torch.int8
+    if update_cache:
+        if quantized:
+            for name, t in (("k", k_new), ("v", v_new)):
+                tq, tsc = _quantize_kv(t[:, 0])
+                cache[name][:, write_pos] = tq
+                cache[f"{name}_scale"][:, write_pos] = tsc
+        else:
+            cache["k"][:, write_pos] = k_new[:, 0].to(cache["k"].dtype)
+            cache["v"][:, write_pos] = v_new[:, 0].to(cache["v"].dtype)
+    if quantized:
+        k = _dequantize_kv(cache["k"], cache["k_scale"], x.dtype)
+        v = _dequantize_kv(cache["v"], cache["v_scale"], x.dtype)
+    else:
+        k, v = cache["k"], cache["v"]
+    qg = q.reshape(b, kv, cfg.q_per_kv, hd)
+    scores = torch.einsum("bgqd,bsgd->bgqs", qg, k).float() / math.sqrt(hd)
+    scores = common.softcap(scores, cfg.attn_logit_softcap)
+    kpos = torch.arange(s, device=x.device)
+    valid = (kpos <= cache_len) & _window_ok(cache_len - kpos, window)
+    scores = scores.masked_fill(~valid, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgqs,bsgd->bgqd", probs.to(v.dtype), v)
+    return common.dense(params["wo"], out.reshape(b, 1, h * hd)), cache

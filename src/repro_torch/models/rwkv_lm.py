@@ -1,6 +1,15 @@
 """RWKV-6 language model: embed -> rwkv blocks -> head, the ``ssm`` family.
 Reference: ``src/repro/models/rwkv_lm.py`` (``RWKVLM``'s ``init``,
-``_fresh_states``, ``forward`` and ``per_token_loss``).
+``_fresh_states``, ``forward``, ``per_token_loss``, ``init_cache``,
+``decode_step`` and ``prefill``).
+
+Decode carries an O(1) state per layer (``init_cache``: the token-shift
+vectors and the f32 ``[B, H, D, D]`` wkv state); ``decode_step`` runs each
+block with ``chunked=False``, so one token with its carried state goes
+through ``rwkv6.wkv_scan`` in plain PyTorch, as the reference's ``jnp``
+scan does (the wkv kernels start from a zero state). ``prefill`` is
+``forward(tokens)[:, -1]``: on the card the wkv6 forward kernel from a
+zero state. ``cache["lens"]`` is a host int.
 
 The reference scans stacked ``blocks/<path>[L, ...]`` leaves; here
 ``blocks`` is an ``nn.ModuleList`` of per-layer blocks with the same keys
@@ -27,10 +36,6 @@ from torch import nn
 from repro_torch.kernels import rwkv6_scan
 from repro_torch.models import common, rwkv6
 from repro_torch.models.transformer import dots_contexts, run_remat
-
-_SERVE = ("RWKV decode and prefill are not ported yet: they come with the "
-          "toy serve path (ROADMAP Queue 1 item 8, the toy path)")
-
 
 @contextlib.contextmanager
 def _both(first, second):
@@ -119,14 +124,39 @@ class RWKVLM(nn.Module):
         loss = torch.where(labels >= 0, loss, torch.zeros_like(loss))
         return loss, torch.zeros((), dtype=torch.float32, device=self.device)
 
-    def init_cache(self, batch: int, max_len: int, dtype=None):
-        raise NotImplementedError(_SERVE)
+    # -- decode: O(1) recurrent state -----------------------------------------
 
-    def decode_step(self, token, cache):
-        raise NotImplementedError(_SERVE)
+    @torch.inference_mode()
+    def init_cache(self, batch: int, max_len: int, dtype=None) -> dict:
+        """One zero block state a layer; ``max_len`` is irrelevant to a
+        recurrent cache (O(1) in S)."""
+        del max_len
+        return {"lens": 0,
+                "state": [rwkv6.rwkv_init_block_state(
+                    self.cfg, batch, dtype or self.dtype, self.device)
+                    for _ in range(self.cfg.num_layers)]}
 
-    def prefill(self, tokens):
-        raise NotImplementedError(_SERVE)
+    @torch.inference_mode()
+    def decode_step(self, token: torch.Tensor, cache: dict):
+        """token: [B, 1] -> (logits [B, V_padded], cache) with each layer's
+        state carried one token on (``chunked=False``: the plain scan)."""
+        cfg = self.cfg
+        states = list(cache["state"])
+        x = common.embed(self.embed, token.to(self.device).long()).to(
+            self.dtype)
+        x = common.layernorm(self.ln_in, x, 1e-5)
+        for i, p in enumerate(self.blocks):
+            x, states[i] = rwkv6.rwkv_block_apply(p, cfg, x, states[i],
+                                                  chunked=False)
+        x = common.layernorm(self.ln_out, x, 1e-5)
+        logits = common.dense(self.head, x)[:, 0]
+        cache["state"] = states
+        cache["lens"] = int(cache["lens"]) + 1
+        return logits, cache
+
+    def prefill(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The last position's logits [B, V] of ``forward``."""
+        return self.forward(tokens)[:, -1]
 
 
 def make(cfg, *, device=None, generator=None) -> RWKVLM:

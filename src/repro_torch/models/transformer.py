@@ -3,7 +3,16 @@ Reference: ``src/repro/models/transformer.py`` (``segments``,
 ``layer_windows_np``, ``block_init`` / ``block_apply``, ``_remat_wrap``
 (``none``, ``full`` and ``dots``: ``dots_with_no_batch_dims_saveable``)
 and ``TransformerLM``'s ``init``, ``_embed_inputs``, ``forward``,
-``per_token_loss``, ``prefill`` and ``_output_weights``).
+``per_token_loss``, ``init_cache``, ``decode_step``, ``_decode_block``,
+``prefill`` and ``_output_weights``).
+
+Decode over contiguous per-layer caches (``init_cache`` /
+``decode_step``, the toy serve path's; the engine's paged path is
+``serve.paged_model``): ``cache["lens"]`` is a host int, the position of
+the next token, and ``decode_step`` writes each layer's K/V into the
+cache tensors in place under ``torch.inference_mode``. A window layer's
+cache holds ``min(max_len, window)`` positions as a ring buffer written at
+``lens % size``; RoPE still takes the true position.
 
 Tensor parallelism (the spmd engine's ``'model'`` axis): ``block_apply``,
 ``forward`` and ``per_token_loss`` carry the reference's hooks
@@ -230,6 +239,51 @@ class TransformerLM(nn.Module):
                                                 cfg.vocab_size)
         loss = torch.where(labels >= 0, loss, torch.zeros_like(loss))
         return loss, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    # -- decode (per-layer contiguous caches) --------------------------------
+
+    @torch.inference_mode()
+    def init_cache(self, batch: int, max_len: int, dtype=None) -> dict:
+        """``dtype=torch.int8`` selects quantized caches (int8 payload, f16
+        per-(position, head) scales). ``lens`` is a host int."""
+        dtype = dtype or self.dtype
+        layers = []
+        for w in self.windows:
+            s = min(max_len, w) if w > 0 else max_len
+            layers.append(attention.gqa_init_cache(self.cfg, batch, s, dtype,
+                                                   self.device))
+        return {"lens": 0, "seg_dense": layers}
+
+    @torch.inference_mode()
+    def decode_step(self, token: torch.Tensor, cache: dict):
+        """token: [B, 1] -> (logits [B, V_padded], cache): the cache
+        updated in place and ``lens`` advanced by one."""
+        cfg = self.cfg
+        cache_len = int(cache["lens"])
+        x = self._embed_inputs(token.to(self.device).long())
+        for p, win, layer_cache in zip(self.layers, self.windows,
+                                       cache["seg_dense"]):
+            x = self._decode_block(p, x, layer_cache, cache_len, win)
+        x = common.rmsnorm(self.final_norm, x, cfg.norm_eps)
+        logits = (x @ self._output_weights())[:, 0]
+        cache["lens"] = cache_len + 1
+        return logits, cache
+
+    def _decode_block(self, p, x: torch.Tensor, layer_cache: dict,
+                      cache_len: int, window: int) -> torch.Tensor:
+        cfg = self.cfg
+        h = common.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        size = layer_cache["k"].shape[1]
+        # a ring buffer holds exactly the last `size` tokens: written at
+        # cache_len % size, every slot valid once wrapped
+        is_ring = window > 0 and size <= window
+        attn_out, _ = attention.gqa_decode(
+            p["attn"], cfg, h, layer_cache, cache_len,
+            window=0 if is_ring else window,
+            write_pos=cache_len % size if is_ring else None)
+        x = x + attn_out
+        h = common.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        return x + mlp.mlp_apply(p["mlp"], h, cfg.hidden_act)
 
     def prefill(self, tokens: torch.Tensor) -> torch.Tensor:
         """Run the stack, return only the last position's logits [B, V]."""

@@ -47,8 +47,23 @@ decode graph, captured over its own pool (R sessions never share one).
 written by either package; replicated, TP and sim checkpoints are all
 stored full) loaded into a model for the engine.
 
-Refused with ``NotImplementedError``: ``mesh_model > 1`` (tensor-parallel
-decode, ROADMAP Queue 1 item 8's TP decode).
+``mesh_model = M > 1`` is tensor-parallel serving (the reference's
+``shard_map`` over the mesh ``'model'`` axis). The port has no single
+controller over M devices: every rank of a ``torch.distributed`` world of
+``D x M`` ranks (``distributed.mesh``: ``spawn``, or a ``torchrun`` world
+joined with ``mesh.join``) builds the engine over the same full model and
+runs the same host scheduler on the same trace. The engine cuts the model
+to the rank's slice (``convert.shard_model`` with ``sharding.tp_plan``;
+``tp_plan`` is an attribute, as in the reference), holds its slice of the
+pool (the kv-head axis when attention shards) and runs
+``paged_model.build_tp_paged_fns``; rank 0 reports. On the wall clock each
+reading is the model group's first rank's (a broadcast), so every rank
+takes the same admission decisions. Outside a world of at least M ranks it
+raises ``ValueError``. Under NCCL (a card a rank) the decode graph captures
+the model group's all-reduces and the vocab all-gather (the prefills and
+the graph's eager first call make the communicator live first); a gloo
+world on the card (ranks sharing one) cannot capture, so ``decode_graph``
+defaults to off there and ``True`` raises.
 """
 from __future__ import annotations
 
@@ -59,17 +74,21 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import faults as faults_lib
 from repro_torch.core.step_graph import StepGraph
+from repro_torch.distributed import mesh, tp
+from repro_torch.distributed.spmd_engine import resolve_tp
 from repro_torch.models import from_jax_tree, get_model, to_jax_tree
 from repro_torch.models.common import resolve_device
-from repro_torch.models.convert import load_named
+from repro_torch.models.convert import load_named, shard_model
 from repro_torch.obs.trace import as_tracer
 from repro_torch.serve import pages as pages_lib
 from repro_torch.serve import trace as trace_lib
 from repro_torch.serve.paged_model import (build_paged_decode,
                                            build_paged_prefill,
+                                           build_tp_paged_fns,
                                            supports_paged)
 from repro_torch.serve.slo import SLOController
 
@@ -126,6 +145,21 @@ class _Slot:
         self.preemptions = preemptions
 
 
+def _model_group(mesh_model: int):
+    """This rank's ``'model'`` group of the world's D x M mesh; a
+    ``ValueError`` outside a world of a multiple of M ranks."""
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if world < mesh_model or world % mesh_model:
+        raise ValueError(
+            f"mesh_model={mesh_model} needs {mesh_model} devices: a "
+            f"torch.distributed world of {mesh_model} ranks (or a multiple), "
+            f"one a device, and this process is in "
+            f"{f'a world of {world}' if world else 'none'}; start the ranks "
+            f"with repro_torch.distributed.mesh.spawn(..., "
+            f"mesh_model={mesh_model}) or torchrun, then mesh.join")
+    return mesh.model_group(world // mesh_model, mesh_model)
+
+
 class ServeEngine:
     """Continuous-batching inference over a paged, optionally int8, pool.
 
@@ -134,9 +168,13 @@ class ServeEngine:
     ``device="cpu"`` to serve on the CPU). ``use_kernel=False`` swaps the
     hand-written kernels for their plain versions (used by the tests and
     the kernel-vs-plain comparison only). ``decode_graph`` (default: on
-    the card) replays decode as a captured CUDA graph; True on the CPU
-    raises. ``faults`` (with ``fault_horizon`` / ``fault_seed``), ``slo``,
-    ``tracer`` and ``metrics`` are the reference's."""
+    the card, over NCCL under TP) replays decode as a captured CUDA graph;
+    True on the CPU, or over gloo on the card, raises. ``mesh_model > 1``
+    serves tensor-parallel over the model group of this rank (see the
+    module docstring); ``model`` then holds the full weights, and the
+    engine cuts it to the rank's slice in place. ``faults`` (with
+    ``fault_horizon`` / ``fault_seed``), ``slo``, ``tracer`` and
+    ``metrics`` are the reference's."""
 
     def __init__(self, model_cfg, model, *, num_slots: int = 4,
                  page_size: int = 8, max_prompt_len: int = 32,
@@ -156,17 +194,21 @@ class ServeEngine:
             raise ValueError(f"paged serving unsupported: {why}")
         if clock not in ("wall", "virtual"):
             raise ValueError(f"clock must be 'wall' or 'virtual' (got {clock})")
-        if mesh_model > 1:
-            # the trainer's TP plan and hooks exist; the paged decode's
-            # sharded caches do not yet
-            raise NotImplementedError(
-                "tensor-parallel decode (mesh_model > 1) is not ported to "
-                "repro_torch yet (ROADMAP Queue 1 item 8, TP decode)")
         self.device = resolve_device(device)
         model_device = next(model.parameters()).device
-        if model.cfg != model_cfg:
+        self.mesh_model = mesh_model
+        self.tp_plan = None
+        self._tp_ctx: Optional[tp.TPContext] = None
+        sliced = mesh_model > 1 and getattr(model, "tp_slice", None)
+        if model.cfg != model_cfg and not sliced:
             raise ValueError("model was built for another config than "
                              "model_cfg")
+        if mesh_model > 1:
+            group = _model_group(mesh_model)
+            plan = self.tp_plan = resolve_tp(model_cfg, mesh_model)
+            shard_model(model, plan, mesh.model_index())
+            self._tp_ctx = tp.TPContext(group, mesh.model_index(),
+                                        plan.attn, plan.ffn, plan.vocab)
         if model_device != self.device:
             raise ValueError(f"model lives on {model_device}, the engine "
                              f"serves on {self.device}")
@@ -197,22 +239,36 @@ class ServeEngine:
                 f"num_pages={num_pages} cannot hold even one request "
                 f"({max_pages} pages + the trash page); pass "
                 f"strict_capacity=False to degrade to rejection instead")
+        # a TP rank's model config holds its kv heads: its slice of the pool
         self.pool_cfg = pages_lib.PoolConfig(
-            num_layers=model_cfg.num_layers,
-            kv_heads=model_cfg.num_kv_heads,
+            num_layers=model_cfg.num_layers, kv_heads=model.cfg.num_kv_heads,
             head_dim=model_cfg.resolved_head_dim,
             num_pages=num_pages, page_size=page_size, num_slots=num_slots,
             max_pages_per_slot=max_pages, quantized=cache_int8)
-        self._decode = build_paged_decode(model, quantized=cache_int8,
-                                          use_kernel=use_kernel)
-        self._prefill = build_paged_prefill(model, quantized=cache_int8,
-                                            use_kernel=use_kernel)
+        if self._tp_ctx is not None:
+            self._prefill, self._decode = build_tp_paged_fns(
+                model, self._tp_ctx, quantized=cache_int8,
+                use_kernel=use_kernel)
+        else:
+            self._decode = build_paged_decode(model, quantized=cache_int8,
+                                              use_kernel=use_kernel)
+            self._prefill = build_paged_prefill(model, quantized=cache_int8,
+                                                use_kernel=use_kernel)
         self._buckets_run: set = set()
         self._decode_ran = False
         self.pool_bytes = 0
         self._bufs: Optional[Dict[str, torch.Tensor]] = None
+        capturable = (self.device.type == "cuda"
+                      and (mesh_model == 1 or mesh.backend() == "nccl"))
         if decode_graph is None:
-            decode_graph = self.device.type == "cuda"
+            decode_graph = capturable
+        elif decode_graph and self.device.type == "cuda" and not capturable:
+            raise ValueError(
+                f"decode_graph=True replays a captured CUDA graph of the "
+                f"decode step, and the '{mesh.backend()}' world's "
+                f"collectives cannot be captured (several ranks on one card "
+                f"run over gloo); use decode_graph=False here, or one card "
+                f"per rank (NCCL)")
         self._graph_decode = decode_graph
         self._decode_graph = self.decode_graph_for(lambda: self._bufs)
         self.fault_plan = None
@@ -285,7 +341,15 @@ class ServeEngine:
 
     def _now(self) -> float:
         if self.clock == "wall":
-            return time.perf_counter() - self._t0
+            t = time.perf_counter() - self._t0
+            if self._tp_ctx is not None:    # TP: the group's first rank's
+                group = self._tp_ctx.group
+                dev = self.device if mesh.backend() == "nccl" else "cpu"
+                t_dev = torch.tensor([t], dtype=torch.float64, device=dev)
+                dist.broadcast(t_dev, src=dist.get_global_rank(group, 0),
+                               group=group)
+                t = float(t_dev.item())
+            return t
         return self._vnow
 
     def _advance_to(self, t: float) -> None:

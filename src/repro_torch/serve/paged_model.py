@@ -1,6 +1,7 @@
 """Paged prefill + decode: the device halves of the serve engine.
 Reference: ``src/repro/serve/paged_model.py`` (``supports_paged``,
-``build_paged_decode``, ``build_paged_prefill``; no tensor parallelism).
+``build_paged_decode``, ``build_paged_prefill``, ``tp_pool_specs``,
+``build_tp_paged_fns``).
 
 * ``prefill(packed, n_pages, pool)`` runs the stack over one bucket-padded
   prompt. ``packed`` is one int32 device vector ``[true_len, *page_ids,
@@ -21,7 +22,20 @@ Reference: ``src/repro/serve/paged_model.py`` (``supports_paged``,
   indices there are harmless) and the host ignores their tokens.
 
 Both update the pool's tensors in place (the reference returns a new
-pool); layers are a Python loop (the reference's ``lax.scan``).
+pool); layers are a Python loop (the reference's ``lax.scan``). Both carry
+the tensor-parallel hooks where ``transformer.block_apply`` has them
+(``tp.col_in`` / ``tp.row_out`` around attention and the FFN, ``col_in``
+on the head), identity unless a ``tp.TPContext`` is current, and call
+``gather_logits`` on the logits before the greedy argmax.
+
+Tensor parallelism (:func:`build_tp_paged_fns`, the reference's
+``shard_map`` over the mesh ``'model'`` axis): each rank of the model
+group runs the same functions on its slice of the model
+(``convert.shard_model``: its config holds the local head counts and FFN
+width) and of the pool (the kv-head axis, when the plan shards
+attention), inside a ``TPContext``; the vocab-sharded logits are
+all-gathered (``tp.all_gather_last``) before the argmax, so every rank
+picks the same token as one card.
 """
 from __future__ import annotations
 
@@ -30,6 +44,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.distributed import tp
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.page_gather import gather_pages
 from repro_torch.models import attention, common, mlp
@@ -49,7 +64,12 @@ def supports_paged(cfg) -> Tuple[bool, str]:
 
 
 def _ffn(p_l, cfg, h2):
-    return mlp.mlp_apply(p_l["mlp"], h2, cfg.hidden_act)
+    h2 = tp.col_in(h2, "ffn")
+    return tp.row_out(mlp.mlp_apply(p_l["mlp"], h2, cfg.hidden_act), "ffn")
+
+
+def _identity(logits: torch.Tensor) -> torch.Tensor:
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -103,12 +123,13 @@ def _paged_attn(p_attn, cfg, h, pool: Pool, layer: int, lens, page_table,
     return common.dense(p_attn["wo"], out)
 
 
-def build_paged_decode(model, *, quantized: bool,
-                       use_kernel: bool = True) -> Callable:
+def build_paged_decode(model, *, quantized: bool, use_kernel: bool = True,
+                       gather_logits: Callable = _identity) -> Callable:
     """decode(state[B, 2+maxp] int32, pool) -> next_token [B] int32.
 
     ``state[:, 0]`` last tokens, ``state[:, 1]`` lens, ``state[:, 2:]`` the
-    page table. Greedy argmax happens on the device."""
+    page table. Greedy argmax happens on the device, after
+    ``gather_logits`` (TP: the vocab shards' all-gather)."""
     cfg = model.cfg
 
     @torch.inference_mode()
@@ -118,14 +139,16 @@ def build_paged_decode(model, *, quantized: bool,
         page_table = state[:, 2:].contiguous()
         x = model._embed_inputs(tokens)
         for layer, (p_l, win) in enumerate(zip(model.layers, model.windows)):
-            h1 = common.rmsnorm(p_l["ln1"], x, cfg.norm_eps)
-            x = x + _paged_attn(p_l["attn"], cfg, h1, pool, layer, lens,
-                                page_table, win, quantized=quantized,
-                                use_kernel=use_kernel)
+            h1 = tp.col_in(common.rmsnorm(p_l["ln1"], x, cfg.norm_eps),
+                           "attn")
+            x = x + tp.row_out(_paged_attn(
+                p_l["attn"], cfg, h1, pool, layer, lens, page_table, win,
+                quantized=quantized, use_kernel=use_kernel), "attn")
             h2 = common.rmsnorm(p_l["ln2"], x, cfg.norm_eps)
             x = x + _ffn(p_l, cfg, h2)
         x = common.rmsnorm(model.final_norm, x, cfg.norm_eps)
-        logits = (x @ model._output_weights())[:, 0]
+        logits = gather_logits(
+            (tp.col_in(x, "vocab") @ model._output_weights())[:, 0])
         return torch.argmax(logits, dim=-1).to(torch.int32)
 
     return decode
@@ -136,13 +159,14 @@ def build_paged_decode(model, *, quantized: bool,
 # ---------------------------------------------------------------------------
 
 
-def build_paged_prefill(model, *, quantized: bool,
-                        use_kernel: bool = True) -> Callable:
+def build_paged_prefill(model, *, quantized: bool, use_kernel: bool = True,
+                        gather_logits: Callable = _identity) -> Callable:
     """prefill(packed, n_pages, pool) -> first token (0-d int32 tensor).
 
     ``packed`` is ``[true_len, *page_ids (n_pages), *tokens (bucket)]``
     int32 on the device; ``true_len`` also arrives as a host int so the
-    last-position slice needs no device read."""
+    last-position slice needs no device read. ``gather_logits`` as in
+    :func:`build_paged_decode`."""
     cfg = model.cfg
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
 
@@ -158,12 +182,14 @@ def build_paged_prefill(model, *, quantized: bool,
             raise ValueError(f"bucket {s} is not {n_pages} pages of {ps}")
         positions = torch.arange(s, device=x.device)[None]
         for layer, (p_l, win) in enumerate(zip(model.layers, model.windows)):
-            h1 = common.rmsnorm(p_l["ln1"], x, cfg.norm_eps)
+            h1 = tp.col_in(common.rmsnorm(p_l["ln1"], x, cfg.norm_eps),
+                           "attn")
             q, k, v = attention._project_qkv(p_l["attn"], cfg, h1, positions)
             out = flash_attention(q, k, v, causal=True, window=win,
                                   softcap=cfg.attn_logit_softcap,
                                   use_kernel=use_kernel)
-            x = x + common.dense(p_l["attn"]["wo"], out.reshape(1, s, -1))
+            x = x + tp.row_out(common.dense(p_l["attn"]["wo"],
+                                            out.reshape(1, s, -1)), "attn")
             h2 = common.rmsnorm(p_l["ln2"], x, cfg.norm_eps)
             x = x + _ffn(p_l, cfg, h2)
             # scatter the prompt K/V (the whole bucket) into its pages
@@ -180,7 +206,44 @@ def build_paged_prefill(model, *, quantized: bool,
                         n_pages, ps, kv, hd).to(pool[name].dtype)
         x = common.rmsnorm(model.final_norm, x[:, true_len - 1:true_len],
                            cfg.norm_eps)
-        logits = (x @ model._output_weights())[0, 0]
+        logits = gather_logits(
+            (tp.col_in(x, "vocab") @ model._output_weights())[0, 0])
         return torch.argmax(logits).to(torch.int32)
 
     return prefill
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism (the mesh 'model' axis over a model group of ranks)
+# ---------------------------------------------------------------------------
+
+
+def build_tp_paged_fns(model, ctx: tp.TPContext, *, quantized: bool,
+                       use_kernel: bool = True):
+    """(prefill, decode) of one rank of the model group, over ``model``
+    already cut to this rank's slice (``convert.shard_model``; its config
+    holds the local head counts, so a rank's pool holds its kv heads when
+    attention shards, as the reference's ``tp_pool_specs``): each runs
+    inside ``ctx`` and all-gathers the vocab-sharded logits before the
+    greedy argmax when the vocabulary shards."""
+    gather = _identity
+    if ctx.vocab:
+        def gather(logits):
+            return tp.all_gather_last(logits, ctx.group)
+
+    decode_core = build_paged_decode(model, quantized=quantized,
+                                     use_kernel=use_kernel,
+                                     gather_logits=gather)
+    prefill_core = build_paged_prefill(model, quantized=quantized,
+                                       use_kernel=use_kernel,
+                                       gather_logits=gather)
+
+    def decode(state, pool):
+        with tp.tensor_parallel(ctx):
+            return decode_core(state, pool)
+
+    def prefill(packed, true_len, n_pages, pool):
+        with tp.tensor_parallel(ctx):
+            return prefill_core(packed, true_len, n_pages, pool)
+
+    return prefill, decode

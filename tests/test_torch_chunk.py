@@ -463,8 +463,8 @@ def test_launch_counts_move_as_one_vector(monkeypatch):
     monkeypatch.setattr(backup_reduce, "launches", 5)
     monkeypatch.setattr(rwkv6_scan, "launches_bwd", 7)
     before = counters.read()
-    n = len(counters.COUNTERS)          # the kernels' and tp.all_reduces
-    assert n == 7
+    n = len(counters.COUNTERS)  # the kernels', tp.all_reduces, all_gathers
+    assert n == 8
     counters.add(tuple(i + 1 for i in range(n)))
     assert counters.since(before) == tuple(range(1, n + 1))
     assert backup_reduce.launches == 8 and rwkv6_scan.launches_bwd == 13

@@ -11,9 +11,11 @@ where only PyTorch is installed:
   attention on unit-variance q/k/v (the scale qk-norm gives: scores with
   std ~1) at atol/rtol 1e-4 in f32 (summation order only) and atol 4e-3 /
   rtol 8e-3 in bf16 (one output rounding, < 2^-7 relative), over ragged S,
-  window and a softcap of 2 that binds. Each call adds exactly one
-  launch. The bf16 tensor-core kernel also at every head dim (16, 32, 64,
-  128), S in {1, 15, 64, 65, 100, 512, 1000} and GQA ratios 1, 2, 4, with
+  window and a softcap of 2 that binds, head dims 16 to 256. Each call
+  adds exactly one launch. The bf16 tensor-core kernel also at every head
+  dim (16, 32, 64, 128, 256: one K/V stage and Q fragments reloaded from
+  shared memory at 256), S in {1, 15, 64, 65, 100, 512, 1000} and GQA
+  ratios 1, 2, 4, with
   window 64 + softcap 2 and with ``causal=False``; on bf16 slices of one
   packed projection; and a bf16 view whose rows are not 16-byte aligned
   raises ``ValueError``.
@@ -89,6 +91,11 @@ where only PyTorch is installed:
   and serve the eager engine's tokens through a crash; ``backup_reduce``
   on one worker's ``[1, P]`` (a rank of a shrunk data axis) equals its
   plain version.
+* Tensor-parallel decode (``ServeEngine(mesh_model=2)``, NCCL with 2
+  cards, gloo sharing one) serves the one-card engine's tokens, fp and
+  int8 pools; the toy path (``greedy_generate``) on the card gives the CPU
+  port's tokens; RWKV ``prefill`` through the wkv6 kernel matches the
+  stepped decode's carried state (atol 1e-4, f32).
 """
 import pytest
 
@@ -144,7 +151,9 @@ def test_gather_kernel_matches_plain(cuda_device, quantized, out_dtype):
                                                 (100, 16, 0, 0.0),
                                                 (77, 64, 0, 0.0),
                                                 (512, 128, 0, 2.0),
-                                                (512, 128, 64, 2.0)])
+                                                (512, 128, 64, 2.0),
+                                                (77, 256, 0, 0.0),
+                                                (512, 256, 512, 2.0)])
 def test_flash_kernel_matches_plain(cuda_device, dtype, atol, rtol, s, d,
                                    window, softcap):
     q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
@@ -188,7 +197,7 @@ FLASH_S = [1, 15, 64, 65, 100, 512, 1000]
 
 @pytest.mark.parametrize("ratio", [1, 2, 4])
 @pytest.mark.parametrize("s", FLASH_S)
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_flash_bf16_tensor_core_kernel_matches_plain(cuda_device, d, s,
                                                      ratio):
     _flash_bf16_case(cuda_device, s, d, ratio, True, 0, 0.0)
@@ -197,7 +206,7 @@ def test_flash_bf16_tensor_core_kernel_matches_plain(cuda_device, d, s,
 @pytest.mark.parametrize("causal,window,softcap", [(True, 64, 2.0),
                                                    (False, 0, 0.0)])
 @pytest.mark.parametrize("s", FLASH_S)
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_flash_bf16_tensor_core_kernel_window_softcap_noncausal(
         cuda_device, d, s, causal, window, softcap):
     _flash_bf16_case(cuda_device, s, d, 2, causal, window, softcap)
@@ -1065,3 +1074,84 @@ def test_backup_reduce_takes_one_worker(cuda_device):
         got = treduce.backup_reduce(g, m, 3)
         assert treduce.launches == before + 1
         assert torch.equal(got, treduce.backup_reduce_plain(g, m, 3))
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel decode and the toy path on the card
+# ---------------------------------------------------------------------------
+
+
+def _smoke_tree(arch):
+    """The smoke config and a seeded CPU model's parameters as the
+    reference's tree (numpy leaves)."""
+    from repro_torch.models import get_model, to_jax_tree
+    cfg = configs.get_smoke_config(arch)
+    model = get_model(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(7))
+    return cfg, to_jax_tree({k: v.detach().numpy()
+                             for k, v in model.named_parameters()})
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+def test_tp_decode_on_card_matches_one_card(cuda_device, tmp_path, int8):
+    """``ServeEngine(mesh_model=2)``: 2 NCCL ranks with 2 cards (the decode
+    graph capturing the all-reduces and the vocab all-gather), else 2 gloo
+    ranks sharing the one card (eager decode); both ranks serve the
+    one-card engine's greedy tokens, kernels on."""
+    import torch_serve_tp_ranks as ranks
+    from repro_torch.distributed import mesh
+    from repro_torch.models import get_model, load_jax_params
+    cfg, tree = _smoke_tree("qwen3-0.6b")
+    trace = make_trace(TraceConfig(
+        num_requests=6, rate=2.0, prompt_len_min=2, prompt_len_max=12,
+        max_new_min=2, max_new_max=8, vocab=cfg.vocab_size, seed=3))
+    mesh.spawn(ranks.serve_rank, 1, "cuda",
+               args=(str(tmp_path), {"tp": ("qwen3-0.6b", tree, int8,
+                                            trace)}),
+               mesh_model=2, timeout_s=300)
+    model = load_jax_params(get_model(cfg, device=cuda_device), tree)
+    want = ServeEngine(cfg, model, device=cuda_device, cache_int8=int8,
+                       **ranks.ENGINE_KW).run(trace).tokens_by_rid()
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)["tp"]
+        assert got["tokens"] == want
+        assert got["all_reduces"] > 0 and got["all_gathers"] > 0
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-1b", "rwkv6-1.6b"])
+def test_toy_path_on_card_matches_cpu(cuda_device, arch):
+    """``greedy_generate`` on the card gives the CPU port's tokens (f32
+    smoke; gemma3 26 steps past its window of 8), fp and int8 caches."""
+    from repro_torch.models import get_model
+    from repro_torch.train.serve_step import greedy_generate
+    cfg = configs.get_smoke_config(arch)
+    cpu = get_model(cfg, device="cpu",
+                    generator=torch.Generator().manual_seed(5))
+    card = get_model(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 6)))
+    for dt in (None, torch.int8):
+        want = greedy_generate(cpu, prompt, 20, 27, cache_dtype=dt)
+        got = greedy_generate(card, prompt, 20, 27, cache_dtype=dt)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_rwkv_prefill_kernel_matches_stepped_decode(cuda_device):
+    """RWKV ``prefill`` (the wkv6 forward kernel from a zero state, one
+    launch a layer) against 40 ``decode_step``s carrying the state (the
+    plain scan): f32 smoke, atol / rtol 1e-4."""
+    from repro_torch.models import get_model
+    cfg = configs.get_smoke_config("rwkv6-1.6b")
+    model = get_model(cfg, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda_device,
+                         generator=torch.Generator(
+                             device=cuda_device).manual_seed(1))
+    before = twkv.launches_fwd
+    with torch.inference_mode():
+        pre = model.prefill(toks)
+    assert twkv.launches_fwd == before + cfg.num_layers
+    cache = model.init_cache(2, 40)
+    for i in range(40):
+        logits, cache = model.decode_step(toks[:, i:i + 1], cache)
+    torch.testing.assert_close(logits, pre, atol=1e-4, rtol=1e-4)

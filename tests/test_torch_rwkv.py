@@ -44,7 +44,8 @@ held to it on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 * (g) checkpoints resume across packages both ways (atol 1e-5).
 * (h) the training CLI runs ``--arch rwkv6-1.6b --smoke --device cpu``.
 * (i) the converter round-trips the ``blocks`` tree and names a bad leaf.
-* (j) the serve entry points are refused by name.
+* (j) the serve entry points (``init_cache``, ``decode_step``, ``prefill``)
+  against JAX's (atol 1e-5); the full suite is ``test_torch_decode.py``.
 """
 import dataclasses
 import functools
@@ -709,12 +710,34 @@ def test_converter_roundtrips_blocks_and_names_a_bad_leaf(smoke):
 
 
 @pytest.mark.parametrize("call", ["decode_step", "prefill", "init_cache"])
-def test_refused_by_name(call):
-    cfg = tconfigs.get_smoke_config(ARCH)
-    toks, _ = _loss_inputs(cfg.vocab_size, b=1, s=4)
-    model = RWKVLM(cfg, device="cpu")
-    fn = {"decode_step": lambda: model.decode_step(toks[:, :1], None),
-          "prefill": lambda: model.prefill(toks),
-          "init_cache": lambda: model.init_cache(1, 8)}[call]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        fn()
+def test_refused_by_name(smoke, call):
+    """The serve surfaces once refused by name run, against JAX's on the
+    same params (atol 1e-5): ``init_cache`` (the zero state, its leaves
+    and shapes), ``decode_step`` (4 steps: logits and the carried state)
+    and ``prefill`` (the last position's logits)."""
+    jcfg, params, model = smoke
+    jmodel = jget_model(jcfg)
+    toks, _ = _loss_inputs(jcfg.vocab_size, b=2, s=4)
+    if call == "init_cache":
+        got, want = model.init_cache(2, 8), jmodel.init_cache(2, 8)
+        assert got["lens"] == int(want["lens"]) == 0
+        for g, w in zip(got["state"], want["state"]):
+            for k in w:
+                np.testing.assert_array_equal(g[k].numpy(), np.asarray(w[k]))
+    elif call == "decode_step":
+        cache, jcache = model.init_cache(2, 8), jmodel.init_cache(2, 8)
+        for i in range(4):
+            logits, cache = model.decode_step(
+                torch.from_numpy(toks[:, i:i + 1]), cache)
+            jlogits, jcache = jmodel.decode_step(
+                params, jnp.asarray(toks[:, i:i + 1]), jcache)
+            _close(logits, jlogits, 1e-5, "decode logits")
+        for g, w in zip(cache["state"], jcache["state"]):
+            for k in w:
+                _close(g[k], w[k], 1e-5, f"state {k}")
+        assert cache["lens"] == 4
+    else:
+        with torch.no_grad():
+            got = model.prefill(torch.from_numpy(toks).long())
+        _close(got, jmodel.prefill(params, jnp.asarray(toks)), 1e-5,
+               "prefill")

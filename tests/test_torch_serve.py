@@ -15,9 +15,11 @@
   the engine's tokens; ``restore_params`` serves a checkpoint in the
   reference's format, params or EMA.
 * The CLI runs with ``--device cpu`` and raises without it when there is
-  no CUDA; ``--replicas``, ``--restore``, ``--faults``, ``--slo-p99-ms``
-  and ``--metrics`` run against the JAX CLI; ``--toy`` and
-  ``--mesh-model 2`` are refused by name.
+  no CUDA; ``--replicas``, ``--restore``, ``--faults``, ``--slo-p99-ms``,
+  ``--metrics`` and ``--toy`` run against the JAX CLI, and
+  ``--mesh-model 2`` against the one-process CLI.
+* ``mesh_model=2`` serves over 2 spawned gloo ranks to the JAX engine's
+  tokens (the full TP suite is ``tests/test_torch_serve_tp.py``).
 """
 import dataclasses
 import json
@@ -29,6 +31,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax
+import jax.numpy as jnp
 
 from repro import configs as jconfigs
 from repro.models import get_model as jget_model
@@ -45,6 +48,7 @@ from repro.serve import SLOConfig as JSLOConfig
 from repro.train import checkpoint as jckpt
 
 from repro_torch import configs as tconfigs
+from repro_torch.distributed import mesh
 from repro_torch.launch import serve as tcli
 from repro_torch.models import TransformerLM, load_jax_params, to_jax_tree
 from repro_torch.obs import MetricsRegistry
@@ -52,6 +56,8 @@ from repro_torch.serve import (PagePool, PoolConfig, ServeEngine,
                                SLOConfig, StepSession, TraceConfig,
                                make_trace, restore_params)
 from repro_torch.train import checkpoint as tckpt
+
+import torch_serve_tp_ranks as tp_ranks
 
 ARCH = "qwen3-0.6b"
 ENGINE_KW = dict(num_slots=3, page_size=4, max_prompt_len=12, max_new_cap=8,
@@ -241,23 +247,34 @@ def test_engine_validation(qwen):
         ServeEngine(other, tmodel, device="cpu", **ENGINE_KW)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(mesh_model=2), "Queue 1 item 8"),
-    pytest.param(dict(faults="slowdown@1:x3:d2,preempt@3"), None,
-                 id="kw1-fault"),
-    pytest.param(dict(slo="shed"), None, id="kw2-resilience"),
-    pytest.param(dict(metrics=True), None, id="kw3-telemetry")])
-def test_unported_engine_options_raise(qwen, kw, match):
-    """``mesh_model > 1`` stays refused by name; the options that later
-    slices brought run and equal the JAX engine's on the same trace: chaos
-    (a slowdown and a preemption: events, tokens and virtual-clock
-    metrics), the SLO gate (the same sheds and trips) and the metrics
-    registry (the same summary on the virtual clock, the wall-clock
-    histograms by count)."""
+@pytest.mark.parametrize("kw", [
+    pytest.param(dict(mesh_model=2), id="kw0-Queue 1 item 8"),
+    pytest.param(dict(faults="slowdown@1:x3:d2,preempt@3"), id="kw1-fault"),
+    pytest.param(dict(slo="shed"), id="kw2-resilience"),
+    pytest.param(dict(metrics=True), id="kw3-telemetry")])
+def test_unported_engine_options_raise(qwen, kw, tmp_path):
+    """The options that later slices brought run and equal the JAX
+    engine's on the same trace: tensor-parallel decode (``mesh_model=2``
+    over 2 spawned gloo ranks, ``tests/torch_serve_tp_ranks.py``: both
+    ranks' tokens), chaos (a slowdown and a preemption: events, tokens and
+    virtual-clock metrics), the SLO gate (the same sheds and trips) and
+    the metrics registry (the same summary on the virtual clock, the
+    wall-clock histograms by count)."""
     jcfg, params, tcfg, tmodel = qwen
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            ServeEngine(tcfg, tmodel, device="cpu", **dict(ENGINE_KW, **kw))
+    if "mesh_model" in kw:
+        tkw = _trace_kw(9, tcfg.vocab_size, seed=4, rate=100.0)
+        want = JServeEngine(jcfg, params, **ENGINE_KW).run(
+            jmake_trace(JTraceConfig(**tkw))).tokens_by_rid()
+        np_params = jax.tree_util.tree_map(np.asarray, params)
+        mesh.spawn(tp_ranks.serve_rank, 1, "cpu",
+                   args=(str(tmp_path), {"tp": (
+                       ARCH, np_params, False,
+                       make_trace(TraceConfig(**tkw)))}),
+                   mesh_model=2, threads=1, timeout_s=120.0)
+        for r in range(2):
+            got = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+            assert got["tp"]["tokens"] == want and len(want) == 9
+            assert got["tp"]["plan"].attn and got["tp"]["all_reduces"] > 0
         return
     regs = {}
     if kw.get("slo"):
@@ -362,30 +379,67 @@ def test_cli_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--toy"], "toy"),
+    pytest.param(["--toy"], None, id="argv0-toy"),
     pytest.param(["--replicas", "2", "--hedge-after", "3", "--faults",
                   "crash@2:r1,restart@6:r1"], None, id="argv1-router"),
     pytest.param(["--restore", "ck"], None, id="argv2-checkpoint"),
-    (["--mesh-model", "2"], "Queue 1 item 8"),
-    pytest.param(["--faults", "slowdown@1:x2:d2,preempt@3"], None,
-                 id="argv4-fault"),
+    pytest.param(["--mesh-model", "2"], None, id="argv3-Queue 1 item 8"),
+    # every request arrives before the first admission: the chaos events
+    # then depend on the decode steps alone, not on how fast each CLI's
+    # wall clock admits them
+    pytest.param(["--faults", "slowdown@1:x2:d2,preempt@3", "--rate",
+                  "1e12"], None, id="argv4-fault"),
     pytest.param(["--slo-p99-ms", "5000"], None, id="argv5-resilience"),
     pytest.param(["--metrics", "m.jsonl"], None, id="argv6-telemetry"),
     (["--ema"], "--restore"),
     (["--timeout", "3"], "--replicas")])
-def test_cli_refuses_unported_paths(argv, match, tmp_path, capsys):
-    """``--toy`` and ``--mesh-model 2`` stay refused by name, and the
-    reference's cross-flag errors hold. The flags that later slices
+def test_cli_refuses_unported_paths(argv, match, tmp_path, capfd,
+                                    monkeypatch):
+    """The reference's cross-flag errors hold. The flags that later slices
     brought run through both CLIs (the JAX one on its own init): the
     router's virtual-clock lines equal the JAX CLI's; a checkpoint of the
     reference's format serves the same greedy tokens in both; the chaos
     events, the SLO line and the metrics file read back as the JAX CLI's
-    do."""
+    do; ``--toy`` prints the JAX CLI's token rows (the same prompt and
+    params handed to both); ``--mesh-model 2`` spawns 2 gloo ranks and
+    rank 0 alone prints the one-process CLI's request lines with
+    ``tp=2``."""
     if match is not None:
         with pytest.raises(SystemExit, match=match):
             tcli.main(["--device", "cpu"] + argv)
         return
     base = ["--requests", "4", "--rate", "1000", "--max-new", "6"]
+    if argv[0] == "--toy":
+        toy = argv + ["--batch", "2", "--prompt-len", "3", "--tokens", "4"]
+        cfg = tconfigs.get_smoke_config(ARCH)
+        prompt = tcli.toy_prompt(0, 2, 3, cfg.vocab_size)
+        params = jget_model(jconfigs.get_smoke_config(ARCH)).init(
+            jax.random.PRNGKey(0))
+        monkeypatch.setattr(jax.random, "randint",
+                            lambda *a, **k: jnp.asarray(prompt, jnp.int32))
+        jcli.main(toy)
+        want = capfd.readouterr().out
+        monkeypatch.setattr(tcli, "get_model", lambda c, device, generator:
+                            load_jax_params(TransformerLM(c, device=device),
+                                            params))
+        tcli.main(toy + ["--device", "cpu"])
+        got = capfd.readouterr().out
+        rows = [re.findall(r"^  (\[.*\])$", o, re.M) for o in (got, want)]
+        assert rows[0] == rows[1] and len(rows[0]) == 2
+        assert got.split(" prefill ")[0] == want.split(" prefill ")[0]
+        return
+    if argv[0] == "--mesh-model":
+        out = {}
+        for tag, extra in (("one", []), ("tp", argv)):
+            tcli.main(base + extra + ["--device", "cpu"])
+            out[tag] = capfd.readouterr().out
+        assert out["tp"].count("[serve] qwen3-0.6b policy=") == 1
+        assert " tp=2 " in out["tp"]
+        # the wall clock orders the completions: compare per request
+        req = {t: dict(re.findall(r"rid=(\d+) (\[.*\])", o))
+               for t, o in out.items()}
+        assert len(req["tp"]) == 4 and req["tp"] == req["one"]
+        return
     if argv[0] == "--restore":
         jcfg = jconfigs.get_smoke_config(ARCH)
         params = jget_model(jcfg).init(jax.random.PRNGKey(5))
@@ -397,7 +451,7 @@ def test_cli_refuses_unported_paths(argv, match, tmp_path, capsys):
     for tag, main in (("jax", jcli.main), ("torch", tcli.main)):
         extra = ["--device", "cpu"] if tag == "torch" else []
         main(base + argv + extra)
-        out[tag] = capsys.readouterr().out
+        out[tag] = capfd.readouterr().out
         if argv[0] == "--metrics":
             out[tag + "_metrics"] = {
                 r["name"]: r.get("count", r.get("value"))
