@@ -6,6 +6,7 @@
     python3 chip_smoke.py --faults-only   # phases 20-21 alone
     python3 chip_smoke.py --serve-only    # phases 22-24 and 18's shrink
     python3 chip_smoke.py --tp-decode-only    # phase 27 alone
+    python3 chip_smoke.py --flash-only    # flash attention's phases 3, 25
 
 Drives the port (``src/repro_torch``) through its own entry points and
 fails (non-zero exit, no result line) if any phase fails:
@@ -261,17 +262,22 @@ fails (non-zero exit, no result line) if any phase fails:
    (``FLASH256_HEADS``, gemma3-1b's): the f32 and bf16 kernels against the
    plain twin (S 77 / 512 / 1000, causal, window 512, softcap 2; phase 3's
    tolerances), device times at gemma3-1b's prefill shape (B 1, S 512,
-   bf16) against the plain twin, SDPA and the bound, and the registers and
-   spills ``nvcc -Xptxas -v`` reports for both D = 256 kernels (compiled
-   beside the build). gemma3-1b at full width (26 layers, d_model 1152,
-   head_dim 256, one kv head, windows of 512, vocab 262,144) serves phase
-   4's 16 requests as phase 4 does (fp and int8 pools, graph decode, the
-   short trace eager, counters from 0, graph == eager), and at 2 layers f32
-   the kernel path serves the plain path's tokens past its window.
-   minitron-4b at full
-   width and command-r-plus at ``COMMAND_R_LAYERS`` of 64 layers (width
-   unchanged) serve ``DENSE_FEW`` requests each through the decode graph,
-   launches counted.
+   bf16) against the plain twin, SDPA and the bound, and at its other
+   prefill buckets (``FLASH256_TIMED_S``) against SDPA in the same call,
+   each with the bf16 kernel's split (blocks, cluster size C, key tiles a
+   block T) and the build's seconds; at S 512 the split against clusters
+   of 1, 2, 4 and 8 blocks (forced through the capacity that
+   ``split_plan`` reads, printed beside); the registers and spills ``nvcc
+   -Xptxas -v`` reports for both D = 256 kernels (compiled beside the
+   build), and for the bf16 D = 128 kernel, which must equal
+   ``FLASH128_PTXAS``. gemma3-1b at full width (26 layers, d_model
+   1152, head_dim 256, one kv head, windows of 512, vocab 262,144) serves
+   phase 4's 16 requests as phase 4 does (fp and int8 pools, graph decode,
+   the short trace eager, counters from 0, graph == eager), and at 2
+   layers f32 the kernel path serves the plain path's tokens past its
+   window. minitron-4b at full width and command-r-plus at
+   ``COMMAND_R_LAYERS`` of 64 layers (width unchanged) serve ``DENSE_FEW``
+   requests each through the decode graph, launches counted.
 26. The toy path (``train.serve_step.greedy_generate`` over contiguous
    caches): gemma3-1b and qwen3-0.6b at full width (``TOY_RUNS``), fp and
    int8 caches; the stepped decode's last logits against ``prefill``'s
@@ -428,6 +434,15 @@ RESTORE_LAYERS = 4
 # depth (of 64 layers: the whole model is over 200 GB in bf16), and the
 # requests of the minitron-4b and command-r-plus runs
 FLASH256_HEADS = dict(h=4, kv=1, d=256)
+# the prefill buckets the serve trace runs at head dim 256, each timed
+# against SDPA (512 is the row's shape)
+FLASH256_TIMED_S = (128, 256, 512)
+# ptxas (registers, spill stores, spill loads) of the bf16 D = 128 kernel,
+# and its device ms at phase 3's shape, as they read before the head-dim-256
+# kernel was written beside it (NVIDIA H100 80GB HBM3, 700 W, CUDA 12.8):
+# the D = 256 kernel must leave both alone
+FLASH128_PTXAS = (232, 0, 0)
+FLASH128_MS = 0.019594
 COMMAND_R_LAYERS = 2
 DENSE_FEW = 4
 # phase 26: (prompt, new tokens) of the full-width toy runs, their batch
@@ -641,7 +656,8 @@ def _flash_phase(torch, flash_attention):
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=library_ms)
     _log(f"[kernels] flash_attention B=1 S={s} H={f['h']} KV={f['kv']} "
-         f"D={f['d']} bf16 causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+         f"D={f['d']} bf16 causal: kernel {ms:.4f} ms (before the D = 256 "
+         f"kernel: {FLASH128_MS} ms), plain {plain_ms:.4f} "
          f"ms, library (sdpa) {library_ms:.4f} ms, bound "
          f"{row['bound_ms']:.5f} ms ({row['bound_by']}: {flops} flop, "
          f"{nbytes} bytes)")
@@ -3476,13 +3492,28 @@ def _ptxas_usage(report: str, key: str):
     raise AssertionError(f"ptxas report has no kernel {key}")
 
 
-def _flash256_phase(torch, flash_attention, ptxas_report):
+def _flash_bound(torch, s, f, window):
+    """(bound ms, "bytes" / "operations", flop, bytes) of one bf16 call at
+    B 1 over this run's band: causal pairs within the window."""
+    pos = torch.arange(s)
+    diff = pos[:, None] - pos[None, :]
+    pairs = int(((diff >= 0) & ((diff < window) if window else True)).sum())
+    flops = 4 * pairs * f["d"] * f["h"]
+    nbytes = 2 * s * f["d"] * (2 * f["h"] + 2 * f["kv"])   # q, o, k, v
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
+
+
+def _flash256_phase(torch, flash_attention, ptxas_report, build_s):
     """Flash attention at head_dim 256 (gemma3-1b: 4 heads, 1 kv head):
     the f32 and the bf16 kernel against the plain twin (causal, window
     512, softcap 2, ragged S), then device times at gemma3-1b's prefill
-    shape (B 1, S 512: the phase's largest bucket, bf16) against the
-    plain twin, SDPA and the bound; the registers and spills ptxas gave
-    each D = 256 kernel."""
+    buckets (B 1, bf16; S 512 the row's shape, against the plain twin,
+    SDPA and the bound; the others against SDPA), each with the bf16
+    kernel's split; the registers and spills ptxas gave each D = 256
+    kernel and the bf16 D = 128 one."""
     import torch.nn.functional as F
     f = FLASH256_HEADS
     gen = torch.Generator(device="cuda").manual_seed(25)
@@ -3514,43 +3545,72 @@ def _flash256_phase(torch, flash_attention, ptxas_report):
          f"4e-3 rtol 8e-3, f32 atol 1e-4); max abs err bf16 "
          f"{max(e for k, e in errs.items() if k[1] == torch.bfloat16):.3g}, "
          f"f32 {max(e for k, e in errs.items() if k[1] == torch.float32):.3g}")
-    s, dt = 512, torch.bfloat16
-    ins = inputs(s, dt, 16)
-    ms = _time_ms(torch, [
-        (lambda a=a: flash_attention.flash_attention(*a, window=512))
-        for a in ins])
-    plain_ms = _time_ms(torch, [
-        (lambda a=a: flash_attention.flash_attention(
-            *a, window=512, use_kernel=False)) for a in ins])
-    library_ms = _time_ms(torch, [
-        (lambda a=a: F.scaled_dot_product_attention(
-            *(t.transpose(1, 2) for t in a), is_causal=True,
-            enable_gqa=True)) for a in ins])
-    pairs = s * (s + 1) // 2           # causal; the window of 512 cuts none
-    flops = 4 * pairs * f["d"] * f["h"]
-    nbytes = 2 * s * f["d"] * (2 * f["h"] + 2 * f["kv"])   # q, o, k, v
-    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    lib = flash_attention._load()
+    capacity = flash_attention._capacity(lib, torch.device("cuda"))
+    by_s = {}
+    for s in FLASH256_TIMED_S:
+        ins = inputs(s, torch.bfloat16, 16)
+        ms = _time_ms(torch, [
+            (lambda a=a: flash_attention.flash_attention(*a, window=512))
+            for a in ins])
+        library_ms = _time_ms(torch, [
+            (lambda a=a: F.scaled_dot_product_attention(
+                *(t.transpose(1, 2) for t in a), is_causal=True,
+                enable_gqa=True)) for a in ins])
+        plan = flash_attention.split_plan(s, f["h"], 1, True, 512, capacity)
+        bound_ms, bound_by, flops, nbytes = _flash_bound(torch, s, f, 512)
+        by_s[s] = dict(ms=ms, library_ms=library_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, blocks=plan.blocks,
+                       clusters=plan.clusters, tiles=plan.tiles)
+        if s == 512:
+            plain_ms = _time_ms(torch, [
+                (lambda a=a: flash_attention.flash_attention(
+                    *a, window=512, use_kernel=False)) for a in ins])
+            # the plan against the other cluster sizes, forced through
+            # capacities that stop the cluster's growth at C
+            splits = {}
+            for c in (1, 2, 4, 8):
+                cap = tuple(10 ** 6 if 2 ** i <= c else 0 for i in range(4))
+                alt = flash_attention.split_plan(s, f["h"], 1, True, 512, cap)
+                splits[f"C{alt.clusters} T{alt.tiles}"] = _time_ms(torch, [
+                    (lambda a=a, cap=cap: flash_attention._flash_cuda(
+                        *a, True, 512, 0.0, capacity=cap)) for a in ins])
+        _log(f"[kernels] flash_attention B=1 S={s} H={f['h']} KV={f['kv']} "
+             f"D={f['d']} bf16 causal window 512: kernel {ms:.6f} ms, "
+             f"library (sdpa) {library_ms:.6f} ms ({ms / library_ms:.2f}x), "
+             f"bound {bound_ms:.6f} ms ({bound_by}: {flops} flop, {nbytes} "
+             f"bytes) | plan: {plan.blocks} blocks, clusters of "
+             f"{plan.clusters}, <= {plan.tiles} key tiles a block")
+    _log(f"[kernels] flash_attention D=256 S=512 split (cluster capacity "
+         f"of clusters of 1 / 2 / 4 / 8 blocks: {capacity}): "
+         + ", ".join(f"{k} {v:.6f} ms" for k, v in splits.items()))
     usage = {name: _ptxas_usage(ptxas_report, key) for name, key in (
-        ("bf16", "flash_fwd_bf16_kernelILi256E"),
-        ("f32", "flash_fwd_kernelIfLi256E"))}
+        ("bf16", "flash_d256_wgmma_kernel"),
+        ("f32", "flash_fwd_kernelIfLi256E"),
+        ("bf16_d128", "flash_fwd_bf16_kernelILi128E"))}
     row = dict(
         name="flash_attention_d256", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:95",
-        max_abs_err=errs[(512, dt, 512, 0.0)], ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=library_ms,
+        max_abs_err=errs[(512, torch.bfloat16, 512, 0.0)],
+        ms=by_s[512]["ms"], plain_ms=plain_ms,
+        bound_ms=by_s[512]["bound_ms"], bound_by=by_s[512]["bound_by"],
+        library_ms=by_s[512]["library_ms"], by_s=by_s, splits=splits,
+        capacity=capacity,
         ptxas={k: dict(registers=r, spill_stores=st, spill_loads=ld)
                for k, (r, st, ld) in usage.items()})
-    _log(f"[kernels] flash_attention B=1 S={s} H={f['h']} KV={f['kv']} "
+    _log(f"[kernels] flash_attention B=1 S=512 H={f['h']} KV={f['kv']} "
          f"D={f['d']} bf16 causal window 512 (gemma3-1b's prefill): kernel "
-         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa) "
-         f"{library_ms:.4f} ms, bound {row['bound_ms']:.5f} ms "
-         f"({row['bound_by']}: {flops} flop, {nbytes} bytes) | ptxas "
+         f"{row['ms']:.6f} ms, plain {plain_ms:.6f} ms, library (sdpa) "
+         f"{row['library_ms']:.6f} ms, bound {row['bound_ms']:.6f} ms | "
+         f"flash_attention.cu built in {build_s:.1f} s | ptxas "
          + ", ".join(f"{k}: {r} registers, {st} / {ld} bytes spill stores / "
-                     f"loads" for k, (r, st, ld) in usage.items()))
+                     f"loads" for k, (r, st, ld) in usage.items())
+         + f" (bf16_d128 before the D = 256 kernel: {FLASH128_PTXAS})")
+    if usage["bf16_d128"] != FLASH128_PTXAS:
+        raise AssertionError(f"the bf16 D = 128 kernel's ptxas usage moved: "
+                             f"{usage['bf16_d128']} against "
+                             f"{FLASH128_PTXAS}")
     return row
 
 
@@ -3977,7 +4037,7 @@ def main(argv) -> int:
     # training runs must compute the same first-step gradients)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     entries = ("--mesh-only", "--faults-only", "--serve-only",
-               "--tp-decode-only")
+               "--tp-decode-only", "--flash-only")
     if argv and (len(argv) > 1 or argv[0] not in entries):
         print(f"chip_smoke: unknown arguments {argv} (none, or one of "
               f"{', '.join(entries)})", file=sys.stderr)
@@ -4009,7 +4069,7 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as ex:
         ptxas = ex.submit(_build.resource_usage, "flash_attention") \
-            if not argv else None
+            if argv in ([], ["--flash-only"]) else None
         secs = _build.build()
         _log(f"[build] "
              f"{', '.join(f'{k}.cu {v:.1f} s' for k, v in secs.items())}"
@@ -4037,6 +4097,11 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         _faults_phase(torch, backup_reduce)
         _log(f"[time] phase 21: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if argv == ["--flash-only"]:   # flash attention's kernel checks alone
+        _flash_phase(torch, flash_attention)
+        _flash256_phase(torch, flash_attention, ptxas_report,
+                        secs["flash_attention"])
         return 0
     if argv == ["--serve-only"]:        # phases 22-24 and the shrink alone
         _slice_phases(torch, backup_reduce, page_gather, flash_attention)
@@ -4162,7 +4227,8 @@ def main(argv) -> int:
     # 25. the dense configs on the paged path, flash at head_dim 256
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    row256 = _flash256_phase(torch, flash_attention, ptxas_report)
+    row256 = _flash256_phase(torch, flash_attention, ptxas_report,
+                             secs["flash_attention"])
     with torch.inference_mode():
         dense = _dense_phase(torch, (page_gather, flash_attention))
     gemma = dense["gemma3-1b"]
@@ -4210,7 +4276,8 @@ def main(argv) -> int:
             "launches_batched_and_mesh", "launches_faults",
             "launches_telemetry", "launches_router", "launches_dense",
             "launches_toy", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "ptxas")
+            "bound_ms", "bound_by", "library_ms", "by_s", "splits",
+            "capacity", "ptxas")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -12,9 +12,9 @@
 // (last dim contiguous), so prefill hands over its projections with no
 // transpose; out is a contiguous [B, S, H, D].
 //
-// Two kernels, one per input type.
+// Three kernels: f32, and two for bf16 (the serve path's type).
 //
-// bf16 (the serve path's type): tensor cores. At the serve run's prefill
+// bf16, head dims 16-128: tensor cores. At the serve run's prefill
 // shapes (S <= 512, D = 128) the work is ~1 GFLOP and ~6 MB, under 2 us of
 // the card at either peak; with 1 to 8 key tiles per block the kernel is
 // bound by latency and occupancy, not by the tensor-core rate, so it is
@@ -39,14 +39,40 @@
 // with the heaviest q tiles (the last, under causal masking) first.
 // Needs 16-byte aligned rows: the wrapper checks base pointers and the b,
 // s, h strides (multiples of 8 elements) and raises otherwise.
-// Head dim 256 (gemma3-1b) takes a variant of the same kernel: the double-
-// buffered ring of [2 stages][2 groups] K/V tiles would need 304,128 B of
-// shared memory, over the 232,448 B a block may take, so D = 256 keeps one
-// stage (168,960 B: the next pair's copies wait for this pair's mma), and
-// it reloads each k-step's Q fragments from the resident Q tile by ldmatrix
-// instead of holding all D / 16 of them, which leaves the registers to the
-// D / 8 x 4 f32 accumulators (the register count and spills are printed
-// by chip_smoke.py's phase 25).
+//
+// bf16, head dim 256 (gemma3-1b; namespace hop): a kernel of its own. At
+// gemma3-1b's prefill (S <= 512, 4 heads, 1 KV head) the work is ~0.5
+// GFLOP and ~2.6 MB, under a microsecond of the card, so what bounds it is
+// the serial chain of the heaviest (q tile, head) - up to 8 key tiles of
+// 64 x 256 - against a grid of only ceil(S / 64) x H x B tiles, and the
+// per-tile cost of 256-wide rows: a 64 x 256 f32 output accumulator is 128
+// registers a thread, and two stages of padded K/V rows do not fit a
+// block's shared memory, so the mma.sync design above can neither hold Q
+// in registers nor overlap copies with products at this width. The design:
+// * wgmma, operands in shared memory: one warpgroup a block owns a 64-row
+//   q tile; S = Q K^T is 16 wgmma m64n64k16 with Q and K both read through
+//   descriptors (nothing of Q in registers), P (bf16, in registers) is the
+//   A operand of 4 wgmma m64n256k16 a tile with V as an MN-major B.
+// * TMA, no padding: Q, K and V tiles come in by cp.async.bulk.tensor as
+//   four 64-column boxes with 128-byte swizzle (the layout wgmma reads),
+//   completing on mbarriers; rows past S are zero-filled by the copy. Q's
+//   and K's boxes each have a barrier, so the first products start on the
+//   first boxes to land; the next tile's K streams in behind this tile's
+//   softmax and P.V, its V behind the next Q.K^T. 96 KB a block: two
+//   blocks an SM. The tensor maps are encoded on the host per call
+//   (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint: no -lcuda).
+// * The key band split over a thread-block cluster: the band of each
+//   (q tile, head, batch) is cut into C chunks of at most T key tiles, one
+//   block each, the C blocks one cluster (cudaLaunchKernelEx; C and T from
+//   kernels/flash_attention.split_plan, which grows C while the card still
+//   runs every cluster at once). The blocks then merge their f32 partials
+//   (O, m, l) through distributed shared memory: each sends every other
+//   block its slice of the 256 columns, and each block sums its slice's
+//   partials in rank order - no atomics, so repeated calls are bit-equal.
+//   Splitting changes the order of the bf16 P.V sums against one block's
+//   online pass (the 2^(m - max m) weights), within the same tolerance.
+// An mbarrier wait that spins 4M times traps, so a lost copy fails the
+// launch instead of hanging the card.
 //
 // f32: the plain f32 pipes (TF32 would break the f32 callers' 1e-4
 // tolerance). One block per (q tile of 32 rows, head, batch); K/V tiles of
@@ -57,12 +83,15 @@
 // shared memory and each thread accumulates an 8 x 8 output tile.
 //
 // C interface (loaded with ctypes by repro_torch/kernels/flash_attention.py):
-// pointers and the stream as void*, returns cudaGetLastError().
+// pointers and the stream as void*, returns cudaGetLastError() (or a code
+// past the runtime's for a refused tensor map; see the error string).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
 
 #include <type_traits>
 
@@ -275,16 +304,10 @@ constexpr int NT = 2 * GT;  // two groups, over the even and the odd key tiles
 constexpr int PAD = 8;    // bf16 of row padding (16 bytes): conflict-free ldmatrix
 constexpr float LOG2E = 1.4426950408889634f;
 
-// K/V ring stages: two (prefetch the next pair of tiles) up to D = 128,
-// one at D = 256, where two would not fit a block's shared memory
-template <int D>
-__host__ __device__ constexpr int stages() { return D > 128 ? 1 : 2; }
-
 template <int D>
 constexpr size_t smem_bytes() {
-  // the Q tile, then K and V tiles of [stages][2 groups]
-  return sizeof(__nv_bfloat16) * (size_t)(BQ + 4 * stages<D>() * BK) *
-         (D + PAD);
+  // the Q tile, then K and V tiles of [2 stages][2 groups]
+  return sizeof(__nv_bfloat16) * (size_t)(BQ + 8 * BK) * (D + PAD);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -383,12 +406,11 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int KSTEPS = D / 16;    // k-steps of Q.K^T
   constexpr int NTILES = D / 8;     // n-tiles of the output
   constexpr int NB = BK / 8;        // 8-key blocks of a tile
-  constexpr int ST = stages<D>();   // K/V ring stages
-  constexpr bool HOLD_Q = D <= 128; // Q fragments in registers for all tiles
+  static_assert(D <= 128, "head dim 256 takes the wgmma kernel below");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + BQ * RS;       // [stage][group][BK][RS]
-  __nv_bfloat16* Vs = Ks + 2 * ST * TILE; // [stage][group][BK][RS]
+  __nv_bfloat16* Vs = Ks + 4 * TILE;      // [stage][group][BK][RS]
 
   const int nq = (S + BQ - 1) / BQ;
   const int hb = blockIdx.x % (H * B);
@@ -409,9 +431,9 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_tiles = (k_end - k_begin + BK - 1) / BK;
   const int n_pairs = (n_tiles + 1) / 2;
   const float scale_log2 = scale * LOG2E;
-  // tile i of the band goes to stage (i / 2) % ST, group i % 2
+  // tile i of the band goes to stage (i / 2) % 2, group i % 2
   auto load_kv = [&](int i) {
-    const int slot = ((i / 2) % ST) * 2 + i % 2;
+    const int slot = ((i / 2) % 2) * 2 + i % 2;
     load_tile<D, BK>(Ks + slot * TILE, kb, ks.s, k_begin + i * BK, S);
     load_tile<D, BK>(Vs + slot * TILE, vb, vs.s, k_begin + i * BK, S);
   };
@@ -421,12 +443,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   if (n_tiles > 1) load_kv(1);
   cp_async_commit();
 
-  uint32_t qf[HOLD_Q ? KSTEPS : 1][4];
-  // the warp's Q fragment of k-step kk, from the resident Q tile
-  auto load_q = [&](int kk, uint32_t(&r)[4]) {
-    ldmatrix_x4(r, smem_addr(Qs + (warp * 16 + lane % 16) * RS + kk * 16 +
-                             (lane / 16) * 8));
-  };
+  uint32_t qf[KSTEPS][4];
   float acc[NTILES][4];
 #pragma unroll
   for (int n = 0; n < NTILES; ++n)
@@ -436,33 +453,24 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   float l_run[2] = {0.f, 0.f};               // this thread's columns only
 
   for (int pr = 0; pr < n_pairs; ++pr) {
-    if constexpr (ST == 2) {
-      if (pr + 1 < n_pairs) {   // the next pair streams in behind this one
-        load_kv(2 * pr + 2);
-        if (2 * pr + 3 < n_tiles) load_kv(2 * pr + 3);
-      }
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {                    // one stage: this pair, after the last
-      if (pr > 0) {             // pair's readers (the loop's end barrier)
-        load_kv(2 * pr);
-        if (2 * pr + 1 < n_tiles) load_kv(2 * pr + 1);
-      }
-      cp_async_commit();
-      cp_async_wait<0>();
+    if (pr + 1 < n_pairs) {     // the next pair streams in behind this one
+      load_kv(2 * pr + 2);
+      if (2 * pr + 3 < n_tiles) load_kv(2 * pr + 3);
     }
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    if constexpr (HOLD_Q) {
-      if (pr == 0) {            // the warp's Q rows, held for every tile
+    if (pr == 0) {              // the warp's Q rows, held for every tile
 #pragma unroll
-        for (int kk = 0; kk < KSTEPS; ++kk) load_q(kk, qf[kk]);
-      }
+      for (int kk = 0; kk < KSTEPS; ++kk)
+        ldmatrix_x4(qf[kk], smem_addr(Qs + (warp * 16 + lane % 16) * RS +
+                                      kk * 16 + (lane / 16) * 8));
     }
     const int tile = 2 * pr + grp;
     if (tile < n_tiles) {
       const int k0 = k_begin + tile * BK;
-      const __nv_bfloat16* Kt = Ks + ((pr % ST) * 2 + grp) * TILE;
-      const __nv_bfloat16* Vt = Vs + ((pr % ST) * 2 + grp) * TILE;
+      const __nv_bfloat16* Kt = Ks + ((pr % 2) * 2 + grp) * TILE;
+      const __nv_bfloat16* Vt = Vs + ((pr % 2) * 2 + grp) * TILE;
 
       // scores: s[j] is the 16 x 8 block of keys 8j..8j+7
       float s[NB][4];
@@ -473,12 +481,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk) {
         uint32_t qa[4];
-        if constexpr (HOLD_Q) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
-        } else {
-          load_q(kk, qa);
-        }
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
 #pragma unroll
         for (int jp = 0; jp < NB / 2; ++jp) {
           uint32_t bk[4];
@@ -565,11 +569,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   // merge the groups: group 1 hands its rows' max, sum and accumulator to
-  // group 0 through shared memory (the K tiles, no longer read; at D = 256
-  // the one stage's K tiles hold exactly the 67,584 bytes)
-  static_assert((D / 8) * 4 * GT * 4 + 4 * GT * 4 <=
-                    2 * ST * BK * (D + PAD) * 2,
-                "the merge buffer fits the K tiles");
+  // group 0 through shared memory (the K tiles, no longer read)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
@@ -633,14 +633,623 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 }  // namespace tc
 
-// f32: the SIMT kernel above; bf16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+// bf16 at head dim 256: wgmma, TMA, the key band split over a cluster
+// ---------------------------------------------------------------------------
+
+namespace hop {
+
+constexpr int D = 256;
+constexpr int BQ = 64;                 // query rows of a tile: wgmma's m64
+constexpr int BK = 64;                 // keys of a tile
+constexpr int NT = 128;                // one warpgroup a block
+constexpr int MAX_CLUSTER = 8;         // blocks a cluster (portable limit)
+constexpr uint32_t BOX = 64 * 128;     // a TMA box: 64 rows of 64 bf16
+constexpr uint32_t TILE = 4 * BOX;     // 64 rows x 256 as 4 column boxes
+constexpr uint32_t OFF_K = TILE;       // Q, K, V tiles
+constexpr uint32_t OFF_V = 2 * TILE;
+constexpr uint32_t OFF_BAR = 3 * TILE; // mbarriers: Q, K (a box each), V
+constexpr uint32_t OFF_ML = OFF_V;     // the merge's (m, l) slots, over V
+constexpr uint32_t SMEM = OFF_BAR + 128 + 1024;  // + 1 KB to align
+constexpr float LOG2E = 1.4426950408889634f;
+// the merge's O slots ([C][32 / C][NT] float4 = 64 KB) cover Q and K, its
+// (m, l) slots ([C][BQ] float2) the start of V
+static_assert(32 * NT * 16 <= OFF_ML &&
+                  OFF_ML + MAX_CLUSTER * BQ * 8 <= OFF_BAR,
+              "the merge slots fit the tiles");
+
+using tc::fast_exp2;
+using tc::pack_bf16;
+using tc::smem_addr;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\nadd.u32 n, n, 1;\nsetp.lt.u32 p, n, 4000000;\n"
+      "@p bra WAIT;\ntrap;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// one box of a 4-d tensor map (coordinates innermost first) into shared
+// memory; its bytes complete on the mbarrier
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// a wgmma shared-memory operand, 128-byte swizzle: start address, leading
+// and stride byte offsets
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// registers an in-flight wgmma reads or writes: no use moves across this
+template <typename R, int N>
+__device__ __forceinline__ void hold(R (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if constexpr (std::is_same<R, float>::value)
+      asm volatile("" : "+f"(r[i])::"memory");
+    else
+      asm volatile("" : "+r"(r[i])::"memory");
+  }
+}
+
+#define WG8(d, i)                                                     \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 64 f32) = (accumulate ? d : 0) + A (64 x 16) . B (16 x 64)^T,
+// both from shared memory, K-major
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG8(d, 0), WG8(d, 8), WG8(d, 16), WG8(d, 24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 256 f32) += A (64 x 16, registers) . B (16 x 256, shared
+// memory, MN-major)
+__device__ __forceinline__ void wgmma_pv(float (&d)[128],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : WG8(d, 0), WG8(d, 8), WG8(d, 16), WG8(d, 24), WG8(d, 32), WG8(d, 40),
+        WG8(d, 48), WG8(d, 56), WG8(d, 64), WG8(d, 72), WG8(d, 80),
+        WG8(d, 88), WG8(d, 96), WG8(d, 104), WG8(d, 112), WG8(d, 120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef WG8
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every block of the cluster; orders shared-memory writes
+// before the barrier with reads after it, across the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the address of the same shared-memory location in block `rank`
+__device__ __forceinline__ uint32_t at_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+// stores into another block's shared memory (cluster addresses)
+__device__ __forceinline__ void st_cluster4(uint32_t addr, float a, float b,
+                                            float c, float d) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(a), "f"(b), "f"(c), "f"(d)
+               : "memory");
+}
+__device__ __forceinline__ void st_cluster2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
+               "f"(a), "f"(b)
+               : "memory");
+}
+
+// The epilogue of a block. C = 1: O / max(l, 1e-30) straight from the
+// registers. C > 1, the merge: rank d of the cluster writes column blocks
+// [d NL, d NL + NL), NL = 32 / C. Once the cluster's barrier says every
+// block is past its loop (its tiles free), every busy block (rank <
+// n_busy) stores to each rank d its (O, m, l) for d's columns, into slot
+// `rank` of d's shared memory, O in the accumulator layout (a float4 a
+// thread and column block: rows row0 and row0 + 8). After a second barrier
+// each block sums the slots in rank order with weights 2^(m_r - max m) and
+// scales the sum by 1 / max(l, 1e-30).
+template <int C>
+__device__ __forceinline__ void epilogue(
+    const float (&acc)[128], const float (&m)[2], const float (&l)[2],
+    uint32_t base, const unsigned char* tiles, uint32_t rank, int n_busy,
+    __nv_bfloat16* const (&orow)[2], const bool (&in)[2]) {
+  const int tid = threadIdx.x, warp = tid / 32, g = (tid % 32) / 4;
+  if constexpr (C == 1) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      if (!in[r]) continue;
+#pragma unroll
+      for (int n = 0; n < 32; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow[r] + 8 * n) =
+            __floats2bfloat162_rn(acc[4 * n + 2 * r] * inv,
+                                  acc[4 * n + 2 * r + 1] * inv);
+    }
+  } else {
+    constexpr int NL = 32 / C;
+    cluster_sync();
+    if ((int)rank < n_busy) {
+#pragma unroll
+      for (int n = 0; n < 32; ++n) {
+        const uint32_t slot = (rank * NL + n % NL) * NT + tid;
+        st_cluster4(at_rank(base + slot * 16, n / NL), acc[4 * n],
+                    acc[4 * n + 1], acc[4 * n + 2], acc[4 * n + 3]);
+      }
+      if (tid % 4 == 0) {
+#pragma unroll
+        for (int d = 0; d < C; ++d)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            st_cluster2(at_rank(base + OFF_ML +
+                                    (rank * BQ + warp * 16 + g + 8 * r) * 8,
+                                d),
+                        m[r], l[r]);
+      }
+    }
+    cluster_sync();
+    const float2* ml = reinterpret_cast<const float2*>(tiles + OFF_ML);
+    const float4* slots = reinterpret_cast<const float4*>(tiles);
+    float w[C][2], inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = warp * 16 + g + 8 * r;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        if (c < n_busy) mx = fmaxf(mx, ml[c * BQ + row].x);
+      const float mb = mx == -INFINITY ? 0.f : mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        w[c][r] = 0.f;
+        if (c < n_busy) {
+          const float2 x = ml[c * BQ + row];
+          w[c][r] = fast_exp2(x.x - mb);
+          sum += w[c][r] * x.y;
+        }
+      }
+      inv[r] = 1.f / fmaxf(sum, 1e-30f);
+    }
+#pragma unroll
+    for (int nl = 0; nl < NL; ++nl) {
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (c < n_busy) {
+          const float4 x = slots[(c * NL + nl) * NT + tid];
+          a.x = fmaf(w[c][0], x.x, a.x);
+          a.y = fmaf(w[c][0], x.y, a.y);
+          a.z = fmaf(w[c][1], x.z, a.z);
+          a.w = fmaf(w[c][1], x.w, a.w);
+        }
+      }
+      const int n = (int)rank * NL + nl;
+      if (in[0])
+        *reinterpret_cast<__nv_bfloat162*>(orow[0] + 8 * n) =
+            __floats2bfloat162_rn(a.x * inv[0], a.y * inv[0]);
+      if (in[1])
+        *reinterpret_cast<__nv_bfloat162*>(orow[1] + 8 * n) =
+            __floats2bfloat162_rn(a.z * inv[1], a.w * inv[1]);
+    }
+  }
+}
+
+// grid = (q tiles x H x B) clusters of C blocks, 1-D, the heaviest q tiles
+// (the last, under causal masking) first; block = one warpgroup, two blocks
+// an SM. The block of cluster rank r takes key tiles [r T, r T + T) of its
+// q tile's band (kernels/flash_attention.split_plan plans C and T); a block
+// past the band holds an empty partial (m = -inf, l = 0, O = 0).
+__global__ void __launch_bounds__(NT, 2)
+flash_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        __nv_bfloat16* __restrict__ o, int S, int H, int B,
+                        int q_per_kv, int causal, int window, float scale,
+                        float softcap, int T) {
+  extern __shared__ __align__(1024) unsigned char smem_tma[];
+  const uint32_t raw = smem_addr(smem_tma);
+  const uint32_t base = (raw + 1023) & ~1023u;   // 128-byte swizzle atoms
+  const uint32_t C = cluster_size(), rank = cluster_rank();
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq4 = lane % 4;   // accumulator row / column pair
+  const int nq = (S + BQ - 1) / BQ;
+  const int cid = blockIdx.x / C;
+  const int hb = cid % (H * B);
+  const int q0 = (nq - 1 - cid / (H * B)) * BQ;
+  const int h = hb % H, b = hb / H, kvh = h / q_per_kv;
+  const int row0 = q0 + warp * 16 + g;      // and row0 + 8
+
+  // keys this q tile can see: the causal edge on the right, the window on
+  // the left (rounded down to a tile boundary); this block's share of them
+  const int k_end = causal ? min(q0 + BQ, S) : S;
+  const int k_begin = window > 0 ? (max(0, q0 - window + 1) / BK) * BK : 0;
+  const int n_band = (k_end - k_begin + BK - 1) / BK;
+  const int t0 = (int)rank * T;
+  const int n_mine = max(0, min(n_band - t0, T));
+
+  // Q's and K's column boxes each complete on their own barrier, so the
+  // first products start on the first boxes to land; V's on one
+  const uint32_t qbar = base + OFF_BAR, kbar = qbar + 32, vbar = qbar + 64;
+  if (tid == 0) {
+#pragma unroll
+    for (int c = 0; c < 9; ++c) mbar_init(qbar + 8 * c, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the K tile of share tile i (with the first, Q), box by box, and the V
+  // tile, by thread 0
+  auto load_k = [&](int i) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (i == 0) {
+        mbar_expect_tx(qbar + 8 * c, BOX);
+        tma_load(base + c * BOX, &tq, qbar + 8 * c, c * 64, q0, h, b);
+      }
+      mbar_expect_tx(kbar + 8 * c, BOX);
+      tma_load(base + OFF_K + c * BOX, &tk, kbar + 8 * c, c * 64,
+               k_begin + (t0 + i) * BK, kvh, b);
+    }
+  };
+  auto load_v = [&](int i) {
+    mbar_expect_tx(vbar, TILE);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      tma_load(base + OFF_V + c * BOX, &tv, vbar, c * 64,
+               k_begin + (t0 + i) * BK, kvh, b);
+  };
+  if (tid == 0 && n_mine > 0) {
+    load_k(0);
+    load_v(0);
+  }
+
+  float acc[128];   // O: columns 8n .. 8n + 7 in acc[4n .. 4n + 3]
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};   // rows row0, row0 + 8; log2
+  float l_run[2] = {0.f, 0.f};               // this thread's columns only
+  const float scale_log2 = scale * LOG2E;
+
+  for (int i = 0; i < n_mine; ++i) {
+    const int k0 = k_begin + (t0 + i) * BK;
+
+    // scores: keys 8j .. 8j + 7 in s[4j .. 4j + 3]; 16 k-steps of 16
+    // columns, 4 in each 128-byte box
+    float s[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) {
+      if (kk % 4 == 0) {   // the next column box of Q and K has landed
+        if (i == 0) mbar_wait(qbar + 8 * (kk / 4), 0);
+        mbar_wait(kbar + 8 * (kk / 4), i & 1);
+      }
+      const uint32_t off = (kk / 4) * BOX + (kk % 4) * 32;
+      wgmma_qk(s, desc(base + off, 16, 1024),
+               desc(base + OFF_K + off, 16, 1024), kk > 0);
+    }
+    wg_commit();
+    wg_wait();
+    hold(s);
+    __syncthreads();   // K is read: the next tile's K streams in behind
+    if (tid == 0 && i + 1 < n_mine) load_k(i + 1);
+
+    // scale and cap in log2 units; mask only tiles that cross S, the
+    // diagonal or the window's edge: key column c of row r passes when
+    // lo_r <= c <= hi_r; then the online softmax per row
+    if (softcap > 0.f) {
+      const float cap = softcap * LOG2E, arg = scale / softcap;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) s[j] = cap * tanhf(s[j] * arg);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) s[j] *= scale_log2;
+    }
+    if (k0 + BK > S || (causal && k0 + BK - 1 > q0) ||
+        (window > 0 && q0 + BQ - 1 - k0 >= window)) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int rel = row0 + 8 * r - k0 - 2 * tq4;   // the diagonal's c
+        const int hi = min(S - 1 - k0 - 2 * tq4, causal ? rel : BK);
+        const int lo = window > 0 ? rel - window + 1 : -BK;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (8 * j + e > hi || 8 * j + e < lo)
+              s[4 * j + 2 * r + e] = -INFINITY;
+          }
+        }
+      }
+    }
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float base_r = mx[r] == -INFINITY ? 0.f : mx[r];  // all masked
+      if (i > 0) {   // (O and l are still 0 at the first tile)
+        const float alpha = fast_exp2(m_run[r] - base_r);
+        l_run[r] *= alpha;
+#pragma unroll
+        for (int n = 0; n < 32; ++n) {
+          acc[4 * n + 2 * r] *= alpha;
+          acc[4 * n + 2 * r + 1] *= alpha;
+        }
+      }
+      m_run[r] = mx[r];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[4 * j + 2 * r] = fast_exp2(s[4 * j + 2 * r] - base_r);
+        s[4 * j + 2 * r + 1] = fast_exp2(s[4 * j + 2 * r + 1] - base_r);
+      }
+    }
+
+    // P rounded to bf16 in registers: the A operand of P.V, k-step kk
+    // holding keys 16kk .. 16kk + 15 (score blocks 2kk, 2kk + 1); the row
+    // sum adds the rounded values
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = 4 * (2 * kk + half);
+        pa[kk][2 * half] = pack_bf16(s[j], s[j + 1]);
+        pa[kk][2 * half + 1] = pack_bf16(s[j + 2], s[j + 3]);
+        l_run[0] += s[j] + s[j + 1];
+        l_run[1] += s[j + 2] + s[j + 3];
+      }
+    }
+    // O += P V: V's rows 16kk .. 16kk + 15 of every column box (the boxes
+    // 8 KB apart, 8-row groups 1 KB apart)
+    mbar_wait(vbar, i & 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv(acc, pa[kk], desc(base + OFF_V + kk * 2048, BOX, 1024));
+    wg_commit();
+    wg_wait();
+    hold(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hold(pa[kk]);
+    __syncthreads();   // V is read: the next tile's V streams in behind
+    if (tid == 0 && i + 1 < n_mine) load_v(i + 1);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  __nv_bfloat16* const orow[2] = {
+      o + (((long long)b * S + row0) * H + h) * D + 2 * tq4,
+      o + (((long long)b * S + row0 + 8) * H + h) * D + 2 * tq4};
+  const bool in[2] = {row0 < S, row0 + 8 < S};
+  // the ranks whose share of the band is not empty
+  const int n_busy = min((int)C, (n_band + T - 1) / T);
+  const unsigned char* tiles = smem_tma + (base - raw);
+#define FLASH_EPILOGUE(c) \
+  epilogue<c>(acc, m_run, l_run, base, tiles, rank, n_busy, orow, in)
+  switch (C) {
+    case 1: FLASH_EPILOGUE(1); break;
+    case 2: FLASH_EPILOGUE(2); break;
+    case 4: FLASH_EPILOGUE(4); break;
+    default: FLASH_EPILOGUE(8); break;
+  }
+#undef FLASH_EPILOGUE
+}
+
+// codes past the CUDA runtime's: cuTensorMapEncodeTiled not found, or
+// refused (ERR_TMAP + its CUresult)
+constexpr int ERR_ENTRY = 1 << 20;
+constexpr int ERR_TMAP = 1 << 21;
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, found through the runtime (no -lcuda at link)
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a [B, S, heads, 256] bf16 tensor read through its strides, in boxes of
+// 64 rows x 64 columns with 128-byte swizzle; rows past S read as zeros
+int tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+               Strides st) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return ERR_ENTRY;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, BK, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_TMAP + (int)r;
+}
+
+int set_attributes() {
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_d256_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM);
+  if (e == cudaSuccess)   // two blocks an SM: the largest shared carveout
+    e = cudaFuncSetAttribute(flash_d256_wgmma_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             100);
+  return (int)e;
+}
+
+cudaLaunchConfig_t config(long long blocks, int clusters, cudaStream_t stream,
+                          cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = clusters;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+int capacity(int clusters, int* out) {
+  if (clusters < 1 || clusters > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+  const int err = set_attributes();
+  if (err) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config(clusters, clusters, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(out, flash_d256_wgmma_kernel,
+                                             &cfg);
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
+           int H, int KV, Strides qs, Strides ks, Strides vs, int causal,
+           int window, float scale, float softcap, int clusters, int tiles,
+           cudaStream_t stream) {
+  if (clusters < 1 || clusters > MAX_CLUSTER || (clusters & (clusters - 1)) ||
+      tiles < 1)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  int err = tensor_map(&mq, q, B, S, H, qs);
+  if (!err) err = tensor_map(&mk, k, B, S, KV, ks);
+  if (!err) err = tensor_map(&mv, v, B, S, KV, vs);
+  if (err) return err;
+  err = set_attributes();
+  if (err) return err;
+  const long long blocks =
+      (long long)((S + BQ - 1) / BQ) * H * B * clusters;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config(blocks, clusters, stream, &attr);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, flash_d256_wgmma_kernel, mq, mk, mv,
+      static_cast<__nv_bfloat16*>(o), S, H, B, H / KV, causal, window, scale,
+      softcap, tiles);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace hop
+
+// f32: the SIMT kernel above; bf16: the mma.sync kernel up to D = 128, the
+// wgmma kernel (split over `clusters` blocks of up to `tiles` key tiles) at
+// D = 256
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int H, int KV, Strides qs, Strides ks, Strides vs, int causal,
-           int window, float scale, float softcap, cudaStream_t stream) {
+           int window, float scale, float softcap, int clusters, int tiles,
+           cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return tc::launch<D>(q, k, v, o, B, S, H, KV, qs, ks, vs, causal, window,
-                         scale, softcap, stream);
+    if constexpr (D == hop::D)
+      return hop::launch(q, k, v, o, B, S, H, KV, qs, ks, vs, causal, window,
+                         scale, softcap, clusters, tiles, stream);
+    else
+      return tc::launch<D>(q, k, v, o, B, S, H, KV, qs, ks, vs, causal,
+                           window, scale, softcap, stream);
   } else {
     const size_t smem = smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
@@ -660,52 +1269,64 @@ template <typename T>
 int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
                int B, int S, int H, int KV, Strides qs, Strides ks, Strides vs,
                int causal, int window, float scale, float softcap,
-               cudaStream_t stream) {
+               int clusters, int tiles, cudaStream_t stream) {
+#define FLASH_D(d)                                                          \
+  case d:                                                                   \
+    return launch<T, d>(q, k, v, o, B, S, H, KV, qs, ks, vs, causal, window, \
+                        scale, softcap, clusters, tiles, stream);
   switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, B, S, H, KV, qs, ks, vs, causal,
-                           window, scale, softcap, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, S, H, KV, qs, ks, vs, causal,
-                           window, scale, softcap, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, S, H, KV, qs, ks, vs, causal,
-                           window, scale, softcap, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, S, H, KV, qs, ks, vs, causal,
-                            window, scale, softcap, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, o, B, S, H, KV, qs, ks, vs, causal,
-                            window, scale, softcap, stream);
+    FLASH_D(16)
+    FLASH_D(32)
+    FLASH_D(64)
+    FLASH_D(128)
+    FLASH_D(256)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef FLASH_D
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements.
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. clusters
+// and tiles: the split of bf16 at D = 256 (split_plan in
+// kernels/flash_attention.py); other calls ignore them.
 int flash_attention_fwd(int dtype, const void* q, const void* k,
                         const void* v, void* o, int B, int S, int H, int KV,
                         int D, long long qsb, long long qss, long long qsh,
                         long long ksb, long long kss, long long ksh,
                         long long vsb, long long vss, long long vsh,
                         int causal, int window, float scale, float softcap,
-                        void* stream) {
+                        int clusters, int tiles, void* stream) {
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_d<float>(D, q, k, v, o, B, S, H, KV, qs, ks, vs, causal,
-                             window, scale, softcap, st);
+                             window, scale, softcap, clusters, tiles, st);
   if (dtype == 1)
     return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, S, H, KV, qs, ks, vs,
-                                     causal, window, scale, softcap, st);
+                                     causal, window, scale, softcap, clusters,
+                                     tiles, st);
   return (int)cudaErrorInvalidValue;
 }
 
+// the most clusters of `clusters` blocks of the head-dim-256 kernel the
+// card runs at once, into *out
+int flash_attention_cluster_capacity(int clusters, int* out) {
+  return hop::capacity(clusters, out);
+}
+
 const char* flash_attention_error_string(int err) {
+  static thread_local char msg[96];
+  if (err == hop::ERR_ENTRY)
+    return "cuTensorMapEncodeTiled not found (cudaGetDriverEntryPoint)";
+  if (err >= hop::ERR_TMAP) {
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled refused the tensor "
+             "map (CUresult %d)", err - hop::ERR_TMAP);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -12,13 +12,16 @@ where only PyTorch is installed:
   std ~1) at atol/rtol 1e-4 in f32 (summation order only) and atol 4e-3 /
   rtol 8e-3 in bf16 (one output rounding, < 2^-7 relative), over ragged S,
   window and a softcap of 2 that binds, head dims 16 to 256. Each call
-  adds exactly one launch. The bf16 tensor-core kernel also at every head
-  dim (16, 32, 64, 128, 256: one K/V stage and Q fragments reloaded from
-  shared memory at 256), S in {1, 15, 64, 65, 100, 512, 1000} and GQA
+  adds exactly one launch. The bf16 tensor-core kernels also at every head
+  dim (16, 32, 64, 128: mma.sync; 256: the wgmma / TMA kernel with the key
+  band split over a cluster), S in {1, 15, 64, 65, 100, 512, 1000} and GQA
   ratios 1, 2, 4, with
   window 64 + softcap 2 and with ``causal=False``; on bf16 slices of one
   packed projection; and a bf16 view whose rows are not 16-byte aligned
-  raises ``ValueError``.
+  raises ``ValueError``. At head dim 256 besides: S in {63, 129} at batch 2
+  and GQA 1 / 2 / 4, S 4096 non-causal (the card's plan, one block looping
+  over 64 key tiles, and a capacity that forces clusters of 8 blocks of 8
+  tiles each), strided views, and two calls on the same inputs bit-equal.
 * The card's ``ServeEngine`` (kernels) gives the CPU port's greedy tokens
   (which ``tests/test_torch_serve.py`` holds to the JAX engine).
 * ``backup_reduce``: the kernel equals its plain version bit for bit over
@@ -210,6 +213,66 @@ def test_flash_bf16_tensor_core_kernel_matches_plain(cuda_device, d, s,
 def test_flash_bf16_tensor_core_kernel_window_softcap_noncausal(
         cuda_device, d, s, causal, window, softcap):
     _flash_bf16_case(cuda_device, s, d, 2, causal, window, softcap)
+
+
+@pytest.mark.parametrize("ratio", [1, 2, 4])
+@pytest.mark.parametrize("s", [63, 129])
+def test_flash_d256_split_kernel_matches_plain(cuda_device, s, ratio):
+    """Head dim 256 at batch 2: a ragged last q tile and bands split over
+    clusters of 2 blocks."""
+    _flash_bf16_case(cuda_device, s, 256, ratio, True, 0, 0.0)
+
+
+# a capacity that splits every band 8 ways
+SPLIT8 = (10 ** 6,) * 4
+
+
+@pytest.mark.parametrize("capacity,plan", [(None, (1, 64)),
+                                           (SPLIT8, (8, 8))])
+def test_flash_d256_long_noncausal_loops_through_the_ring(cuda_device,
+                                                          capacity, plan):
+    """S 4096, non-causal: each block streams T key tiles through its K/V
+    tiles; with clusters of 8, each block takes 8 tiles of a 64-tile band
+    and the merge sums 8 partials."""
+    s = 4096
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               for a in qkv_inputs(41, 1, s, 4, 1, 256, scale=1.0))
+    cap = capacity or tflash._capacity(tflash._load(), q.device)
+    assert tuple(tflash.split_plan(s, 4, 1, False, 0, cap))[:2] == plan
+    before = tflash.launches
+    got = tflash._flash_cuda(q, k, v, False, 0, 0.0, capacity=capacity)
+    want = tflash.flash_attention(q, k, v, causal=False, use_kernel=False)
+    torch.cuda.synchronize()
+    assert tflash.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=4e-3,
+                               rtol=8e-3)
+
+
+def test_flash_d256_reads_strided_inputs(cuda_device):
+    """bf16 q/k/v at head dim 256 as slices of one packed projection: the
+    tensor maps read the b, s and h strides as given."""
+    qkv = torch.randn((2, 77, 4 + 2 + 2, 256), device=cuda_device).to(
+        torch.bfloat16)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    for window, softcap in ((0, 0.0), (40, 2.0)):
+        got = tflash.flash_attention(q, k, v, window=window, softcap=softcap)
+        want = tflash.flash_attention(q, k, v, window=window,
+                                      softcap=softcap, use_kernel=False)
+        torch.testing.assert_close(got.float(), want.float(), atol=4e-3,
+                                   rtol=8e-3)
+
+
+@pytest.mark.parametrize("s", [129, 512])
+def test_flash_d256_repeated_calls_are_bit_equal(cuda_device, s):
+    """The cluster merges its partials in rank order, without atomics."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               for a in qkv_inputs(43, 1, s, 4, 1, 256, scale=1.0))
+    before = tflash.launches
+    first = tflash.flash_attention(q, k, v, window=512)
+    second = tflash.flash_attention(q, k, v, window=512)
+    torch.cuda.synchronize()
+    assert tflash.launches == before + 2
+    assert torch.equal(first, second)
 
 
 def test_flash_bf16_reads_strided_inputs(cuda_device):
