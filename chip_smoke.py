@@ -7,6 +7,7 @@
     python3 chip_smoke.py --serve-only    # phases 22-24 and 18's shrink
     python3 chip_smoke.py --tp-decode-only    # phase 27 alone
     python3 chip_smoke.py --flash-only    # flash attention's phases 3, 25
+    python3 chip_smoke.py --moe-only      # phase 28 alone
 
 Drives the port (``src/repro_torch``) through its own entry points and
 fails (non-zero exit, no result line) if any phase fails:
@@ -140,9 +141,9 @@ fails (non-zero exit, no result line) if any phase fails:
    host wall per step or update, peak memory, and the paper's claims.
    Then rwkv6-1.6b at full width cut to ``RWKV_CONVERGING_LAYERS`` of its
    24 layers (backup 3 + 1, spmd, the same stream and base lr, 12 steps
-   through the graph) through the wkv kernels (counted: 2 x 4 x 4
-   forwards a step, half writing chunk states, 4 x 4 backwards, one
-   reduce) and with ``model.use_kernel = False`` (no wkv
+   through the graph) through the wkv kernels (counted: 2 x L x 4
+   forwards a step at L layers, half writing chunk states, L x 4
+   backwards, one reduce) and with ``model.use_kernel = False`` (no wkv
    launch): both loss trajectories and the relative gap per step are
    printed (every loss finite). Then the ROADMAP Queue 3 controls on the
    same bf16 run, each printed per step beside the kernel's gap: (i) the
@@ -230,7 +231,8 @@ fails (non-zero exit, no result line) if any phase fails:
    steps, no checkpoints): its adapted n below 8 and equal
    to the CPU port's host logic at the same seed; once more with
    ``latency_source='measured'``, n printed (a record).
-22. Telemetry: the phase-6 cell, ``TELEMETRY_STEPS`` steps in chunks of
+22. Telemetry: the phase-6 cell at ``TELEMETRY_LAYERS`` of 28 layers
+   (width unchanged), ``TELEMETRY_STEPS`` steps in chunks of
    ``TELEMETRY_CHUNK`` through the step graph, untraced and then with an
    ``obs.Tracer`` and an ``obs.MetricsRegistry``: losses, masks and
    parameter checksums bit-equal; span names within ``SPAN_NAMES``; one
@@ -300,7 +302,26 @@ fails (non-zero exit, no result line) if any phase fails:
    first decode step's logits within ``TP_LOGITS_REL`` of one card's (the
    gate), tokens compared and the first differing step printed, ms a
    decode step and GB a card.
-28. A JSON line of per-kernel numbers (``launches`` is the count of one
+28. The MoE family. qwen2-moe-a2.7b at full width (24 layers, d_model
+   2048, 60 routed experts top-4 + 4 shared, capacity factor 1.25, vocab
+   151,936, bf16 with the router f32: ``MOE_PARAMS`` parameters, seeded
+   random weights) serves phase 4's 16 requests as phase 4 does (fp and
+   int8 pools, graph decode, the short trace eager, graph == eager,
+   page_gather and flash_attention counted from 0); then a decode step's
+   device ms with every slot live at ``MOE_TIMED_LEN`` tokens beside its
+   bytes bound (every weight but the embedding: the capacity dispatch runs
+   each expert's product however few tokens it holds), the paged
+   prefill's device ms per bucket of ``MOE_PREFILL_BUCKETS`` and the
+   serve runs' peak memory. At 2 layers f32 (full width, capacity 1.25:
+   one token an expert at 8 slots, so decode drops) the kernel path serves
+   the plain path's tokens, fp and int8 pools. Training at
+   ``MOE_TRAIN_LAYERS`` of 24 layers (full width; the full model's [W, P]
+   stack does not fit the card): backup 3 + 1, spmd at grad_batch 0, no
+   EMA (with it the run came within a few GB of the card's memory),
+   ``MOE_TRAIN_STEPS`` steps eagerly and as one chunk through the CUDA
+   graph, bit-equal, losses and aux finite, one backup_reduce a step
+   (counted from 0). ``--moe-only`` runs the build and this phase alone.
+29. A JSON line of per-kernel numbers (``launches`` is the count of one
    run of the main path that launches the kernel, named by
    ``launches_run``: the graph-decode serve runs, whose prefills stay
    eager, and the graph training runs; ``launches_batched_and_mesh``: those
@@ -308,11 +329,12 @@ fails (non-zero exit, no result line) if any phase fails:
    phase 21's supervised run; ``launches_telemetry``: phase 22's three
    runs; ``launches_router``: phase 24's first router run;
    ``launches_dense``: phase 25's runs; ``launches_toy``: phase 26's rwkv6
-   prefill; flash at head_dim 256 is its own row, with ``ptxas``), then, as
-   the last line, ``{"ok": true, "device": {...}}``.
+   prefill; ``launches_moe``: phase 28's serve runs and training chunk;
+   flash at head_dim 256 is its own row, with ``ptxas``), then, as the last
+   line, ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero when ``torch.cuda.is_available()`` is false.
-A line ``[time] phase N: s`` follows each of phases 16-27.
+A line ``[time] phase N: s`` follows each of phases 16-28.
 """
 from __future__ import annotations
 
@@ -357,11 +379,12 @@ FALL_NATS = 3.0
 RWKV_CONVERGING_STEPS = 12
 # phase 16's rwkv6-1.6b runs, cut in depth (of 24 layers) so that phases
 # 22-24 fit the call: five bf16 runs and the controls took ~130 s at 24
-RWKV_CONVERGING_LAYERS = 4
+# (4, then 2 so that phase 28 fits too)
+RWKV_CONVERGING_LAYERS = 2
 # phase 16's Figs. 8/9 regimes on qwen3-0.6b and phase 17's eps record,
 # cut in depth (of 28 layers) so that phases 25-27 fit the call: the
-# regimes took 72 s at 28 layers
-FIGS89_LAYERS = 4
+# regimes took 72 s at 28 layers (4, then 2 so that phase 28 fits too)
+FIGS89_LAYERS = 2
 EPS_RECORD_LAYERS = 4
 # phase 17: (arch, grad_batch values) of the batched full-width runs.
 # rwkv6-1.6b at 0 (all 4 workers) runs out of the card's memory: at 2 it
@@ -414,9 +437,12 @@ FAULT_LOG = [
 DYNAMIC_STEPS = 16
 # phase 18's last part: steps of the run whose kill shrinks the data axis
 SHRINK_STEPS = 6
-# phase 22: the phase-6 cell's steps and chunk, traced and untraced
+# phase 22: the phase-6 cell's steps and chunk, traced and untraced, and
+# its depth (of 28 layers; cut so that phase 28 fits the call: three
+# captures at 28 layers took ~10 s each on a slow host)
 TELEMETRY_STEPS = 8
 TELEMETRY_CHUNK = 4
+TELEMETRY_LAYERS = 4
 # phase 24: the router's replicas, trace (arrivals 4 virtual units apart on
 # average, so the SLO run's gate trips while requests still arrive),
 # hedging floor and chaos plan (virtual units: decode steps)
@@ -473,6 +499,16 @@ TOY_F32_REL = 1e-4
 # the head's largest value), so its limit is an eighth of a step
 TP_LOGITS_REL = 3e-2
 TP_SMALL_LOGITS_REL = {"fp": 1e-5, "int8": 1e-3}
+# phase 28: qwen2-moe-a2.7b's parameters (repro.models.registry.param_count
+# of the reference), the slots' length and steps of the timed decode, the
+# prefill buckets timed, and the training run's depth (of 24 layers: the
+# [W, P] f32 stack of the full model alone would take 229 GB) and steps
+MOE_PARAMS = 14_315_587_584
+MOE_TIMED_LEN = 256
+MOE_TIMED_STEPS = 20
+MOE_PREFILL_BUCKETS = (64, 128, 256, 512)
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_STEPS = 2
 
 
 def _log(msg: str) -> None:
@@ -784,13 +820,17 @@ def _serve_phase(torch, kernels):
 
 
 def _serve_runs(torch, cfg, model, kernels, label, trace,
-                pools=("fp", "int8"), short=None):
+                pools=("fp", "int8"), short=None, short_clock="wall"):
     """Serve ``trace`` through ``ServeEngine`` with graph decode at phase
     4's geometry, one run a pool of ``pools`` (each engine warmed up and
     its graph captured on a 2-request trace first). With ``short`` (a
     trace of a few new tokens a request: eager decode steps cost the call
     40-90 ms each, host-bound), an eager engine serves it too, and so does
-    the graph engine, to the same tokens. Counters are set to 0 just
+    the graph engine, to the same tokens (with ``short_clock`` "virtual"
+    both on the virtual clock, in a graph engine of its own: an MoE
+    model's tokens depend on which requests share a decode step, and the
+    wall clock admits them at times that vary run to run). Counters are
+    set to 0 just
     before each run and read just after. Every run must complete, capture
     decode once and launch page gather twice a layer a decode step and
     flash once a layer an admission. Returns {tag: report and counts}
@@ -807,8 +847,8 @@ def _serve_runs(torch, cfg, model, kernels, label, trace,
                                                                   trace)]
         for graph, tr in engines:
             engine = ServeEngine(cfg, model, cache_int8=pool == "int8",
-                                 clock="wall", decode_graph=graph,
-                                 **_serve_cfg())
+                                 clock="wall" if graph else short_clock,
+                                 decode_graph=graph, **_serve_cfg())
             if graph:
                 engine.run(warm)          # warmup and capture
                 graph_engine = engine
@@ -835,7 +875,8 @@ def _serve_runs(torch, cfg, model, kernels, label, trace,
                 raise AssertionError(
                     f"[{label} {tag}] launches gather={n_gather} (expected "
                     f"{want_gather}) flash={n_flash} (expected {want_flash})")
-            runs[tag] = dict(report=report, gather=n_gather, flash=n_flash)
+            runs[tag] = dict(report=report, gather=n_gather, flash=n_flash,
+                             peak=torch.cuda.max_memory_allocated())
             if graph:
                 g = engine._decode_graph
                 _log(f"[{label} {tag}] decode graph: {g.captures} capture "
@@ -856,6 +897,11 @@ def _serve_runs(torch, cfg, model, kernels, label, trace,
                  f"page_gather={n_gather} flash_attention={n_flash}")
         if short:
             eager = runs[pool]["report"].tokens_by_rid()
+            if short_clock != "wall":
+                graph_engine = ServeEngine(cfg, model,
+                                           cache_int8=pool == "int8",
+                                           clock=short_clock,
+                                           decode_graph=True, **_serve_cfg())
             if graph_engine.run(short).tokens_by_rid() != eager:
                 raise AssertionError(f"[{label} {pool}] graph-decode tokens "
                                      f"differ from eager decode")
@@ -3151,8 +3197,10 @@ def _telemetry_phase(torch, backup_reduce):
     from repro_torch.core.straggler import PaperCalibrated
     from repro_torch.launch.profile_train import train_config
     from repro_torch.train.loop import Trainer
-    cfg = dataclasses.replace(train_config(steps=TELEMETRY_STEPS),
-                              chunk_size=TELEMETRY_CHUNK)
+    cfg = train_config(steps=TELEMETRY_STEPS)
+    cfg = dataclasses.replace(
+        cfg, chunk_size=TELEMETRY_CHUNK, model=dataclasses.replace(
+            cfg.model, num_layers=TELEMETRY_LAYERS))
     runs = {}
     # in turns, so the card's state between runs does not pass for the
     # tracer's cost
@@ -3226,7 +3274,8 @@ def _telemetry_phase(torch, backup_reduce):
         return [e["dur"] / 1e3 for e in events if e["name"] == name]
 
     fence = dur_ms("spmd/collective_wait") + dur_ms("train/device_wait")
-    _log(f"[telemetry] qwen3-0.6b full width, backup 6+2 spmd, "
+    _log(f"[telemetry] qwen3-0.6b full width at {TELEMETRY_LAYERS} of 28 "
+         f"layers, backup 6+2 spmd, "
          f"{TELEMETRY_STEPS} steps in chunks of {TELEMETRY_CHUNK} through "
          f"the graph: traced run == untraced run ({TELEMETRY_STEPS} losses,"
          f" masks and {traced['sums'].numel()} parameter checksums "
@@ -4032,12 +4081,222 @@ def _tp_decode_phase(torch):
              f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the MoE family (qwen2-moe-a2.7b) on the paged path and training
+# ---------------------------------------------------------------------------
+
+
+def _moe_decode_ms(torch, engine, steps=MOE_TIMED_STEPS):
+    """Device ms of one decode step of ``engine`` (its captured graph)
+    with every slot live at ``MOE_TIMED_LEN`` tokens: CUDA events around
+    ``steps`` steps, over the step count (host gaps between replays
+    included, a few tens of microseconds against milliseconds)."""
+    import numpy as np
+    cfg = engine.pool_cfg
+    state = np.zeros((cfg.num_slots, 2 + cfg.max_pages_per_slot), np.int32)
+    state[:, 1] = MOE_TIMED_LEN
+    state[:, 2:] = 1 + np.arange(cfg.num_slots * cfg.max_pages_per_slot
+                                 ).reshape(cfg.num_slots, -1)
+    for _ in range(2):
+        engine._decode_step(state, engine._bufs, engine._decode_graph)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        engine._decode_step(state, engine._bufs, engine._decode_graph)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def _moe_prefill_ms(torch, engine, buckets):
+    """Device ms of one paged prefill per bucket (CUDA events, median of
+    3 after a warm call), prompts of the bucket's full length into pages
+    1.. of the engine's pool."""
+    import numpy as np
+    out = {}
+    ps = engine.page_size
+    for bucket in buckets:
+        n_pages = bucket // ps
+        packed = np.zeros((1 + n_pages + bucket,), np.int32)
+        packed[0] = bucket
+        packed[1:1 + n_pages] = 1 + np.arange(n_pages)
+        packed[1 + n_pages:] = np.arange(bucket) % engine.cfg.vocab_size
+        dev = torch.from_numpy(packed).to(engine.device)
+        times = []
+        for i in range(4):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            engine._prefill(dev, bucket, n_pages, engine._bufs)
+            end.record()
+            torch.cuda.synchronize()
+            if i:
+                times.append(start.elapsed_time(end))
+        out[bucket] = statistics.median(times)
+    return out
+
+
+def _moe_serve(torch, kernels):
+    """qwen2-moe-a2.7b at full width on phase 4's 16 requests (fp and int8
+    pools, graph decode; the short trace eager, graph == eager), then the
+    decode step's device ms against its bytes bound and the prefill's per
+    bucket. Returns the launch counts per run."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.serve import ServeEngine
+    cfg = configs.get_config("qwen2-moe-a2.7b")
+    model = _full_width_model(torch, cfg)
+    named = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in named.values())
+    routers = {p.dtype for k, p in named.items() if k.endswith("router.w")}
+    if n_params != MOE_PARAMS or routers != {torch.float32}:
+        raise AssertionError(f"[moe] {n_params} params (expected "
+                             f"{MOE_PARAMS}), router dtypes {routers}")
+    runs = _serve_runs(torch, cfg, model, kernels, "moe qwen2-moe-a2.7b",
+                       _serve_trace(cfg, 16, seed=0),
+                       short=_serve_trace(cfg, SHORT_REQUESTS, seed=0,
+                                          new=SHORT_NEW),
+                       short_clock="virtual")
+    peak = max(r["peak"] for r in runs.values())
+    # a decode step reads every weight but the embedding's rows: the
+    # capacity dispatch runs each expert's bmm however few tokens it holds
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for k, p in named.items() if not k.startswith("embed"))
+    engine = ServeEngine(cfg, model, clock="wall", **_serve_cfg())
+    engine.run(_serve_trace(cfg, 2, seed=1, new=(4, 4)))  # pool and graph
+    pc = engine.pool_cfg
+    kv_bytes = (2 * 2 * cfg.num_layers * pc.num_slots * pc.max_pages_per_slot
+                * pc.page_size * pc.kv_heads * pc.head_dim * 2)
+    bound = weight_bytes / PEAK_BYTES_PER_S * 1e3
+    bound_kv = (weight_bytes + kv_bytes) / PEAK_BYTES_PER_S * 1e3
+    ms = _moe_decode_ms(torch, engine)
+    prefill = _moe_prefill_ms(torch, engine, MOE_PREFILL_BUCKETS)
+    tok_ms = {t: 1e3 * r["report"].metrics["decode_s"]
+              / r["report"].metrics["decode_steps"] for t, r in runs.items()}
+    _log(f"[moe serve] decode step, {pc.num_slots} slots live at "
+         f"{MOE_TIMED_LEN} tokens, fp pool, graph: {ms:.3f} ms device "
+         f"(event-timed, {MOE_TIMED_STEPS} steps) | bytes bound "
+         f"{bound:.3f} ms ({weight_bytes} weight bytes, all 60 experts a "
+         f"layer, at {PEAK_BYTES_PER_S / 1e12} TB/s), {bound_kv:.3f} ms with "
+         f"the page gathers' {kv_bytes} bytes | {bound / ms:.1%} of the "
+         f"weights bound | engine runs' host ms/step: "
+         f"{', '.join(f'{t} {v:.3f}' for t, v in tok_ms.items())}")
+    _log(f"[moe serve] paged prefill device ms per bucket: "
+         f"{', '.join(f'{b}: {v:.3f}' for b, v in prefill.items())} | peak "
+         f"device memory {peak / 1e9:.3f} GB allocated (the most of the serve "
+         f"runs) "
+         f"({n_params} params, router f32)")
+    counts = {t: (r["gather"], r["flash"]) for t, r in runs.items()}
+    del model, runs, engine, named
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _moe_kernel_vs_plain(torch):
+    """At 2 layers f32 (full width, capacity 1.25: 8 slots hold one token
+    an expert in decode) the kernel path serves the plain path's tokens,
+    fp and int8 pools."""
+    from repro_torch import configs
+    from repro_torch.serve import TraceConfig, make_trace
+    full = configs.get_config("qwen2-moe-a2.7b")
+    cfg = dataclasses.replace(full, num_layers=2, dtype="float32")
+    trace = make_trace(TraceConfig(
+        num_requests=8, rate=1000.0, prompt_len_min=16, prompt_len_max=256,
+        max_new_min=8, max_new_max=32, vocab=cfg.vocab_size, seed=2))
+    _hold_kernel_to_plain(torch, cfg, "qwen2-moe-a2.7b", trace, num_slots=8,
+                          page_size=16, max_prompt_len=256, max_new_cap=32)
+    cap = int(max(1, full.moe.capacity_factor * 8 * full.moe.top_k
+                  / full.moe.num_experts))
+    _log(f"[e2e] qwen2-moe-a2.7b decode capacity at 8 slots: {cap} token "
+         f"an expert (capacity_factor {full.moe.capacity_factor})")
+
+
+def _moe_train(torch, backup_reduce):
+    """qwen2-moe-a2.7b at ``MOE_TRAIN_LAYERS`` of 24 layers (full width),
+    backup 3 + 1, spmd at grad_batch 0, no EMA: 2 steps eagerly, then as
+    one chunk of 2 through the CUDA graph, bit-equal; losses and aux
+    finite, one backup_reduce a step. Returns the graph run's launches.
+    The EMA (7 GB of f32 at P = 1,763,436,544) is left out: with it the
+    graph run peaked at 71.9 GB allocated, 83.7 GB reserved, and after
+    the call's earlier phases ran out of the card's memory."""
+    import gc
+    from repro_torch.core.straggler import PaperCalibrated
+    from repro_torch.launch.profile_train import train_config
+    from repro_torch.train.loop import run_experiment
+    base = train_config("qwen2-moe-a2.7b", steps=MOE_TRAIN_STEPS,
+                        grad_batch=0)
+    cfg = dataclasses.replace(
+        base, model=dataclasses.replace(base.model,
+                                        num_layers=MOE_TRAIN_LAYERS),
+        optimizer=dataclasses.replace(base.optimizer, ema_decay=0.0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backup_reduce.launches = 0
+    t0 = time.perf_counter()
+    with _planned_masks() as masks:
+        res = run_experiment(cfg, latency=PaperCalibrated(), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eager = dict(metrics=res.metrics, sums=_param_sums(torch, res.params),
+                 masks=masks)
+    n_params = sum(v.numel() for v in res.params.values())
+    launches, peak = backup_reduce.launches, torch.cuda.max_memory_allocated()
+    for m in res.metrics:
+        _log(f"[moe train eager] step {m['step']} loss {m['loss']:.6f} aux "
+             f"{m['aux_loss']:.6g} sim_time {m['sim_time']:.6f} selected "
+             f"{m['selected']}")
+    bad = [m["step"] for m in res.metrics
+           if not (math.isfinite(m["loss"]) and math.isfinite(m["aux_loss"])
+                   and m["aux_loss"] > 0)]
+    if bad or launches != MOE_TRAIN_STEPS:
+        raise AssertionError(f"[moe train eager] steps with a non-finite "
+                             f"loss or aux: {bad}; backup_reduce launches "
+                             f"{launches} (expected {MOE_TRAIN_STEPS})")
+    _log(f"[moe train eager] {MOE_TRAIN_LAYERS} of 24 layers, full width, "
+         f"{n_params} params, backup 3+1, spmd grad_batch 0, no EMA, "
+         f"{cfg.shape.global_batch} x {cfg.shape.seq_len} tokens a step: "
+         f"ms/step {', '.join(f'{1e3 * t:.1f}' for t in res.step_times_s)}"
+         f" ({wall:.1f} s) | backup_reduce launches {launches} | peak "
+         f"device memory {peak / 1e9:.3f} GB")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    metrics, (graph_launches,), sums, gmasks, stats = _graph_train_run(
+        torch, cfg, ((backup_reduce, "launches"),), "moe")
+    if graph_launches != MOE_TRAIN_STEPS:
+        raise AssertionError(f"[moe train graph] backup_reduce launches "
+                             f"{graph_launches}, expected {MOE_TRAIN_STEPS}")
+    if not all(math.isfinite(m["aux_loss"]) for m in metrics):
+        raise AssertionError("[moe train graph] non-finite aux loss")
+    _hold_graph_to_eager("moe train", eager, metrics, sums, gmasks)
+    return graph_launches
+
+
+def _moe_phase(torch, kernels, backup_reduce):
+    """Phase 28: serving at full width, kernel == plain at 2 layers f32,
+    training at reduced depth. Returns {run: launches} per counter. The
+    engines and graphs of a run hold one another in cycles: collected
+    before the next run, or the training run (~72 GB at its peak) finds
+    their memory still held."""
+    import gc
+    with torch.inference_mode():
+        serve = _moe_serve(torch, kernels)
+        _moe_kernel_vs_plain(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reduce = _moe_train(torch, backup_reduce)
+    return dict(serve=serve, backup_reduce=reduce)
+
+
 def main(argv) -> int:
     # cuBLAS picks the same algorithms run to run (the kernel and plain
     # training runs must compute the same first-step gradients)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     entries = ("--mesh-only", "--faults-only", "--serve-only",
-               "--tp-decode-only", "--flash-only")
+               "--tp-decode-only", "--flash-only", "--moe-only")
     if argv and (len(argv) > 1 or argv[0] not in entries):
         print(f"chip_smoke: unknown arguments {argv} (none, or one of "
               f"{', '.join(entries)})", file=sys.stderr)
@@ -4107,6 +4366,11 @@ def main(argv) -> int:
         _slice_phases(torch, backup_reduce, page_gather, flash_attention)
         torch.cuda.empty_cache()
         _shrink_phase(torch)
+        return 0
+    if argv == ["--moe-only"]:          # phase 28 alone
+        t0 = time.perf_counter()
+        _moe_phase(torch, (page_gather, flash_attention), backup_reduce)
+        _log(f"[time] phase 28: {time.perf_counter() - t0:.1f} s")
         return 0
 
     # 3. the serve kernels at the serve path's shapes (its maxp and pool)
@@ -4271,11 +4535,31 @@ def main(argv) -> int:
                 tag: n[key] for tag, n in {**batched, **meshed}.items()
                 if n[key]}
 
-    # 28. results
+    # 28. the MoE family: qwen2-moe-a2.7b served at full width, trained
+    # at reduced depth
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    moe = _moe_phase(torch, (page_gather, flash_attention), backup_reduce)
+    for row in rows:
+        if row["name"] in ("page_gather", "page_gather_dequant"):
+            pool = "int8" if row["name"] == "page_gather_dequant" else "fp"
+            row["launches_moe"] = {
+                f"qwen2-moe-a2.7b {t}": n[0]
+                for t, n in moe["serve"].items() if t.startswith(pool)}
+        elif row["name"] == "flash_attention":    # D = 128
+            row["launches_moe"] = {f"qwen2-moe-a2.7b {t}": n[1]
+                                   for t, n in moe["serve"].items()}
+        elif row["name"] == "backup_reduce":
+            row["launches_moe"] = {
+                "qwen2-moe-a2.7b train 2 layers, one chunk of 2 (graph)":
+                    moe["backup_reduce"]}
+    _log(f"[time] phase 28: {time.perf_counter() - t0:.1f} s")
+
+    # 29. results
     keys = ("name", "route", "source", "replaces", "launches", "launches_run",
             "launches_batched_and_mesh", "launches_faults",
             "launches_telemetry", "launches_router", "launches_dense",
-            "launches_toy", "max_abs_err", "ms", "plain_ms",
+            "launches_toy", "launches_moe", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "by_s", "splits",
             "capacity", "ptxas")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

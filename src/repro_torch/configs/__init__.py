@@ -15,6 +15,7 @@ from repro_torch.configs.base import (  # noqa: F401
     SSMConfig, TrainConfig)
 
 _ARCH_MODULES: Dict[str, str] = {
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "gemma3-1b": "gemma3_1b",
     "qwen3-0.6b": "qwen3_0_6b",
     "minitron-4b": "minitron_4b",

@@ -33,6 +33,7 @@ a Python loop on the CPU.
 """
 from __future__ import annotations
 
+import gc
 import time
 import weakref
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
@@ -124,14 +125,22 @@ class StepGraph:
             t.record_stream(cur)
         t0 = time.perf_counter()
         torch.cuda.synchronize(self.device)
+        # dead cycles (an earlier engine's graph, events) are freed now and
+        # the cyclic collector stays off during the capture: a CUDA graph
+        # or event destroyed while the stream captures invalidates it
+        gc.collect()
         torch.cuda.empty_cache()
         before = counters.read()
         graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool,
                                   stream=self._stream):
                 outputs = self.fn(self.static)
         finally:
+            if collecting:
+                gc.enable()
             self._launches = counters.since(before)
             counters.write(before)          # the capture launched nothing
         torch.cuda.synchronize(self.device)

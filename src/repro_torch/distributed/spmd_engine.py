@@ -104,6 +104,16 @@ def check_mesh(mesh_data: int, mesh_model: int) -> None:
                          f"{mesh_model})")
 
 
+def check_moe_tp(model_cfg, mesh_model: int) -> None:
+    """Refuse the ``'model'`` axis for an MoE config: tensor parallelism
+    of the MoE family is not ported (ROADMAP Queue 1 item 9)."""
+    if mesh_model > 1 and model_cfg is not None and model_cfg.moe.enabled:
+        raise NotImplementedError(
+            f"mesh_model={mesh_model} on the MoE config {model_cfg.name!r}: "
+            f"tensor parallelism of the MoE family is not ported yet "
+            f"(ROADMAP Queue 1 item 9); use mesh_model=1")
+
+
 def resolve_tp(model_cfg, mesh_model: int) -> sharding.TPPlan:
     """The TP plan for a ``'model'`` axis of ``mesh_model`` ranks and a
     model config. Warns when ``mesh_model > 1`` but no parameter group can
@@ -327,7 +337,9 @@ def build_spmd_step(model, optimizer: opt_lib.Optimizer, *,
     was built from; None for a model without one) ``model`` is made this
     rank's slice in place (``convert.shard_model``) before anything else:
     build the optimizer state and EMA after this call. A live ``tracer``
-    brackets each call with the ``spmd/*`` spans (``_traced``)."""
+    brackets each call with the ``spmd/*`` spans (``_traced``). An MoE
+    config at ``mesh_model > 1`` raises ``NotImplementedError``."""
+    check_moe_tp(model_cfg, mesh_model)
     check_mesh(mesh_data, mesh_model)
     if num_workers % mesh_data:
         raise ValueError(

@@ -72,7 +72,10 @@ SOFTSYNC_C = 4
 # arch -> backup (N, b). rwkv6-1.6b: P = 1,584,095,232, so the [W, P] f32
 # stack is 6.34 GB per worker beside 12.67 GB of rmsprop_momentum state and
 # 6.34 GB each of EMA and f32 aggregate: W = 4 needs ~65 GB, W = 8 ~91 GB.
-WORKERS = {"qwen3-0.6b": (6, 2), "rwkv6-1.6b": (3, 1)}
+# qwen2-moe-a2.7b trains on the card only cut in depth (at 24 layers its
+# [W, P] f32 stack alone is 57 GB a worker); its W = 4 as rwkv6-1.6b's.
+WORKERS = {"qwen3-0.6b": (6, 2), "rwkv6-1.6b": (3, 1),
+           "qwen2-moe-a2.7b": (3, 1)}
 
 
 def train_config(arch: str = "qwen3-0.6b", *, backend: str = "spmd",

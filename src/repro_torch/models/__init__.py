@@ -1,4 +1,5 @@
-"""Model zoo of the port (the dense transformer and RWKV-6 families so far).
+"""Model zoo of the port (the dense and MoE transformer and RWKV-6 families
+so far).
 Reference: ``src/repro/models/``."""
 from repro_torch.models.convert import (from_jax_tree, load_jax_params,
                                         to_jax_tree)

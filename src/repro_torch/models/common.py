@@ -214,8 +214,9 @@ class Remat(torch.autograd.Function):
     again under ``torch.func.vjp``. Under ``vmap`` PyTorch derives the
     batched rule from these (``generate_vmap_rule``). ``fn`` takes every
     other argument from its closure (which must hold no tensor the caller
-    differentiates or vmaps), returns one tensor and draws no random
-    numbers. Gradients flow to the floating-point inputs."""
+    differentiates or vmaps), returns one tensor or a tuple of them (an
+    MoE block's output and aux loss) and draws no random numbers.
+    Gradients flow to the floating-point inputs."""
 
     generate_vmap_rule = True
 
@@ -229,7 +230,7 @@ class Remat(torch.autograd.Function):
         ctx.save_for_backward(*inputs[1:])
 
     @staticmethod
-    def backward(ctx, grad_out):
+    def backward(ctx, *grad_outs):
         args = ctx.saved_tensors
         diff = [i for i, a in enumerate(args) if a.is_floating_point()]
 
@@ -241,7 +242,8 @@ class Remat(torch.autograd.Function):
 
         _, pull = torch.func.vjp(again, *(args[i] for i in diff))
         grads = [None] * len(args)
-        for i, g in zip(diff, pull(grad_out)):
+        cot = grad_outs[0] if len(grad_outs) == 1 else grad_outs
+        for i, g in zip(diff, pull(cot)):
             grads[i] = g
         return (None, *grads)
 
@@ -260,8 +262,7 @@ def param_tree(names: Sequence[str], leaves: Sequence[torch.Tensor]
     return root
 
 
-def remat_module(fn: Callable, params: nn.Module, x: torch.Tensor,
-                 ) -> torch.Tensor:
+def remat_module(fn: Callable, params: nn.Module, x: torch.Tensor):
     """``fn(tree, x)`` through :class:`Remat`, ``tree`` being
     ``params``' tensors (the swapped-in ones under
     ``torch.func.functional_call``) as a nested dict."""

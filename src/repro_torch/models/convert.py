@@ -8,7 +8,10 @@ into the port's model of the same family:
 
 * stacked per-layer leaves are unstacked into the model's module list:
   ``seg_dense/<path>[L, ...]`` into ``layers.<i>.<path>`` (dense family),
-  ``blocks/<path>[L, ...]`` into ``blocks.<i>.<path>`` (RWKV);
+  ``seg_moe/<path>[L_moe, ...]`` into ``layers.<first_dense + i>.<path>``
+  (MoE family; ``first_dense`` is the ``seg_dense`` stack's depth, 0
+  without one), ``blocks/<path>[L, ...]`` into ``blocks.<i>.<path>``
+  (RWKV);
 * every other leaf maps to the module parameter of the same path
   (``embed/embedding`` -> ``embed.embedding``).
 
@@ -19,8 +22,10 @@ shape mismatch, raises ``ValueError`` naming every offender.
 ``to_jax_tree(named)`` is the inverse mapping on any dict keyed by module
 parameter names (the parameters, and the optimizer's and the EMA's
 per-parameter dicts, which mirror them): ``layers.<i>.<path>`` leaves are
-restacked into ``seg_dense/<path>[L, ...]`` and ``blocks.<i>.<path>``
-into ``blocks/<path>[L, ...]``, the rest nest by their dotted path.
+restacked into ``seg_dense/<path>[L, ...]``, from the first layer that
+holds an ``moe`` leaf on into ``seg_moe/<path>[L_moe, ...]``, and
+``blocks.<i>.<path>`` into ``blocks/<path>[L, ...]``; the rest nest by
+their dotted path.
 ``from_jax_tree`` flattens a reference tree to those names.
 
 Tensor parallelism (the spmd engine's ``'model'`` axis) keeps a rank's
@@ -62,8 +67,8 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict:
 
 
 # the reference's stacked root -> the port's module list, and back
-_STACKED = {"seg_dense": "layers", "blocks": "blocks"}
-_RESTACKED = {v: k for k, v in _STACKED.items()}
+_STACKED = {"seg_dense": "layers", "seg_moe": "layers", "blocks": "blocks"}
+_RESTACKED = {"layers": "seg_dense", "blocks": "blocks"}
 
 
 def _take(arr, i: int, axis: int):
@@ -74,17 +79,20 @@ def _take(arr, i: int, axis: int):
 
 def _to_module_leaves(flat: Dict, axis: int = 0) -> Dict:
     """JAX paths -> state-dict names, unstacking per-layer leaves (their
-    layer axis is ``axis``)."""
+    layer axis is ``axis``); ``seg_moe`` layers follow ``seg_dense``'s."""
+    first_dense = next((arr.shape[axis] for path, arr in flat.items()
+                        if path.startswith("seg_dense/")), 0)
     out: Dict = {}
     for path, arr in flat.items():
         head, _, rest = path.partition("/")
         if head in _STACKED:
+            base = first_dense if head == "seg_moe" else 0
             for i in range(arr.shape[axis]):
-                out[f"{_STACKED[head]}.{i}.{rest.replace('/', '.')}"] = \
-                    _take(arr, i, axis)
+                out[f"{_STACKED[head]}.{base + i}."
+                    f"{rest.replace('/', '.')}"] = _take(arr, i, axis)
         elif head.startswith("seg_"):
-            raise ValueError(f"{path}: only the dense segment (seg_dense) is "
-                             f"ported")
+            raise ValueError(f"{path}: only the dense and MoE segments "
+                             f"(seg_dense, seg_moe) are ported")
         else:
             out[path.replace("/", ".")] = arr
     return out
@@ -102,7 +110,8 @@ def from_jax_tree(tree: Mapping, axis: int = 0) -> Dict:
 def to_jax_tree(named: Mapping, axis: int = 0) -> Dict:
     """``{module parameter name: leaf}`` (numpy arrays or tensors) -> the
     reference's nested tree, per-layer leaves restacked into
-    ``seg_dense/<path>[L, ...]`` or ``blocks/<path>[L, ...]``. With
+    ``seg_dense/<path>[L, ...]`` (MoE layers: ``seg_moe``) or
+    ``blocks/<path>[L, ...]``. With
     ``axis`` 1 the leaves are stacks ``[W, ...]`` and the layer axis goes
     second (``[W, L, ...]``), as in the reference's stacked trees."""
     layers: Dict[tuple, Dict[int, np.ndarray]] = {}
@@ -122,12 +131,23 @@ def to_jax_tree(named: Mapping, axis: int = 0) -> Dict:
             layers.setdefault((head, leaf), {})[int(idx)] = arr
         else:
             put(name.split("."), arr)
+    # an MoE model's layers from its first one with an moe leaf on
+    first_moe = min((i for (head, leaf), by_layer in layers.items()
+                     if head == "layers" and leaf.startswith("moe.")
+                     for i in by_layer), default=None)
+    stacks: Dict[tuple, Dict[int, np.ndarray]] = {}
     for (head, leaf), by_layer in layers.items():
+        for i, arr in by_layer.items():
+            root, j = _RESTACKED[head], i
+            if head == "layers" and first_moe is not None and i >= first_moe:
+                root, j = "seg_moe", i - first_moe
+            stacks.setdefault((root, head, leaf), {})[j] = arr
+    for (root, head, leaf), by_layer in stacks.items():
         if sorted(by_layer) != list(range(len(by_layer))):
             raise ValueError(f"{head}.*.{leaf}: layers {sorted(by_layer)} "
                              f"are not 0..L-1")
         rows = [by_layer[i] for i in range(len(by_layer))]
-        put([_RESTACKED[head]] + leaf.split("."),
+        put([root] + leaf.split("."),
             torch.stack(rows, dim=axis) if isinstance(rows[0], torch.Tensor)
             else np.stack(rows, axis=axis))
     return tree

@@ -1,5 +1,5 @@
 """Model registry: family -> model class. Reference:
-``src/repro/models/registry.py`` (``get_model``; the dense and ssm
+``src/repro/models/registry.py`` (``get_model``; the dense, moe and ssm
 families)."""
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ def get_model(cfg, *, device=None,
               generator: Optional[torch.Generator] = None):
     """Build and initialize the model for ``cfg`` on ``device`` (``None``
     means ``cuda``)."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         from repro_torch.models import transformer
         return transformer.make(cfg, device=device, generator=generator)
     if cfg.family == "ssm":
@@ -21,4 +21,4 @@ def get_model(cfg, *, device=None,
     raise NotImplementedError(
         f"model family {cfg.family!r} is not ported yet (the remaining model "
         f"families slice, ROADMAP Queue 1 item 9); repro_torch runs the "
-        f"dense and ssm (rwkv6) families")
+        f"dense, moe and ssm (rwkv6) families")

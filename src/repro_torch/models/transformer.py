@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family.
+"""Decoder-only transformer LM, the dense and MoE families.
 Reference: ``src/repro/models/transformer.py`` (``segments``,
 ``layer_windows_np``, ``block_init`` / ``block_apply``, ``_remat_wrap``
 (``none``, ``full`` and ``dots``: ``dots_with_no_batch_dims_saveable``)
@@ -23,10 +23,18 @@ and hidden width, its embedding the local vocabulary rows, and the tied
 head reads them transposed, so the logits are the local vocabulary
 columns.
 
-The reference scans stacked ``seg_dense`` leaves ``[L, ...]``; here the
-layers are an ``nn.ModuleList`` of per-layer ``nn.ModuleDict``s with the
-same keys (``ln1``, ``attn``, ``ln2``, ``mlp``). The weights are trainable
-parameters; the serve path runs under ``torch.inference_mode``.
+The reference scans stacked ``seg_dense`` / ``seg_moe`` leaves
+``[L, ...]``, one scan a segment; here the layers are one
+``nn.ModuleList`` of per-layer ``nn.ModuleDict``s with the same keys
+(``ln1``, ``attn``, ``ln2``, and ``mlp`` on a dense layer or ``moe`` on an
+MoE one), ``layers.<i>`` being the model's layer ``i`` whatever its
+segment (``kinds[i]`` names it). The weights are trainable parameters;
+the serve path runs under ``torch.inference_mode``.
+
+MoE (``models.moe``): an MoE layer's FFN routes the block's ``[B * S, d]``
+rows through ``moe.moe_apply`` under ``cfg.moe.capacity_factor``, with no
+tensor-parallel hooks around it (as in the reference), and its aux loss
+is summed over the layers into ``per_token_loss``'s second output.
 
 Remat (``run_remat``): 'full' runs each layer through
 ``common.Remat``, an ``autograd.Function`` that ``torch.func`` goes
@@ -47,7 +55,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.distributed import tp
-from repro_torch.models import attention, common, mlp
+from repro_torch.models import attention, common, mlp, moe
 
 # padded_vocab * seq above this: cross entropy chunked over tokens (the
 # reference's switch in ``per_token_loss``)
@@ -55,12 +63,21 @@ CHUNKED_CE_THRESHOLD = 32_000_000
 
 
 def segments(cfg) -> List[Tuple[str, int, int]]:
-    """[(kind, count, first_layer_index)] — homogeneous layer groups."""
+    """[(kind, count, first_layer_index)] — homogeneous layer groups: an
+    MoE model's leading ``first_dense`` dense layers, then its MoE ones."""
     if cfg.moe.enabled:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (the remaining model families, "
-            "ROADMAP Queue 1 item 9); repro_torch serves the dense family")
+        fd = cfg.moe.first_dense
+        out = []
+        if fd > 0:
+            out.append(("dense", fd, 0))
+        out.append(("moe", cfg.num_layers - fd, fd))
+        return out
     return [("dense", cfg.num_layers, 0)]
+
+
+def layer_kinds(cfg) -> List[str]:
+    """Each layer's segment kind, in layer order."""
+    return [kind for kind, count, _ in segments(cfg) for _ in range(count)]
 
 
 def layer_windows_np(cfg) -> np.ndarray:
@@ -75,31 +92,53 @@ def layer_windows_np(cfg) -> np.ndarray:
 
 
 def block_init(gen, cfg, kind: str, dtype, device=None) -> nn.ModuleDict:
-    if kind != "dense" or cfg.attention_kind != "gqa":
+    if kind not in ("dense", "moe") or cfg.attention_kind != "gqa":
         raise NotImplementedError(
             f"{kind}/{cfg.attention_kind} blocks are not ported yet (the "
             f"remaining model families, ROADMAP Queue 1 item 9)")
-    return nn.ModuleDict({
+    p = {
         "ln1": common.rmsnorm_init(cfg.d_model, dtype, device),
         "attn": attention.gqa_init(gen, cfg, dtype, device),
         "ln2": common.rmsnorm_init(cfg.d_model, dtype, device),
-        "mlp": mlp.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.hidden_act,
-                            dtype, device, bias=cfg.use_bias),
-    })
+    }
+    if kind == "moe":
+        p["moe"] = moe.moe_init(gen, cfg, dtype, device)
+    else:
+        d_ff = (cfg.moe.dense_d_ff if (cfg.moe.enabled and cfg.moe.dense_d_ff)
+                else cfg.d_ff)
+        p["mlp"] = mlp.mlp_init(gen, cfg.d_model, d_ff, cfg.hidden_act,
+                                dtype, device, bias=cfg.use_bias)
+    return nn.ModuleDict(p)
+
+
+def block_ffn(p, cfg, kind: str, h: torch.Tensor
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's FFN on the post-norm ``h`` [B, S, d]: (out, aux). An
+    MoE layer routes the ``B * S`` rows together (aux: its router loss);
+    a dense one is the MLP between the TP hooks (aux None)."""
+    if kind == "moe":
+        b, s, d = h.shape
+        out, aux = moe.moe_apply(p["moe"], cfg, h.reshape(b * s, d),
+                                 cfg.moe.capacity_factor)
+        return out.reshape(b, s, d), aux
+    h = tp.col_in(h, "ffn")
+    return tp.row_out(mlp.mlp_apply(p["mlp"], h, cfg.hidden_act), "ffn"), None
 
 
 def block_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor,
-                window: int) -> torch.Tensor:
+                window: int, kind: str = "dense"):
     """One pre-norm block over the full sequence (dense attention). Under
     a ``tp.TPContext`` the qkv and up/gate projections take head- and
     hidden-sharded weights (an all-reduce of the input's gradient) and
-    ``wo`` / ``w_down`` give partial sums, all-reduced forward."""
+    ``wo`` / ``w_down`` give partial sums, all-reduced forward. Returns
+    the new ``x``, and for ``kind`` 'moe' the pair ``(x, aux)``."""
     h = tp.col_in(common.rmsnorm(p["ln1"], x, cfg.norm_eps), "attn")
     attn_out = attention.gqa_attend(p["attn"], cfg, h, positions,
                                     window=window)
     x = x + tp.row_out(attn_out, "attn")
-    h = tp.col_in(common.rmsnorm(p["ln2"], x, cfg.norm_eps), "ffn")
-    return x + tp.row_out(mlp.mlp_apply(p["mlp"], h, cfg.hidden_act), "ffn")
+    out, aux = block_ffn(p, cfg, kind,
+                         common.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x + out if aux is None else (x + out, aux)
 
 
 # matmuls without batch dimensions: what JAX's
@@ -120,7 +159,7 @@ def dots_contexts():
 
 
 def run_remat(policy: str, fn, params, x: torch.Tensor,
-              dots_context_fn=dots_contexts) -> torch.Tensor:
+              dots_context_fn=dots_contexts):
     """``fn(params, x)`` under the reference's remat policy while autograd
     records: 'none' as it is; 'full' through ``common.Remat`` (recomputed
     in backward); 'dots' through a selective ``checkpoint`` whose
@@ -147,18 +186,18 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 
 
 class TransformerLM(nn.Module):
-    """Dense decoder LM. ``device=None`` means the card (``cuda``); pass
-    ``device="cpu"`` to run on the CPU. ``generator`` must live on that
-    device; ``None`` seeds a fresh one with 0."""
+    """Decoder LM, dense or MoE. ``device=None`` means the card
+    (``cuda``); pass ``device="cpu"`` to run on the CPU. ``generator``
+    must live on that device; ``None`` seeds a fresh one with 0."""
 
     def __init__(self, cfg, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (the remaining "
                 f"model families, ROADMAP Queue 1 item 9); repro_torch "
-                f"serves the dense family")
+                f"runs the dense, moe and ssm families")
         self.cfg = cfg
         self.dtype = common.dtype_of(cfg.dtype)
         self.device = common.resolve_device(device)
@@ -178,9 +217,9 @@ class TransformerLM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = common.dense_init(gen, cfg.d_model,
                                              cfg.padded_vocab, dt, dev)
-        self.layers = nn.ModuleList(
-            block_init(gen, cfg, kind, dt, dev)
-            for kind, count, _ in segments(cfg) for _ in range(count))
+        self.kinds = layer_kinds(cfg)
+        self.layers = nn.ModuleList(block_init(gen, cfg, kind, dt, dev)
+                                    for kind in self.kinds)
         self.windows = [int(w) for w in layer_windows_np(cfg)]
         return self
 
@@ -193,13 +232,20 @@ class TransformerLM(nn.Module):
         return x
 
     def _run_layers(self, x: torch.Tensor, remat: str = "none"
-                    ) -> torch.Tensor:
-        """``remat``: the policy (``run_remat``) applied to each layer."""
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``remat``: the policy (``run_remat``) applied to each layer.
+        Returns (x, the MoE layers' aux loss summed, 0-d f32)."""
         cfg = self.cfg
-        for p, win in zip(self.layers, self.windows):
-            x = run_remat(remat, lambda p_, x_, w=win: block_apply(
-                p_, cfg, x_, _positions(x_), w), p, x)
-        return x
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for p, win, kind in zip(self.layers, self.windows, self.kinds):
+            out = run_remat(remat, lambda p_, x_, w=win, k=kind: block_apply(
+                p_, cfg, x_, _positions(x_), w, k), p, x)
+            if kind == "moe":
+                x, a = out
+                aux = aux + a
+            else:
+                x = out
+        return x, aux
 
     def _output_weights(self) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -209,7 +255,7 @@ class TransformerLM(nn.Module):
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens: [B, S] -> logits [B, S, V_padded] (the local vocabulary
         columns under a TP context)."""
-        x = self._run_layers(self._embed_inputs(tokens))
+        x, _ = self._run_layers(self._embed_inputs(tokens))
         x = common.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
         return tp.col_in(x, "vocab") @ self._output_weights()
 
@@ -217,14 +263,16 @@ class TransformerLM(nn.Module):
 
     def per_token_loss(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """batch: tokens [B, S], labels [B, S] (-1 = masked) -> (per-token
-        loss [B, S] f32, aux loss 0-d f32; 0 for the dense family).
+        loss [B, S] f32, aux loss 0-d f32: the MoE layers' router losses
+        summed, 0 without MoE layers).
 
         Big logits (``padded_vocab * S > CHUNKED_CE_THRESHOLD``) go
         through ``chunked_cross_entropy``."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        x = self._run_layers(self._embed_inputs(tokens), remat=cfg.remat)
+        x, aux = self._run_layers(self._embed_inputs(tokens),
+                                  remat=cfg.remat)
         x = common.rmsnorm(self.final_norm, x, cfg.norm_eps)
         x = tp.col_in(x, "vocab")               # TP head: local logits
         b, s, d = x.shape
@@ -238,21 +286,26 @@ class TransformerLM(nn.Module):
             loss = common.softmax_cross_entropy(x @ out_w, safe_labels,
                                                 cfg.vocab_size)
         loss = torch.where(labels >= 0, loss, torch.zeros_like(loss))
-        return loss, torch.zeros((), dtype=torch.float32, device=x.device)
+        return loss, aux
 
     # -- decode (per-layer contiguous caches) --------------------------------
 
     @torch.inference_mode()
     def init_cache(self, batch: int, max_len: int, dtype=None) -> dict:
         """``dtype=torch.int8`` selects quantized caches (int8 payload, f16
-        per-(position, head) scales). ``lens`` is a host int."""
+        per-(position, head) scales). ``lens`` is a host int; the layers'
+        caches are listed per segment (``seg_dense``, ``seg_moe``), as in
+        the reference."""
         dtype = dtype or self.dtype
-        layers = []
-        for w in self.windows:
-            s = min(max_len, w) if w > 0 else max_len
-            layers.append(attention.gqa_init_cache(self.cfg, batch, s, dtype,
-                                                   self.device))
-        return {"lens": 0, "seg_dense": layers}
+        cache = {"lens": 0}
+        for kind, count, first in segments(self.cfg):
+            layers = []
+            for w in self.windows[first:first + count]:
+                s = min(max_len, w) if w > 0 else max_len
+                layers.append(attention.gqa_init_cache(
+                    self.cfg, batch, s, dtype, self.device))
+            cache[f"seg_{kind}"] = layers
+        return cache
 
     @torch.inference_mode()
     def decode_step(self, token: torch.Tensor, cache: dict):
@@ -261,16 +314,19 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         cache_len = int(cache["lens"])
         x = self._embed_inputs(token.to(self.device).long())
-        for p, win, layer_cache in zip(self.layers, self.windows,
-                                       cache["seg_dense"]):
-            x = self._decode_block(p, x, layer_cache, cache_len, win)
+        layer_caches = [c for kind, _, _ in segments(cfg)
+                        for c in cache[f"seg_{kind}"]]
+        for p, win, kind, layer_cache in zip(self.layers, self.windows,
+                                             self.kinds, layer_caches):
+            x = self._decode_block(p, x, layer_cache, cache_len, win, kind)
         x = common.rmsnorm(self.final_norm, x, cfg.norm_eps)
         logits = (x @ self._output_weights())[:, 0]
         cache["lens"] = cache_len + 1
         return logits, cache
 
     def _decode_block(self, p, x: torch.Tensor, layer_cache: dict,
-                      cache_len: int, window: int) -> torch.Tensor:
+                      cache_len: int, window: int,
+                      kind: str = "dense") -> torch.Tensor:
         cfg = self.cfg
         h = common.rmsnorm(p["ln1"], x, cfg.norm_eps)
         size = layer_cache["k"].shape[1]
@@ -283,11 +339,13 @@ class TransformerLM(nn.Module):
             write_pos=cache_len % size if is_ring else None)
         x = x + attn_out
         h = common.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        if kind == "moe":
+            return x + block_ffn(p, cfg, kind, h)[0]
         return x + mlp.mlp_apply(p["mlp"], h, cfg.hidden_act)
 
     def prefill(self, tokens: torch.Tensor) -> torch.Tensor:
         """Run the stack, return only the last position's logits [B, V]."""
-        x = self._run_layers(self._embed_inputs(tokens))
+        x, _ = self._run_layers(self._embed_inputs(tokens))
         x = common.rmsnorm(self.final_norm, x[:, -1:], self.cfg.norm_eps)
         return (x @ self._output_weights())[:, 0]
 

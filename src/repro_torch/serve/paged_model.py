@@ -18,8 +18,16 @@ Reference: ``src/repro/serve/paged_model.py`` (``supports_paged``,
   len % ps)``, gathers each slot's pages with :func:`repro_torch.kernels.
   page_gather.gather_pages`, attends under the validity + window mask and
   the greedy argmax stays on the device. Idle slots carry a zeroed
-  page-table row, so their dead writes land on the trash page (duplicate
-  indices there are harmless) and the host ignores their tokens.
+  page-table row, so their dead writes land on the trash page and the
+  host ignores their tokens. Rows that write one (page, offset) all write
+  the last such row's K/V (the reference's scatter order on the CPU): the
+  trash page's content then does not hang on the order of racing writes
+  on the card, which matters for MoE, whose idle rows take capacity.
+
+An MoE layer's FFN routes the step's ``[B * S, d]`` rows through
+``models.moe.moe_apply`` (the reference's ``_ffn``): decode routes all B
+slots, idle ones included, and prefill the whole bucket, padding included,
+so both take capacity as the reference's do.
 
 Both update the pool's tensors in place (the reference returns a new
 pool); layers are a Python loop (the reference's ``lax.scan``). Both carry
@@ -47,25 +55,22 @@ import torch
 from repro_torch.distributed import tp
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.page_gather import gather_pages
-from repro_torch.models import attention, common, mlp
+from repro_torch.models import attention, common
+from repro_torch.models.transformer import block_ffn
 
 Pool = Dict[str, torch.Tensor]
 
 
 def supports_paged(cfg) -> Tuple[bool, str]:
-    """Families the ported paged serve path covers."""
-    if cfg.family != "dense":
+    """Families the ported paged serve path covers (mirrors decode_step
+    support)."""
+    if cfg.family not in ("dense", "moe"):
         return False, (f"family {cfg.family!r} has no ported paged decode "
                        f"path (the remaining model families slice)")
     if cfg.attention_kind != "gqa":
         return False, (f"attention_kind {cfg.attention_kind!r} is not paged "
                        f"(MLA latents need their own page layout)")
     return True, ""
-
-
-def _ffn(p_l, cfg, h2):
-    h2 = tp.col_in(h2, "ffn")
-    return tp.row_out(mlp.mlp_apply(p_l["mlp"], h2, cfg.hidden_act), "ffn")
 
 
 def _identity(logits: torch.Tensor) -> torch.Tensor:
@@ -88,6 +93,10 @@ def _paged_attn(p_attn, cfg, h, pool: Pool, layer: int, lens, page_table,
     bidx = torch.arange(b, device=h.device)
     pid = page_table[bidx, lens // ps].long()           # idle rows -> trash
     off = (lens % ps).long()
+    dest = pid * ps + off
+    last = torch.where(dest[:, None] == dest[None, :], bidx[None, :],
+                       -1).amax(dim=1)                  # last row per dest
+    k_new, v_new = k_new[last], v_new[last]
     k_pool, v_pool = pool["k"][layer], pool["v"][layer]
     if quantized:
         kq, ksc = attention._quantize_kv(k_new[:, 0])
@@ -138,14 +147,15 @@ def build_paged_decode(model, *, quantized: bool, use_kernel: bool = True,
         lens = state[:, 1].long()
         page_table = state[:, 2:].contiguous()
         x = model._embed_inputs(tokens)
-        for layer, (p_l, win) in enumerate(zip(model.layers, model.windows)):
+        for layer, (p_l, win, kind) in enumerate(zip(
+                model.layers, model.windows, model.kinds)):
             h1 = tp.col_in(common.rmsnorm(p_l["ln1"], x, cfg.norm_eps),
                            "attn")
             x = x + tp.row_out(_paged_attn(
                 p_l["attn"], cfg, h1, pool, layer, lens, page_table, win,
                 quantized=quantized, use_kernel=use_kernel), "attn")
             h2 = common.rmsnorm(p_l["ln2"], x, cfg.norm_eps)
-            x = x + _ffn(p_l, cfg, h2)
+            x = x + block_ffn(p_l, cfg, kind, h2)[0]
         x = common.rmsnorm(model.final_norm, x, cfg.norm_eps)
         logits = gather_logits(
             (tp.col_in(x, "vocab") @ model._output_weights())[:, 0])
@@ -181,7 +191,8 @@ def build_paged_prefill(model, *, quantized: bool, use_kernel: bool = True,
         if s != n_pages * ps:
             raise ValueError(f"bucket {s} is not {n_pages} pages of {ps}")
         positions = torch.arange(s, device=x.device)[None]
-        for layer, (p_l, win) in enumerate(zip(model.layers, model.windows)):
+        for layer, (p_l, win, kind) in enumerate(zip(
+                model.layers, model.windows, model.kinds)):
             h1 = tp.col_in(common.rmsnorm(p_l["ln1"], x, cfg.norm_eps),
                            "attn")
             q, k, v = attention._project_qkv(p_l["attn"], cfg, h1, positions)
@@ -191,7 +202,7 @@ def build_paged_prefill(model, *, quantized: bool, use_kernel: bool = True,
             x = x + tp.row_out(common.dense(p_l["attn"]["wo"],
                                             out.reshape(1, s, -1)), "attn")
             h2 = common.rmsnorm(p_l["ln2"], x, cfg.norm_eps)
-            x = x + _ffn(p_l, cfg, h2)
+            x = x + block_ffn(p_l, cfg, kind, h2)[0]
             # scatter the prompt K/V (the whole bucket) into its pages
             if quantized:
                 for name, t in (("k", k), ("v", v)):

@@ -94,6 +94,10 @@ where only PyTorch is installed:
   and serve the eager engine's tokens through a crash; ``backup_reduce``
   on one worker's ``[1, P]`` (a rank of a shrunk data axis) equals its
   plain version.
+* The MoE family (qwen2-moe smoke, f32, capacity 8 and 1.25): the card's
+  paged engine (graph and eager decode) and ``greedy_generate`` give the
+  CPU port's tokens, fp and int8; its batched graph chunks equal the
+  eager steps at ``grad_batch`` 0 and 2 (above, with qwen3 and rwkv6).
 * Tensor-parallel decode (``ServeEngine(mesh_model=2)``, NCCL with 2
   cards, gloo sharing one) serves the one-card engine's tokens, fp and
   int8 pools; the toy path (``greedy_generate``) on the card gives the CPU
@@ -888,7 +892,8 @@ def test_wkv_vmap_rule_matches_the_worker_loop(cuda_device):
 
 
 @pytest.mark.parametrize("grad_batch", [0, 2])
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b",
+                                  "qwen2-moe-a2.7b"])
 def test_batched_graph_chunks_match_eager_steps(cuda_device, arch,
                                                 grad_batch):
     runs = {}
@@ -1218,3 +1223,42 @@ def test_rwkv_prefill_kernel_matches_stepped_decode(cuda_device):
     for i in range(40):
         logits, cache = model.decode_step(toks[:, i:i + 1], cache)
     torch.testing.assert_close(logits, pre, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("capacity_factor", [8.0, 1.25])
+def test_moe_on_card_matches_cpu(cuda_device, capacity_factor):
+    """qwen2-moe smoke (f32) at ``capacity_factor`` (8 never drops, 1.25
+    drops): the card's paged engine (graph decode and eager) and
+    ``greedy_generate`` give the CPU port's tokens, fp and int8, with
+    page gather and flash launched."""
+    from repro_torch.models import get_model
+    from repro_torch.train.serve_step import greedy_generate
+    base = configs.get_smoke_config("qwen2-moe-a2.7b")
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, capacity_factor=capacity_factor))
+    cpu_model = get_model(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(4))
+    gpu_model = get_model(cfg, device=cuda_device)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    kw = dict(num_slots=3, page_size=4, max_prompt_len=12, max_new_cap=8,
+              clock="virtual")
+    tc = TraceConfig(num_requests=6, rate=100.0, prompt_len_min=2,
+                     prompt_len_max=12, max_new_min=2, max_new_max=8,
+                     vocab=cfg.vocab_size, seed=4)
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (3, 5)))
+    for int8 in (False, True):
+        want = ServeEngine(cfg, cpu_model, device="cpu", cache_int8=int8,
+                           **kw).run(make_trace(tc)).tokens_by_rid()
+        for graph in (True, False):
+            before = (tgather.launches, tflash.launches)
+            got = ServeEngine(cfg, gpu_model, cache_int8=int8,
+                              decode_graph=graph,
+                              **kw).run(make_trace(tc)).tokens_by_rid()
+            assert got == want, (int8, graph)
+            assert tgather.launches > before[0] and \
+                tflash.launches > before[1]
+        dt = torch.int8 if int8 else None
+        assert torch.equal(
+            greedy_generate(gpu_model, prompt, 6, 12, cache_dtype=dt).cpu(),
+            greedy_generate(cpu_model, prompt, 6, 12, cache_dtype=dt))
