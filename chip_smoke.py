@@ -2,12 +2,14 @@
 """Chip smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --mesh-only     # phases 18, 19, 27 (several cards)
+    python3 chip_smoke.py --mesh-only     # phases 18, 19, 27, 29's TP part
+                                          # (several cards)
     python3 chip_smoke.py --faults-only   # phases 20-21 alone
     python3 chip_smoke.py --serve-only    # phases 22-24 and 18's shrink
-    python3 chip_smoke.py --tp-decode-only    # phase 27 alone
+    python3 chip_smoke.py --tp-decode-only    # phase 27, 29's TP part
     python3 chip_smoke.py --flash-only    # flash attention's phases 3, 25
     python3 chip_smoke.py --moe-only      # phase 28 alone
+    python3 chip_smoke.py --families-only # phase 29 alone
 
 Drives the port (``src/repro_torch``) through its own entry points and
 fails (non-zero exit, no result line) if any phase fails:
@@ -321,7 +323,39 @@ fails (non-zero exit, no result line) if any phase fails:
    ``MOE_TRAIN_STEPS`` steps eagerly and as one chunk through the CUDA
    graph, bit-equal, losses and aux finite, one backup_reduce a step
    (counted from 0). ``--moe-only`` runs the build and this phase alone.
-29. A JSON line of per-kernel numbers (``launches`` is the count of one
+29. The remaining transformer families. deepseek-v2-lite-16b at full
+   width (27 layers, d_model 2048, MLA with kv_lora 512, rope 64, nope
+   128, v 128; a dense first layer, then 64 routed experts top-6 + 2
+   shared; ``DEEPSEEK_PARAMS`` parameters, seeded random weights, bf16)
+   on the toy path (MLA is not paged, as in the reference): each layer's
+   MLA alone, the absorbed ``mla_decode`` stepped over the prompt against
+   the expanded ``mla_attend``, within ``TOY_LOGITS_REL``; the whole
+   model's stepped decode's last logits against ``prefill``'s on
+   ``TOY_MLA_SEEDS`` prompts within ``TOY_MLA_LOGITS_REL``;
+   ``greedy_generate`` batch 2, 16 + 8 tokens, fp and int8 (bf16 latents),
+   eager ms a step and peak memory; at 2 layers f32 the card's greedy
+   tokens equal the CPU port's and an int8 request gives bf16 latents;
+   training at ``DEEPSEEK_TRAIN_LAYERS`` of 27 layers, backup 3 + 1, spmd
+   at grad_batch 0 with the EMA, ``FAMILY_TRAIN_STEPS`` steps eagerly and
+   as one chunk through the CUDA graph, bit-equal, one backup_reduce a
+   step (counted from 0). internvl2-2b at full width (``INTERNVL_PARAMS``):
+   ``prefill`` over 256 seeded prefix embeddings + ``VLM_TEXT`` tokens
+   against ``forward``'s last row, its device ms; the toy path (text
+   only); training through prefix batches at ``INTERNVL_TRAIN_LAYERS`` of
+   24 layers, backup 3 + 1, spmd at grad_batch 1, eagerly; at 2 layers f32
+   card == CPU (tokens, and the prefix prefill within ``TOY_F32_REL``).
+   Then MoE under tensor parallelism: phase 27's run on qwen2-moe-a2.7b
+   (one card: 2 gloo ranks at 2 layers f32, fp and int8 pools, tokens
+   equal the one-card engine's; ``--mesh-only`` / ``--tp-decode-only`` on
+   four cards: NCCL at M = 2 and 4, the decode graph capturing the model
+   group's collectives, at 2 layers f32 with fp and int8 pools tokens
+   equal to one card's and the first decode step's logits within
+   ``TP_SMALL_LOGITS_REL`` (the gate), at full width on phase 4's 16
+   requests ms a step, GB a card and the logits' gap printed); in every
+   run each MoE layer's input through a prefill and ``TP_MOE_STEPS``
+   decode steps is the same bits on every rank.
+   ``--families-only`` runs the build and this phase alone.
+30. A JSON line of per-kernel numbers (``launches`` is the count of one
    run of the main path that launches the kernel, named by
    ``launches_run``: the graph-decode serve runs, whose prefills stay
    eager, and the graph training runs; ``launches_batched_and_mesh``: those
@@ -330,11 +364,12 @@ fails (non-zero exit, no result line) if any phase fails:
    runs; ``launches_router``: phase 24's first router run;
    ``launches_dense``: phase 25's runs; ``launches_toy``: phase 26's rwkv6
    prefill; ``launches_moe``: phase 28's serve runs and training chunk;
+   ``launches_families``: phase 29's training runs and TP decode runs;
    flash at head_dim 256 is its own row, with ``ptxas``), then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero when ``torch.cuda.is_available()`` is false.
-A line ``[time] phase N: s`` follows each of phases 16-28.
+A line ``[time] phase N: s`` follows each of phases 16-29.
 """
 from __future__ import annotations
 
@@ -499,6 +534,9 @@ TOY_F32_REL = 1e-4
 # the head's largest value), so its limit is an eighth of a step
 TP_LOGITS_REL = 3e-2
 TP_SMALL_LOGITS_REL = {"fp": 1e-5, "int8": 1e-3}
+# phases 27 and 29: the eager decode steps after a prefill through which
+# every MoE layer's input is held bit for bit across the model group
+TP_MOE_STEPS = 4
 # phase 28: qwen2-moe-a2.7b's parameters (repro.models.registry.param_count
 # of the reference), the slots' length and steps of the timed decode, the
 # prefill buckets timed, and the training run's depth (of 24 layers: the
@@ -509,6 +547,32 @@ MOE_TIMED_STEPS = 20
 MOE_PREFILL_BUCKETS = (64, 128, 256, 512)
 MOE_TRAIN_LAYERS = 2
 MOE_TRAIN_STEPS = 2
+# phase 29: the parameters of deepseek-v2-lite-16b and internvl2-2b
+# (repro.models.registry.param_count of the reference), deepseek's at its
+# training depth, the training runs' depths (deepseek: 2 of 27 layers, the
+# dense one and an MoE one, whose [4, P] f32 stack at 27 layers would take
+# 251 GB; internvl2: 12 of 24, whose 24 layers with the [4, P] f32 stack,
+# the RMSProp state and the EMA would take ~72 GB, where phase 28's run
+# ran out of the card's memory) and steps, internvl2's prefix of
+# precomputed embeddings and the timed prefill's text tokens
+DEEPSEEK_PARAMS = 15_706_484_224
+DEEPSEEK_TRAIN_PARAMS = 1_085_287_424
+DEEPSEEK_TRAIN_LAYERS = 2
+INTERNVL_PARAMS = 1_889_634_304
+INTERNVL_TRAIN_LAYERS = 12
+FAMILY_TRAIN_STEPS = 2
+FAMILY_TOY_RUN = (16, 8)
+# phase 29: the stepped decode's last logits against prefill's of
+# deepseek-v2-lite at full depth in bf16, on the prompts of these seeds.
+# The two round differently (the decode absorbs wkv_b into the query and
+# reads the latent cache, prefill expands the latent per head) and the
+# difference grows over 27 layers: on an H100 the gap read 0.045 on seed
+# 29, over TOY_LOGITS_REL. The absorbed form itself is held to
+# TOY_LOGITS_REL layer by layer (each layer's MLA alone), and exactly at 2
+# layers in f32 (TOY_F32_REL).
+TOY_MLA_SEEDS = (29, 30, 31)
+TOY_MLA_LOGITS_REL = 0.1
+VLM_TEXT = 16
 
 
 def _log(msg: str) -> None:
@@ -3886,11 +3950,31 @@ def _toy_phase(torch, rwkv6_scan):
 # ---------------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def _moe_inputs(kept):
+    """Keep a copy of the rows handed to ``moe.moe_apply`` while open (every
+    MoE layer's input, in call order)."""
+    from repro_torch.models import moe
+    orig = moe.moe_apply
+
+    def apply(params, cfg, x, capacity_factor=1.25):
+        kept.append(x.detach().clone())
+        return orig(params, cfg, x, capacity_factor)
+
+    moe.moe_apply = apply
+    try:
+        yield kept
+    finally:
+        moe.moe_apply = orig
+
+
 def _first_decode_logits(torch, engine, req):
-    """The first decode step's full logits of ``req`` on ``engine``: its
-    prefill into a fresh pool of the engine's (slot 0), then one paged
-    decode step whose vocab-sharded logits are all-gathered (under TP)
-    and kept."""
+    """The first decode step's full logits of ``req`` on ``engine`` and the
+    MoE inputs along the way: its prefill into a fresh pool of the
+    engine's (slot 0), then ``TP_MOE_STEPS`` eager paged decode steps,
+    each feeding its token to the next; the first step's vocab-sharded
+    logits are all-gathered (under TP) and kept. Returns (logits, the MoE
+    layers' inputs of the prefill and the decode steps, on the CPU)."""
     import numpy as np
     from repro_torch.distributed import tp
     from repro_torch.serve import pages as pages_lib
@@ -3898,11 +3982,6 @@ def _first_decode_logits(torch, engine, req):
     pool = pages_lib.PagePool(engine.pool_cfg, dtype=engine.model.dtype,
                               device=engine.device)
     pool.alloc(0, engine.pages_needed(req))
-    first = engine._prefill_into(req, 0, pool)
-    c = engine.pool_cfg
-    state = np.zeros((c.num_slots, 2 + c.max_pages_per_slot), np.int32)
-    state[0, 0], state[0, 1] = first, req.prompt_len
-    state[:, 2:] = pool.page_table
     ctx, kept = engine._tp_ctx, []
 
     def keep(logits):
@@ -3911,18 +3990,28 @@ def _first_decode_logits(torch, engine, req):
         kept.append(logits[0].float().cpu())
         return logits
 
+    c = engine.pool_cfg
     decode = build_paged_decode(engine.model, quantized=c.quantized,
                                 gather_logits=keep)
-    with tp.tensor_parallel(ctx):
-        decode(torch.from_numpy(state).to(engine.device), pool.buffers)
-    return kept[0]
+    state = np.zeros((c.num_slots, 2 + c.max_pages_per_slot), np.int32)
+    with _moe_inputs([]) as inputs:
+        first = engine._prefill_into(req, 0, pool)
+        state[0, 0], state[0, 1] = first, req.prompt_len
+        state[:, 2:] = pool.page_table
+        with tp.tensor_parallel(ctx):
+            for _ in range(TP_MOE_STEPS):
+                nxt = decode(torch.from_numpy(state).to(engine.device),
+                             pool.buffers)
+                state[0, 0], state[0, 1] = int(nxt[0]), state[0, 1] + 1
+    return kept[0], [x.cpu() for x in inputs]
 
 
 def _tp_serve(torch, cfg, device, mesh_model, int8, graph, trace, seed):
     """One engine over ``cfg`` (seeded weights) at ``mesh_model``: the
     trace served after a warm-up run (the graph's capture), counters set to
     0 just before and read just after, then the first decode step's
-    logits of the trace's first request."""
+    logits of the trace's first request and the MoE inputs of its prefill
+    and first ``TP_MOE_STEPS`` decode steps."""
     from repro_torch.distributed import tp
     from repro_torch.kernels import flash_attention, page_gather
     from repro_torch.models import get_model
@@ -3942,7 +4031,7 @@ def _tp_serve(torch, cfg, device, mesh_model, int8, graph, trace, seed):
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
     m = rep.metrics
-    return dict(
+    out = dict(
         tokens={str(k): v for k, v in rep.tokens_by_rid().items()},
         decode_steps=m["decode_steps"], decode_s=m["decode_s"], wall_s=wall,
         gather=page_gather.launches, flash=flash_attention.launches,
@@ -3950,28 +4039,34 @@ def _tp_serve(torch, cfg, device, mesh_model, int8, graph, trace, seed):
         captures=engine.decode_compiles,
         peak=torch.cuda.max_memory_allocated(device),
         plan=None if engine.tp_plan is None else dataclasses.asdict(
-            engine.tp_plan),
-        logits=_first_decode_logits(torch, engine, trace[0]).tolist())
+            engine.tp_plan))
+    logits, out["moe_inputs"] = _first_decode_logits(torch, engine,
+                                                     trace[0])
+    out["logits"] = logits.tolist()
+    return out
 
 
 def _tp_decode_rank(rank, device, out_dir, runs):
     """One rank of phase 27 (``mesh.spawn``): each of ``runs`` ((tag, cfg,
     int8, graph, trace, seed)) through ``_tp_serve`` at the world's size;
-    writes ``out_dir/rank<r>.json``."""
+    writes ``out_dir/rank<r>.json`` and the runs' MoE inputs to
+    ``out_dir/rank<r>_moe.pt``."""
     import gc
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     size = torch.distributed.get_world_size()
-    out = {}
+    out, inputs = {}, {}
     with torch.inference_mode():
         for tag, cfg, int8, graph, trace, seed in runs:
             out[tag] = _tp_serve(torch, cfg, device, size, int8, graph,
                                  trace, seed)
+            inputs[tag] = out[tag].pop("moe_inputs")
             gc.collect()
             torch.cuda.empty_cache()
             torch.distributed.barrier()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
+    torch.save(inputs, os.path.join(out_dir, f"rank{rank}_moe.pt"))
 
 
 def _first_diff(got, want):
@@ -3985,91 +4080,125 @@ def _first_diff(got, want):
     return None
 
 
-def _tp_decode_phase(torch):
-    """Phase 27: ``ServeEngine(mesh_model=M)``. One card: 2 gloo ranks on
-    it, qwen3-0.6b at 2 layers f32, fp and int8 pools, eager decode (gloo
-    cannot be captured): the TP tokens equal the one-card engine's. Two or
-    more cards: NCCL, one card a rank, qwen3-0.6b at full width on phase
-    4's 16 requests at M = 2 (and 4 with four cards), the decode graph
-    capturing the all-reduces and the vocab all-gather: the first decode
-    step's logits within rel L2 ``TP_LOGITS_REL`` of the one-card engine's
-    (the gate), tokens compared (printed, with the first differing step),
-    ms a decode step and GB a card."""
+def _tp_decode_phase(torch, arch="qwen3-0.6b"):
+    """Phase 27 (and 29's MoE part, ``arch`` qwen2-moe-a2.7b):
+    ``ServeEngine(mesh_model=M)``. One card: 2 gloo ranks on it, ``arch``
+    at 2 layers f32, fp and int8 pools, eager decode (gloo cannot be
+    captured). Two or more cards: NCCL, one card a rank, at M = 2 (and 4
+    with four cards), the decode graph capturing the all-reduces and the
+    vocab all-gather: ``arch`` at full width on phase 4's 16 requests (ms
+    a decode step and GB a card; tokens compared with one card's and the
+    first differing step printed); a dense ``arch``'s first decode step's
+    logits within rel L2 ``TP_LOGITS_REL`` of the one-card engine's (the
+    gate); an MoE ``arch``'s gap only printed (bf16 routing turns the
+    other order of the model group's sums into another expert now and
+    then), and its gate the 2-layer f32 runs over NCCL, fp and int8 pools.
+    A 2-layer f32 run's tokens equal the one-card engine's and its first
+    decode step's logits lie within ``TP_SMALL_LOGITS_REL``. In every run
+    the MoE layers' inputs of a prefill and ``TP_MOE_STEPS`` decode steps
+    are the same bits on every rank. Returns rank 0's (page_gather, flash)
+    launches per run."""
+    import gc
     from repro_torch import configs
     from repro_torch.distributed import mesh
     from repro_torch.serve import TraceConfig, make_trace
     cards = torch.cuda.device_count()
     nccl = cards >= 2
-    full = configs.get_config("qwen3-0.6b")
+    full = configs.get_config(arch)
+    moe = full.moe.enabled
+    small = dataclasses.replace(full, num_layers=2, dtype="float32")
+    small_trace = make_trace(TraceConfig(
+        num_requests=8, rate=1000.0, prompt_len_min=16, prompt_len_max=128,
+        max_new_min=8, max_new_max=16, vocab=full.vocab_size, seed=2))
+    # (tag, cfg, int8, graph, trace, seed)
+    small_runs = [(f"{pool} 2-layer f32", small, pool == "int8", nccl,
+                   small_trace, 1) for pool in ("fp", "int8")]
     if nccl:
-        cfg, seed = full, 0
-        trace = _serve_trace(cfg, 16, seed=0)
         sizes = [m for m in (2, 4) if m <= cards]
-        pools = [(False, True)]
+        runs = [("fp", full, False, True, _serve_trace(full, 16, seed=0),
+                 0)] + (small_runs if moe else [])
     else:
         _log("[tp decode] one card visible: NCCL not run (it needs a card "
              "per rank); 2 ranks over gloo on CUDA tensors on the one card, "
              "eager decode (a gloo collective cannot be captured)")
-        cfg, seed = dataclasses.replace(full, num_layers=2,
-                                        dtype="float32"), 1
-        trace = make_trace(TraceConfig(
-            num_requests=8, rate=1000.0, prompt_len_min=16,
-            prompt_len_max=128, max_new_min=8, max_new_max=16,
-            vocab=cfg.vocab_size, seed=2))
         sizes = [2]
-        pools = [(False, False), (True, False)]
+        runs = small_runs
     backend = "nccl" if nccl else "gloo"
+    ref = {}
     with torch.inference_mode():
-        ref = {int8: _tp_serve(torch, cfg, "cuda", 1, int8, graph, trace,
-                               seed) for int8, graph in pools}
-    torch.cuda.empty_cache()
+        for tag, cfg, int8, graph, trace, seed in runs:
+            ref[tag] = _tp_serve(torch, cfg, "cuda", 1, int8, graph, trace,
+                                 seed)
+            gc.collect()
+            torch.cuda.empty_cache()
+    counts = {}
     for size in sizes:
-        runs = [(("int8" if int8 else "fp"), cfg, int8, graph, trace, seed)
-                for int8, graph in pools]
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             mesh.spawn(_tp_decode_rank, 1, "cuda", args=(tmp, runs),
                        mesh_model=size, timeout_s=MESH_TIMEOUT_S)
-            ranks = []
+            ranks, inputs = [], []
             for r in range(size):
                 with open(os.path.join(tmp, f"rank{r}.json")) as f:
                     ranks.append(json.load(f))
-        for (tag, _, int8, graph, _, _) in runs:
-            one = ref[int8]
+                inputs.append(torch.load(os.path.join(tmp, f"rank{r}_moe.pt")))
+        for tag, cfg, int8, graph, _, _ in runs:
+            label = f"[tp decode {tag} M={size}]"
+            one = ref[tag]
             first = ranks[0][tag]
             for r, other in enumerate(ranks):
                 o = other[tag]
                 if o["tokens"] != first["tokens"]:
-                    raise AssertionError(f"[tp decode {tag} M={size}] rank "
-                                         f"{r}'s tokens differ from rank 0's")
+                    raise AssertionError(f"{label} rank {r}'s tokens differ "
+                                         f"from rank 0's")
                 if not (o["all_reduces"] and o["gather"] and o["flash"]
                         and o["captures"] == 1):
-                    raise AssertionError(f"[tp decode {tag} M={size}] rank "
-                                         f"{r}: no all-reduce, no kernel "
-                                         f"launch or not one decode "
-                                         f"capture: {o}")
+                    raise AssertionError(f"{label} rank {r}: no all-reduce, "
+                                         f"no kernel launch or not one "
+                                         f"decode capture: {o}")
+                kept = inputs[r][tag]
+                if len(kept) != len(inputs[0][tag]) or not all(
+                        torch.equal(a, b) for a, b in zip(kept,
+                                                          inputs[0][tag])):
+                    raise AssertionError(f"{label} rank {r}'s MoE inputs "
+                                         f"differ from rank 0's")
+            n_in = len(inputs[0][tag])
+            if moe and n_in != cfg.num_layers * (1 + TP_MOE_STEPS):
+                raise AssertionError(f"{label} {n_in} MoE inputs kept, not "
+                                     f"{cfg.num_layers} layers x (a prefill "
+                                     f"and {TP_MOE_STEPS} decode steps)")
             gap = _rel_l2_logits(torch, torch.tensor(first["logits"]),
                                  torch.tensor(one["logits"]))
             diff = _first_diff(first["tokens"], one["tokens"])
-            limit = TP_LOGITS_REL if nccl else TP_SMALL_LOGITS_REL[tag]
-            if not gap <= limit:
-                raise AssertionError(f"[tp decode {tag} M={size}] first "
-                                     f"decode step's logits vs one card: "
-                                     f"rel L2 {gap} (limit {limit})")
-            if not nccl and diff is not None:
-                raise AssertionError(f"[tp decode {tag} M={size}] tokens "
-                                     f"differ from the one-card engine's at "
-                                     f"(rid, step) {diff}")
+            f32 = cfg.dtype == "float32"
+            limit = (TP_SMALL_LOGITS_REL["int8" if int8 else "fp"] if f32
+                     else None if moe else TP_LOGITS_REL)
+            if limit is not None and not gap <= limit:
+                raise AssertionError(f"{label} first decode step's logits "
+                                     f"vs one card: rel L2 {gap} (limit "
+                                     f"{limit})")
+            if f32 and diff is not None:
+                raise AssertionError(f"{label} tokens differ from the "
+                                     f"one-card engine's at (rid, step) "
+                                     f"{diff}")
             ms = 1e3 * first["decode_s"] / first["decode_steps"]
             same = ("== the one-card engine's" if diff is None else
                     f"first differ from the one-card engine's at (rid, "
                     f"step) {diff}")
-            _log(f"[tp decode {tag} M={size}] {backend}, {size} ranks, "
-                 f"{'full width' if nccl else '2 layers f32'} qwen3-0.6b, "
+            held = (f"limit {limit:.3g}" if limit is not None else
+                    "printed, not gated: bf16 routing; the 2-layer f32 "
+                    "runs are the gate")
+            same_in = (f"; MoE inputs of the prefill and {TP_MOE_STEPS} "
+                       f"decode steps ({n_in} tensors) bit-identical on "
+                       f"all {size} ranks" if moe else "")
+            counts[f"{arch} {tag} M={size}"] = (first["gather"],
+                                                first["flash"])
+            _log(f"{label} {backend}, {size} ranks, "
+                 f"{'2 layers f32' if f32 else 'full width'} {arch}, "
                  f"plan {first['plan']}: tokens {same}; first decode "
-                 f"step's logits rel L2 {gap:.3g} (limit "
-                 f"{limit}); per rank page_gather {first['gather']} "
-                 f"flash {first['flash']} all-reduces {first['all_reduces']} "
+                 f"step's logits rel L2 {gap:.3g} ({held}){same_in}; per "
+                 f"rank page_gather {first['gather']} flash "
+                 f"{first['flash']} all-reduces {first['all_reduces']} "
                  f"all-gathers {first['all_gathers']} decode captures "
                  f"{first['captures']}; {first['decode_steps']} decode steps, "
                  f"{ms:.3f} ms a step (one card "
@@ -4077,8 +4206,9 @@ def _tp_decode_phase(torch):
                  f"wall {first['wall_s']:.2f} s; peak "
                  f"{first['peak'] / 1e9:.3f} GB a card (one card "
                  f"{one['peak'] / 1e9:.3f})")
-        _log(f"[tp decode] M={size} over {backend}: "
+        _log(f"[tp decode] {arch} M={size} over {backend}: "
              f"{time.perf_counter() - t0:.1f} s")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -4214,24 +4344,19 @@ def _moe_kernel_vs_plain(torch):
          f"an expert (capacity_factor {full.moe.capacity_factor})")
 
 
-def _moe_train(torch, backup_reduce):
-    """qwen2-moe-a2.7b at ``MOE_TRAIN_LAYERS`` of 24 layers (full width),
-    backup 3 + 1, spmd at grad_batch 0, no EMA: 2 steps eagerly, then as
-    one chunk of 2 through the CUDA graph, bit-equal; losses and aux
-    finite, one backup_reduce a step. Returns the graph run's launches.
-    The EMA (7 GB of f32 at P = 1,763,436,544) is left out: with it the
-    graph run peaked at 71.9 GB allocated, 83.7 GB reserved, and after
-    the call's earlier phases ran out of the card's memory."""
+def _cut_train(torch, backup_reduce, cfg, tag, full_layers, *, graph=True):
+    """``cfg`` (an arch at full width, cut to ``cfg.model.num_layers`` of
+    its ``full_layers``) through ``run_experiment`` eagerly, the
+    ``backup_reduce`` count from 0: losses (and, with MoE layers, a
+    positive aux) finite, one reduce a step; then, with ``graph``, as one
+    chunk through the CUDA graph, bit-equal to the eager run. Returns the
+    run's parameter count and the reduce launches of the graph run (of the
+    eager run without ``graph``)."""
     import gc
     from repro_torch.core.straggler import PaperCalibrated
-    from repro_torch.launch.profile_train import train_config
     from repro_torch.train.loop import run_experiment
-    base = train_config("qwen2-moe-a2.7b", steps=MOE_TRAIN_STEPS,
-                        grad_batch=0)
-    cfg = dataclasses.replace(
-        base, model=dataclasses.replace(base.model,
-                                        num_layers=MOE_TRAIN_LAYERS),
-        optimizer=dataclasses.replace(base.optimizer, ema_decay=0.0))
+    steps, moe = cfg.total_steps, cfg.model.moe.enabled
+    agg, ex, ema = cfg.aggregation, cfg.execution, cfg.optimizer.ema_decay
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     backup_reduce.launches = 0
@@ -4245,18 +4370,20 @@ def _moe_train(torch, backup_reduce):
     n_params = sum(v.numel() for v in res.params.values())
     launches, peak = backup_reduce.launches, torch.cuda.max_memory_allocated()
     for m in res.metrics:
-        _log(f"[moe train eager] step {m['step']} loss {m['loss']:.6f} aux "
+        _log(f"[{tag} train eager] step {m['step']} loss {m['loss']:.6f} aux "
              f"{m['aux_loss']:.6g} sim_time {m['sim_time']:.6f} selected "
              f"{m['selected']}")
     bad = [m["step"] for m in res.metrics
            if not (math.isfinite(m["loss"]) and math.isfinite(m["aux_loss"])
-                   and m["aux_loss"] > 0)]
-    if bad or launches != MOE_TRAIN_STEPS:
-        raise AssertionError(f"[moe train eager] steps with a non-finite "
+                   and (m["aux_loss"] > 0 or not moe))]
+    if bad or launches != steps:
+        raise AssertionError(f"[{tag} train eager] steps with a non-finite "
                              f"loss or aux: {bad}; backup_reduce launches "
-                             f"{launches} (expected {MOE_TRAIN_STEPS})")
-    _log(f"[moe train eager] {MOE_TRAIN_LAYERS} of 24 layers, full width, "
-         f"{n_params} params, backup 3+1, spmd grad_batch 0, no EMA, "
+                             f"{launches} (expected {steps})")
+    _log(f"[{tag} train eager] {cfg.model.num_layers} of {full_layers} "
+         f"layers, full width, {n_params} params, backup "
+         f"{agg.num_workers}+{agg.backup_workers}, {ex.backend} grad_batch "
+         f"{ex.grad_batch}, {f'EMA {ema}' if ema else 'no EMA'}, "
          f"{cfg.shape.global_batch} x {cfg.shape.seq_len} tokens a step: "
          f"ms/step {', '.join(f'{1e3 * t:.1f}' for t in res.step_times_s)}"
          f" ({wall:.1f} s) | backup_reduce launches {launches} | peak "
@@ -4264,15 +4391,36 @@ def _moe_train(torch, backup_reduce):
     del res
     gc.collect()
     torch.cuda.empty_cache()
-    metrics, (graph_launches,), sums, gmasks, stats = _graph_train_run(
-        torch, cfg, ((backup_reduce, "launches"),), "moe")
-    if graph_launches != MOE_TRAIN_STEPS:
-        raise AssertionError(f"[moe train graph] backup_reduce launches "
-                             f"{graph_launches}, expected {MOE_TRAIN_STEPS}")
+    if not graph:
+        return n_params, launches
+    metrics, (graph_launches,), sums, gmasks, _ = _graph_train_run(
+        torch, cfg, ((backup_reduce, "launches"),), tag)
+    if graph_launches != steps:
+        raise AssertionError(f"[{tag} train graph] backup_reduce launches "
+                             f"{graph_launches}, expected {steps}")
     if not all(math.isfinite(m["aux_loss"]) for m in metrics):
-        raise AssertionError("[moe train graph] non-finite aux loss")
-    _hold_graph_to_eager("moe train", eager, metrics, sums, gmasks)
-    return graph_launches
+        raise AssertionError(f"[{tag} train graph] non-finite aux loss")
+    _hold_graph_to_eager(f"{tag} train", eager, metrics, sums, gmasks)
+    return n_params, graph_launches
+
+
+def _moe_train(torch, backup_reduce):
+    """qwen2-moe-a2.7b at ``MOE_TRAIN_LAYERS`` of 24 layers (full width),
+    backup 3 + 1, spmd at grad_batch 0, no EMA: 2 steps eagerly, then as
+    one chunk of 2 through the CUDA graph, bit-equal; losses and aux
+    finite, one backup_reduce a step. Returns the graph run's launches.
+    The EMA (7 GB of f32 at P = 1,763,436,544) is left out: with it the
+    graph run peaked at 71.9 GB allocated, 83.7 GB reserved, and after
+    the call's earlier phases ran out of the card's memory."""
+    from repro_torch.launch.profile_train import train_config
+    base = train_config("qwen2-moe-a2.7b", steps=MOE_TRAIN_STEPS,
+                        grad_batch=0)
+    cfg = dataclasses.replace(
+        base, model=dataclasses.replace(base.model,
+                                        num_layers=MOE_TRAIN_LAYERS),
+        optimizer=dataclasses.replace(base.optimizer, ema_decay=0.0))
+    return _cut_train(torch, backup_reduce, cfg, "moe",
+                      base.model.num_layers)[1]
 
 
 def _moe_phase(torch, kernels, backup_reduce):
@@ -4291,12 +4439,353 @@ def _moe_phase(torch, kernels, backup_reduce):
     return dict(serve=serve, backup_reduce=reduce)
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: the remaining transformer families (MLA with deepseek-v2-lite,
+# the vlm prefix with internvl2, MoE under tensor parallelism)
+# ---------------------------------------------------------------------------
+
+
+def _cpu_twin(torch, model):
+    """A CPU copy of the card's ``model``: built on the meta device, so the
+    CPU draws no weights (its truncated-normal draw of 1e9 parameters takes
+    minutes), then given the card's."""
+    from repro_torch.models import get_model
+    cpu = get_model(model.cfg, device="meta", generator=torch.Generator())
+    cpu.to_empty(device="cpu")
+    cpu.device = torch.device("cpu")
+    cpu.load_state_dict(model.state_dict())
+    return cpu
+
+
+def _card_equals_cpu(torch, cfg, tag, prefix=False):
+    """``cfg`` (2 layers f32) on the card: the stepped decode's last logits
+    against ``prefill``'s within ``TOY_F32_REL`` (``_stepped_gap``); with
+    its CPU copy, the greedy tokens of ``greedy_generate`` equal, and with
+    ``prefix`` the last logits of ``prefill`` over a seeded prefix within
+    ``TOY_F32_REL``. Returns the card model's int8-cache dtypes."""
+    import numpy as np
+    from repro_torch.models import get_model
+    from repro_torch.train.serve_step import greedy_generate
+    t0 = time.perf_counter()
+    card = get_model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(3))
+    cpu = _cpu_twin(torch, card)
+    rng = np.random.default_rng(4)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+    gap = _stepped_gap(torch, card, prompt[:1].cuda())
+    if not gap <= TOY_F32_REL:
+        raise AssertionError(f"[{tag} 2 layers f32] stepped decode's last "
+                             f"logits vs prefill's: rel L2 {gap} (limit "
+                             f"{TOY_F32_REL})")
+    note = (f"; stepped decode's last logits vs prefill's rel L2 {gap:.3g} "
+            f"(limit {TOY_F32_REL})")
+    with torch.inference_mode():
+        want = greedy_generate(cpu, prompt, 8, 17)
+        got = greedy_generate(card, prompt, 8, 17).cpu()
+        if prefix:
+            pre = torch.from_numpy(rng.standard_normal(
+                (1, cfg.num_prefix_embeds, cfg.d_model), dtype=np.float32))
+            gap = _rel_l2_logits(torch, card.prefill(
+                prompt[:1].cuda(), pre.cuda()).cpu(), cpu.prefill(
+                prompt[:1], pre))
+            if not gap <= TOY_F32_REL:
+                raise AssertionError(f"[{tag} 2 layers f32] card prefill over "
+                                     f"the prefix vs the CPU port's: rel L2 "
+                                     f"{gap} (limit {TOY_F32_REL})")
+            note += (f"; prefill over {cfg.num_prefix_embeds} prefix + 8 "
+                     f"tokens, last logits card vs CPU rel L2 {gap:.3g} "
+                     f"(limit {TOY_F32_REL})")
+        dtypes = sorted({str(t.dtype) for c in card.init_cache(
+            1, 8, torch.int8).values() if isinstance(c, list)
+            for layer in c for t in layer.values()})
+    if not torch.equal(got, want):
+        raise AssertionError(f"[{tag} 2 layers f32] card tokens "
+                             f"{got.tolist()} differ from the CPU port's "
+                             f"{want.tolist()}")
+    _log(f"[{tag} 2 layers f32] card tokens == CPU port tokens "
+         f"({want.numel()} tokens){note}; {time.perf_counter() - t0:.1f} s")
+    del card, cpu
+    return dtypes
+
+
+def _stepped_gap(torch, model, prompt) -> float:
+    """Rel L2 of the last logits of ``decode_step`` stepped over ``prompt``
+    [1, S] against ``prefill``'s. An MoE model runs this drop-free:
+    capacity drops hang on the tokens routed together (prefill's 16 take 1
+    slot an expert at capacity factor 1.25, a decode step's 1 token none),
+    so the two are held to each other at capacity factor E (capacity T *
+    k), as the reference's tests hold them."""
+    cfg = model.cfg
+    if cfg.moe.enabled:
+        model.cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    try:
+        with torch.inference_mode():
+            cache = model.init_cache(1, prompt.shape[1])
+            for i in range(prompt.shape[1]):
+                logits, cache = model.decode_step(prompt[:, i:i + 1], cache)
+            return _rel_l2_logits(torch, logits, model.prefill(prompt))
+    finally:
+        model.cfg = cfg
+
+
+def _toy_runs(torch, model, cfg, tag, gen, limit=TOY_LOGITS_REL):
+    """Phase 26's toy checks on ``model`` at full width: the stepped
+    decode's last logits against ``prefill``'s (``_stepped_gap`` within
+    ``limit``), then ``greedy_generate`` with the fp and the int8 cache at
+    the config's capacity, eager ms a step. Returns {cache: ms a decode
+    step}."""
+    from repro_torch.train.serve_step import greedy_generate
+    plen, new = FAMILY_TOY_RUN
+    prompt = torch.randint(0, cfg.vocab_size, (TOY_BATCH, plen),
+                           generator=gen, device="cuda")
+    gap = _stepped_gap(torch, model, prompt[:1])
+    if not gap <= limit:
+        raise AssertionError(f"[{tag}] stepped decode's last logits vs "
+                             f"prefill's: rel L2 {gap} (limit {limit})")
+    out = {}
+    with torch.inference_mode():
+        for cache_tag, dt in (("fp", None), ("int8", torch.int8)):
+            marks = []
+            toks = greedy_generate(model, prompt, new, plen + new + 1,
+                                   cache_dtype=dt, marks=marks)
+            if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+                raise AssertionError(f"[{tag} {cache_tag}] token ids out of "
+                                     f"range")
+            out[cache_tag] = 1e3 * (marks[2] - marks[1]) / new
+            _log(f"[{tag} {cache_tag}] greedy_generate batch {TOY_BATCH}, "
+                 f"prompt {plen}, {new} tokens ({plen + new} eager decode "
+                 f"steps): prompt {marks[1] - marks[0]:.2f} s, decode "
+                 f"{marks[2] - marks[1]:.2f} s ({out[cache_tag]:.2f} "
+                 f"ms/step); row 0 {toks[0, :12].tolist()}")
+    _log(f"[{tag}] stepped decode's last logits vs prefill's: rel L2 "
+         f"{gap:.3g} (limit {limit}, bf16; prompt {plen})")
+    return out
+
+
+def _mla_layer_gaps(torch, model, gen):
+    """Each layer's MLA alone at ``model``'s width and dtype: the absorbed
+    ``mla_decode`` stepped over ``FAMILY_TOY_RUN[0]`` positions of a
+    seeded unit-scale input (what the block's norm hands it) against the
+    expanded ``mla_attend`` over the same input, rel L2 of the whole output
+    sequence. Returns the gaps, one a layer."""
+    from repro_torch.models import attention
+    cfg = model.cfg
+    s = FAMILY_TOY_RUN[0]
+    pos = torch.arange(s, device="cuda")[None]
+    gaps = []
+    with torch.inference_mode():
+        for p_l in model.layers:
+            x = torch.randn((1, s, cfg.d_model), generator=gen,
+                            device="cuda").to(model.dtype)
+            want = attention.mla_attend(p_l["attn"], cfg, x, pos)
+            cache = attention.mla_init_cache(cfg, 1, s, model.dtype, "cuda")
+            got = torch.cat([attention.mla_decode(
+                p_l["attn"], cfg, x[:, i:i + 1], cache, i)[0]
+                for i in range(s)], dim=1)
+            gaps.append(_rel_l2_logits(torch, got, want))
+    return gaps
+
+
+def _deepseek_phase(torch, backup_reduce):
+    """deepseek-v2-lite-16b (MLA, a dense first layer, 64 routed experts
+    top-6 + 2 shared) at full width on the toy path (MLA is not paged, as
+    in the reference): each layer's absorbed MLA decode against its
+    expanded attend, the stepped decode against ``prefill`` on
+    ``TOY_MLA_SEEDS`` prompts, ``greedy_generate`` fp and int8 (bf16
+    latents), eager ms a step and peak memory; at 2 layers f32 the card's
+    tokens equal the CPU port's and an int8 cache request gives bf16
+    latents; training at
+    ``DEEPSEEK_TRAIN_LAYERS`` of 27 layers, backup 3 + 1, spmd at
+    grad_batch 0 with the EMA, eagerly and as one chunk through the CUDA
+    graph. Returns the graph run's backup_reduce launches."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.launch.profile_train import train_config
+    arch = "deepseek-v2-lite-16b"
+    cfg = configs.get_config(arch)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = _full_width_model(torch, cfg, label=f"family {arch}")
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != DEEPSEEK_PARAMS:
+        raise AssertionError(f"[{arch}] {n_params} params, expected "
+                             f"{DEEPSEEK_PARAMS}")
+    layer_gaps = _mla_layer_gaps(torch, model, torch.Generator(
+        device="cuda").manual_seed(28))
+    worst = max(range(len(layer_gaps)), key=layer_gaps.__getitem__)
+    if not layer_gaps[worst] <= TOY_LOGITS_REL:
+        raise AssertionError(f"[family {arch}] layer {worst}'s absorbed MLA "
+                             f"decode vs its expanded attend: rel L2 "
+                             f"{layer_gaps[worst]} (limit {TOY_LOGITS_REL})")
+    _log(f"[family {arch}] each layer's MLA alone, bf16, absorbed decode "
+         f"stepped over {FAMILY_TOY_RUN[0]} positions vs the expanded "
+         f"attend: rel L2 {min(layer_gaps):.3g} to {layer_gaps[worst]:.3g} "
+         f"(layer {worst}; limit {TOY_LOGITS_REL})")
+    gens = [torch.Generator(device="cuda").manual_seed(seed)
+            for seed in TOY_MLA_SEEDS]
+    ms = _toy_runs(torch, model, cfg, f"family {arch}", gens[0],
+                   limit=TOY_MLA_LOGITS_REL)
+    gaps = [_stepped_gap(torch, model, torch.randint(
+        0, cfg.vocab_size, (1, FAMILY_TOY_RUN[0]), generator=gen,
+        device="cuda")) for gen in gens[1:]]
+    if not max(gaps) <= TOY_MLA_LOGITS_REL:
+        raise AssertionError(f"[family {arch}] stepped decode's last logits "
+                             f"vs prefill's on seeds {TOY_MLA_SEEDS[1:]}: "
+                             f"rel L2 {gaps} (limit {TOY_MLA_LOGITS_REL})")
+    peak = torch.cuda.max_memory_allocated()
+    _log(f"[family {arch}] stepped decode's last logits vs prefill's on "
+         f"seeds {TOY_MLA_SEEDS[1:]}: rel L2 "
+         f"{', '.join(f'{g:.3g}' for g in gaps)} (limit "
+         f"{TOY_MLA_LOGITS_REL}) | toy path at full width ({n_params} "
+         f"params, bf16, MLA latent caches): eager decode {ms['fp']:.2f} ms "
+         f"a step fp, {ms['int8']:.2f} int8 (bf16 latents) | peak device "
+         f"memory {peak / 1e9:.3f} GB; {time.perf_counter() - t0:.1f} s")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    dtypes = _card_equals_cpu(torch, small, f"family {arch}")
+    if dtypes != ["torch.bfloat16"]:
+        raise AssertionError(f"[family {arch}] an int8 cache request on the "
+                             f"f32 model gave {dtypes}, not bf16 latents")
+    base = train_config(arch, steps=FAMILY_TRAIN_STEPS, grad_batch=0)
+    train = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, num_layers=DEEPSEEK_TRAIN_LAYERS))
+    n, launches = _cut_train(torch, backup_reduce, train, arch,
+                             cfg.num_layers)
+    if n != DEEPSEEK_TRAIN_PARAMS:
+        raise AssertionError(f"[{arch} train] {n} params, expected "
+                             f"{DEEPSEEK_TRAIN_PARAMS}")
+    return launches
+
+
+@contextlib.contextmanager
+def _prefix_batches(cfg):
+    """The synthetic pipeline's batches, each given ``cfg``'s prefix of
+    precomputed embeddings ``prefix_embeds`` [B, P, d] (f32, seeded by the
+    step): the vlm trainer's batches. The port, as the reference, has no
+    source of them, and its ``batch_fn=`` override serves the event
+    strategies only, as there."""
+    import numpy as np
+    from unittest import mock
+    from repro_torch.data import synthetic_lm
+    orig = synthetic_lm.global_batch
+
+    def batch(data_cfg, step):
+        out = dict(orig(data_cfg, step))
+        out["prefix_embeds"] = np.random.default_rng(step).standard_normal(
+            (out["tokens"].shape[0], cfg.num_prefix_embeds, cfg.d_model),
+            dtype=np.float32)
+        return out
+
+    with mock.patch.object(synthetic_lm, "global_batch", batch):
+        yield
+
+
+def _internvl_phase(torch, backup_reduce):
+    """internvl2-2b (the vlm prefix) at full width: ``prefill`` over 256
+    seeded prefix embeddings and ``VLM_TEXT`` tokens against ``forward``'s
+    last row, its device ms; the toy path (text only, as the reference's);
+    training through prefix batches at ``INTERNVL_TRAIN_LAYERS`` of 24
+    layers, backup 3 + 1, spmd at grad_batch 1, eagerly; at 2 layers f32
+    the card's tokens and prefix prefill equal the CPU port's. Returns the
+    training run's backup_reduce launches."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.launch.profile_train import train_config
+    arch = "internvl2-2b"
+    cfg = configs.get_config(arch)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = _full_width_model(torch, cfg, label=f"family {arch}")
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != INTERNVL_PARAMS:
+        raise AssertionError(f"[{arch}] {n_params} params, expected "
+                             f"{INTERNVL_PARAMS}")
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    prefix = torch.randn((1, cfg.num_prefix_embeds, cfg.d_model),
+                         generator=gen, device="cuda")
+    text = torch.randint(0, cfg.vocab_size, (1, VLM_TEXT), generator=gen,
+                         device="cuda")
+    with torch.inference_mode():
+        last = model.prefill(text, prefix)
+        full = model(text, prefix)
+        if full.shape[1] != cfg.num_prefix_embeds + VLM_TEXT:
+            raise AssertionError(f"[{arch}] forward over the prefix gave "
+                                 f"{tuple(full.shape)}")
+        gap = _rel_l2_logits(torch, last, full[:, -1])
+        del full
+        times = []
+        for i in range(4):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            model.prefill(text, prefix)
+            end.record()
+            torch.cuda.synchronize()
+            if i:
+                times.append(start.elapsed_time(end))
+    if not gap <= TOY_LOGITS_REL:
+        raise AssertionError(f"[{arch}] prefill's last logits vs forward's "
+                             f"last row: rel L2 {gap} (limit "
+                             f"{TOY_LOGITS_REL})")
+    ms = _toy_runs(torch, model, cfg, f"family {arch}", gen)
+    peak = torch.cuda.max_memory_allocated()
+    _log(f"[family {arch}] prefill over {cfg.num_prefix_embeds} prefix "
+         f"embeddings + {VLM_TEXT} tokens, batch 1, eager: "
+         f"{statistics.median(times):.3f} ms device (CUDA events, median of "
+         f"3); its last logits vs forward's last row rel L2 {gap:.3g} (limit "
+         f"{TOY_LOGITS_REL}) | toy decode (text only) {ms['fp']:.2f} ms a "
+         f"step fp, {ms['int8']:.2f} int8 | peak device memory "
+         f"{peak / 1e9:.3f} GB; {time.perf_counter() - t0:.1f} s")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = train_config(arch, steps=FAMILY_TRAIN_STEPS, grad_batch=1)
+    train = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, num_layers=INTERNVL_TRAIN_LAYERS))
+    with _prefix_batches(cfg):
+        _, launches = _cut_train(torch, backup_reduce, train,
+                                 f"{arch} prefix", cfg.num_layers,
+                                 graph=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _card_equals_cpu(torch, dataclasses.replace(cfg, num_layers=2,
+                                                dtype="float32"),
+                     f"family {arch}", prefix=True)
+    return launches
+
+
+def _families_phase(torch, backup_reduce):
+    """Phase 29: deepseek-v2-lite-16b (MLA), internvl2-2b (the vlm prefix)
+    and qwen2-moe-a2.7b under tensor parallelism (phase 27's run on one
+    card: 2 gloo ranks at 2 layers f32). Returns the launch counts per
+    run."""
+    out = {"backup_reduce": {
+        f"deepseek-v2-lite-16b train {DEEPSEEK_TRAIN_LAYERS} layers, one "
+        f"chunk of {FAMILY_TRAIN_STEPS} (graph)":
+            _deepseek_phase(torch, backup_reduce)}}
+    torch.cuda.empty_cache()
+    out["backup_reduce"][
+        f"internvl2-2b train {INTERNVL_TRAIN_LAYERS} layers, prefix batches, "
+        f"{FAMILY_TRAIN_STEPS} eager steps"] = _internvl_phase(torch,
+                                                               backup_reduce)
+    torch.cuda.empty_cache()
+    out["tp"] = _tp_decode_phase(torch, "qwen2-moe-a2.7b")
+    return out
+
+
 def main(argv) -> int:
+    started = time.perf_counter()
     # cuBLAS picks the same algorithms run to run (the kernel and plain
     # training runs must compute the same first-step gradients)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     entries = ("--mesh-only", "--faults-only", "--serve-only",
-               "--tp-decode-only", "--flash-only", "--moe-only")
+               "--tp-decode-only", "--flash-only", "--moe-only",
+               "--families-only")
     if argv and (len(argv) > 1 or argv[0] not in entries):
         print(f"chip_smoke: unknown arguments {argv} (none, or one of "
               f"{', '.join(entries)})", file=sys.stderr)
@@ -4348,6 +4837,11 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         _tp_decode_phase(torch)
         _log(f"[time] phase 27: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        _tp_decode_phase(torch, "qwen2-moe-a2.7b")      # phase 29's TP part
+        _log(f"[time] phase 29 (MoE under TP): "
+             f"{time.perf_counter() - t0:.1f} s")
         return 0
     if argv == ["--faults-only"]:       # phases 20 and 21 alone
         t0 = time.perf_counter()
@@ -4371,6 +4865,11 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         _moe_phase(torch, (page_gather, flash_attention), backup_reduce)
         _log(f"[time] phase 28: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if argv == ["--families-only"]:     # phase 29 alone
+        t0 = time.perf_counter()
+        _families_phase(torch, backup_reduce)
+        _log(f"[time] phase 29: {time.perf_counter() - t0:.1f} s")
         return 0
 
     # 3. the serve kernels at the serve path's shapes (its maxp and pool)
@@ -4555,13 +5054,32 @@ def main(argv) -> int:
                     moe["backup_reduce"]}
     _log(f"[time] phase 28: {time.perf_counter() - t0:.1f} s")
 
-    # 29. results
+    # 29. the remaining transformer families: MLA (deepseek-v2-lite),
+    # the vlm prefix (internvl2), MoE under tensor parallelism
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    families = _families_phase(torch, backup_reduce)
+    for row in rows:
+        if row["name"] in ("page_gather", "page_gather_dequant"):
+            pool = "int8" if row["name"] == "page_gather_dequant" else "fp"
+            row["launches_families"] = {
+                f"{run} (a rank)": n[0] for run, n in families["tp"].items()
+                if f" {pool} " in run}
+        elif row["name"] == "flash_attention":    # D = 128
+            row["launches_families"] = {f"{run} (a rank)": n[1]
+                                        for run, n in families["tp"].items()}
+        elif row["name"] == "backup_reduce":
+            row["launches_families"] = families["backup_reduce"]
+    _log(f"[time] phase 29: {time.perf_counter() - t0:.1f} s")
+    _log(f"[time] phases 1-29: {time.perf_counter() - started:.1f} s")
+
+    # 30. results
     keys = ("name", "route", "source", "replaces", "launches", "launches_run",
             "launches_batched_and_mesh", "launches_faults",
             "launches_telemetry", "launches_router", "launches_dense",
-            "launches_toy", "launches_moe", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "by_s", "splits",
-            "capacity", "ptxas")
+            "launches_toy", "launches_moe", "launches_families",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "by_s", "splits", "capacity", "ptxas")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(json.dumps({"ok": True, "device": {

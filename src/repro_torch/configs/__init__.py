@@ -16,6 +16,8 @@ from repro_torch.configs.base import (  # noqa: F401
 
 _ARCH_MODULES: Dict[str, str] = {
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "internvl2-2b": "internvl2_2b",
     "gemma3-1b": "gemma3_1b",
     "qwen3-0.6b": "qwen3_0_6b",
     "minitron-4b": "minitron_4b",

@@ -104,16 +104,6 @@ def check_mesh(mesh_data: int, mesh_model: int) -> None:
                          f"{mesh_model})")
 
 
-def check_moe_tp(model_cfg, mesh_model: int) -> None:
-    """Refuse the ``'model'`` axis for an MoE config: tensor parallelism
-    of the MoE family is not ported (ROADMAP Queue 1 item 9)."""
-    if mesh_model > 1 and model_cfg is not None and model_cfg.moe.enabled:
-        raise NotImplementedError(
-            f"mesh_model={mesh_model} on the MoE config {model_cfg.name!r}: "
-            f"tensor parallelism of the MoE family is not ported yet "
-            f"(ROADMAP Queue 1 item 9); use mesh_model=1")
-
-
 def resolve_tp(model_cfg, mesh_model: int) -> sharding.TPPlan:
     """The TP plan for a ``'model'`` axis of ``mesh_model`` ranks and a
     model config. Warns when ``mesh_model > 1`` but no parameter group can
@@ -259,9 +249,15 @@ def unflatten_vector(vec: torch.Tensor, spec: FlatSpec
 
 def per_example_loss(model, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     """(per-example mean token loss [B], aux): invalid labels (< 0) carry
-    no weight."""
+    no weight, and neither do a vlm prefix's positions (the per-token loss
+    is ``[B, P + S]`` against ``[B, S]`` labels: the labels are padded with
+    -1 ahead, as in both reference loss functions)."""
     per_tok, aux = model.per_token_loss(batch)
     labels = torch.as_tensor(batch["labels"], device=per_tok.device)
+    if per_tok.shape[1] != labels.shape[1]:           # vlm prefix positions
+        pad = torch.full((labels.shape[0], per_tok.shape[1] - labels.shape[1]),
+                         -1, dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
     valid = (labels >= 0).float()
     per_ex = (torch.sum(per_tok * valid, dim=-1)
               / torch.clamp_min(torch.sum(valid, dim=-1), 1.0))
@@ -337,9 +333,11 @@ def build_spmd_step(model, optimizer: opt_lib.Optimizer, *,
     was built from; None for a model without one) ``model`` is made this
     rank's slice in place (``convert.shard_model``) before anything else:
     build the optimizer state and EMA after this call. A live ``tracer``
-    brackets each call with the ``spmd/*`` spans (``_traced``). An MoE
-    config at ``mesh_model > 1`` raises ``NotImplementedError``."""
-    check_moe_tp(model_cfg, mesh_model)
+    brackets each call with the ``spmd/*`` spans (``_traced``). On an MoE
+    config the experts, router and shared experts stay whole on every rank
+    of the model group (``sharding.tp_plan``): the MoE FFN runs on the
+    replicated residual stream, so their gradients come out whole and the
+    same on every rank, as the norm scales' do."""
     check_mesh(mesh_data, mesh_model)
     if num_workers % mesh_data:
         raise ValueError(

@@ -72,10 +72,14 @@ SOFTSYNC_C = 4
 # arch -> backup (N, b). rwkv6-1.6b: P = 1,584,095,232, so the [W, P] f32
 # stack is 6.34 GB per worker beside 12.67 GB of rmsprop_momentum state and
 # 6.34 GB each of EMA and f32 aggregate: W = 4 needs ~65 GB, W = 8 ~91 GB.
-# qwen2-moe-a2.7b trains on the card only cut in depth (at 24 layers its
-# [W, P] f32 stack alone is 57 GB a worker); its W = 4 as rwkv6-1.6b's.
+# qwen2-moe-a2.7b and deepseek-v2-lite-16b train on the card only cut in
+# depth (at full depth their [W, P] f32 stacks alone take 57 and 63 GB a
+# worker); internvl2-2b's W = 4 at full depth would need ~73 GB (a 7.6 GB
+# stack row a worker beside the RMSProp state and the EMA), so it is cut
+# too. W = 4 for each, as rwkv6-1.6b's.
 WORKERS = {"qwen3-0.6b": (6, 2), "rwkv6-1.6b": (3, 1),
-           "qwen2-moe-a2.7b": (3, 1)}
+           "qwen2-moe-a2.7b": (3, 1), "deepseek-v2-lite-16b": (3, 1),
+           "internvl2-2b": (3, 1)}
 
 
 def train_config(arch: str = "qwen3-0.6b", *, backend: str = "spmd",

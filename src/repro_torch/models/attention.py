@@ -1,9 +1,14 @@
-"""GQA attention: projections, masks, dense attention, int8 KV quantization.
-Reference: ``src/repro/models/attention.py`` (the GQA subset: ``gqa_init``,
+"""Attention token mixers: GQA and MLA, masks, dense attention, int8 KV
+quantization, decode over contiguous caches.
+Reference: ``src/repro/models/attention.py`` (``gqa_init``,
 ``_project_qkv``, ``_expand_kv``, ``_window_ok``, ``make_attention_mask``,
-``gqa_attend``, ``_quantize_kv``, ``_dequantize_kv``, and the decode path
-``gqa_init_cache`` / ``gqa_decode``; the qk-norm scales pass
-``distributed.tp.shared_param`` as in the reference).
+``gqa_attend``, ``_quantize_kv``, ``_dequantize_kv``, the decode path
+``gqa_init_cache`` / ``gqa_decode``, and MLA: ``mla_init``, ``_mla_qkv``,
+``_mla_expand_kv``, ``mla_attend``, ``mla_init_cache``, ``mla_decode``;
+the qk-norm scales pass ``distributed.tp.shared_param`` as in the
+reference). The reference's blocked path above 8,192 tokens
+(``chunked_attention_core``, ``gqa_attend_chunked``) is not ported: no run
+of the port reaches that length, and ``mla_attend`` refuses it.
 
 Windows are per-layer Python ints here (the reference feeds them through
 ``lax.scan`` as traced scalars); ``window <= 0`` means unlimited. The decode
@@ -22,6 +27,9 @@ from repro_torch.distributed import tp
 from repro_torch.models import common
 
 NEG_INF = -1e30
+# above this many tokens the reference's MLA runs its blocked
+# online-softmax core, which is not ported
+MLA_DENSE_MAX_LEN = 8192
 
 
 def gqa_init(gen, cfg, dtype=torch.float32, device=None) -> nn.ModuleDict:
@@ -193,3 +201,153 @@ def gqa_decode(params, cfg, x: torch.Tensor, cache: dict, cache_len: int,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgqs,bsgd->bgqd", probs.to(v.dtype), v)
     return common.dense(params["wo"], out.reshape(b, 1, h * hd)), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(gen, cfg, dtype=torch.float32, device=None) -> nn.ModuleDict:
+    """The full-rank query ``wq`` (or, with ``q_lora_rank > 0``, the
+    low-rank ``wq_a`` -> ``q_norm`` -> ``wq_b``), the compressed KV latent
+    and shared rope key ``wkv_a``, ``kv_norm``, the latent's expansion
+    ``wkv_b`` to every head's (nope key, value), and ``wo``."""
+    d, h = cfg.d_model, cfg.num_heads
+    m = cfg.mla
+    qk_dim = m.qk_nope_dim + m.qk_rope_dim
+    p = {}
+    if not m.q_lora_rank:
+        p["wq"] = common.dense_init(gen, d, h * qk_dim, dtype, device)
+    p["wkv_a"] = common.dense_init(gen, d, m.kv_lora_rank + m.qk_rope_dim,
+                                   dtype, device)
+    p["kv_norm"] = common.rmsnorm_init(m.kv_lora_rank, dtype, device)
+    p["wkv_b"] = common.dense_init(gen, m.kv_lora_rank,
+                                   h * (m.qk_nope_dim + m.v_head_dim),
+                                   dtype, device)
+    p["wo"] = common.dense_init(gen, h * m.v_head_dim, d, dtype, device,
+                                std=1.0 / math.sqrt(h * m.v_head_dim))
+    if m.q_lora_rank:
+        p["wq_a"] = common.dense_init(gen, d, m.q_lora_rank, dtype, device)
+        p["q_norm"] = common.rmsnorm_init(m.q_lora_rank, dtype, device)
+        p["wq_b"] = common.dense_init(gen, m.q_lora_rank, h * qk_dim, dtype,
+                                      device)
+    return nn.ModuleDict(p)
+
+
+def _mla_qkv(params, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """x: [B, S, d] -> q_nope [B, S, H, nope], q_rope [B, S, H, rope] (rope
+    applied), the normed latent c_kv [B, S, rank] and the one rope key
+    shared by every head, k_rope [B, S, 1, rope]."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    m = cfg.mla
+    if "wq_a" in params:
+        q = common.dense(params["wq_b"], common.rmsnorm(
+            params["q_norm"], common.dense(params["wq_a"], x), cfg.norm_eps))
+    else:
+        q = common.dense(params["wq"], x)
+    q = q.reshape(b, s, h, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    q_rope = common.apply_rope(q_rope, positions, cfg.rope_theta)
+    kv_a = common.dense(params["wkv_a"], x)             # [B, S, rank + rope]
+    c_kv, k_rope = torch.split(kv_a, [m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+    c_kv = common.rmsnorm(params["kv_norm"], c_kv, cfg.norm_eps)
+    k_rope = common.apply_rope(k_rope[:, :, None, :], positions,
+                               cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_expand_kv(params, cfg, c_kv: torch.Tensor):
+    """The latent [B, S, rank] -> every head's k_nope [B, S, H, nope] and
+    v [B, S, H, v]."""
+    b, s, _ = c_kv.shape
+    m = cfg.mla
+    kv = common.dense(params["wkv_b"], c_kv).reshape(
+        b, s, cfg.num_heads, m.qk_nope_dim + m.v_head_dim)
+    k_nope, v = torch.split(kv, [m.qk_nope_dim, m.v_head_dim], dim=-1)
+    return k_nope, v
+
+
+def mla_attend(params, cfg, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence causal MLA, the latent expanded per head. x: [B, S, d]
+    -> [B, S, d]. Above ``MLA_DENSE_MAX_LEN`` tokens the reference runs its
+    blocked core, which is not ported: that raises."""
+    b, s, _ = x.shape
+    m = cfg.mla
+    if s > MLA_DENSE_MAX_LEN:
+        raise NotImplementedError(
+            f"mla_attend over {s} tokens: above {MLA_DENSE_MAX_LEN} the "
+            f"reference runs the blocked online-softmax core "
+            f"(attention.chunked_attention_core), which is not ported yet "
+            f"(ROADMAP Queue 1 item 9, with hymba)")
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, cfg, x, positions)
+    k_nope, v = _mla_expand_kv(params, cfg, c_kv)
+    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    scores = (torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
+              + torch.einsum("bqhd,bkld->bhqk", q_rope, k_rope)
+              ).float() * scale
+    mask = make_attention_mask(s, s, device=x.device)
+    scores = scores.masked_fill(~mask[None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return common.dense(params["wo"], out.reshape(b, s, -1))
+
+
+def mla_init_cache(cfg, batch: int, max_len: int, dtype,
+                   device=None) -> dict:
+    """The latent cache: ``c_kv`` [B, max_len, rank] and ``k_rope`` [B,
+    max_len, rope], nothing per head."""
+    m = cfg.mla
+    return {"c_kv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, m.qk_rope_dim),
+                                  dtype=dtype, device=device)}
+
+
+def _promoted(*ts: torch.Tensor):
+    """``ts`` cast to their promoted dtype: the reference's einsums mix a
+    bf16 latent cache with an f32 model's activations and compute in f32."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t.to(dt) for t in ts]
+
+
+def mla_decode(params, cfg, x: torch.Tensor, cache: dict, cache_len: int,
+               update_cache: bool = True):
+    """One-token MLA decode against the latent cache. x: [B, 1, d]. The
+    new token's latent and rope key are written at ``cache_len`` in place;
+    ``wkv_b`` is absorbed: the nope scores are ``(q_nope @ Wb_k) @ c_kv^T``
+    and the output ``(probs @ c_kv) @ Wb_v``, so no key or value is
+    expanded per head over the cache. Returns (out [B, 1, d], cache)."""
+    b = x.shape[0]
+    h = cfg.num_heads
+    m = cfg.mla
+    s = cache["c_kv"].shape[1]
+    if update_cache and not 0 <= cache_len < s:
+        raise ValueError(f"write position {cache_len} is outside the "
+                         f"cache's {s} positions")
+    pos = torch.full((b, 1), cache_len, dtype=torch.long, device=x.device)
+    q_nope, q_rope, c_new, kr_new = _mla_qkv(params, cfg, x, pos)
+    if update_cache:
+        cache["c_kv"][:, cache_len] = c_new[:, 0].to(cache["c_kv"].dtype)
+        cache["k_rope"][:, cache_len] = kr_new[:, 0, 0].to(
+            cache["k_rope"].dtype)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    wkv_b = params["wkv_b"]["w"].reshape(m.kv_lora_rank, h,
+                                         m.qk_nope_dim + m.v_head_dim)
+    wb_k = wkv_b[..., :m.qk_nope_dim]                       # [rank, h, nope]
+    wb_v = wkv_b[..., m.qk_nope_dim:]                       # [rank, h, v]
+    q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope, wb_k)    # [B, 1, h, rank]
+    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    scores = (torch.einsum("bqhr,bsr->bhqs", *_promoted(q_abs, c_kv))
+              + torch.einsum("bqhd,bsd->bhqs", *_promoted(q_rope, k_rope))
+              ).float() * scale
+    valid = torch.arange(s, device=x.device) <= cache_len
+    scores = scores.masked_fill(~valid, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhqs,bsr->bqhr", probs.to(c_kv.dtype), c_kv)
+    out = torch.einsum("bqhr,rhd->bqhd", *_promoted(ctx, wb_v))
+    return common.dense(params["wo"], out.reshape(b, 1, -1)), cache

@@ -1,4 +1,5 @@
-"""Decoder-only transformer LM, the dense and MoE families.
+"""Decoder-only transformer LM: the dense, MoE and vlm families, GQA or MLA
+attention.
 Reference: ``src/repro/models/transformer.py`` (``segments``,
 ``layer_windows_np``, ``block_init`` / ``block_apply``, ``_remat_wrap``
 (``none``, ``full`` and ``dots``: ``dots_with_no_batch_dims_saveable``)
@@ -34,7 +35,22 @@ the serve path runs under ``torch.inference_mode``.
 MoE (``models.moe``): an MoE layer's FFN routes the block's ``[B * S, d]``
 rows through ``moe.moe_apply`` under ``cfg.moe.capacity_factor``, with no
 tensor-parallel hooks around it (as in the reference), and its aux loss
-is summed over the layers into ``per_token_loss``'s second output.
+is summed over the layers into ``per_token_loss``'s second output. Under
+a TP context it runs whole on every rank, on the residual stream that
+``row_out``'s all-reduce left the same on each.
+
+MLA (``cfg.attention_kind == "mla"``, deepseek-v2): ``attention.
+mla_attend`` over the sequence, and in decode ``attention.mla_decode``
+over a latent cache (``c_kv``, ``k_rope``; bf16 when ``int8`` is asked
+for, as in the reference), with no ring buffer. ``sharding.tp_plan``
+leaves MLA attention unsharded.
+
+The vlm family (internvl2): ``forward``, ``per_token_loss``
+(``batch["prefix_embeds"]``) and ``prefill`` take ``prefix_embeds`` [B,
+P, d], cast to the model dtype and put ahead of the token embeddings
+(``embed_scale`` scales the tokens only); positions run over prefix and
+text, and the loss is 0 over the prefix. Under TP only the token ids go
+through the vocab-sharded lookup: the prefix is replicated.
 
 Remat (``run_remat``): 'full' runs each layer through
 ``common.Remat``, an ``autograd.Function`` that ``torch.func`` goes
@@ -92,13 +108,16 @@ def layer_windows_np(cfg) -> np.ndarray:
 
 
 def block_init(gen, cfg, kind: str, dtype, device=None) -> nn.ModuleDict:
-    if kind not in ("dense", "moe") or cfg.attention_kind != "gqa":
+    if kind not in ("dense", "moe") or \
+            cfg.attention_kind not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{kind}/{cfg.attention_kind} blocks are not ported yet (the "
             f"remaining model families, ROADMAP Queue 1 item 9)")
+    attn_init = (attention.mla_init if cfg.attention_kind == "mla"
+                 else attention.gqa_init)
     p = {
         "ln1": common.rmsnorm_init(cfg.d_model, dtype, device),
-        "attn": attention.gqa_init(gen, cfg, dtype, device),
+        "attn": attn_init(gen, cfg, dtype, device),
         "ln2": common.rmsnorm_init(cfg.d_model, dtype, device),
     }
     if kind == "moe":
@@ -133,8 +152,11 @@ def block_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor,
     ``wo`` / ``w_down`` give partial sums, all-reduced forward. Returns
     the new ``x``, and for ``kind`` 'moe' the pair ``(x, aux)``."""
     h = tp.col_in(common.rmsnorm(p["ln1"], x, cfg.norm_eps), "attn")
-    attn_out = attention.gqa_attend(p["attn"], cfg, h, positions,
-                                    window=window)
+    if cfg.attention_kind == "mla":
+        attn_out = attention.mla_attend(p["attn"], cfg, h, positions)
+    else:
+        attn_out = attention.gqa_attend(p["attn"], cfg, h, positions,
+                                        window=window)
     x = x + tp.row_out(attn_out, "attn")
     out, aux = block_ffn(p, cfg, kind,
                          common.rmsnorm(p["ln2"], x, cfg.norm_eps))
@@ -186,18 +208,18 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 
 
 class TransformerLM(nn.Module):
-    """Decoder LM, dense or MoE. ``device=None`` means the card
+    """Decoder LM: dense, MoE or vlm. ``device=None`` means the card
     (``cuda``); pass ``device="cpu"`` to run on the CPU. ``generator``
     must live on that device; ``None`` seeds a fresh one with 0."""
 
     def __init__(self, cfg, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in ("dense", "moe", "vlm"):
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (the remaining "
-                f"model families, ROADMAP Queue 1 item 9); repro_torch "
-                f"runs the dense, moe and ssm families")
+                f"family {cfg.family!r} is not a transformer family ported "
+                f"here; the audio (whisper) and hybrid (hymba) families are "
+                f"not ported yet (ROADMAP Queue 1 item 9)")
         self.cfg = cfg
         self.dtype = common.dtype_of(cfg.dtype)
         self.device = common.resolve_device(device)
@@ -225,10 +247,17 @@ class TransformerLM(nn.Module):
 
     # -- forward (train / prefill) --------------------------------------------
 
-    def _embed_inputs(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed_inputs(self, tokens: torch.Tensor,
+                      prefix_embeds: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+        """The token embeddings [B, S, d] (scaled by ``embed_scale``),
+        after ``prefix_embeds`` [B, P, d] when given: [B, P + S, d]."""
         x = common.embed(self.embed, tokens).to(self.dtype)
         if self.cfg.embed_scale != 1.0:
             x = x * self.cfg.embed_scale
+        if prefix_embeds is not None:
+            prefix = torch.as_tensor(prefix_embeds, device=x.device)
+            x = torch.cat([prefix.to(self.dtype), x], dim=1)
         return x
 
     def _run_layers(self, x: torch.Tensor, remat: str = "none"
@@ -252,18 +281,21 @@ class TransformerLM(nn.Module):
             return self.embed["embedding"].T
         return self.lm_head["w"]
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens: [B, S] -> logits [B, S, V_padded] (the local vocabulary
-        columns under a TP context)."""
-        x, _ = self._run_layers(self._embed_inputs(tokens))
+    def forward(self, tokens: torch.Tensor,
+                prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens: [B, S] (after an optional ``prefix_embeds`` [B, P, d]) ->
+        logits [B, P + S, V_padded] (the local vocabulary columns under a
+        TP context)."""
+        x, _ = self._run_layers(self._embed_inputs(tokens, prefix_embeds))
         x = common.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
         return tp.col_in(x, "vocab") @ self._output_weights()
 
     # -- loss ----------------------------------------------------------------
 
     def per_token_loss(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """batch: tokens [B, S], labels [B, S] (-1 = masked) -> (per-token
-        loss [B, S] f32, aux loss 0-d f32: the MoE layers' router losses
+        """batch: tokens [B, S], labels [B, S] (-1 = masked), optional
+        prefix_embeds [B, P, d] -> (per-token loss [B, P + S] f32, 0 over
+        the prefix; aux loss 0-d f32: the MoE layers' router losses
         summed, 0 without MoE layers).
 
         Big logits (``padded_vocab * S > CHUNKED_CE_THRESHOLD``) go
@@ -271,9 +303,14 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        x, aux = self._run_layers(self._embed_inputs(tokens),
+        prefix = batch.get("prefix_embeds")
+        x, aux = self._run_layers(self._embed_inputs(tokens, prefix),
                                   remat=cfg.remat)
         x = common.rmsnorm(self.final_norm, x, cfg.norm_eps)
+        if prefix is not None:
+            pad = torch.full((labels.shape[0], x.shape[1] - labels.shape[1]),
+                             -1, dtype=labels.dtype, device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
         x = tp.col_in(x, "vocab")               # TP head: local logits
         b, s, d = x.shape
         out_w = self._output_weights()
@@ -292,18 +329,25 @@ class TransformerLM(nn.Module):
 
     @torch.inference_mode()
     def init_cache(self, batch: int, max_len: int, dtype=None) -> dict:
-        """``dtype=torch.int8`` selects quantized caches (int8 payload, f16
-        per-(position, head) scales). ``lens`` is a host int; the layers'
-        caches are listed per segment (``seg_dense``, ``seg_moe``), as in
-        the reference."""
+        """``dtype=torch.int8`` selects quantized GQA caches (int8 payload,
+        f16 per-(position, head) scales); MLA's latent caches are then
+        bf16, whatever the model dtype (the latent is already the
+        compression). ``lens`` is a host int; the layers' caches are
+        listed per segment (``seg_dense``, ``seg_moe``), as in the
+        reference."""
         dtype = dtype or self.dtype
+        mla = self.cfg.attention_kind == "mla"
+        mla_dtype = torch.bfloat16 if dtype == torch.int8 else dtype
         cache = {"lens": 0}
         for kind, count, first in segments(self.cfg):
             layers = []
             for w in self.windows[first:first + count]:
                 s = min(max_len, w) if w > 0 else max_len
-                layers.append(attention.gqa_init_cache(
-                    self.cfg, batch, s, dtype, self.device))
+                layers.append(
+                    attention.mla_init_cache(self.cfg, batch, s, mla_dtype,
+                                             self.device) if mla else
+                    attention.gqa_init_cache(self.cfg, batch, s, dtype,
+                                             self.device))
             cache[f"seg_{kind}"] = layers
         return cache
 
@@ -329,23 +373,30 @@ class TransformerLM(nn.Module):
                       kind: str = "dense") -> torch.Tensor:
         cfg = self.cfg
         h = common.rmsnorm(p["ln1"], x, cfg.norm_eps)
-        size = layer_cache["k"].shape[1]
-        # a ring buffer holds exactly the last `size` tokens: written at
-        # cache_len % size, every slot valid once wrapped
-        is_ring = window > 0 and size <= window
-        attn_out, _ = attention.gqa_decode(
-            p["attn"], cfg, h, layer_cache, cache_len,
-            window=0 if is_ring else window,
-            write_pos=cache_len % size if is_ring else None)
+        if cfg.attention_kind == "mla":   # no ring buffer (the reference's)
+            attn_out, _ = attention.mla_decode(p["attn"], cfg, h,
+                                               layer_cache, cache_len)
+        else:
+            size = layer_cache["k"].shape[1]
+            # a ring buffer holds exactly the last `size` tokens: written
+            # at cache_len % size, every slot valid once wrapped
+            is_ring = window > 0 and size <= window
+            attn_out, _ = attention.gqa_decode(
+                p["attn"], cfg, h, layer_cache, cache_len,
+                window=0 if is_ring else window,
+                write_pos=cache_len % size if is_ring else None)
         x = x + attn_out
         h = common.rmsnorm(p["ln2"], x, cfg.norm_eps)
         if kind == "moe":
             return x + block_ffn(p, cfg, kind, h)[0]
         return x + mlp.mlp_apply(p["mlp"], h, cfg.hidden_act)
 
-    def prefill(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Run the stack, return only the last position's logits [B, V]."""
-        x, _ = self._run_layers(self._embed_inputs(tokens))
+    def prefill(self, tokens: torch.Tensor,
+                prefix_embeds: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """Run the stack over ``prefix_embeds`` (optional) and ``tokens``,
+        return only the last position's logits [B, V]."""
+        x, _ = self._run_layers(self._embed_inputs(tokens, prefix_embeds))
         x = common.rmsnorm(self.final_norm, x[:, -1:], self.cfg.norm_eps)
         return (x @ self._output_weights())[:, 0]
 

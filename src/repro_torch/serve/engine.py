@@ -79,7 +79,7 @@ import torch.distributed as dist
 from repro_torch.core import faults as faults_lib
 from repro_torch.core.step_graph import StepGraph
 from repro_torch.distributed import mesh, tp
-from repro_torch.distributed.spmd_engine import check_moe_tp, resolve_tp
+from repro_torch.distributed.spmd_engine import resolve_tp
 from repro_torch.models import from_jax_tree, get_model, to_jax_tree
 from repro_torch.models.common import resolve_device
 from repro_torch.models.convert import load_named, shard_model
@@ -192,7 +192,6 @@ class ServeEngine:
         ok, why = supports_paged(model_cfg)
         if not ok:
             raise ValueError(f"paged serving unsupported: {why}")
-        check_moe_tp(model_cfg, mesh_model)
         if clock not in ("wall", "virtual"):
             raise ValueError(f"clock must be 'wall' or 'virtual' (got {clock})")
         self.device = resolve_device(device)

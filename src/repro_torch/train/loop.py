@@ -371,8 +371,6 @@ class Trainer:
         self._rows = slice(None)             # this rank's rows of a batch
         if self._spmd:
             ex = cfg.execution
-            if self._model_override is None:
-                spmd_engine.check_moe_tp(cfg.model, ex.mesh_model)
             spmd_engine.check_mesh(ex.mesh_data, ex.mesh_model)
             spmd_engine.validate_layout(cfg.aggregation.total_workers,
                                         cfg.shape.global_batch, ex.mesh_data)

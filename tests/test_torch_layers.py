@@ -63,11 +63,12 @@ def test_configs_match_reference(getter):
 
 
 def test_unported_arch_is_a_clear_key_error():
-    assert tconfigs.list_archs() == ["qwen2-moe-a2.7b", "gemma3-1b",
-                                     "qwen3-0.6b", "minitron-4b",
+    assert tconfigs.list_archs() == ["qwen2-moe-a2.7b",
+                                     "deepseek-v2-lite-16b", "internvl2-2b",
+                                     "gemma3-1b", "qwen3-0.6b", "minitron-4b",
                                      "command-r-plus-104b", "rwkv6-1.6b"]
     with pytest.raises(KeyError, match="not ported"):
-        tconfigs.get_config("deepseek-v2-lite-16b")
+        tconfigs.get_config("whisper-tiny")
 
 
 # ---------------------------------------------------------------------------

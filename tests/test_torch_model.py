@@ -149,7 +149,8 @@ def test_model_without_cuda_raises_unless_cpu(monkeypatch):
 
 
 def test_unported_family_raises():
-    cfg = dataclasses.replace(tconfigs.get_smoke_config(ARCH), family="vlm")
+    cfg = dataclasses.replace(tconfigs.get_smoke_config(ARCH),
+                              family="audio")
     with pytest.raises(NotImplementedError, match="not ported"):
         get_model(cfg, device="cpu")
 

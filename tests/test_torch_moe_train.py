@@ -17,8 +17,9 @@ factor 1.25 (drops happen), remat full.
   JAX CLI's step line (loss within 2e-4); the serve CLI's request rows
   (paged engine) and token rows (``--toy``) equal the JAX CLI's on the
   same parameters.
-* ``mesh_model > 1`` on an MoE config raises ``NotImplementedError``
-  (``ServeEngine``, ``build_spmd_step`` and the trainer).
+* ``ServeEngine``, ``build_spmd_step`` and the trainer build at
+  ``mesh_model=2`` on an MoE config (a world of 2 in this process, the
+  ``fake`` backend; the spawned runs are ``test_torch_moe_tp.py``'s).
 """
 import dataclasses
 import re
@@ -240,18 +241,48 @@ def test_serve_cli_matches_jax_cli(toy, capsys, monkeypatch):
     assert len(pattern.findall(got)) == (2 if toy else 4)
 
 
-def test_mesh_model_on_moe_is_not_ported():
+@pytest.fixture
+def fake_world_of_two():
+    """A world of 2 ranks inside this process (torch's ``fake`` backend:
+    collectives return at once), so that a ``mesh_model=2`` object can be
+    built here; the spawned runs are ``test_torch_moe_tp.py``'s."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.distributed import mesh
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=2)
+    try:
+        yield
+    finally:
+        mesh._mesh.clear()
+        dist.destroy_process_group()
+
+
+def test_mesh_model_on_moe_is_not_ported(fake_world_of_two):
+    """The three calls that refused ``mesh_model > 1`` on an MoE config
+    until tensor parallelism of the MoE family was ported now build at
+    ``mesh_model=2``, each holding a rank's slice: attention and the
+    vocabulary split, the ``moe`` leaves whole."""
     cfg = tconfigs.get_smoke_config(ARCH)
     tmodel = get_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ServeEngine(cfg, tmodel, device="cpu", mesh_model=2)
+    full = {k: tuple(v.shape) for k, v in tmodel.named_parameters()}
+    eng = ServeEngine(cfg, tmodel, device="cpu", mesh_model=2)
+    assert eng.tp_plan.attn and eng.tp_plan.vocab
+    assert eng.pool_cfg.kv_heads == cfg.num_kv_heads // 2
     opt_cfg = tconfigs.OptimizerConfig(name="momentum")
     opt = make_optimizer(opt_cfg, schedules.from_config(opt_cfg, 2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tspmd.build_spmd_step(tmodel, opt, num_workers=2, n_aggregate=2,
-                              mesh_model=2, model_cfg=cfg)
+    tmodel = get_model(cfg, device="cpu")
+    step = tspmd.build_spmd_step(tmodel, opt, num_workers=2, n_aggregate=2,
+                                 mesh_model=2, model_cfg=cfg)
+    assert callable(step)
+    local = {k: tuple(v.shape) for k, v in tmodel.named_parameters()}
+    for k, shape in full.items():
+        if ".moe." in k:
+            assert local[k] == shape, k
+    wq = "layers.0.attn.wq.w"
+    assert local[wq] == (full[wq][0], full[wq][1] // 2)
     tcfg = _port_cfg(_train_jcfg("spmd", ""))
     tcfg = dataclasses.replace(tcfg, execution=dataclasses.replace(
         tcfg.execution, mesh_model=2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tloop.Trainer(tcfg, device="cpu")
+    tr = tloop.Trainer(tcfg, device="cpu")
+    assert tr.model.tp_slice[0].attn
