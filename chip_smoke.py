@@ -10,6 +10,7 @@
     python3 chip_smoke.py --flash-only    # flash attention's phases 3, 25
     python3 chip_smoke.py --moe-only      # phase 28 alone
     python3 chip_smoke.py --families-only # phase 29 alone
+    python3 chip_smoke.py --hybrid-audio-only # phase 30 alone
 
 Drives the port (``src/repro_torch``) through its own entry points and
 fails (non-zero exit, no result line) if any phase fails:
@@ -253,7 +254,8 @@ fails (non-zero exit, no result line) if any phase fails:
    4's 16 requests to the same greedy tokens. Save and restore seconds are
    printed.
 24. The replica router: ``ROUTER_REPLICAS`` ``StepSession`` replicas over
-   one fp engine at full width (phase 4's geometry), ``ROUTER_REQUESTS``
+   one fp engine at full width, ``ROUTER_LAYERS`` of 28 layers (phase 4's
+   geometry), ``ROUTER_REQUESTS``
    requests, hedging over ``ROUTER_HEDGE_AFTER``, the chaos plan
    ``ROUTER_FAULTS``: nothing lost, every completed request's tokens equal
    the single engine's, a second run's report bit-identical, page_gather
@@ -355,7 +357,33 @@ fails (non-zero exit, no result line) if any phase fails:
    run each MoE layer's input through a prefill and ``TP_MOE_STEPS``
    decode steps is the same bits on every rank.
    ``--families-only`` runs the build and this phase alone.
-30. A JSON line of per-kernel numbers (``launches`` is the count of one
+30. The last model families, nothing cut. hymba-1.5b at full width (32
+   layers, d_model 1,600, 25 / 5 heads of 64, SSD state 16, window 1,024,
+   d_ff 5,504, vocab 32,001; ``HYMBA_PARAMS`` parameters, seeded random
+   weights, bf16) on the toy path: the stepped decode's last logits
+   against ``prefill``'s on ``HYMBA_SEEDS`` prompts within
+   ``HYMBA_LOGITS_REL``, ``greedy_generate`` batch 2, 16 + 8 tokens, fp and
+   int8, eager ms a step and peak memory; one layer's attention over
+   ``CHUNKED_S`` tokens, ``gqa_attend_chunked`` against ``gqa_attend``
+   within ``CHUNKED_REL``, device ms of each; the ring past the window
+   (``HYMBA_RING_LAYERS`` layers f32 stepped over ``HYMBA_RING_STEPS``
+   positions, the last ones held to ``forward`` within ``TOY_F32_REL``);
+   at 2 layers f32 the card's tokens equal the CPU port's; ``ssd_chunked``
+   against ``ssd_scan`` at the training shape in f32 (the reference's
+   1e-4). One deepseek-v2-lite-16b MLA layer over ``CHUNKED_S`` tokens:
+   the long path against the dense formula within ``CHUNKED_REL``, device
+   ms of each. whisper-tiny at full width (4 + 4 layers, d_model 384, 6
+   heads of 64, 1,500 frames, vocab 51,865, ``WHISPER_PARAMS``, bf16):
+   ``prime_cross_cache`` and the stepped decode against ``forward`` over a
+   16-token prompt within ``TOY_LOGITS_REL``, ``greedy_generate`` batch 2,
+   16 + 8 tokens, eager ms a step; async over 4 workers through
+   ``batch_fn`` (frames in every batch), ``WHISPER_UPDATES`` updates per
+   arrival and as event graph chunks, bit-equal. Last, hymba-1.5b training
+   at full depth: backup 3 + 1, spmd at grad_batch 1 with the EMA,
+   ``FAMILY_TRAIN_STEPS`` steps eagerly and as one chunk through the CUDA
+   graph, bit-equal, one backup_reduce a step (counted from 0).
+   ``--hybrid-audio-only`` runs the build and this phase alone.
+31. A JSON line of per-kernel numbers (``launches`` is the count of one
    run of the main path that launches the kernel, named by
    ``launches_run``: the graph-decode serve runs, whose prefills stay
    eager, and the graph training runs; ``launches_batched_and_mesh``: those
@@ -365,11 +393,12 @@ fails (non-zero exit, no result line) if any phase fails:
    ``launches_dense``: phase 25's runs; ``launches_toy``: phase 26's rwkv6
    prefill; ``launches_moe``: phase 28's serve runs and training chunk;
    ``launches_families``: phase 29's training runs and TP decode runs;
+   ``launches_hybrid_audio``: phase 30's hymba training graph run;
    flash at head_dim 256 is its own row, with ``ptxas``), then, as the last
    line, ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero when ``torch.cuda.is_available()`` is false.
-A line ``[time] phase N: s`` follows each of phases 16-29.
+A line ``[time] phase N: s`` follows each of phases 3-30.
 """
 from __future__ import annotations
 
@@ -418,9 +447,10 @@ RWKV_CONVERGING_STEPS = 12
 RWKV_CONVERGING_LAYERS = 2
 # phase 16's Figs. 8/9 regimes on qwen3-0.6b and phase 17's eps record,
 # cut in depth (of 28 layers) so that phases 25-27 fit the call: the
-# regimes took 72 s at 28 layers (4, then 2 so that phase 28 fits too)
+# regimes took 72 s at 28 layers (4, then 2 so that phase 28 fits too;
+# the eps record 4, then 2 so that phase 30 fits)
 FIGS89_LAYERS = 2
-EPS_RECORD_LAYERS = 4
+EPS_RECORD_LAYERS = 2
 # phase 17: (arch, grad_batch values) of the batched full-width runs.
 # rwkv6-1.6b at 0 (all 4 workers) runs out of the card's memory: at 2 it
 # peaks at 69.1 GB allocated, 82.2 GB reserved (PERF.md, Findings)
@@ -486,11 +516,15 @@ ROUTER_REQUESTS = 32
 ROUTER_RATE = 0.25
 ROUTER_HEDGE_AFTER = 24.0
 ROUTER_FAULTS = "crash@30:r1,restart@60:r1,slowdown@10:r2:x3:d40"
+# the router's model depth (of 28 layers; width unchanged): at 28 the
+# phase took 39 s of a call on a slow host, and phase 30 needed the time
+ROUTER_LAYERS = 4
 
 
 # phase 23's depth (of 28 layers): the restore bridge saves and reads one
 # checkpoint twice, and at full width (8.35 GB) that took 62 s of the call
-RESTORE_LAYERS = 4
+# (4, then 2 so that phase 30 fits)
+RESTORE_LAYERS = 2
 # phase 25: gemma3-1b's heads (flash at head_dim 256), command-r-plus's
 # depth (of 64 layers: the whole model is over 200 GB in bf16), and the
 # requests of the minitron-4b and command-r-plus runs
@@ -573,6 +607,32 @@ FAMILY_TOY_RUN = (16, 8)
 TOY_MLA_SEEDS = (29, 30, 31)
 TOY_MLA_LOGITS_REL = 0.1
 VLM_TEXT = 16
+# phase 30: the parameters of hymba-1.5b and whisper-tiny
+# (repro.models.registry.param_count of the reference); the seeds of
+# hymba's prompts whose stepped decode is held to prefill at full depth in
+# bf16 (rel L2 of the last logits, at most HYMBA_LOGITS_REL: on an H100 at
+# 700 W the gaps read 0.102-0.136, as large as what bf16 rounding alone
+# moves prefill, bf16 against an f32 copy of the weights 0.091-0.151, while
+# the f32 copy's own gap read 1.4e-5, so the limit holds 1.8x the largest
+# reading and the exact gate is the f32 one, TOY_F32_REL); hymba's ring
+# run (2 of 32 layers at full width, f32, stepped over 1,040 positions
+# past its window of 1,024, the last 16 held to forward); the SSD's
+# training shape (a worker's batch); the length of the chunked-core checks
+# (past the 8,192-token switch) and their bf16 limit on the rel L2 against
+# the dense formula (the dense path rounds the normalised probabilities to
+# bf16, the blocked core the unnormalised ones, block by block); whisper's
+# async updates
+HYMBA_PARAMS = 1_299_664_064
+WHISPER_PARAMS = 62_263_296
+HYMBA_SEEDS = (30, 31, 32)
+HYMBA_LOGITS_REL = 0.25
+HYMBA_RING_LAYERS = 2
+HYMBA_RING_STEPS = 1040
+HYMBA_RING_HELD = 16
+SSD_SHAPE = dict(b=2, s=256, h=25, p=64, n=16)
+CHUNKED_S = 8448
+CHUNKED_REL = 3e-2
+WHISPER_UPDATES = 4
 
 
 def _log(msg: str) -> None:
@@ -3471,7 +3531,8 @@ def _router_phase(torch, kernels):
                                    SLOConfig, StepSession)
     from repro_torch.serve import router as router_lib
     page_gather, flash_attention = kernels
-    cfg = configs.get_config("qwen3-0.6b")
+    cfg = dataclasses.replace(configs.get_config("qwen3-0.6b"),
+                              num_layers=ROUTER_LAYERS)
     model = get_model(cfg, device="cuda",
                       generator=torch.Generator(device="cuda").manual_seed(0))
     engine = ServeEngine(cfg, model, clock="virtual", **_serve_cfg())
@@ -3526,7 +3587,8 @@ def _router_phase(torch, kernels):
     if not (m["hedges"] and m["crashes"] and m["restarts"]):
         raise AssertionError(f"[router] the plan did not fire: {m}")
     tokens = sum(len(t) for t in got.values())
-    _log(f"[router] qwen3-0.6b full width fp, {ROUTER_REPLICAS} StepSessions"
+    _log(f"[router] qwen3-0.6b full width at {ROUTER_LAYERS} of 28 layers, "
+         f"fp, {ROUTER_REPLICAS} StepSessions"
          f" x {engine.pool_cfg.num_slots} slots, {len(trace)} requests, "
          f"hedge floor {ROUTER_HEDGE_AFTER}, faults {ROUTER_FAULTS}: "
          f"{m['completed']} completed, {m['rejected']} rejected, "
@@ -4497,7 +4559,8 @@ def _card_equals_cpu(torch, cfg, tag, prefix=False):
                      f"(limit {TOY_F32_REL})")
         dtypes = sorted({str(t.dtype) for c in card.init_cache(
             1, 8, torch.int8).values() if isinstance(c, list)
-            for layer in c for t in layer.values()})
+            for layer in c for t in (layer.values()
+                                     if isinstance(layer, dict) else [layer])})
     if not torch.equal(got, want):
         raise AssertionError(f"[{tag} 2 layers f32] card tokens "
                              f"{got.tolist()} differ from the CPU port's "
@@ -4532,15 +4595,15 @@ def _stepped_gap(torch, model, prompt) -> float:
 def _toy_runs(torch, model, cfg, tag, gen, limit=TOY_LOGITS_REL):
     """Phase 26's toy checks on ``model`` at full width: the stepped
     decode's last logits against ``prefill``'s (``_stepped_gap`` within
-    ``limit``), then ``greedy_generate`` with the fp and the int8 cache at
-    the config's capacity, eager ms a step. Returns {cache: ms a decode
-    step}."""
+    ``limit``; ``limit=None`` leaves that to the caller), then
+    ``greedy_generate`` with the fp and the int8 cache at the config's
+    capacity, eager ms a step. Returns {cache: ms a decode step}."""
     from repro_torch.train.serve_step import greedy_generate
     plen, new = FAMILY_TOY_RUN
     prompt = torch.randint(0, cfg.vocab_size, (TOY_BATCH, plen),
                            generator=gen, device="cuda")
-    gap = _stepped_gap(torch, model, prompt[:1])
-    if not gap <= limit:
+    gap = None if limit is None else _stepped_gap(torch, model, prompt[:1])
+    if gap is not None and not gap <= limit:
         raise AssertionError(f"[{tag}] stepped decode's last logits vs "
                              f"prefill's: rel L2 {gap} (limit {limit})")
     out = {}
@@ -4558,8 +4621,9 @@ def _toy_runs(torch, model, cfg, tag, gen, limit=TOY_LOGITS_REL):
                  f"steps): prompt {marks[1] - marks[0]:.2f} s, decode "
                  f"{marks[2] - marks[1]:.2f} s ({out[cache_tag]:.2f} "
                  f"ms/step); row 0 {toks[0, :12].tolist()}")
-    _log(f"[{tag}] stepped decode's last logits vs prefill's: rel L2 "
-         f"{gap:.3g} (limit {limit}, bf16; prompt {plen})")
+    if gap is not None:
+        _log(f"[{tag}] stepped decode's last logits vs prefill's: rel L2 "
+             f"{gap:.3g} (limit {limit}, bf16; prompt {plen})")
     return out
 
 
@@ -4778,6 +4842,366 @@ def _families_phase(torch, backup_reduce):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: the last model families (hymba-1.5b: mamba's SSD and the hybrid
+# block; whisper-tiny: encoder-decoder with cross caches) and the blocked
+# attention core above 8,192 tokens
+# ---------------------------------------------------------------------------
+
+
+def _rel_max(torch, got, want):
+    """(rel L2, max abs) of ``got`` against ``want``, in f32."""
+    got, want = got.float(), want.float()
+    return (_rel_l2_logits(torch, got, want),
+            float((got - want).abs().max()))
+
+
+def _chunked_gqa_check(torch, model, cfg):
+    """One hymba layer's attention at full width and dtype over
+    ``CHUNKED_S`` tokens with the config's window: ``gqa_attend_chunked``
+    against the dense ``gqa_attend``, device ms of each."""
+    from repro_torch.models import attention
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    s, w = CHUNKED_S, cfg.sliding_window
+    x = torch.randn((1, s, cfg.d_model), generator=gen,
+                    device="cuda").to(model.dtype)
+    pos = torch.arange(s, device="cuda")[None]
+    p = model.blocks[0]["attn"]
+    with torch.inference_mode():
+        got = attention.gqa_attend_chunked(p, cfg, x, pos, window=w)
+        want = attention.gqa_attend(p, cfg, x, pos, window=w)
+        gap, err = _rel_max(torch, got, want)
+        del got, want
+        ms = _busy_ms(torch, [lambda: attention.gqa_attend_chunked(
+            p, cfg, x, pos, window=w)])
+        dense_ms = _busy_ms(torch, [lambda: attention.gqa_attend(
+            p, cfg, x, pos, window=w)])
+    if not gap <= CHUNKED_REL:
+        raise AssertionError(f"[chunked hymba layer] gqa_attend_chunked vs "
+                             f"gqa_attend over {s} tokens: rel L2 {gap} "
+                             f"(limit {CHUNKED_REL})")
+    _log(f"[chunked hymba layer] {cfg.num_heads} / {cfg.num_kv_heads} heads "
+         f"of {cfg.resolved_head_dim}, {model.dtype}, S {s}, window {w}: "
+         f"gqa_attend_chunked vs gqa_attend rel L2 {gap:.3g}, max abs "
+         f"{err:.3g} (limit rel {CHUNKED_REL}) | device busy {ms:.3f} ms "
+         f"chunked, {dense_ms:.3f} ms dense (torch.profiler, 3 calls)")
+
+
+def _chunked_mla_check(torch):
+    """One deepseek-v2-lite-16b MLA layer at full width, bf16, over
+    ``CHUNKED_S`` tokens: ``mla_attend``'s long path (the blocked core)
+    against its dense formula (the same function with the switch raised
+    past S), device ms of each; the dense scores take 4.6 GB at H 16."""
+    from repro_torch import configs
+    from repro_torch.models import attention
+    cfg = configs.get_config("deepseek-v2-lite-16b")
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    p = attention.mla_init(gen, cfg, torch.bfloat16, "cuda")
+    s = CHUNKED_S
+    x = torch.randn((1, s, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    pos = torch.arange(s, device="cuda")[None]
+    limit = attention.MLA_DENSE_MAX_LEN
+
+    def dense():
+        attention.MLA_DENSE_MAX_LEN = s
+        try:
+            return attention.mla_attend(p, cfg, x, pos)
+        finally:
+            attention.MLA_DENSE_MAX_LEN = limit
+
+    def long():
+        return attention.mla_attend(p, cfg, x, pos)
+
+    with torch.inference_mode():
+        gap, err = _rel_max(torch, long(), dense())
+        ms = _busy_ms(torch, [long])
+        dense_ms = _busy_ms(torch, [dense])
+    if not gap <= CHUNKED_REL:
+        raise AssertionError(f"[chunked deepseek MLA layer] long path vs "
+                             f"dense over {s} tokens: rel L2 {gap} (limit "
+                             f"{CHUNKED_REL})")
+    _log(f"[chunked deepseek MLA layer] {cfg.num_heads} heads, nope "
+         f"{cfg.mla.qk_nope_dim} + rope {cfg.mla.qk_rope_dim}, v "
+         f"{cfg.mla.v_head_dim}, bf16, S {s}: long path (blocked core) vs "
+         f"dense rel L2 {gap:.3g}, max abs {err:.3g} (limit rel "
+         f"{CHUNKED_REL}) | device busy {ms:.3f} ms long path, "
+         f"{dense_ms:.3f} ms dense (torch.profiler, 3 calls)")
+
+
+def _ssd_check(torch):
+    """``ssd_chunked`` against ``ssd_scan`` on the card at hymba-1.5b's
+    training shape in f32 (a worker's 2 x 256 tokens, 25 heads of 64, state
+    16; seeded inputs as the reference's own test makes them), at the
+    reference's tolerance; device ms of each."""
+    from repro_torch.models import mamba
+    b, s, h, p, n = (SSD_SHAPE[k] for k in "bshpn")
+    gen = torch.Generator(device="cuda").manual_seed(35)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    xv, bb, cc = 0.5 * rnd(b, s, h, p), 0.5 * rnd(b, s, h, n), \
+        0.5 * rnd(b, s, h, n)
+    dt = torch.nn.functional.softplus(rnd(b, s, h))
+    decay = torch.exp(-dt * torch.exp(0.3 * rnd(h)))
+    d_skip = torch.ones((h, p), device="cuda")
+    args = (xv, bb, cc, dt, decay, d_skip)
+    with torch.inference_mode():
+        y1, s1 = mamba.ssd_chunked(*args)
+        y2, s2 = mamba.ssd_scan(*args)
+        worst = max(float(((a - b_).abs() - 1e-4 * b_.abs()).max())
+                    for a, b_ in ((y1, y2), (s1, s2)))
+        err = max(float((a - b_).abs().max()) for a, b_ in ((y1, y2),
+                                                           (s1, s2)))
+        ms = _busy_ms(torch, [lambda: mamba.ssd_chunked(*args)])
+        scan_ms = _busy_ms(torch, [lambda: mamba.ssd_scan(*args)])
+    if not worst <= 1e-4:
+        raise AssertionError(f"[ssd] ssd_chunked vs ssd_scan at [{b}, {s}, "
+                             f"{h}, {p}] state {n}, f32: max abs {err} "
+                             f"(limit 1e-4 + 1e-4 rel)")
+    _log(f"[ssd] ssd_chunked (chunk 64) vs ssd_scan at hymba-1.5b's training "
+         f"shape [{b}, {s}, {h}, {p}], state {n}, f32: outputs and final "
+         f"state max abs {err:.3g} (limit 1e-4 + 1e-4 rel) | device busy "
+         f"{ms:.3f} ms chunked, {scan_ms:.3f} ms scan (torch.profiler, 3 "
+         f"calls)")
+
+
+def _hymba_ring(torch, cfg):
+    """``HYMBA_RING_LAYERS`` of 32 layers at full width in f32, stepped
+    over ``HYMBA_RING_STEPS`` positions past the window of 1,024 (each
+    layer's ring buffer wraps): the last ``HYMBA_RING_HELD`` positions'
+    logits against ``forward``'s over the same tokens."""
+    from repro_torch.models import get_model
+    small = dataclasses.replace(cfg, num_layers=HYMBA_RING_LAYERS,
+                                dtype="float32")
+    t0 = time.perf_counter()
+    model = get_model(small, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(36))
+    n = HYMBA_RING_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (1, n), generator=torch.Generator(
+        device="cuda").manual_seed(37), device="cuda")
+    held = []
+    with torch.inference_mode():
+        cache = model.init_cache(1, n)
+        size = cache["attn"][0]["k"].shape[1]
+        for i in range(n):
+            logits, cache = model.decode_step(toks[:, i:i + 1], cache)
+            if i >= n - HYMBA_RING_HELD:
+                held.append(logits)
+        full = model(toks)[0, n - HYMBA_RING_HELD:]
+    gap = _rel_l2_logits(torch, torch.cat(held), full)
+    if size != cfg.sliding_window or not gap <= TOY_F32_REL:
+        raise AssertionError(f"[hymba ring] a ring of {size} positions, "
+                             f"stepped over {n}: the last {HYMBA_RING_HELD} "
+                             f"positions' logits vs forward's rel L2 {gap} "
+                             f"(limit {TOY_F32_REL})")
+    _log(f"[hymba ring] {HYMBA_RING_LAYERS} of {cfg.num_layers} layers, "
+         f"full width, f32: decode stepped over {n} positions through a "
+         f"ring of {size} (wrapped {n - size} times past the window), the "
+         f"last {HYMBA_RING_HELD} positions' logits vs forward's rel L2 "
+         f"{gap:.3g} (limit {TOY_F32_REL}); {time.perf_counter() - t0:.1f} s")
+    del model, cache
+
+
+def _hymba_gaps(torch, model, cfg):
+    """The stepped decode's last logits against ``prefill``'s at full
+    depth on ``HYMBA_SEEDS`` prompts in bf16 (within ``HYMBA_LOGITS_REL``),
+    and on the first one with an f32 copy of the same weights (within
+    ``TOY_F32_REL``: the decode's ring, SSD scan and mix are the
+    prefill's arithmetic); beside them, the control: bf16 ``prefill``
+    against the f32 copy's, what bf16 rounding alone moves."""
+    from repro_torch.models import get_model
+    arch = cfg.name
+    twin = get_model(dataclasses.replace(cfg, dtype="float32"),
+                     device="meta", generator=torch.Generator())
+    twin.to_empty(device="cuda")
+    twin.device = model.device
+    twin.load_state_dict(model.state_dict())
+    prompts = [torch.randint(0, cfg.vocab_size, (1, FAMILY_TOY_RUN[0]),
+                             generator=torch.Generator(
+                                 device="cuda").manual_seed(seed),
+                             device="cuda") for seed in HYMBA_SEEDS]
+    gaps = [_stepped_gap(torch, model, p) for p in prompts]
+    f32_gap = _stepped_gap(torch, twin, prompts[0])
+    with torch.inference_mode():
+        control = [_rel_l2_logits(torch, model.prefill(p), twin.prefill(p))
+                   for p in prompts]
+    del twin
+
+    def fmt(xs):
+        return ", ".join(f"{x:.3g}" for x in xs)
+
+    _log(f"[family {arch}] stepped decode's last logits vs prefill's at "
+         f"full depth on seeds {HYMBA_SEEDS} (prompt {FAMILY_TOY_RUN[0]}): "
+         f"rel L2 bf16 {fmt(gaps)} (limit {HYMBA_LOGITS_REL}); f32 copy "
+         f"{f32_gap:.3g} on seed {HYMBA_SEEDS[0]} (limit {TOY_F32_REL}); "
+         f"control, bf16 prefill vs the f32 copy's {fmt(control)}")
+    if not (max(gaps) <= HYMBA_LOGITS_REL and f32_gap <= TOY_F32_REL):
+        raise AssertionError(f"[family {arch}] stepped decode vs prefill: "
+                             f"rel L2 bf16 {gaps} (limit {HYMBA_LOGITS_REL}), "
+                             f"f32 {f32_gap} (limit {TOY_F32_REL})")
+
+
+def _hymba_phase(torch):
+    """hymba-1.5b at full width (32 layers, d_model 1,600, 25 / 5 heads of
+    64, SSD state 16, window 1,024, bf16, seeded random weights, nothing
+    cut) on the toy path: the stepped decode's last logits against
+    ``prefill``'s on ``HYMBA_SEEDS`` prompts, ``greedy_generate`` batch 2,
+    16 + 8 tokens, fp and int8, eager ms a step and peak memory; one
+    layer's chunked attention; then the ring past the window, card == CPU
+    at 2 layers f32 and the SSD's chunked form against its scan."""
+    import gc
+    from repro_torch import configs
+    arch = "hymba-1.5b"
+    cfg = configs.get_config(arch)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = _full_width_model(torch, cfg, label=f"family {arch}")
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != HYMBA_PARAMS:
+        raise AssertionError(f"[{arch}] {n_params} params, expected "
+                             f"{HYMBA_PARAMS}")
+    _hymba_gaps(torch, model, cfg)
+    ms = _toy_runs(torch, model, cfg, f"family {arch}", torch.Generator(
+        device="cuda").manual_seed(HYMBA_SEEDS[0]), limit=None)
+    peak = torch.cuda.max_memory_allocated()
+    _log(f"[family {arch}] toy path at full width ({n_params} params, bf16, "
+         f"a ring of {cfg.sliding_window} and an f32 SSD state a layer): "
+         f"eager decode {ms['fp']:.2f} ms a step fp, {ms['int8']:.2f} int8 "
+         f"| peak device memory {peak / 1e9:.3f} GB (an f32 copy of the "
+         f"model included); {time.perf_counter() - t0:.1f} s")
+    _chunked_gqa_check(torch, model, cfg)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    _hymba_ring(torch, cfg)
+    _card_equals_cpu(torch, dataclasses.replace(cfg, num_layers=2,
+                                                dtype="float32"),
+                     f"family {arch}")
+    _ssd_check(torch)
+
+
+def _whisper_frames(torch, cfg, batch, seed):
+    """Seeded encoder frames [batch, 1,500, d_model] x 0.1, f32, on the
+    card (the toy path's scale)."""
+    return 0.1 * torch.randn((batch, cfg.encoder_seq_len, cfg.d_model),
+                             generator=torch.Generator(
+                                 device="cuda").manual_seed(seed),
+                             device="cuda")
+
+
+def _whisper_batch_fn(cfg, seq):
+    """The async run's ``batch_fn(worker, draw)``: 2 sequences of ``seq``
+    tokens and 2 x 1,500 frames x 0.1 (numpy, f32), from (worker, draw);
+    the synthetic pipeline makes no frames, as the reference's does not."""
+    import numpy as np
+
+    def batch_fn(worker, draw):
+        rng = np.random.default_rng(1000 * draw + worker)
+        toks = rng.integers(0, cfg.vocab_size, (2, seq + 1))
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                "encoder_frames": 0.1 * rng.standard_normal(
+                    (2, cfg.encoder_seq_len, cfg.d_model), dtype=np.float32)}
+    return batch_fn
+
+
+def _whisper_phase(torch):
+    """whisper-tiny at full width (4 + 4 layers, d_model 384, 6 heads of
+    64, 1,500 frames, vocab 51,865, bf16, nothing cut): ``prime_cross_cache``
+    and the stepped decode against ``forward``'s logits over a 16-token
+    prompt on seeded frames; ``greedy_generate`` batch 2, 16 + 8 tokens, fp,
+    eager ms a step; training through ``run_experiment`` with async over 4
+    workers and a ``batch_fn`` that makes frames, per arrival and as event
+    graph chunks, bit-equal."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.launch.profile_train import event_config
+    from repro_torch.train.serve_step import greedy_generate
+    arch = "whisper-tiny"
+    cfg = configs.get_config(arch)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = _full_width_model(torch, cfg, label=f"family {arch}")
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != WHISPER_PARAMS:
+        raise AssertionError(f"[{arch}] {n_params} params, expected "
+                             f"{WHISPER_PARAMS}")
+    plen, new = FAMILY_TOY_RUN
+    gen = torch.Generator(device="cuda").manual_seed(38)
+    prompt = torch.randint(0, cfg.vocab_size, (TOY_BATCH, plen),
+                           generator=gen, device="cuda")
+    frames = _whisper_frames(torch, cfg, TOY_BATCH, 39)
+    with torch.inference_mode():
+        cache = model.prime_cross_cache(model.init_cache(1, plen),
+                                        frames[:1])
+        stepped = []
+        for i in range(plen):
+            logits, cache = model.decode_step(prompt[:1, i:i + 1], cache)
+            stepped.append(logits)
+        full = model(prompt[:1], encoder_frames=frames[:1])[0]
+        gap = _rel_l2_logits(torch, torch.cat(stepped), full)
+        del cache, full
+        if not gap <= TOY_LOGITS_REL:
+            raise AssertionError(f"[family {arch}] primed cross cache + "
+                                 f"stepped decode vs forward over {plen} "
+                                 f"tokens: rel L2 {gap} (limit "
+                                 f"{TOY_LOGITS_REL})")
+        marks = []
+        toks = greedy_generate(model, prompt, new, plen + new + 1,
+                               marks=marks, encoder_frames=frames)
+        if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            raise AssertionError(f"[family {arch}] token ids out of range")
+    step_ms = 1e3 * (marks[2] - marks[1]) / new
+    peak = torch.cuda.max_memory_allocated()
+    _log(f"[family {arch}] prime_cross_cache + stepped decode vs forward, "
+         f"all {plen} positions' logits: rel L2 {gap:.3g} (limit "
+         f"{TOY_LOGITS_REL}, bf16) | greedy_generate batch {TOY_BATCH}, "
+         f"{cfg.encoder_seq_len} frames, prompt {plen}, {new} tokens: encode "
+         f"+ prompt {marks[1] - marks[0]:.2f} s, decode "
+         f"{marks[2] - marks[1]:.2f} s ({step_ms:.2f} ms/step eager); row 0 "
+         f"{toks[0, :12].tolist()} | peak device memory {peak / 1e9:.3f} GB; "
+         f"{time.perf_counter() - t0:.1f} s")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    tag = f"event {arch} async"
+    runs = {}
+    for chunk in (1, WHISPER_UPDATES):
+        ecfg = event_config(arch, "async", steps=WHISPER_UPDATES,
+                            chunk=chunk)
+        kind = "graph" if chunk > 1 else "per-arrival"
+        runs[kind] = _event_run(torch, ecfg, (), f"{tag} {kind}",
+                                batch_fn=_whisper_batch_fn(
+                                    cfg, ecfg.shape.seq_len))
+    _hold_events(tag, runs["per-arrival"], runs["graph"])
+
+
+def _hybrid_audio_phase(torch, backup_reduce):
+    """Phase 30: hymba-1.5b and whisper-tiny at full width, the chunked
+    core above 8,192 tokens, then hymba's training at full depth. Returns
+    the backup_reduce launches of its graph run."""
+    import gc
+    from repro_torch.launch.profile_train import train_config
+    _hymba_phase(torch)
+    torch.cuda.empty_cache()
+    _chunked_mla_check(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _whisper_phase(torch)
+    torch.cuda.empty_cache()
+    arch = "hymba-1.5b"
+    train = train_config(arch, steps=FAMILY_TRAIN_STEPS, grad_batch=1)
+    n, launches = _cut_train(torch, backup_reduce, train, arch,
+                             train.model.num_layers)
+    if n != HYMBA_PARAMS:
+        raise AssertionError(f"[{arch} train] {n} params, expected "
+                             f"{HYMBA_PARAMS}")
+    return launches
+
+
 def main(argv) -> int:
     started = time.perf_counter()
     # cuBLAS picks the same algorithms run to run (the kernel and plain
@@ -4785,7 +5209,7 @@ def main(argv) -> int:
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     entries = ("--mesh-only", "--faults-only", "--serve-only",
                "--tp-decode-only", "--flash-only", "--moe-only",
-               "--families-only")
+               "--families-only", "--hybrid-audio-only")
     if argv and (len(argv) > 1 or argv[0] not in entries):
         print(f"chip_smoke: unknown arguments {argv} (none, or one of "
               f"{', '.join(entries)})", file=sys.stderr)
@@ -4871,6 +5295,18 @@ def main(argv) -> int:
         _families_phase(torch, backup_reduce)
         _log(f"[time] phase 29: {time.perf_counter() - t0:.1f} s")
         return 0
+    if argv == ["--hybrid-audio-only"]:     # phase 30 alone
+        t0 = time.perf_counter()
+        _hybrid_audio_phase(torch, backup_reduce)
+        _log(f"[time] phase 30: {time.perf_counter() - t0:.1f} s")
+        return 0
+
+    lap = [time.perf_counter()]
+
+    def timed(phases):
+        now = time.perf_counter()
+        _log(f"[time] phase {phases}: {now - lap[0]:.1f} s")
+        lap[0] = now
 
     # 3. the serve kernels at the serve path's shapes (its maxp and pool)
     maxp = pages_for(512 + 128, GATHER_SHAPE["ps"])
@@ -4895,10 +5331,12 @@ def main(argv) -> int:
         run, counter, label = launch_run[row["name"]]
         row["launches"] = runs[run][counter]
         row["launches_run"] = label
+    timed("3-4")
 
     # 5. kernel path == plain path, end to end
     with torch.inference_mode():
         _kernel_vs_plain_phase(torch)
+    timed(5)
 
     # 6. train at full width through the backup_reduce kernel, then the
     # kernel against its plain version at the run's [W, P] stack
@@ -4906,12 +5344,15 @@ def main(argv) -> int:
     rows.append(_reduce_phase(torch, backup_reduce, train["n_params"]))
     rows[3]["launches"] = train["launches"]
     rows[3]["launches_run"] = "train spmd, one chunk of 3 steps (graph)"
+    timed(6)
 
     # 7. reduced depth: sim == spmd, checkpoint resume == straight run
     _parity_phase(torch)
+    timed(7)
 
     # 8. the wkv kernels at rwkv6-1.6b's training shape and edge shapes
     wkv_rows = _wkv_phase(torch, rwkv6_scan)
+    timed(8)
 
     # 9. train rwkv6-1.6b at full width through the wkv kernels, then plain
     rwkv = _rwkv_train_phase(torch, rwkv6_scan, backup_reduce)
@@ -4920,21 +5361,27 @@ def main(argv) -> int:
         row["launches_run"] = ("train rwkv6-1.6b spmd, one chunk of 3 "
                                "steps (graph)")
     rows += wkv_rows
+    timed(9)
 
     # 10. reduced depth: wkv kernels == plain twin through a training step
     _rwkv_parity_phase(torch)
+    timed(10)
 
     # 11-12. the event regimes at full width, per arrival and as graphs
     _event_phase(torch, rwkv6_scan, backup_reduce)
+    timed("11-12")
 
     # 13. the §2.1 staleness rig on MnistCNN
     _mnist_phase(torch)
+    timed(13)
 
     # 14. reduced depth: event resume == straight run, card == CPU port
     _event_parity_phase(torch)
+    timed(14)
 
     # 15. Figs. 5 and 6 at the tiny size, the card held to the CPU port
     _fig5_fig6_phase(torch)
+    timed(15)
 
     # 16. Figs. 8/9 at full width, then rwkv6 kernels vs plain converging
     # with the Queue 3 controls
@@ -5071,15 +5518,27 @@ def main(argv) -> int:
         elif row["name"] == "backup_reduce":
             row["launches_families"] = families["backup_reduce"]
     _log(f"[time] phase 29: {time.perf_counter() - t0:.1f} s")
-    _log(f"[time] phases 1-29: {time.perf_counter() - started:.1f} s")
 
-    # 30. results
+    # 30. the last model families: hymba-1.5b (mamba's SSD, the hybrid
+    # block), whisper-tiny (encoder-decoder), the chunked attention core
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    hybrid = _hybrid_audio_phase(torch, backup_reduce)
+    next(r for r in rows if r["name"] == "backup_reduce")[
+        "launches_hybrid_audio"] = {
+            f"hymba-1.5b train 32 layers, one chunk of {FAMILY_TRAIN_STEPS} "
+            f"(graph)": hybrid}
+    _log(f"[time] phase 30: {time.perf_counter() - t0:.1f} s")
+    _log(f"[time] phases 1-30: {time.perf_counter() - started:.1f} s")
+
+    # 31. results
     keys = ("name", "route", "source", "replaces", "launches", "launches_run",
             "launches_batched_and_mesh", "launches_faults",
             "launches_telemetry", "launches_router", "launches_dense",
             "launches_toy", "launches_moe", "launches_families",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "by_s", "splits", "capacity", "ptxas")
+            "launches_hybrid_audio", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "by_s", "splits",
+            "capacity", "ptxas")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(json.dumps({"ok": True, "device": {

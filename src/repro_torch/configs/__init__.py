@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> (full config, smoke config).
 Reference: ``src/repro/configs/__init__.py``.
 
-Only the archs the port runs are listed, in the reference's order;
-asking for any other raises a ``KeyError`` that names the ported ones.
+Every arch of the reference, in its order; asking for any other raises a
+``KeyError`` that names them.
 """
 from __future__ import annotations
 
@@ -22,7 +22,9 @@ _ARCH_MODULES: Dict[str, str] = {
     "qwen3-0.6b": "qwen3_0_6b",
     "minitron-4b": "minitron_4b",
     "command-r-plus-104b": "command_r_plus_104b",
+    "hymba-1.5b": "hymba_1_5b",
     "rwkv6-1.6b": "rwkv6_1_6b",
+    "whisper-tiny": "whisper_tiny",
 }
 
 
@@ -32,8 +34,7 @@ def list_archs() -> List[str]:
 
 def _module(arch: str):
     if arch not in _ARCH_MODULES:
-        raise KeyError(f"arch {arch!r} is not ported to repro_torch yet; "
-                       f"ported: {list_archs()}")
+        raise KeyError(f"unknown arch {arch!r}; available: {list_archs()}")
     return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
 
 

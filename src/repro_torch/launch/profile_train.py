@@ -67,7 +67,7 @@ PHASES = ("spmd/worker_grad", "spmd/reduce", "spmd/update")
 EVENT_PHASES = ("event/grad", "event/update", "event/read_copy")
 # arch -> workers of the event runs: rwkv6-1.6b keeps W read copies (3.17
 # GB each in bf16) beside 12.67 GB of optimizer state and 6.34 GB of EMA
-EVENT_WORKERS = {"qwen3-0.6b": 8, "rwkv6-1.6b": 4}
+EVENT_WORKERS = {"qwen3-0.6b": 8, "rwkv6-1.6b": 4, "whisper-tiny": 4}
 SOFTSYNC_C = 4
 # arch -> backup (N, b). rwkv6-1.6b: P = 1,584,095,232, so the [W, P] f32
 # stack is 6.34 GB per worker beside 12.67 GB of rmsprop_momentum state and
@@ -76,10 +76,14 @@ SOFTSYNC_C = 4
 # depth (at full depth their [W, P] f32 stacks alone take 57 and 63 GB a
 # worker); internvl2-2b's W = 4 at full depth would need ~73 GB (a 7.6 GB
 # stack row a worker beside the RMSProp state and the EMA), so it is cut
-# too. W = 4 for each, as rwkv6-1.6b's.
+# too. W = 4 for each, as rwkv6-1.6b's. hymba-1.5b (P = 1,299,664,064)
+# needs ~45 GB at W = 4 and full depth. whisper-tiny trains through event
+# strategies only (its batches carry frames, which the synthetic pipeline
+# does not make): its entry is event_config's base.
 WORKERS = {"qwen3-0.6b": (6, 2), "rwkv6-1.6b": (3, 1),
            "qwen2-moe-a2.7b": (3, 1), "deepseek-v2-lite-16b": (3, 1),
-           "internvl2-2b": (3, 1)}
+           "internvl2-2b": (3, 1), "hymba-1.5b": (3, 1),
+           "whisper-tiny": (3, 1)}
 
 
 def train_config(arch: str = "qwen3-0.6b", *, backend: str = "spmd",

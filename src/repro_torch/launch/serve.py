@@ -36,7 +36,9 @@ same scheduler on its slice (``serve.ServeEngine``), and rank 0 prints.
 ``train.serve_step.greedy_generate`` over the model's contiguous cache
 (``--cache-int8``: the int8 cache); its prompt is
 ``numpy.random.default_rng(seed + 1).integers(0, vocab, (batch,
-prompt_len))``. The reference's cross-flag errors hold.
+prompt_len))``, and the audio family's encoder frames, which prime the
+cross cache, are ``0.1 * toy_frames(batch, encoder_seq_len, d_model)``.
+The reference's cross-flag errors hold.
 """
 from __future__ import annotations
 
@@ -175,15 +177,26 @@ def toy_prompt(seed: int, batch: int, prompt_len: int,
         0, vocab, (batch, prompt_len), dtype=np.int64)
 
 
+def toy_frames(batch: int, frames: int, d_model: int) -> np.ndarray:
+    """The toy path's unit-normal encoder frames [batch, frames, d_model]
+    (f32, a fixed seed, as the reference's); the path scales them by 0.1."""
+    return np.random.default_rng(2).standard_normal(
+        (batch, frames, d_model), dtype=np.float32)
+
+
 def _toy_main(args, cfg, model, device) -> None:
     prompt = torch.from_numpy(toy_prompt(args.seed, args.batch,
                                          args.prompt_len, cfg.vocab_size))
     # power-of-two cache bucket: mixed prompt lengths share one shape
     max_len = bucketed_max_len(args.prompt_len + args.tokens + 1)
+    frames = None
+    if cfg.family == "audio":
+        frames = 0.1 * torch.from_numpy(toy_frames(
+            args.batch, cfg.encoder_seq_len, cfg.d_model)).to(device)
     marks = []
     out = greedy_generate(model, prompt.to(device), args.tokens, max_len,
                           cache_dtype=torch.int8 if args.cache_int8
-                          else None, marks=marks)
+                          else None, marks=marks, encoder_frames=frames)
     prefill_s, decode_s = marks[1] - marks[0], marks[2] - marks[1]
     cache = "int8" if args.cache_int8 else cfg.dtype
     print(f"[serve] {args.arch} cache={cache} prefill {prefill_s:.2f}s, "

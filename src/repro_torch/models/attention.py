@@ -4,11 +4,16 @@ Reference: ``src/repro/models/attention.py`` (``gqa_init``,
 ``_project_qkv``, ``_expand_kv``, ``_window_ok``, ``make_attention_mask``,
 ``gqa_attend``, ``_quantize_kv``, ``_dequantize_kv``, the decode path
 ``gqa_init_cache`` / ``gqa_decode``, and MLA: ``mla_init``, ``_mla_qkv``,
-``_mla_expand_kv``, ``mla_attend``, ``mla_init_cache``, ``mla_decode``;
-the qk-norm scales pass ``distributed.tp.shared_param`` as in the
-reference). The reference's blocked path above 8,192 tokens
-(``chunked_attention_core``, ``gqa_attend_chunked``) is not ported: no run
-of the port reaches that length, and ``mla_attend`` refuses it.
+``_mla_expand_kv``, ``mla_attend``, ``mla_init_cache``, ``mla_decode``,
+and the blocked online-softmax path: ``chunked_attention_core``,
+``gqa_attend_chunked`` and ``mla_attend``'s branch above
+``MLA_DENSE_MAX_LEN`` tokens; the qk-norm scales pass
+``distributed.tp.shared_param`` as in the reference).
+The blocked core is plain PyTorch, as the reference's is plain ``jnp``:
+Python loops over query and key chunks in place of its ``lax.scan``,
+the same online-softmax arithmetic in the same order. The reference's
+``constrain_dims`` calls are sharding hints for its GSPMD mesh and have
+no counterpart.
 
 Windows are per-layer Python ints here (the reference feeds them through
 ``lax.scan`` as traced scalars); ``window <= 0`` means unlimited. The decode
@@ -21,14 +26,15 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.distributed import tp
 from repro_torch.models import common
 
 NEG_INF = -1e30
-# above this many tokens the reference's MLA runs its blocked
-# online-softmax core, which is not ported
+# above this many tokens MLA runs the blocked online-softmax core (the
+# dense path materializes the whole [S, S] score matrix)
 MLA_DENSE_MAX_LEN = 8192
 
 
@@ -111,6 +117,90 @@ def gqa_attend(params, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     scores = scores.masked_fill(~mask[None, None], NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return common.dense(params["wo"], out.reshape(b, s, -1))
+
+
+# ---------------------------------------------------------------------------
+# Chunked (flash-style) path: loops over KV chunks with running softmax stats
+# ---------------------------------------------------------------------------
+
+
+def chunked_attention_core(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, causal: bool = True,
+                           window: int = 0, softcap: float = 0.0,
+                           q_chunk: int = 2048,
+                           kv_chunk: int = 2048) -> torch.Tensor:
+    """Blocked attention on projected q [B, S, H, D] and k / v [B, S_kv,
+    H, D] (KV already head-expanded): O(q_chunk * kv_chunk) live scores
+    instead of O(S * S_kv). Query chunks (outer) and KV chunks (inner)
+    carry running (max, sum, weighted-V) accumulators in f32: the
+    online-softmax recurrence. ``causal`` masks later keys and, with
+    ``window`` > 0, keys ``window`` or more positions back; without it
+    every key is visible. Padded keys past ``S_kv`` are masked. Returns
+    [B, S, H, D] in q's dtype."""
+    b, s, h, hd = q.shape
+    s_kv = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    q_chunk = min(q_chunk, s)
+    kv_chunk = min(kv_chunk, s_kv)
+    nq = -(-s // q_chunk)
+    nk = -(-s_kv // kv_chunk)
+    q = common.pad_seq(q, nq * q_chunk - s)
+    k = common.pad_seq(k, nk * kv_chunk - s_kv)
+    v = common.pad_seq(v, nk * kv_chunk - s_kv)
+    qs = q.reshape(b, nq, q_chunk, h, hd).permute(1, 0, 3, 2, 4)  # [nq,B,H,qc,D]
+    ks = k.reshape(b, nk, kv_chunk, h, hd).permute(1, 0, 3, 2, 4)
+    vs = v.reshape(b, nk, kv_chunk, h, hd).permute(1, 0, 3, 2, 4)
+    ar_q = torch.arange(q_chunk, device=q.device)
+    ar_k = torch.arange(kv_chunk, device=q.device)
+    outs = []
+    for qi in range(nq):
+        qc = qs[qi]
+        qpos = qi * q_chunk + ar_q
+        m = torch.full((b, h, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, h, q_chunk), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((b, h, q_chunk, hd), dtype=torch.float32,
+                          device=q.device)
+        for ki in range(nk):
+            kc, vc = ks[ki], vs[ki]
+            scores = torch.einsum("bhqd,bhkd->bhqk", qc, kc).float() * scale
+            scores = common.softcap(scores, softcap)
+            kpos = ki * kv_chunk + ar_k
+            diff = qpos[:, None] - kpos[None, :]
+            if causal:
+                mask = (diff >= 0) & _window_ok(diff, window)
+            else:
+                mask = torch.ones_like(diff, dtype=torch.bool)
+            mask = mask & (kpos < s_kv)[None, :]            # kv padding
+            scores = scores.masked_fill(~mask, NEG_INF)
+            m_new = torch.maximum(m, torch.amax(scores, dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(scores - m_new[..., None])
+            l = l * alpha + torch.sum(p, dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p.to(vc.dtype), vc).float()
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]
+        outs.append(out.to(qc.dtype))
+    out = torch.stack(outs)                                 # [nq,B,H,qc,D]
+    return out.permute(1, 0, 3, 2, 4).reshape(b, nq * q_chunk, h, hd)[:, :s]
+
+
+def gqa_attend_chunked(params, cfg, x: torch.Tensor, positions: torch.Tensor,
+                       *, window: int = 0, q_chunk: int = 2048,
+                       kv_chunk: int = 2048) -> torch.Tensor:
+    """``gqa_attend`` through ``chunked_attention_core``: the same
+    projections, RoPE and softcap, causal with ``window``. x: [B, S, d]
+    -> [B, S, d]."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    k = _expand_kv(k, cfg.q_per_kv)
+    v = _expand_kv(v, cfg.q_per_kv)
+    out = chunked_attention_core(q, k, v, causal=True, window=window,
+                                 softcap=cfg.attn_logit_softcap,
+                                 q_chunk=q_chunk, kv_chunk=kv_chunk)
     return common.dense(params["wo"], out.reshape(b, s, -1))
 
 
@@ -272,18 +362,25 @@ def _mla_expand_kv(params, cfg, c_kv: torch.Tensor):
 def mla_attend(params, cfg, x: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
     """Full-sequence causal MLA, the latent expanded per head. x: [B, S, d]
-    -> [B, S, d]. Above ``MLA_DENSE_MAX_LEN`` tokens the reference runs its
-    blocked core, which is not ported: that raises."""
+    -> [B, S, d]. Above ``MLA_DENSE_MAX_LEN`` tokens the blocked core runs
+    instead of the dense scores: nope and rope fold into one head dim of
+    ``nope + rope`` (the rope key broadcast to every head), v is
+    zero-padded to that width and the output sliced back (the core is
+    square in D)."""
     b, s, _ = x.shape
+    h = cfg.num_heads
     m = cfg.mla
-    if s > MLA_DENSE_MAX_LEN:
-        raise NotImplementedError(
-            f"mla_attend over {s} tokens: above {MLA_DENSE_MAX_LEN} the "
-            f"reference runs the blocked online-softmax core "
-            f"(attention.chunked_attention_core), which is not ported yet "
-            f"(ROADMAP Queue 1 item 9, with hymba)")
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, cfg, x, positions)
     k_nope, v = _mla_expand_kv(params, cfg, c_kv)
+    if s > MLA_DENSE_MAX_LEN:
+        qk = torch.cat([q_nope, q_rope], dim=-1)        # [B, S, H, nope+rope]
+        kk = torch.cat([k_nope, k_rope.expand(b, s, h, m.qk_rope_dim)],
+                       dim=-1)
+        d_qk = m.qk_nope_dim + m.qk_rope_dim
+        v_pad = F.pad(v, (0, d_qk - m.v_head_dim))
+        out = chunked_attention_core(qk, kk, v_pad, causal=True)
+        out = out[..., :m.v_head_dim]
+        return common.dense(params["wo"], out.reshape(b, s, -1))
     scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
     scores = (torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
               + torch.einsum("bqhd,bkld->bhqk", q_rope, k_rope)

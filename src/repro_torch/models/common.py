@@ -148,6 +148,14 @@ def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * params["scale"].float() + params["bias"].float()).to(dt)
 
 
+def pad_seq(t: torch.Tensor, pad: int, value: float = 0.0) -> torch.Tensor:
+    """``t`` [B, S, ...] padded with ``value`` by ``pad`` positions at the
+    end of S (the blocked attention core's and the SSD's chunk padding)."""
+    if not pad:
+        return t
+    return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad), value=value)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
@@ -262,13 +270,16 @@ def param_tree(names: Sequence[str], leaves: Sequence[torch.Tensor]
     return root
 
 
-def remat_module(fn: Callable, params: nn.Module, x: torch.Tensor):
-    """``fn(tree, x)`` through :class:`Remat`, ``tree`` being
+def remat_module(fn: Callable, params: nn.Module, x: torch.Tensor,
+                 *extra: torch.Tensor):
+    """``fn(tree, x, *extra)`` through :class:`Remat`, ``tree`` being
     ``params``' tensors (the swapped-in ones under
     ``torch.func.functional_call``) as a nested dict."""
     names, leaves = zip(*params.named_parameters())
+    k = len(extra)
     return Remat.apply(
-        lambda x_, *ls: fn(param_tree(names, ls), x_), x, *leaves)
+        lambda x_, *rest: fn(param_tree(names, rest[k:]), x_, *rest[:k]),
+        x, *extra, *leaves)
 
 
 # ---------------------------------------------------------------------------

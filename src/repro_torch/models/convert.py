@@ -11,7 +11,9 @@ into the port's model of the same family:
   ``seg_moe/<path>[L_moe, ...]`` into ``layers.<first_dense + i>.<path>``
   (MoE family; ``first_dense`` is the ``seg_dense`` stack's depth, 0
   without one), ``blocks/<path>[L, ...]`` into ``blocks.<i>.<path>``
-  (RWKV);
+  (RWKV, Hymba), ``enc_blocks/<path>[L_enc, ...]`` and
+  ``dec_blocks/<path>[L, ...]`` into ``enc_blocks.<i>.<path>`` and
+  ``dec_blocks.<i>.<path>`` (Whisper);
 * every other leaf maps to the module parameter of the same path
   (``embed/embedding`` -> ``embed.embedding``).
 
@@ -24,8 +26,10 @@ parameter names (the parameters, and the optimizer's and the EMA's
 per-parameter dicts, which mirror them): ``layers.<i>.<path>`` leaves are
 restacked into ``seg_dense/<path>[L, ...]``, from the first layer that
 holds an ``moe`` leaf on into ``seg_moe/<path>[L_moe, ...]``, and
-``blocks.<i>.<path>`` into ``blocks/<path>[L, ...]``; the rest nest by
-their dotted path.
+``blocks.<i>.<path>``, ``enc_blocks.<i>.<path>`` and
+``dec_blocks.<i>.<path>`` into ``blocks/<path>[L, ...]``,
+``enc_blocks/...`` and ``dec_blocks/...``; the rest nest by their dotted
+path.
 ``from_jax_tree`` flattens a reference tree to those names.
 
 Tensor parallelism (the spmd engine's ``'model'`` axis) keeps a rank's
@@ -67,8 +71,10 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict:
 
 
 # the reference's stacked root -> the port's module list, and back
-_STACKED = {"seg_dense": "layers", "seg_moe": "layers", "blocks": "blocks"}
-_RESTACKED = {"layers": "seg_dense", "blocks": "blocks"}
+_STACKED = {"seg_dense": "layers", "seg_moe": "layers", "blocks": "blocks",
+            "enc_blocks": "enc_blocks", "dec_blocks": "dec_blocks"}
+_RESTACKED = {"layers": "seg_dense", "blocks": "blocks",
+              "enc_blocks": "enc_blocks", "dec_blocks": "dec_blocks"}
 
 
 def _take(arr, i: int, axis: int):
@@ -111,7 +117,7 @@ def to_jax_tree(named: Mapping, axis: int = 0) -> Dict:
     """``{module parameter name: leaf}`` (numpy arrays or tensors) -> the
     reference's nested tree, per-layer leaves restacked into
     ``seg_dense/<path>[L, ...]`` (MoE layers: ``seg_moe``) or
-    ``blocks/<path>[L, ...]``. With
+    ``blocks/<path>[L, ...]`` (``enc_blocks``, ``dec_blocks``). With
     ``axis`` 1 the leaves are stacks ``[W, ...]`` and the layer axis goes
     second (``[W, L, ...]``), as in the reference's stacked trees."""
     layers: Dict[tuple, Dict[int, np.ndarray]] = {}

@@ -1,6 +1,6 @@
 """Model registry: family -> model class, and parameter counts. Reference:
-``src/repro/models/registry.py`` (``get_model``: the dense, moe, vlm and
-ssm families; ``param_count``)."""
+``src/repro/models/registry.py`` (``get_model``: the dense, moe, vlm,
+hybrid, ssm and audio families; ``param_count``)."""
 from __future__ import annotations
 
 import math
@@ -17,14 +17,16 @@ def get_model(cfg, *, device=None,
     if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models import transformer
         return transformer.make(cfg, device=device, generator=generator)
+    if cfg.family == "hybrid":
+        from repro_torch.models import hymba
+        return hymba.make(cfg, device=device, generator=generator)
     if cfg.family == "ssm":
         from repro_torch.models import rwkv_lm
         return rwkv_lm.make(cfg, device=device, generator=generator)
-    raise NotImplementedError(
-        f"model family {cfg.family!r} is not ported yet: the audio "
-        f"(whisper) and hybrid (hymba) families remain (ROADMAP Queue 1 "
-        f"item 9); repro_torch runs the dense, moe, vlm and ssm (rwkv6) "
-        f"families")
+    if cfg.family == "audio":
+        from repro_torch.models import whisper
+        return whisper.make(cfg, device=device, generator=generator)
+    raise ValueError(f"unknown model family: {cfg.family}")
 
 
 def param_count(cfg, active_only: bool = False) -> int:

@@ -2,10 +2,10 @@
 attention.
 Reference: ``src/repro/models/transformer.py`` (``segments``,
 ``layer_windows_np``, ``block_init`` / ``block_apply``, ``_remat_wrap``
-(``none``, ``full`` and ``dots``: ``dots_with_no_batch_dims_saveable``)
-and ``TransformerLM``'s ``init``, ``_embed_inputs``, ``forward``,
-``per_token_loss``, ``init_cache``, ``decode_step``, ``_decode_block``,
-``prefill`` and ``_output_weights``).
+(``none``, ``full`` and ``dots``: ``dots_with_no_batch_dims_saveable``),
+``CHUNKED_ATTN_THRESHOLD`` and ``TransformerLM``'s ``init``,
+``_embed_inputs``, ``forward``, ``per_token_loss``, ``init_cache``,
+``decode_step``, ``_decode_block``, ``prefill`` and ``_output_weights``).
 
 Decode over contiguous per-layer caches (``init_cache`` /
 ``decode_step``, the toy serve path's; the engine's paged path is
@@ -76,6 +76,9 @@ from repro_torch.models import attention, common, mlp, moe
 # padded_vocab * seq above this: cross entropy chunked over tokens (the
 # reference's switch in ``per_token_loss``)
 CHUNKED_CE_THRESHOLD = 32_000_000
+# GQA over more tokens than this: the blocked online-softmax core
+# (``attention.gqa_attend_chunked``) in place of the dense [S, S] scores
+CHUNKED_ATTN_THRESHOLD = 8192
 
 
 def segments(cfg) -> List[Tuple[str, int, int]]:
@@ -110,9 +113,8 @@ def layer_windows_np(cfg) -> np.ndarray:
 def block_init(gen, cfg, kind: str, dtype, device=None) -> nn.ModuleDict:
     if kind not in ("dense", "moe") or \
             cfg.attention_kind not in ("gqa", "mla"):
-        raise NotImplementedError(
-            f"{kind}/{cfg.attention_kind} blocks are not ported yet (the "
-            f"remaining model families, ROADMAP Queue 1 item 9)")
+        raise ValueError(f"{kind}/{cfg.attention_kind} is not a "
+                         f"transformer block (dense or moe, gqa or mla)")
     attn_init = (attention.mla_init if cfg.attention_kind == "mla"
                  else attention.gqa_init)
     p = {
@@ -146,7 +148,8 @@ def block_ffn(p, cfg, kind: str, h: torch.Tensor
 
 def block_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor,
                 window: int, kind: str = "dense"):
-    """One pre-norm block over the full sequence (dense attention). Under
+    """One pre-norm block over the full sequence: dense attention, or the
+    blocked core above ``CHUNKED_ATTN_THRESHOLD`` tokens (GQA). Under
     a ``tp.TPContext`` the qkv and up/gate projections take head- and
     hidden-sharded weights (an all-reduce of the input's gradient) and
     ``wo`` / ``w_down`` give partial sums, all-reduced forward. Returns
@@ -154,6 +157,9 @@ def block_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor,
     h = tp.col_in(common.rmsnorm(p["ln1"], x, cfg.norm_eps), "attn")
     if cfg.attention_kind == "mla":
         attn_out = attention.mla_attend(p["attn"], cfg, h, positions)
+    elif x.shape[1] > CHUNKED_ATTN_THRESHOLD:
+        attn_out = attention.gqa_attend_chunked(p["attn"], cfg, h, positions,
+                                                window=window)
     else:
         attn_out = attention.gqa_attend(p["attn"], cfg, h, positions,
                                         window=window)
@@ -181,23 +187,25 @@ def dots_contexts():
 
 
 def run_remat(policy: str, fn, params, x: torch.Tensor,
-              dots_context_fn=dots_contexts):
-    """``fn(params, x)`` under the reference's remat policy while autograd
-    records: 'none' as it is; 'full' through ``common.Remat`` (recomputed
-    in backward); 'dots' through a selective ``checkpoint`` whose
-    ``dots_context_fn`` keeps the matmuls' outputs, or, under ``torch.func``
-    transforms, as 'full'. The layers draw no random numbers, so no RNG
-    state is saved (which a CUDA-graph capture would refuse)."""
+              dots_context_fn=dots_contexts, extra=()):
+    """``fn(params, x, *extra)`` under the reference's remat policy while
+    autograd records: 'none' as it is; 'full' through ``common.Remat``
+    (recomputed in backward); 'dots' through a selective ``checkpoint``
+    whose ``dots_context_fn`` keeps the matmuls' outputs, or, under
+    ``torch.func`` transforms, as 'full'. ``extra``: more tensor inputs
+    (an encoder's output), differentiated like ``x``. The layers draw no
+    random numbers, so no RNG state is saved (which a CUDA-graph capture
+    would refuse)."""
     if policy not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat policy {policy!r} (none, full, "
                          f"dots)")
     if policy == "none" or not torch.is_grad_enabled():
-        return fn(params, x)
+        return fn(params, x, *extra)
     if policy == "dots" and not torch._C._are_functorch_transforms_active():
-        return checkpoint(fn, params, x, use_reentrant=False,
+        return checkpoint(fn, params, x, *extra, use_reentrant=False,
                           preserve_rng_state=False,
                           context_fn=dots_context_fn)
-    return common.remat_module(fn, params, x)
+    return common.remat_module(fn, params, x, *extra)
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
@@ -216,10 +224,9 @@ class TransformerLM(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if cfg.family not in ("dense", "moe", "vlm"):
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not a transformer family ported "
-                f"here; the audio (whisper) and hybrid (hymba) families are "
-                f"not ported yet (ROADMAP Queue 1 item 9)")
+            raise ValueError(
+                f"family {cfg.family!r} is not a transformer family (dense, "
+                f"moe, vlm); models.get_model builds the others")
         self.cfg = cfg
         self.dtype = common.dtype_of(cfg.dtype)
         self.device = common.resolve_device(device)

@@ -62,11 +62,10 @@ Pool = Dict[str, torch.Tensor]
 
 
 def supports_paged(cfg) -> Tuple[bool, str]:
-    """Families the ported paged serve path covers (mirrors decode_step
-    support)."""
+    """Families the paged serve path covers (mirrors decode_step support):
+    the reference's, with its messages."""
     if cfg.family not in ("dense", "moe"):
-        return False, (f"family {cfg.family!r} has no ported paged decode "
-                       f"path (the remaining model families slice)")
+        return False, f"family {cfg.family!r} has no paged decode path"
     if cfg.attention_kind != "gqa":
         return False, (f"attention_kind {cfg.attention_kind!r} is not paged "
                        f"(MLA latents need their own page layout)")

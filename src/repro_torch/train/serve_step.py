@@ -44,7 +44,8 @@ def bucketed_max_len(need: int, floor: int = 8) -> int:
 
 def greedy_generate(model, prompt: torch.Tensor, num_tokens: int,
                     max_len: int, *, bucket: bool = True, cache_dtype=None,
-                    marks: Optional[List[float]] = None) -> torch.Tensor:
+                    marks: Optional[List[float]] = None,
+                    encoder_frames=None) -> torch.Tensor:
     """Greedy generation over the model's contiguous cache: prefill by
     stepping ``decode_step`` over the prompt's tokens one by one, then
     ``num_tokens`` greedy tokens. ``prompt``: [B, P] ids. Returns [B,
@@ -52,8 +53,10 @@ def greedy_generate(model, prompt: torch.Tensor, num_tokens: int,
 
     ``max_len`` is rounded up to a power-of-two bucket (``bucket=False``
     keeps it exact). ``cache_dtype=torch.int8`` selects the quantized
-    cache. ``marks``, when given, receives three ``time.perf_counter()``
-    reads: before the prompt, after it and after the decode, each after a
+    cache. ``encoder_frames`` [B, T, d] (an encoder-decoder model) primes
+    the cross cache first (``prime_cross_cache``). ``marks``, when given,
+    receives three ``time.perf_counter()`` reads: before the priming and
+    the prompt, after them and after the decode, each after a
     ``torch.cuda.synchronize`` on the card."""
     b, plen = prompt.shape
     device = model.device
@@ -67,6 +70,8 @@ def greedy_generate(model, prompt: torch.Tensor, num_tokens: int,
     cache = model.init_cache(b, bucketed_max_len(max_len) if bucket
                              else max_len, cache_dtype)
     mark()
+    if encoder_frames is not None:
+        cache = model.prime_cross_cache(cache, encoder_frames)
     logits = None
     for i in range(plen):
         logits, cache = model.decode_step(prompt[:, i:i + 1], cache)

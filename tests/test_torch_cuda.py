@@ -103,6 +103,13 @@ where only PyTorch is installed:
   int8 pools; the toy path (``greedy_generate``) on the card gives the CPU
   port's tokens; RWKV ``prefill`` through the wkv6 kernel matches the
   stepped decode's carried state (atol 1e-4, f32).
+* The hybrid and audio families (f32 smoke): hymba's and whisper's toy
+  paths (whisper's cross cache primed from frames) give the CPU port's
+  tokens, fp and int8; hymba's batched graph chunks equal its eager steps
+  at ``grad_batch`` 0 and 2 (above); whisper's async run through a frames
+  ``batch_fn`` replays its event graphs bit-equal to the per-arrival loop
+  and agrees with the CPU port; the blocked attention core and the SSD's
+  chunked and scan forms on the card equal the CPU's (atol 1e-5).
 """
 import pytest
 
@@ -893,7 +900,7 @@ def test_wkv_vmap_rule_matches_the_worker_loop(cuda_device):
 
 @pytest.mark.parametrize("grad_batch", [0, 2])
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "hymba-1.5b"])
 def test_batched_graph_chunks_match_eager_steps(cuda_device, arch,
                                                 grad_batch):
     runs = {}
@@ -1186,10 +1193,12 @@ def test_tp_decode_on_card_matches_one_card(cuda_device, tmp_path, int8):
         assert got["all_reduces"] > 0 and got["all_gathers"] > 0
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-1b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-1b", "rwkv6-1.6b",
+                                  "hymba-1.5b"])
 def test_toy_path_on_card_matches_cpu(cuda_device, arch):
     """``greedy_generate`` on the card gives the CPU port's tokens (f32
-    smoke; gemma3 26 steps past its window of 8), fp and int8 caches."""
+    smoke; gemma3 and hymba 26 steps past their window of 8), fp and int8
+    caches."""
     from repro_torch.models import get_model
     from repro_torch.train.serve_step import greedy_generate
     cfg = configs.get_smoke_config(arch)
@@ -1262,3 +1271,109 @@ def test_moe_on_card_matches_cpu(cuda_device, capacity_factor):
         assert torch.equal(
             greedy_generate(gpu_model, prompt, 6, 12, cache_dtype=dt).cpu(),
             greedy_generate(cpu_model, prompt, 6, 12, cache_dtype=dt))
+
+
+# ---------------------------------------------------------------------------
+# The hybrid and audio families, the blocked attention core
+# ---------------------------------------------------------------------------
+
+
+def test_whisper_toy_path_on_card_matches_cpu(cuda_device):
+    """whisper smoke (f32): ``greedy_generate`` with encoder frames (the
+    cross cache primed first) on the card gives the CPU port's tokens, fp
+    and int8 caches (the reference's scale-less int8)."""
+    from repro_torch.models import get_model
+    from repro_torch.train.serve_step import greedy_generate
+    cfg = configs.get_smoke_config("whisper-tiny")
+    cpu = get_model(cfg, device="cpu",
+                    generator=torch.Generator().manual_seed(6))
+    card = get_model(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(7)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 6)))
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, cfg.encoder_seq_len, cfg.d_model), dtype=np.float32))
+    for dt in (None, torch.int8):
+        want = greedy_generate(cpu, prompt, 12, 19, cache_dtype=dt,
+                               encoder_frames=frames)
+        got = greedy_generate(card, prompt, 12, 19, cache_dtype=dt,
+                              encoder_frames=frames.to(cuda_device))
+        assert torch.equal(got.cpu(), want)
+
+
+def _whisper_batch_fn(cfg):
+    def batch_fn(worker, draw):
+        rng = np.random.default_rng(100 * draw + worker)
+        toks = rng.integers(0, cfg.vocab_size, (2, 9))
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                "encoder_frames": rng.standard_normal(
+                    (2, cfg.encoder_seq_len, cfg.d_model),
+                    dtype=np.float32)}
+    return batch_fn
+
+
+def test_whisper_event_graph_matches_per_arrival(cuda_device):
+    """whisper smoke (f32, remat full) through async over 4 workers with a
+    ``batch_fn`` that makes frames: the event graph chunks of 4 updates
+    against the per-arrival loop on the card, state and metrics
+    bit-equal; the per-arrival run on the card against the CPU port's
+    (atol 1e-5)."""
+    cfg = dataclasses.replace(
+        _train_cfg(), model=dataclasses.replace(
+            configs.get_smoke_config("whisper-tiny"), remat="full"),
+        shape=ShapeConfig("t", 8, 8, "train"),
+        aggregation=AggregationConfig(strategy="async", num_workers=4),
+        optimizer=OptimizerConfig(name="momentum", learning_rate=0.05,
+                                  scale_lr_with_workers=False,
+                                  ema_decay=0.99),
+        execution=ExecutionConfig(backend="sim"))
+    fn = _whisper_batch_fn(cfg.model)
+    cpu = Trainer(cfg, device="cpu", batch_fn=fn)
+    cpu.init_state()
+    start = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    rc = cpu.run(6)
+    runs = {}
+    for chunk in (1, 4):
+        tr = Trainer(dataclasses.replace(cfg, chunk_size=chunk),
+                     device=cuda_device, batch_fn=fn)
+        tr.init_state()
+        tr.model.load_state_dict(start)
+        tr.reset_optimizer_state()
+        tr._init_event_state()
+        runs[chunk] = (tr, tr.run(6))
+    (eager, re), (graph, rg) = runs[1], runs[4]
+    assert rg.metrics == re.metrics and rg.sim_time == re.sim_time
+    _state_equal(eager, graph)
+    np.testing.assert_allclose([m["loss"] for m in re.metrics],
+                               [m["loss"] for m in rc.metrics], rtol=1e-5)
+    for k, v in rc.params.items():
+        np.testing.assert_allclose(re.params[k].detach().cpu().numpy(),
+                                   v.detach().numpy(), atol=1e-5, err_msg=k)
+
+
+def test_chunked_attention_on_card_matches_cpu(cuda_device):
+    """``chunked_attention_core`` (causal, window 6, softcap 2, ragged S,
+    chunks of 8) and the SSD's chunked form on the card equal the CPU's
+    (f32, atol 1e-5)."""
+    from repro_torch.models import attention, mamba
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 37, 3, 16),
+                                                    dtype=np.float32))
+               for _ in range(3))
+    kw = dict(causal=True, window=6, softcap=2.0, q_chunk=8, kv_chunk=8)
+    want = attention.chunked_attention_core(q, k, v, **kw)
+    got = attention.chunked_attention_core(
+        *(t.to(cuda_device) for t in (q, k, v)), **kw)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)
+    xv, bb, cc = (torch.from_numpy(0.5 * rng.standard_normal(
+        (2, 45, 3, n), dtype=np.float32)) for n in (8, 4, 4))
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((2, 45, 3), dtype=np.float32)))
+    decay = torch.exp(-dt)
+    args = (xv, bb, cc, dt, decay, torch.ones((3, 8)))
+    for fn in (mamba.ssd_chunked, mamba.ssd_scan):
+        wy, ws = fn(*args)
+        gy, gs = fn(*(a.to(cuda_device) for a in args))
+        np.testing.assert_allclose(gy.cpu().numpy(), wy.numpy(), atol=1e-5)
+        np.testing.assert_allclose(gs.cpu().numpy(), ws.numpy(), atol=1e-5)
+

@@ -63,12 +63,13 @@ def test_configs_match_reference(getter):
 
 
 def test_unported_arch_is_a_clear_key_error():
-    assert tconfigs.list_archs() == ["qwen2-moe-a2.7b",
-                                     "deepseek-v2-lite-16b", "internvl2-2b",
-                                     "gemma3-1b", "qwen3-0.6b", "minitron-4b",
-                                     "command-r-plus-104b", "rwkv6-1.6b"]
-    with pytest.raises(KeyError, match="not ported"):
-        tconfigs.get_config("whisper-tiny")
+    """Every arch of the reference is ported, in its order; an unknown one
+    is a ``KeyError`` naming it, as in the reference."""
+    assert tconfigs.list_archs() == jconfigs.list_archs()
+    with pytest.raises(KeyError, match="unknown arch 'whisper-large'"):
+        tconfigs.get_config("whisper-large")
+    with pytest.raises(KeyError, match="unknown arch 'whisper-large'"):
+        jconfigs.get_config("whisper-large")
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,9 @@ config: 3 layers (a dense one, then 2 MoE of 8 experts top-2), d_model
 * ``mla_init`` (leaf names and shapes), ``_mla_qkv``, ``_mla_expand_kv``,
   ``mla_attend``, ``mla_init_cache`` and ``mla_decode`` against the JAX
   functions of those names, atol 1e-5, with the full-rank query and with
-  the low-rank one (``q_lora_rank`` 16); ``mla_attend`` above 8,192 tokens
-  raises, naming the unported blocked core.
+  the low-rank one (``q_lora_rank`` 16); above ``MLA_DENSE_MAX_LEN``
+  tokens (lowered by the test) ``mla_attend``'s blocked path equals the
+  dense one.
 * The config and the full config's parameter counts (15,706,484,224,
   2,661,150,208 active) equal the reference's.
 * ``per_token_loss`` and its gradients against ``jax.value_and_grad``,
@@ -191,13 +192,28 @@ def test_mla_decode_matches_jax(mla):
                                    rtol=0, atol=TOL, err_msg=k)
 
 
-def test_mla_attend_refuses_past_the_dense_length(mla):
-    _, tcfg, _, module, _, _ = mla
-    n = tattention.MLA_DENSE_MAX_LEN + 1
-    x = torch.zeros((1, n, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="chunked_attention_core"):
-        tattention.mla_attend(module, tcfg, x,
-                              torch.arange(n).expand(1, n))
+def test_mla_attend_refuses_past_the_dense_length(mla, monkeypatch):
+    """Past ``MLA_DENSE_MAX_LEN`` (lowered to 12 here) ``mla_attend`` runs
+    the blocked core (chunks of 8, so 20 tokens cross blocks): its output
+    equals the dense path's on the same input, and the JAX dense
+    ``mla_attend``'s."""
+    jcfg, tcfg, params, module, _, _ = mla
+    x = np.random.RandomState(7).randn(2, 20, tcfg.d_model).astype(
+        np.float32)
+    pos = torch.arange(20).expand(2, 20)
+    dense = tattention.mla_attend(module, tcfg, torch.from_numpy(x), pos)
+    monkeypatch.setattr(tattention, "MLA_DENSE_MAX_LEN", 12)
+    core = tattention.chunked_attention_core
+    calls = []
+    monkeypatch.setattr(tattention, "chunked_attention_core",
+                        lambda *a, **k: calls.append(1) or core(
+                            *a, **k, q_chunk=8, kv_chunk=8))
+    got = tattention.mla_attend(module, tcfg, torch.from_numpy(x), pos)
+    assert calls == [1]
+    np.testing.assert_allclose(t2n(got), t2n(dense), rtol=0, atol=TOL)
+    want = jattention.mla_attend(params, jcfg, jnp.asarray(x),
+                                 jnp.asarray(pos.numpy()))
+    np.testing.assert_allclose(t2n(got), np.asarray(want), rtol=0, atol=TOL)
 
 
 # ---------------------------------------------------------------------------

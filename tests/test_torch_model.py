@@ -149,9 +149,11 @@ def test_model_without_cuda_raises_unless_cpu(monkeypatch):
 
 
 def test_unported_family_raises():
+    """An unknown family raises the reference's ``ValueError``."""
     cfg = dataclasses.replace(tconfigs.get_smoke_config(ARCH),
-                              family="audio")
-    with pytest.raises(NotImplementedError, match="not ported"):
+                              family="speech")
+    with pytest.raises(ValueError,
+                       match="^unknown model family: speech$"):
         get_model(cfg, device="cpu")
 
 

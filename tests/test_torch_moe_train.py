@@ -50,6 +50,7 @@ from repro_torch.train import checkpoint as tckpt
 from repro_torch.train import loop as tloop
 from torch_moe_common import (ARCH, jax_params, jitted_jax_init,  # noqa: F401
                               one_torch_thread, smoke_jcfg)
+from torch_parity import fake_world_of_two  # noqa: F401 (fixture)
 from torch_parity import port_config
 
 TRAIN_RTOL, TRAIN_ATOL = 2e-4, 2e-5
@@ -220,9 +221,13 @@ def test_serve_cli_matches_jax_cli(toy, capsys, monkeypatch):
     seed, loaded into the port's model): the paged engine's request rows,
     or the toy path's token rows (the port's prompt handed to the JAX
     CLI's ``jax.random.randint``), are equal."""
+    # paged: every request arrives before the first admission (--rate
+    # 1e12), so the admissions, and the order in which the requests
+    # complete and print, depend on the decode steps alone, not on how fast
+    # each CLI's wall clock reaches the arrivals
     argv = ["--arch", ARCH, "--seed", "3"] + (
         ["--toy", "--batch", "2", "--prompt-len", "4", "--tokens", "5"]
-        if toy else ["--requests", "4", "--rate", "1000", "--slots", "4",
+        if toy else ["--requests", "4", "--rate", "1e12", "--slots", "4",
                      "--max-prompt", "12", "--max-new", "6"])
     cfg = tconfigs.get_smoke_config(ARCH)
     params = jax_params(jconfigs.get_smoke_config(ARCH), 3)
@@ -239,23 +244,6 @@ def test_serve_cli_matches_jax_cli(toy, capsys, monkeypatch):
     pattern = _ROW if toy else _RID
     assert pattern.findall(got) == pattern.findall(want)
     assert len(pattern.findall(got)) == (2 if toy else 4)
-
-
-@pytest.fixture
-def fake_world_of_two():
-    """A world of 2 ranks inside this process (torch's ``fake`` backend:
-    collectives return at once), so that a ``mesh_model=2`` object can be
-    built here; the spawned runs are ``test_torch_moe_tp.py``'s."""
-    import torch.distributed as dist
-    from torch.testing._internal.distributed.fake_pg import FakeStore
-    from repro_torch.distributed import mesh
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
-                            world_size=2)
-    try:
-        yield
-    finally:
-        mesh._mesh.clear()
-        dist.destroy_process_group()
 
 
 def test_mesh_model_on_moe_is_not_ported(fake_world_of_two):

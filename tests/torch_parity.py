@@ -47,6 +47,23 @@ def cuda_device():
     return torch.device("cuda")
 
 
+@pytest.fixture
+def fake_world_of_two():
+    """A world of 2 ranks inside this process (torch's ``fake`` backend:
+    collectives return at once), so that a ``mesh_model=2`` object can be
+    built here; spawned runs are the rank files' (``torch_*_ranks.py``)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.distributed import mesh
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=2)
+    try:
+        yield
+    finally:
+        mesh._mesh.clear()
+        dist.destroy_process_group()
+
+
 def ragged_table(seed, b, maxp, num_pages):
     """A ragged page table: slot 0 full, slot 1 half, slot 2 idle (all
     trash page), the rest random lengths; live ids distinct, never 0."""
