@@ -11,6 +11,7 @@
     python3 chip_smoke.py --moe-only      # phase 28 alone
     python3 chip_smoke.py --families-only # phase 29 alone
     python3 chip_smoke.py --hybrid-audio-only # phase 30 alone
+    python3 chip_smoke.py --tooling-only  # phase 31 alone
 
 Drives the port (``src/repro_torch``) through its own entry points and
 fails (non-zero exit, no result line) if any phase fails:
@@ -49,9 +50,9 @@ fails (non-zero exit, no result line) if any phase fails:
    151,936-vocab head) through ``run_experiment``: backup 6 + 2 workers,
    batch 2 per worker, seq 256, rmsprop_momentum, EMA 0.999, the spmd
    backend at mesh 1 x 1, 3 steps. The backup_reduce counter is set to 0
-   just before and read just after: one launch per step. The same 3 steps
-   again with ``use_kernel=False``: the same masks and sim_time, losses
-   within rel 1e-3, and the first step's aggregated gradient bit-equal.
+   just before and read just after: one launch per step. Step 1 again
+   with ``use_kernel=False``: the same mask and sim_time, the loss within
+   rel 1e-3, and the aggregated gradient bit-equal.
    Then the main path: the same 3 steps as one chunk (``chunk_size`` 3)
    through the trainer's CUDA graph (step 1 eager and the capture, then
    replays; counters set to 0 just before, read just after: 3 reduces),
@@ -88,16 +89,17 @@ fails (non-zero exit, no result line) if any phase fails:
    are set to 0 just before and read just after: 2 wkv forwards per layer
    per worker per step (forward and remat recompute), of which 1 writes
    the chunk states (the recompute: the first pass's saved tensors are
-   thrown away), 1 backward, 1 backup_reduce per step. The same 3 steps
-   again with ``model.use_kernel = False`` (the plain wkv, no wkv launch):
-   the same masks and sim_time, step 1's loss within rel 1e-3, every loss
+   thrown away), 1 backward, 1 backup_reduce per step. Step 1 again with
+   ``model.use_kernel = False`` (the plain wkv, no wkv launch; ~10 s a
+   step): the same mask and sim_time, the loss within rel 1e-3 and
    finite. Then the main path, as in phase 6: the 3 steps as one chunk
    through the CUDA graph, with the eager run's launch counts (576 / 288 /
    288 / 3, replays included), bit-equal to the eager run.
 10. At 2 layers, full width, f32: the kernel run against the plain run,
    step 1's loss within rel 1e-5 and the first aggregated gradient within
    rel L2 1e-4.
-11. The event regimes on qwen3-0.6b at full width (28 layers, bf16,
+11. The event regimes on qwen3-0.6b at full width (``EVENT_LAYERS`` of
+   28 layers, bf16,
    remat full, ``PaperCalibrated`` stragglers, seed 0, 2 x 256 tokens per
    arrival, rmsprop_momentum lr 0.02, EMA 0.999, the sim backend;
    ``launch/profile_train.event_config``): async with W = 8 (8 updates),
@@ -109,20 +111,21 @@ fails (non-zero exit, no result line) if any phase fails:
    Captures, capture seconds, host wall per arrival and per update (a
    second run of as many updates on the same trainer) and peak memory are
    printed.
-12. rwkv6-1.6b at full width (24 layers, bf16, remat full), async W = 4,
-   4 updates, per arrival and through the graphs: the counters set to 0
-   just before and read just after each run count 192 wkv forwards (2 x
-   24 x 4, replays included), 96 of them writing chunk states, 96
-   backwards and no backup_reduce; the two runs bit-equal.
+12. rwkv6-1.6b at full width (``EVENT_LAYERS`` of 24 layers, bf16, remat
+   full), async W = 4, 4 updates, per arrival and through the graphs: the
+   counters set to 0 just before and read just after each run count 32
+   wkv forwards (2 x 4 x 4, replays included), 16 of them writing chunk
+   states, 16 backwards and no backup_reduce; the two runs bit-equal.
 13. The §2.1 rig: ``MnistCNN`` at its published widths (32, 32, 64, 64)
    on ``mnist_like`` (8,192 images), staleness tau 2 ramped over 5
    updates, 10 updates through ``Trainer`` with the model and batch_fn
    overrides, chunk 1 against chunk 4 (cuDNN deterministic): the same
    staleness sequence, bit-equal losses and parameters.
-14. At 2 layers, full width, f32, async W = 4 and staleness tau 2: a
-   checkpoint at update 2, restored and continued, equals the straight
-   run (atol 1e-6), and the card's graph run equals the CPU port's
-   per-arrival run (atol 1e-5).
+14. At 2 layers, full width, f32, async W = 4 and staleness tau 2, from
+   the CPU port's draw of the weights: a checkpoint at update 2,
+   restored and continued, equals the straight run (atol 1e-6), and the
+   straight graph run equals the CPU port's per-arrival run (atol
+   1e-5).
 15. The paper's Figs. 5 and 6 at the tiny size (``repro_torch.benchmarks``,
    TF32 off): 20 synchronous SGD steps at N = 2 on the card against the
    same steps on the CPU port, every loss within 1e-4; then Fig. 5's
@@ -207,7 +210,8 @@ fails (non-zero exit, no result line) if any phase fails:
    each of the four samplers at ``SAMPLER_DRAWS`` f32 draws on the card
    against as many numpy draws of its ``LatencyModel`` (mean, std and the
    ``SAMPLER_QUANTILES`` within rel 0.05); ``device_batch_fn`` at noise 0
-   on the card is the closed-form chain; qwen3-0.6b at full width on the
+   on the card is the closed-form chain; qwen3-0.6b at full width (cut
+   to ``DEVICE_LAYERS`` of 28 layers) on the
    sim backend (backup 6 + 2, the stream cut to ``DATA_VOCAB`` ids,
    rmsprop_momentum at ``FAULT_LR`` x N),
    8 steps as chunks of 4 + 4 and as one chunk of 8: losses, selected,
@@ -221,8 +225,9 @@ fails (non-zero exit, no result line) if any phase fails:
    1, chunks of 4 through the graph, checkpoints every 4):
    ``FAULT_SPEC`` at fault seed 0 under ``run_supervised`` gives the
    recovery log ``FAULT_LOG``; the same plan without the preemption
-   matches the unfaulted run at steps 1-2 bit for bit and ends in the
-   supervised run's parameters and EMA bit for bit (the restore loses
+   (checkpointed only at its rescale) matches the unfaulted run at steps
+   1-2 bit for bit and ends in the supervised run's parameters and EMA
+   bit for bit (the restore loses
    nothing); backup_reduce launches once a step (counted from 0 around
    the supervised run) and, on the first stack after the rescale (8 -> 4
    workers), equals its plain twin bit for bit; the peak device memory
@@ -357,7 +362,7 @@ fails (non-zero exit, no result line) if any phase fails:
    run each MoE layer's input through a prefill and ``TP_MOE_STEPS``
    decode steps is the same bits on every rank.
    ``--families-only`` runs the build and this phase alone.
-30. The last model families, nothing cut. hymba-1.5b at full width (32
+30. The last model families. hymba-1.5b at full width (32
    layers, d_model 1,600, 25 / 5 heads of 64, SSD state 16, window 1,024,
    d_ff 5,504, vocab 32,001; ``HYMBA_PARAMS`` parameters, seeded random
    weights, bf16) on the toy path: the stepped decode's last logits
@@ -379,11 +384,32 @@ fails (non-zero exit, no result line) if any phase fails:
    16 + 8 tokens, eager ms a step; async over 4 workers through
    ``batch_fn`` (frames in every batch), ``WHISPER_UPDATES`` updates per
    arrival and as event graph chunks, bit-equal. Last, hymba-1.5b training
-   at full depth: backup 3 + 1, spmd at grad_batch 1 with the EMA,
+   at ``HYMBA_TRAIN_LAYERS`` of 32 layers (``HYMBA_TRAIN_PARAMS``
+   parameters): backup 3 + 1, spmd at grad_batch 1 with the EMA,
    ``FAMILY_TRAIN_STEPS`` steps eagerly and as one chunk through the CUDA
    graph, bit-equal, one backup_reduce a step (counted from 0).
    ``--hybrid-audio-only`` runs the build and this phase alone.
-31. A JSON line of per-kernel numbers (``launches`` is the count of one
+31. The planning tools (``launch/dryrun.py``, ``benchmarks/roofline.py``,
+   ``distributed/compression.py``, the four remaining figures), ~25 s of
+   the default call. The dry run plans on ``meta`` tensors rwkv6-1.6b at
+   grad_batch 0, which must not fit the card (not run), and qwen3-0.6b's
+   phase-17 grad_batch 0 cell, whose resident bytes are held to what the
+   card holds after that graph run's first chunk (within
+   ``DRYRUN_RESIDENT_REL``), its predicted eager peak printed beside the
+   graph peak. The roofline's terms and ``mfu`` of that step from its
+   device busy, and ``hbm_share`` of phase 4's timed graph decode. Then
+   ``compress_with_error_feedback`` on the card over phase 6's first
+   aggregated gradient (P = 596,049,920), ``EF_STEPS`` steps, card == CPU
+   bit for bit (the CPU's steps run beside the dry runs), the telescoping
+   within f32 rounding; Figs. 3-4 and Table 1 on the host, equal to the
+   CPU's rows. ``--tooling-only`` runs the build and this phase alone,
+   with fresh eager steps of qwen3-0.6b at grad_batch 1 and 0 in place of
+   the earlier phases' runs (resident bytes and the eager peak, within
+   ``DRYRUN_PEAK_REL``, gated, or an out-of-memory step the plan
+   predicted; the gradient and the mfu from grad_batch 1), and Fig. 2 and
+   Table 2 / Fig. 7 on the card at the reference's quick sizes, their
+   boolean rows held.
+32. A JSON line of per-kernel numbers (``launches`` is the count of one
    run of the main path that launches the kernel, named by
    ``launches_run``: the graph-decode serve runs, whose prefills stay
    eager, and the graph training runs; ``launches_batched_and_mesh``: those
@@ -398,7 +424,7 @@ fails (non-zero exit, no result line) if any phase fails:
    line, ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero when ``torch.cuda.is_available()`` is false.
-A line ``[time] phase N: s`` follows each of phases 3-30.
+A line ``[time] phase N: s`` follows each of phases 3-31.
 """
 from __future__ import annotations
 
@@ -451,6 +477,9 @@ RWKV_CONVERGING_LAYERS = 2
 # the eps record 4, then 2 so that phase 30 fits)
 FIGS89_LAYERS = 2
 EPS_RECORD_LAYERS = 2
+# phases 11-12's depth (of 28 and 24 layers; width unchanged): at full
+# depth the eager per-arrival runs took ~27 s of the default call
+EVENT_LAYERS = 4
 # phase 17: (arch, grad_batch values) of the batched full-width runs.
 # rwkv6-1.6b at 0 (all 4 workers) runs out of the card's memory: at 2 it
 # peaks at 69.1 GB allocated, 82.2 GB reserved (PERF.md, Findings)
@@ -475,6 +504,9 @@ CONTROL_FACTOR = 4.0
 # quantile of PaperCalibrated spreads by ~3% from seed to seed alone
 DATA_VOCAB = 512
 DEVICE_STEPS = 8
+# phase 20's depth (of 28 layers; width unchanged): three runs of 8 steps
+# and their captures took ~15 s of the default call at full depth
+DEVICE_LAYERS = 4
 # phases 20-21's lr (x N): at train_config's 0.02 x N RMSProp's first step
 # moves every weight by ~0.38 and the loss runs from 12.1 to 739 in 8 steps
 # (PERF.md §6)
@@ -487,7 +519,7 @@ FAULT_SPEC = "crash@2:w1,slowdown@3:w0:x4:d3,crash@5:w2,crash@6:w3,preempt@9"
 FAULT_STEPS = 12
 # the supervised part's depth: a full-width (28-layer) checkpoint holds
 # 8.35 GB and the plan writes 7 of them, past a chip call's disk budget;
-# 2 layers (4 before) for the call's time: 9 saves and 3 restores
+# 2 layers (4 before) for the call's time: 6 saves and 3 restores
 FAULT_LAYERS = 2
 FAULT_LOG = [
     {"event": "worker_crash", "step": 2, "worker": 1},
@@ -623,6 +655,11 @@ VLM_TEXT = 16
 # bf16, the blocked core the unnormalised ones, block by block); whisper's
 # async updates
 HYMBA_PARAMS = 1_299_664_064
+# hymba's training depth (of 32 layers; width unchanged) and its parameters
+# there (the reference's count): at 32 layers the eager steps and the
+# capture took ~25 s of the default call
+HYMBA_TRAIN_LAYERS = 8
+HYMBA_TRAIN_PARAMS = 363_470_816
 WHISPER_PARAMS = 62_263_296
 HYMBA_SEEDS = (30, 31, 32)
 HYMBA_LOGITS_REL = 0.25
@@ -633,6 +670,18 @@ SSD_SHAPE = dict(b=2, s=256, h=25, p=64, n=16)
 CHUNKED_S = 8448
 CHUNKED_REL = 3e-2
 WHISPER_UPDATES = 4
+# phase 31: the dry run held to the card (resident bytes within 1% of what
+# the card holds once the trainer has its state and gradient stack; the
+# predicted eager peak within 10% of max_memory_allocated of an eager
+# step), the error-feedback steps over qwen3-0.6b's first aggregated
+# gradient, and the host figures' derived strings as the CPU gives them
+# (numpy draws: bit for bit on any host)
+DRYRUN_RESIDENT_REL = 0.01
+DRYRUN_PEAK_REL = 0.10
+EF_STEPS = 3
+STRAGGLER_ROWS = ("mean_k50=1.38s", "0.74", "0.17", "30.1s")
+LAYER_STALENESS_ROWS = ("workers=40,layers=19", "39.7", "14.0", "2.84x",
+                        "True")
 
 
 def _log(msg: str) -> None:
@@ -676,18 +725,24 @@ def _busy_ms(torch, fns, calls: int = 3) -> float:
     card's kernel and copy intervals over ``calls`` calls, divided by
     ``calls``. For a function of more kernels than the launch queue holds
     (the wkv's plain twin: hundreds per call), which ``_time_ms`` cannot
-    queue behind a sleep; gaps between its kernels are not counted."""
-    from repro_torch.launch.profile_serve import _busy_us
+    queue behind a sleep; gaps between its kernels are not counted.
+    Only the card's activity is traced, and its intervals are read from
+    the raw trace: building the profiler's event tree for a training
+    step's thousands of kernels and ops took ~40 s of a default call."""
+    from repro_torch.launch.profile_serve import _union_us
     for fn in fns[:2]:
         fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for i in range(calls):
             fns[i % len(fns)]()
         torch.cuda.synchronize()
-    return _busy_us(prof.events()) / 1e3 / calls
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = [(e.start_ns(), e.end_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == cuda and not e.is_user_annotation()]
+    return _union_us(spans) / 1e6 / calls
 
 
 # ---------------------------------------------------------------------------
@@ -940,11 +995,12 @@ def _serve_phase(torch, kernels):
     return _serve_runs(torch, cfg, model, kernels, "serve",
                        _serve_trace(cfg, 16, seed=0),
                        short=_serve_trace(cfg, SHORT_REQUESTS, seed=0,
-                                          new=SHORT_NEW))
+                                          new=SHORT_NEW), timed_decode=True)
 
 
 def _serve_runs(torch, cfg, model, kernels, label, trace,
-                pools=("fp", "int8"), short=None, short_clock="wall"):
+                pools=("fp", "int8"), short=None, short_clock="wall",
+                timed_decode=False):
     """Serve ``trace`` through ``ServeEngine`` with graph decode at phase
     4's geometry, one run a pool of ``pools`` (each engine warmed up and
     its graph captured on a 2-request trace first). With ``short`` (a
@@ -959,7 +1015,10 @@ def _serve_runs(torch, cfg, model, kernels, label, trace,
     decode once and launch page gather twice a layer a decode step and
     flash once a layer an admission. Returns {tag: report and counts}
     (tags "fp graph", "int8 graph" for ``trace``, "fp", "int8" for the
-    eager run on ``short``)."""
+    eager run on ``short``). ``timed_decode``: each graph run's report
+    also holds ``decode_ms``, one decode step with every slot live at
+    ``MOE_TIMED_LEN`` tokens (``_timed_decode_ms``)."""
+    from repro_torch.kernels import counters
     from repro_torch.serve import ServeEngine, TraceConfig, make_trace
     page_gather, flash_attention = kernels
     warm = make_trace(TraceConfig(
@@ -1001,6 +1060,14 @@ def _serve_runs(torch, cfg, model, kernels, label, trace,
                     f"{want_gather}) flash={n_flash} (expected {want_flash})")
             runs[tag] = dict(report=report, gather=n_gather, flash=n_flash,
                              peak=torch.cuda.max_memory_allocated())
+            if graph and timed_decode:
+                before = counters.read()
+                runs[tag]["decode_ms"] = _timed_decode_ms(torch, engine)
+                counters.write(before)      # not the run's launches
+                _log(f"[{label} {tag}] timed decode: {engine.pool_cfg.num_slots}"
+                     f" slots live at {MOE_TIMED_LEN} tokens, "
+                     f"{runs[tag]['decode_ms']:.4f} ms a step (CUDA events "
+                     f"over {MOE_TIMED_STEPS} replays)")
             if graph:
                 g = engine._decode_graph
                 _log(f"[{label} {tag}] decode graph: {g.captures} capture "
@@ -1163,14 +1230,19 @@ def _graph_train_run(torch, cfg, counters, tag):
     the rest replay it. The counters are set to 0 just before and read
     just after. Then one more chunk on the same trainer, all replays, is
     timed (host wall per step). Returns the run's metrics, counts,
-    parameter checksum, planned masks and graph numbers."""
+    parameter checksum, planned masks and graph numbers (``resident``:
+    the bytes the card holds after the first chunk beyond what it held
+    before the trainer was built: its state, the gradient stack and the
+    graph's static buffers)."""
     import gc
     from repro_torch.core.straggler import PaperCalibrated
     from repro_torch.train.loop import Trainer
     k = cfg.total_steps
     cfg = dataclasses.replace(cfg, chunk_size=k)
+    gc.collect()            # earlier phases' garbage, not freed mid-run
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     tr = Trainer(cfg, latency=PaperCalibrated(), device="cuda")
     tr.init_state()
     for m, a in counters:
@@ -1185,6 +1257,7 @@ def _graph_train_run(torch, cfg, counters, tag):
     sums = _param_sums(torch, res.params)
     g = tr.chunk_step.graph
     stats = dict(capture_s=g.capture_s, captures=g.captures,
+                 resident=torch.cuda.memory_allocated() - base,
                  peak=torch.cuda.max_memory_allocated(),
                  reserved=torch.cuda.max_memory_reserved(),
                  first_chunk_ms=1e3 * first_s)
@@ -1248,8 +1321,9 @@ def _hold_graph_to_eager(tag, eager_run, graph, graph_sums, graph_masks):
 
 def _train_phase(torch, backup_reduce):
     """qwen3-0.6b at full width, 3 spmd steps through the kernel, then the
-    same 3 steps through the plain reduce. Returns the kernel run's row
-    numbers and its parameter count P."""
+    first of them through the plain reduce (its loss and its aggregated
+    gradient are what is held). Returns the kernel run's row numbers and
+    its parameter count P."""
     from unittest import mock
     from repro_torch.core.straggler import PaperCalibrated
     from repro_torch.distributed import spmd_engine
@@ -1268,7 +1342,8 @@ def _train_phase(torch, backup_reduce):
     with mock.patch.object(spmd_engine, "reduce_then_psum", keep_first):
         for tag, use_kernel in (("kernel", None), ("plain", False)):
             tags.append(tag)
-            cfg = train_config(use_kernel=use_kernel)
+            steps = 3 if use_kernel is None else 1
+            cfg = train_config(use_kernel=use_kernel, steps=steps)
             model = cfg.model
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -1286,19 +1361,21 @@ def _train_phase(torch, backup_reduce):
                      f"lr {m['lr']:.6f}")
             tokens = cfg.shape.global_batch * cfg.shape.seq_len
             ms = [1e3 * t for t in res.step_times_s]
+            steady = statistics.mean(ms[1:] or ms)
+            rate = (f"steady {steady:.1f} ms, {tokens / steady * 1e3:.0f} "
+                    f"tokens/s" if steps > 1 else
+                    "one step, its warm-up included")
             _log(f"[train {tag}] {model.name}: {model.num_layers} layers, "
                  f"d_model {model.d_model}, vocab {model.vocab_size}, "
                  f"{n_params} params {model.dtype}, remat {model.remat}; "
                  f"backup 6+2, {cfg.shape.global_batch} x "
                  f"{cfg.shape.seq_len} tokens/step, spmd mesh 1x1: ms/step "
-                 f"{', '.join(f'{t:.1f}' for t in ms)} (steady "
-                 f"{statistics.mean(ms[1:]):.1f} ms, "
-                 f"{tokens / statistics.mean(ms[1:]) * 1e3:.0f} tokens/s) | "
+                 f"{', '.join(f'{t:.1f}' for t in ms)} ({rate}) | "
                  f"backup_reduce launches {launches} | peak device memory "
                  f"{peak} bytes")
             if not all(math.isfinite(m["loss"]) for m in res.metrics):
                 raise AssertionError(f"[train {tag}] non-finite loss")
-            if res.steps != 3 or len(res.metrics) != 3:
+            if res.steps != steps or len(res.metrics) != steps:
                 raise AssertionError(f"[train {tag}] ran {res.steps} steps")
             want = 3 if use_kernel is None else 0
             if launches != want:
@@ -1309,7 +1386,7 @@ def _train_phase(torch, backup_reduce):
                              sums=_param_sums(torch, res.params), masks=masks)
             del res
             torch.cuda.empty_cache()
-    if not _same_masks(runs["kernel"]["masks"], runs["plain"]["masks"]):
+    if not _same_masks(runs["kernel"]["masks"][:1], runs["plain"]["masks"]):
         raise AssertionError("kernel and plain runs planned different masks")
     for a, b in zip(runs["kernel"]["metrics"], runs["plain"]["metrics"]):
         if a["selected"] != b["selected"] or a["sim_time"] != b["sim_time"]:
@@ -1323,8 +1400,8 @@ def _train_phase(torch, backup_reduce):
         raise AssertionError(
             f"first step's aggregated gradient differs between the kernel "
             f"and the plain run (max abs {(gk - gp).abs().max().item()})")
-    _log(f"[train] kernel run == plain run: masks and sim_time equal, "
-         f"losses within rel 1e-3, first step's aggregated gradient "
+    _log(f"[train] kernel run == plain run on step 1: mask and sim_time "
+         f"equal, loss within rel 1e-3, the aggregated gradient "
          f"({gk.numel()} lanes) bit-equal")
     runs["kernel"]["first_grad"] = gk.cpu()
     del gk, gp
@@ -1552,7 +1629,8 @@ def _wkv_phase(torch, rwkv6_scan):
 
 def _rwkv_train_phase(torch, rwkv6_scan, backup_reduce):
     """rwkv6-1.6b at full width, 3 spmd steps through the wkv kernels
-    (``run_experiment``), then the same steps through the plain twin."""
+    (``run_experiment``), then the first of them through the plain twin
+    (~10 s a step: its step-1 loss is what is held)."""
     import gc
     from repro_torch.core.straggler import PaperCalibrated
     from repro_torch.launch.profile_train import train_config
@@ -1580,8 +1658,9 @@ def _rwkv_train_phase(torch, rwkv6_scan, backup_reduce):
                 tr.init_state()
                 for m, a in counters:
                     setattr(m, a, 0)
-                res = tr.run(steps)
+                res = tr.run(1)
         torch.cuda.synchronize()
+        n = steps if tag == "kernel" else 1
         n_fwd, n_bwd, n_red, n_states = (getattr(m, a) for m, a in counters)
         peak = torch.cuda.max_memory_allocated()
         n_params = sum(v.numel() for v in res.params.values())
@@ -1591,7 +1670,9 @@ def _rwkv_train_phase(torch, rwkv6_scan, backup_reduce):
                  f"lr {m['lr']:.6f}")
         tokens = cfg.shape.global_batch * cfg.shape.seq_len
         ms = [1e3 * t for t in res.step_times_s]
-        steady = statistics.mean(ms[1:])
+        steady = statistics.mean(ms[1:] or ms)
+        rate = (f"steady {steady:.1f} ms, {tokens / steady * 1e3:.0f} "
+                f"tokens/s" if n > 1 else "one step, its warm-up included")
         _log(f"[train rwkv {tag}] {model.name}: {model.num_layers} layers, "
              f"d_model {model.d_model}, {model.d_model // model.rwkv_head_dim}"
              f" wkv heads of {model.rwkv_head_dim}, d_ff {model.d_ff}, vocab "
@@ -1599,8 +1680,7 @@ def _rwkv_train_phase(torch, rwkv6_scan, backup_reduce):
              f"{model.remat}; backup {agg.num_workers}+{agg.backup_workers}, "
              f"{cfg.shape.global_batch} x {cfg.shape.seq_len} tokens/step, "
              f"spmd mesh 1x1: ms/step {', '.join(f'{t:.1f}' for t in ms)} "
-             f"(steady {steady:.1f} ms, {tokens / steady * 1e3:.0f} "
-             f"tokens/s) | launches wkv6 fwd {n_fwd} (writing the chunk "
+             f"({rate}) | launches wkv6 fwd {n_fwd} (writing the chunk "
              f"states {n_states}) bwd {n_bwd} backup_reduce {n_red} | peak "
              f"device memory {peak} bytes")
         if n_params != RWKV_PARAMS:
@@ -1608,11 +1688,10 @@ def _rwkv_train_phase(torch, rwkv6_scan, backup_reduce):
                                  f"{RWKV_PARAMS}")
         if not all(math.isfinite(m["loss"]) for m in res.metrics):
             raise AssertionError(f"[train rwkv {tag}] non-finite loss")
-        if res.steps != steps or len(res.metrics) != steps:
+        if res.steps != n or len(res.metrics) != n:
             raise AssertionError(f"[train rwkv {tag}] ran {res.steps} steps")
         per_step = 2 * model.num_layers * w if tag == "kernel" else 0
-        want = (per_step * steps, per_step // 2 * steps, steps,
-                per_step // 2 * steps)
+        want = (per_step * n, per_step // 2 * n, n, per_step // 2 * n)
         if (n_fwd, n_bwd, n_red, n_states) != want:
             raise AssertionError(
                 f"[train rwkv {tag}] launches wkv6 fwd/bwd, backup_reduce, "
@@ -1629,7 +1708,7 @@ def _rwkv_train_phase(torch, rwkv6_scan, backup_reduce):
             del tr
         gc.collect()
         torch.cuda.empty_cache()
-    if not _same_masks(runs["kernel"]["masks"], runs["plain"]["masks"]):
+    if not _same_masks(runs["kernel"]["masks"][:1], runs["plain"]["masks"]):
         raise AssertionError("rwkv kernel and plain runs planned different "
                              "masks")
     for a, b in zip(runs["kernel"]["metrics"], runs["plain"]["metrics"]):
@@ -1794,8 +1873,8 @@ def _hold_events(tag, eager, graph):
 
 def _event_phase(torch, rwkv6_scan, backup_reduce):
     """Phases 11 and 12: async and softsync on qwen3-0.6b, async on
-    rwkv6-1.6b, at full width, per arrival and then through the event
-    graphs."""
+    rwkv6-1.6b, at full width cut to ``EVENT_LAYERS`` layers, per arrival
+    and then through the event graphs."""
     from repro_torch.launch.profile_train import event_config
     counters = ((rwkv6_scan, "launches_fwd"), (rwkv6_scan, "launches_bwd"),
                 (backup_reduce, "launches"),
@@ -1804,10 +1883,12 @@ def _event_phase(torch, rwkv6_scan, backup_reduce):
     for arch, strategy, updates in (("qwen3-0.6b", "async", 8),
                                     ("qwen3-0.6b", "softsync", 4),
                                     ("rwkv6-1.6b", "async", 4)):
-        tag = f"event {arch} {strategy}"
+        tag = f"event {arch} {EVENT_LAYERS} layers {strategy}"
         runs = {}
         for chunk in (1, updates):
             cfg = event_config(arch, strategy, steps=updates, chunk=chunk)
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, num_layers=EVENT_LAYERS))
             kind = "graph" if chunk > 1 else "per-arrival"
             runs[kind] = _event_run(torch, cfg, counters, f"{tag} {kind}")
             n = runs[kind]["stats"]["arrivals"]
@@ -1877,9 +1958,10 @@ def _mnist_phase(torch):
 
 def _event_parity_phase(torch):
     """Phase 14: 2 layers at full width, f32, async W = 4 and staleness
-    tau 2: a checkpoint at update 2, restored and continued for 2 updates,
-    equals 4 straight (graph runs, atol 1e-6), and the card equals the
-    CPU port (atol 1e-5, phase 7's tolerance)."""
+    tau 2, from the CPU port's draw of the weights: a checkpoint at update
+    2, restored and continued for 2 updates, equals 4 straight (graph
+    runs, atol 1e-6), and the straight run equals the CPU port's (atol
+    1e-5, phase 7's tolerance)."""
     from repro_torch.configs import (AggregationConfig, CheckpointConfig,
                                      OptimizerConfig, ShapeConfig)
     from repro_torch.launch.profile_train import event_config
@@ -1907,12 +1989,21 @@ def _event_parity_phase(torch):
                    for k, v in a.items())
 
     for strategy in ("async", "staleness"):
-        straight = Trainer(cfg(strategy, 2), device="cuda")
-        straight.init_state()
+        # every run starts from the CPU port's draw of the weights
+        cpu = Trainer(cfg(strategy, 1), device="cpu")
+        cpu.init_state()
+
+        def on_card(c):
+            tr = Trainer(c, device="cuda")
+            tr.model.load_state_dict(cpu.model.state_dict())
+            tr.reset_optimizer_state()
+            tr._init_event_state()
+            return tr
+
+        straight = on_card(cfg(strategy, 2))
         full = straight.run(4)
         with tempfile.TemporaryDirectory() as d:
-            first = Trainer(cfg(strategy, 2, d, every=2), device="cuda")
-            first.init_state()
+            first = on_card(cfg(strategy, 2, d, every=2))
             first.run(2)
             resumed = Trainer(cfg(strategy, 2, d), device="cuda")
             resumed.reset_optimizer_state()
@@ -1924,17 +2015,10 @@ def _event_parity_phase(torch):
                 or [m["staleness"] for m in res.metrics] != stal[2:]):
             raise AssertionError(f"[parity event {strategy}] resume differs "
                                  f"from the straight run by {diff}")
-        cpu = Trainer(cfg(strategy, 1), device="cpu")
-        cpu.init_state()
-        card = Trainer(cfg(strategy, 2), device="cuda")
-        card.model.load_state_dict(cpu.model.state_dict())
-        card.reset_optimizer_state()
-        card._init_event_state()
-        rc, rg = cpu.run(4), card.run(4)
-        cdiff = worst(rg.params, rc.params)
-        if (cdiff > 1e-5 or [m["staleness"] for m in rg.metrics]
-                != [m["staleness"] for m in rc.metrics]
-                or rg.sim_time != rc.sim_time):
+        rc = cpu.run(4)
+        cdiff = worst(full.params, rc.params)
+        if (cdiff > 1e-5 or stal != [m["staleness"] for m in rc.metrics]
+                or full.sim_time != rc.sim_time):
             raise AssertionError(f"[parity event {strategy}] card vs CPU: "
                                  f"params differ by {cdiff}")
         _log(f"[parity event {strategy}] 2-layer full-width f32, 4 updates: "
@@ -1942,7 +2026,7 @@ def _event_parity_phase(torch):
              f"params and EMA max abs diff {diff:.3g} (atol 1e-6), sim_time "
              f"and staleness {stal} equal; card (graph) vs CPU port (per "
              f"arrival): params max abs diff {cdiff:.3g} (atol 1e-5)")
-        del straight, first, resumed, cpu, card
+        del straight, first, resumed, cpu
         torch.cuda.empty_cache()
 
 
@@ -2256,13 +2340,14 @@ def _batched_phase(torch, backup_reduce, rwkv6_scan, one_at_a_time):
     """Phase 17: the batched worker gradients at full width through the
     graph, held to the one-worker-at-a-time runs of phases 6 and 9
     (``one_at_a_time``: arch -> that eager run), then at 2 layers in f32
-    against grad_batch 1."""
+    against grad_batch 1. Returns each run's launches and graph numbers,
+    by tag."""
     import gc
     from repro_torch.launch.profile_train import train_config
     counters = ((rwkv6_scan, "launches_fwd"), (rwkv6_scan, "launches_bwd"),
                 (backup_reduce, "launches"),
                 (rwkv6_scan, "launches_fwd_states"))
-    launches = {}
+    launches, graphs = {}, {}
     for arch, gbs in BATCHED_RUNS:
         ref = one_at_a_time[arch]
         truth = _f32_first_grad(torch, arch)
@@ -2301,6 +2386,7 @@ def _batched_phase(torch, backup_reduce, rwkv6_scan, one_at_a_time):
             launches[tag] = dict(zip(("wkv6_fwd", "wkv6_bwd",
                                       "backup_reduce", "wkv6_fwd_states"),
                                      counts))
+            graphs[tag] = stats
             _log(f"[batched {tag}] held to the grad_batch 1 run: masks, "
                  f"selected and sim_time equal, step 1 loss rel gap "
                  f"{gaps[0]:.3g} (limit 1e-3); first aggregated gradient: "
@@ -2317,7 +2403,7 @@ def _batched_phase(torch, backup_reduce, rwkv6_scan, one_at_a_time):
                  f"allocated, {stats['reserved']} reserved")
             gc.collect()
             torch.cuda.empty_cache()
-    return launches
+    return launches, graphs
 
 
 def _batched_parity_phase(torch):
@@ -2433,6 +2519,7 @@ def _mesh_phase(torch):
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as d:
             mesh.spawn(_mesh_rank, k, "cuda", args=(d, runs),
+                       start_method="forkserver",
                        timeout_s=MESH_TIMEOUT_S)
             ranks = []
             for r in range(k):
@@ -2656,6 +2743,7 @@ def _tp_phase(torch, ref_loss):
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             mesh.spawn(_tp_rank, d, "cuda", args=(tmp, runs), mesh_model=m,
+                       start_method="forkserver",
                        timeout_s=MESH_TIMEOUT_S)
             ranks = []
             for r in range(d * m):
@@ -2735,7 +2823,8 @@ def _tp_phase(torch, ref_loss):
 
 
 def _device_cfg(chunk, backend, *, steps=DEVICE_STEPS, noise=None):
-    """Phase 20's cell: qwen3-0.6b at full width on the sim backend (backup
+    """Phase 20's cell: qwen3-0.6b at full width cut to ``DEVICE_LAYERS``
+    layers on the sim backend (backup
     6 + 2, 2 x 256 tokens a worker, rmsprop_momentum, grad_batch 1), the
     token stream cut to ``DATA_VOCAB`` ids (``device_batch_fn`` computes in
     int32 and refuses vocabularies over 46340, as the reference does)."""
@@ -2744,6 +2833,7 @@ def _device_cfg(chunk, backend, *, steps=DEVICE_STEPS, noise=None):
     cfg = train_config(backend="sim", steps=steps)
     cfg = dataclasses.replace(
         cfg, chunk_size=chunk, straggler_backend=backend,
+        model=dataclasses.replace(cfg.model, num_layers=DEVICE_LAYERS),
         optimizer=dataclasses.replace(cfg.optimizer,
                                       learning_rate=FAULT_LR))
     data = SyntheticLMConfig(
@@ -2792,8 +2882,8 @@ def _device_run(torch, chunk, backend):
 
 def _summary(np, x):
     x = np.asarray(x, np.float64).ravel()
-    return np.array([x.mean(), x.std()] + [np.quantile(x, q)
-                                           for q in SAMPLER_QUANTILES])
+    return np.concatenate([[x.mean(), x.std()],
+                           np.quantile(x, SAMPLER_QUANTILES)])
 
 
 def _device_backend_phase(torch):
@@ -2863,7 +2953,8 @@ def _device_backend_phase(torch):
         raise AssertionError("[device backend] non-finite loss")
     host = runs[4, "host"]
     steady = {k: statistics.mean(r["step_ms"][4:]) for k, r in runs.items()}
-    _log(f"[device backend] qwen3-0.6b full width, sim backend, backup "
+    _log(f"[device backend] qwen3-0.6b full width ({DEVICE_LAYERS} of 28 "
+         f"layers), sim backend, backup "
          f"6 + 2, data vocab {DATA_VOCAB}: 8 steps as chunks 4 + 4 == one "
          f"chunk of 8 (losses, selected, sim_time, parameter checksums "
          f"bit-equal; {len(four['picks'])} + {len(eight['picks'])} chunks' "
@@ -2971,9 +3062,13 @@ def _faults_phase(torch, backup_reduce):
         clean = [m["loss"] for m in clean.metrics]
         free()
         # the plan without the preemption, paused at the rescale's step:
-        # the peak before it, then after it (the rebuild's capture on)
+        # the peak before it, then after it (the rebuild's capture on);
+        # no checkpoints on a cadence (the rescale writes its own), as
+        # they leave the state alone and each takes seconds at this width
         cfg = _fault_cfg(f"{d}/straight", FAULT_SPEC.replace(",preempt@9",
                                                              ""))
+        cfg = dataclasses.replace(cfg, checkpoint=dataclasses.replace(
+            cfg.checkpoint, every_steps=0))
         tr = trainer(cfg, injector=faults.build_injector(
             cfg.faults, num_steps=cfg.total_steps,
             num_workers=cfg.aggregation.total_workers))
@@ -3226,6 +3321,7 @@ def _shrink_phase(torch):
     with tempfile.TemporaryDirectory() as d:
         cfg, kills = _shrink_cfg(cards, os.path.join(d, "ck"))
         mesh.spawn(_shrink_rank, ranks, "cuda", args=(d, cfg, kills),
+                   start_method="forkserver",
                    timeout_s=MESH_TIMEOUT_S)
         out = []
         for r in range(ranks):
@@ -4198,6 +4294,7 @@ def _tp_decode_phase(torch, arch="qwen3-0.6b"):
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             mesh.spawn(_tp_decode_rank, 1, "cuda", args=(tmp, runs),
+                       start_method="forkserver",
                        mesh_model=size, timeout_s=MESH_TIMEOUT_S)
             ranks, inputs = [], []
             for r in range(size):
@@ -4278,7 +4375,7 @@ def _tp_decode_phase(torch, arch="qwen3-0.6b"):
 # ---------------------------------------------------------------------------
 
 
-def _moe_decode_ms(torch, engine, steps=MOE_TIMED_STEPS):
+def _timed_decode_ms(torch, engine, steps=MOE_TIMED_STEPS):
     """Device ms of one decode step of ``engine`` (its captured graph)
     with every slot live at ``MOE_TIMED_LEN`` tokens: CUDA events around
     ``steps`` steps, over the step count (host gaps between replays
@@ -4363,7 +4460,7 @@ def _moe_serve(torch, kernels):
                 * pc.page_size * pc.kv_heads * pc.head_dim * 2)
     bound = weight_bytes / PEAK_BYTES_PER_S * 1e3
     bound_kv = (weight_bytes + kv_bytes) / PEAK_BYTES_PER_S * 1e3
-    ms = _moe_decode_ms(torch, engine)
+    ms = _timed_decode_ms(torch, engine)
     prefill = _moe_prefill_ms(torch, engine, MOE_PREFILL_BUCKETS)
     tok_ms = {t: 1e3 * r["report"].metrics["decode_s"]
               / r["report"].metrics["decode_steps"] for t, r in runs.items()}
@@ -4485,6 +4582,26 @@ def _moe_train(torch, backup_reduce):
                       base.model.num_layers)[1]
 
 
+def _held_memory(torch, before: str) -> None:
+    """Logs the bytes the card holds (allocated) ahead of ``before`` and,
+    past 4 GB, the largest live CUDA tensors and who holds them: the
+    training runs that follow peak within a few GB of the card's memory."""
+    held = torch.cuda.memory_allocated()
+    _log(f"[memory] before {before}: {held} bytes allocated, "
+         f"{torch.cuda.memory_reserved()} reserved")
+    if held <= 4e9:
+        return
+    import gc
+    big = sorted((t for t in gc.get_objects()
+                  if isinstance(t, torch.Tensor) and t.is_cuda
+                  and t.numel() * t.element_size() > 1e8),
+                 key=lambda t: -t.numel() * t.element_size())
+    for t in big[:8]:
+        owners = [type(r).__name__ for r in gc.get_referrers(t)][:6]
+        _log(f"[memory]   {tuple(t.shape)} {t.dtype} "
+             f"{t.numel() * t.element_size()} bytes, held by {owners}")
+
+
 def _moe_phase(torch, kernels, backup_reduce):
     """Phase 28: serving at full width, kernel == plain at 2 layers f32,
     training at reduced depth. Returns {run: launches} per counter. The
@@ -4497,6 +4614,7 @@ def _moe_phase(torch, kernels, backup_reduce):
         _moe_kernel_vs_plain(torch)
     gc.collect()
     torch.cuda.empty_cache()
+    _held_memory(torch, "moe train")
     reduce = _moe_train(torch, backup_reduce)
     return dict(serve=serve, backup_reduce=reduce)
 
@@ -5181,8 +5299,9 @@ def _whisper_phase(torch):
 
 def _hybrid_audio_phase(torch, backup_reduce):
     """Phase 30: hymba-1.5b and whisper-tiny at full width, the chunked
-    core above 8,192 tokens, then hymba's training at full depth. Returns
-    the backup_reduce launches of its graph run."""
+    core above 8,192 tokens, then hymba's training at
+    ``HYMBA_TRAIN_LAYERS`` of its layers. Returns the backup_reduce
+    launches of its graph run."""
     import gc
     from repro_torch.launch.profile_train import train_config
     _hymba_phase(torch)
@@ -5193,14 +5312,283 @@ def _hybrid_audio_phase(torch, backup_reduce):
     _whisper_phase(torch)
     torch.cuda.empty_cache()
     arch = "hymba-1.5b"
-    train = train_config(arch, steps=FAMILY_TRAIN_STEPS, grad_batch=1)
+    base = train_config(arch, steps=FAMILY_TRAIN_STEPS, grad_batch=1)
+    train = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, num_layers=HYMBA_TRAIN_LAYERS))
     n, launches = _cut_train(torch, backup_reduce, train, arch,
-                             train.model.num_layers)
-    if n != HYMBA_PARAMS:
+                             base.model.num_layers)
+    if n != HYMBA_TRAIN_PARAMS:
         raise AssertionError(f"[{arch} train] {n} params, expected "
-                             f"{HYMBA_PARAMS}")
+                             f"{HYMBA_TRAIN_PARAMS}")
     return launches
 
+
+
+# ---------------------------------------------------------------------------
+# Phase 31: the planning tools on the card
+# ---------------------------------------------------------------------------
+
+
+def _gb(n: float) -> str:
+    return f"{n / 1e9:.3f} GB"
+
+
+def _plan(tag, cfg):
+    """The dry run's plan of ``cfg``'s eager spmd step (no allocation)."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    plan = dryrun.plan_train(cfg)
+    mem = plan["memory"]
+    _log(f"[tooling dryrun {tag}] planned in {time.perf_counter() - t0:.1f} "
+         f"s: resident {mem['argument_bytes']} bytes "
+         f"({', '.join(f'{k} {_gb(v)}' for k, v in mem['resident'].items())}"
+         f"), eager peak {mem['peak_bytes']} bytes, fits "
+         f"{mem['peak_bytes'] <= dryrun.CARD_MEMORY_BYTES} (card "
+         f"{dryrun.CARD_MEMORY_BYTES} bytes); collectives "
+         f"{plan['collectives']['num_ops']:.0f}")
+    return plan
+
+
+def _hold_resident(tag, plan, measured: int) -> None:
+    want = plan["memory"]["argument_bytes"]
+    gap = (want - measured) / measured
+    if not abs(gap) <= DRYRUN_RESIDENT_REL:
+        raise AssertionError(
+            f"[tooling dryrun {tag}] resident {want} bytes predicted, the "
+            f"card holds {measured}: gap {gap:+.4%} (limit "
+            f"{DRYRUN_RESIDENT_REL:.0%})")
+    _log(f"[tooling dryrun {tag}] resident bytes: predicted {want}, the card "
+         f"holds {measured} once the trainer has its state and stack: gap "
+         f"{gap:+.4%} (limit {DRYRUN_RESIDENT_REL:.0%})")
+
+
+def _eager_step(torch, cfg, keep_grad: bool):
+    """One eager step of a fresh trainer: (bytes held after it beyond the
+    start, ``max_memory_allocated`` above the start, device busy ms of a
+    second eager step, the first aggregated gradient or None); None when
+    the step runs out of the card's memory."""
+    import gc
+    from repro_torch.core.straggler import PaperCalibrated
+    from repro_torch.train.loop import Trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr = None
+    try:
+        tr = Trainer(cfg, latency=PaperCalibrated(), device="cuda")
+        tr.init_state()
+        with _first_grad() as first:
+            tr.run(1)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        peak = torch.cuda.max_memory_allocated() - base
+        busy = _busy_ms(torch, [lambda: tr.run(1)], calls=1) \
+            if keep_grad else None
+        grad = first[0] if keep_grad else None
+    except torch.cuda.OutOfMemoryError:
+        return None
+    finally:
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    return held, peak, busy, grad
+
+
+def _step_shares(cfg, busy_ms, label):
+    from repro_torch.benchmarks import roofline
+    sh = roofline.step_shares(cfg.model, cfg.shape, busy_ms / 1e3)
+    if not 0.0 < sh["mfu"] < 1.0:
+        raise AssertionError(f"[tooling roofline {label}] mfu {sh['mfu']}")
+    _log(f"[tooling roofline {label}] {cfg.shape.global_batch} x "
+         f"{cfg.shape.seq_len} tokens: perfmodel {sh['flops']:.4e} flops "
+         f"(model {sh['model_flops']:.4e}), {sh['hbm_bytes']:.4e} HBM bytes;"
+         f" bound compute {1e3 * sh['compute_s']:.3f} ms, memory "
+         f"{1e3 * sh['memory_s']:.3f} ms (989 TFLOP/s bf16, 3.35 TB/s); "
+         f"device busy {busy_ms:.3f} ms -> mfu {sh['mfu']:.4f}")
+    return sh
+
+
+def _ef_steps(g, steps):
+    """``steps`` error-feedback steps of ``compress_with_error_feedback``
+    over the flat gradient ``g`` (each step's input is ``g``, its residual
+    carried): [(codes, 0-d f32 scale, residual)] a step."""
+    from repro_torch.distributed import compression as comp
+    e, out = comp.init_error_feedback({"g": g}), []
+    for _ in range(steps):
+        c, e = comp.compress_with_error_feedback({"g": g}, e)
+        out.append((c["q"]["g"], c["scale"]["g"], e["g"]))
+    return out
+
+
+def _compression_check(torch, grad, cpu_steps):
+    """``_ef_steps`` over the f32 gradient ``grad`` (host) on the card,
+    held to ``cpu_steps`` (the same on the CPU, a future): codes, scales
+    and residuals bit-equal; Σ dequantised = Σ true - the last residual
+    within f32 rounding; ``compressed_bytes`` per scheme."""
+    from repro_torch.distributed import compression as comp
+    t0 = time.perf_counter()
+    g = grad.float().cuda()
+    steps = _ef_steps(g, EF_STEPS)
+    card_s = time.perf_counter() - t0
+    want = cpu_steps.result()
+    for step, ((q, scale, e), (q_cpu, scale_cpu, e_cpu)) in enumerate(
+            zip(steps, want)):
+        q = q.cpu()
+        same = (torch.equal(q, q_cpu) and scale.item() == scale_cpu.item()
+                and torch.equal(e.cpu().view(torch.int32),
+                                e_cpu.view(torch.int32)))
+        if not same:
+            raise AssertionError(
+                f"[tooling compression] step {step}: card vs CPU: "
+                f"{int((q != q_cpu).sum())} codes differ, scale "
+                f"{scale.item()!r} vs {scale_cpu.item()!r}, residual max "
+                f"gap {(e.cpu() - e_cpu).abs().max().item()}")
+        _log(f"[tooling compression] step {step}: card == CPU (codes, the "
+             f"0-d f32 scale {scale.item():.6e}, residual bit for bit); "
+             f"residual max |e| {e.abs().max().item():.4e}")
+    applied = sum(comp.decompress_int8({"q": q, "scale": s_})
+                  for q, s_, _ in steps)
+    true = sum(g for _ in steps)
+    gap = (applied - (true - steps[-1][2])).abs().max().item()
+    limit = 1e-6 * true.abs().max().item()
+    if not gap <= limit:
+        raise AssertionError(f"[tooling compression] telescoping: max gap "
+                             f"{gap} over the f32 limit {limit}")
+    sizes = {k: comp.compressed_bytes({"g": g}, k)
+             for k in ("none", "bf16", "int8_ef")}
+    _log(f"[tooling compression] P {g.numel()}, {EF_STEPS} steps "
+         f"({card_s:.2f} s on the card; the CPU's {EF_STEPS} ran beside "
+         f"the dry runs): sum of dequantised == sum of true - last "
+         f"residual, max gap {gap:.3e} (limit {limit:.3e}); "
+         f"compressed_bytes {', '.join(f'{k} {v}' for k, v in sizes.items())}")
+
+
+def _figures(torch, on_card: bool) -> None:
+    """The paper's four remaining figures at the reference's quick sizes:
+    Figs. 3-4 and Table 1 on the host (derived strings as the CPU's);
+    with ``on_card``, Fig. 2 and Table 2 / Fig. 7 on the card (their
+    boolean rows held)."""
+    from repro_torch.benchmarks import (bench_layer_staleness,
+                                        bench_lr_sweep, bench_staleness,
+                                        bench_straggler)
+    for name, mod, want in (("straggler", bench_straggler, STRAGGLER_ROWS),
+                            ("layer_staleness", bench_layer_staleness,
+                             LAYER_STALENESS_ROWS)):
+        rows = mod.run(True)
+        for row in rows:
+            _log(f"[tooling figures] {row[0]},{row[1]:.1f},{row[2]}")
+        if tuple(r[2] for r in rows) != want:
+            raise AssertionError(f"[tooling figures] {name} rows "
+                                 f"{[r[2] for r in rows]} != the CPU's "
+                                 f"{list(want)}")
+    if not on_card:
+        return
+    for name, mod, checks in (
+            ("staleness", bench_staleness,
+             {"staleness.monotone_degradation": "True"}),
+            ("lr_sweep", bench_lr_sweep,
+             {"lr_sweep.best_gamma": "0.8",
+              "lr_sweep.small_lr_worse_optimum": "True"})):
+        t0 = time.perf_counter()
+        rows = mod.run(True, device="cuda")
+        for row in rows:
+            _log(f"[tooling figures] {row[0]},{row[1]:.1f},{row[2]}")
+        got = {r[0]: r[2] for r in rows}
+        if any(got.get(k) != v for k, v in checks.items()):
+            raise AssertionError(f"[tooling figures] {name}: {got}")
+        _log(f"[tooling figures] {name} on the card: "
+             f"{time.perf_counter() - t0:.1f} s")
+
+
+def _tooling_phase(torch, measured=None):
+    """Phase 31: the dry run, the roofline, gradient compression and the
+    paper's four remaining figures on the card. ``measured`` (the default
+    call): phase 17's qwen3-0.6b grad_batch 0 graph run (resident bytes
+    gated, the eager peak printed beside the graph peak, its busy time's
+    mfu), phase 4's timed decode (hbm_share) and phase 6's first gradient;
+    the figures on the host only. Without it (``--tooling-only``): fresh
+    eager steps of qwen3-0.6b at grad_batch 1 and 0 give the resident
+    bytes, the eager peaks (gated), the mfu and the gradient; Fig. 2 and
+    the lr sweep run on the card too."""
+    from repro_torch.benchmarks import roofline
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.profile_train import train_config
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    with ThreadPoolExecutor(1) as ex:
+        # the compression's CPU reference runs beside the dry runs
+        cpu_steps = None
+        if measured is not None:
+            cpu_steps = ex.submit(_ef_steps, measured["first_grad"].float(),
+                                  EF_STEPS)
+        rwkv = _plan("rwkv6-1.6b grad_batch 0",
+                     train_config("rwkv6-1.6b", grad_batch=0, steps=1))
+        if rwkv["memory"]["peak_bytes"] <= dryrun.CARD_MEMORY_BYTES:
+            raise AssertionError("[tooling dryrun rwkv6-1.6b grad_batch 0] "
+                                 "predicted to fit the card")
+        _log(f"[tooling dryrun rwkv6-1.6b grad_batch 0] does not fit: eager "
+             f"peak {_gb(rwkv['memory']['peak_bytes'])} predicted against "
+             f"{_gb(dryrun.CARD_MEMORY_BYTES)} (not run) | {smi}")
+        if measured is not None:
+            tag = "qwen3-0.6b grad_batch 0"
+            stats = measured["graphs"][tag]
+            cfg = train_config("qwen3-0.6b", grad_batch=0)
+            plan = _plan(tag, cfg)
+            _hold_resident(tag, plan, stats["resident"])
+            _log(f"[tooling dryrun {tag}] eager peak predicted "
+                 f"{plan['memory']['peak_bytes']} bytes beside the graph "
+                 f"run's {stats['peak']} (not gated: a graph's private pool "
+                 f"is not an eager step's) | {smi}")
+            _step_shares(cfg, stats["busy_ms"], f"{tag} graph step | {smi}")
+            decode_ms = measured["decode_ms"]
+            slots = _serve_cfg()["num_slots"]
+            shape = ShapeConfig("serve_decode", MOE_TIMED_LEN, slots,
+                                "decode")
+            sh = roofline.step_shares(cfg.model, shape, decode_ms / 1e3)
+            _log(f"[tooling roofline qwen3-0.6b decode] {slots} slots at "
+                 f"{MOE_TIMED_LEN} tokens, {decode_ms:.4f} ms a graph step: "
+                 f"perfmodel {sh['hbm_bytes']:.4e} HBM bytes -> hbm_share "
+                 f"{sh['hbm_share']:.4f}, mfu {sh['mfu']:.5f} | {smi}")
+            grad = measured["first_grad"]
+        else:
+            for gb in (1, 0):
+                tag = f"qwen3-0.6b grad_batch {gb}"
+                cfg = train_config("qwen3-0.6b", grad_batch=gb, steps=1)
+                plan = _plan(tag, cfg)
+                got = _eager_step(torch, cfg, keep_grad=gb == 1)
+                fits = plan["memory"]["peak_bytes"] <= \
+                    dryrun.CARD_MEMORY_BYTES
+                if got is None:
+                    if fits:
+                        raise AssertionError(
+                            f"[tooling dryrun {tag}] the eager step ran out "
+                            f"of memory; the plan said it fits")
+                    _log(f"[tooling dryrun {tag}] the eager step ran out of "
+                         f"memory, as predicted | {smi}")
+                    continue
+                held, peak, busy, g = got
+                _hold_resident(tag, plan, held)
+                want = plan["memory"]["peak_bytes"]
+                gap = (want - peak) / peak
+                if not abs(gap) <= DRYRUN_PEAK_REL:
+                    raise AssertionError(
+                        f"[tooling dryrun {tag}] eager peak {want} "
+                        f"predicted, max_memory_allocated {peak}: gap "
+                        f"{gap:+.4%} (limit {DRYRUN_PEAK_REL:.0%})")
+                _log(f"[tooling dryrun {tag}] eager peak: predicted {want} "
+                     f"bytes, max_memory_allocated {peak}: gap {gap:+.4%} "
+                     f"(limit {DRYRUN_PEAK_REL:.0%}); fits {fits} | {smi}")
+                if g is not None:
+                    grad = g
+                    cpu_steps = ex.submit(_ef_steps, g.float(), EF_STEPS)
+                    _step_shares(cfg, busy, f"{tag} eager step | {smi}")
+        _compression_check(torch, grad, cpu_steps)
+    _figures(torch, on_card=measured is None)
 
 def main(argv) -> int:
     started = time.perf_counter()
@@ -5209,7 +5597,7 @@ def main(argv) -> int:
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     entries = ("--mesh-only", "--faults-only", "--serve-only",
                "--tp-decode-only", "--flash-only", "--moe-only",
-               "--families-only", "--hybrid-audio-only")
+               "--families-only", "--hybrid-audio-only", "--tooling-only")
     if argv and (len(argv) > 1 or argv[0] not in entries):
         print(f"chip_smoke: unknown arguments {argv} (none, or one of "
               f"{', '.join(entries)})", file=sys.stderr)
@@ -5235,6 +5623,15 @@ def main(argv) -> int:
          f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
          f"x{torch.cuda.device_count()}")
     _log(smi)
+
+    # the ranks of phases 18, 19, 27 and 29 fork from one server that
+    # imports torch beside the build (each spawned rank took ~8-15 s to
+    # start); the server never touches the card
+    import multiprocessing
+    from multiprocessing import forkserver
+    multiprocessing.set_forkserver_preload(
+        ["__main__", "torch", "repro_torch.distributed.mesh"])
+    forkserver.ensure_running()
 
     # 2. build (and, beside it, ptxas's report on the flash kernels, which
     # phase 25 reads)
@@ -5299,6 +5696,11 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         _hybrid_audio_phase(torch, backup_reduce)
         _log(f"[time] phase 30: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if argv == ["--tooling-only"]:          # phase 31 alone
+        t0 = time.perf_counter()
+        _tooling_phase(torch)
+        _log(f"[time] phase 31: {time.perf_counter() - t0:.1f} s")
         return 0
 
     lap = [time.perf_counter()]
@@ -5391,9 +5793,11 @@ def main(argv) -> int:
 
     # 17. batched worker gradients at full width, held to phases 6 and 9
     t0 = time.perf_counter()
-    batched = _batched_phase(torch, backup_reduce, rwkv6_scan,
-                             {"qwen3-0.6b": train, "rwkv6-1.6b": rwkv})
-    del train["first_grad"], rwkv["first_grad"]
+    batched, batched_graphs = _batched_phase(
+        torch, backup_reduce, rwkv6_scan,
+        {"qwen3-0.6b": train, "rwkv6-1.6b": rwkv})
+    first_grad = train.pop("first_grad")        # phase 31's gradient
+    del rwkv["first_grad"]
     _batched_parity_phase(torch)
     _eps_record(torch)
     _log(f"[time] phase 17: {time.perf_counter() - t0:.1f} s")
@@ -5526,12 +5930,23 @@ def main(argv) -> int:
     hybrid = _hybrid_audio_phase(torch, backup_reduce)
     next(r for r in rows if r["name"] == "backup_reduce")[
         "launches_hybrid_audio"] = {
-            f"hymba-1.5b train 32 layers, one chunk of {FAMILY_TRAIN_STEPS} "
+            f"hymba-1.5b train {HYMBA_TRAIN_LAYERS} layers, one chunk of "
+            f"{FAMILY_TRAIN_STEPS} "
             f"(graph)": hybrid}
     _log(f"[time] phase 30: {time.perf_counter() - t0:.1f} s")
-    _log(f"[time] phases 1-30: {time.perf_counter() - started:.1f} s")
 
-    # 31. results
+    # 31. the planning tools: the dry run held to phase 17's runs, the
+    # roofline's mfu and hbm_share, gradient compression, the figures
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    _tooling_phase(torch, dict(graphs=batched_graphs,
+                               decode_ms=runs["fp graph"]["decode_ms"],
+                               first_grad=first_grad))
+    del first_grad
+    _log(f"[time] phase 31: {time.perf_counter() - t0:.1f} s")
+    _log(f"[time] phases 1-31: {time.perf_counter() - started:.1f} s")
+
+    # 32. results
     keys = ("name", "route", "source", "replaces", "launches", "launches_run",
             "launches_batched_and_mesh", "launches_faults",
             "launches_telemetry", "launches_router", "launches_dense",

@@ -239,16 +239,20 @@ def _entry(rank: int, fn: Callable, mesh_data: int, mesh_model: int,
 
 def spawn(fn: Callable, mesh_data: int, device, args: Sequence = (), *,
           mesh_model: int = 1, threads: Optional[int] = None,
-          timeout_s: float = TIMEOUT_S) -> None:
+          timeout_s: float = TIMEOUT_S, start_method: str = "spawn") -> None:
     """Run ``fn(rank, device, *args)`` on ``mesh_data * mesh_model`` new
     processes that form the mesh's world (``fn`` and ``args`` are
     pickled: ``fn`` must be importable). ``threads``: torch threads per
-    rank; ``timeout_s``: the collectives' timeout. Returns when every rank
-    has finished; raises if one fails (the others are then
+    rank; ``timeout_s``: the collectives' timeout; ``start_method``:
+    ``spawn``, or ``forkserver``, whose server imports the modules of
+    ``multiprocessing.set_forkserver_preload`` once for every later world
+    (no module it imports may have initialized CUDA). Returns when every
+    rank has finished; raises if one fails (the others are then
     terminated)."""
     with tempfile.TemporaryDirectory(prefix="repro_torch_mesh_") as d:
         torch.multiprocessing.start_processes(
             _entry, args=(fn, mesh_data, mesh_model, str(device),
                           os.path.join(d, "rendezvous"), tuple(args),
                           threads, timeout_s),
-            nprocs=mesh_data * mesh_model, join=True, start_method="spawn")
+            nprocs=mesh_data * mesh_model, join=True,
+            start_method=start_method)

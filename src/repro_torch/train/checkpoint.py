@@ -29,6 +29,7 @@ import tempfile
 import time
 import zipfile
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -94,8 +95,63 @@ def _checksum(arr: np.ndarray) -> str:
     """CRC32 over dtype, shape and raw bytes (cheap, catches truncation
     and bit flips — not an adversarial-integrity hash)."""
     meta = f"{arr.dtype.str}:{arr.shape}".encode()
-    crc = zlib.crc32(np.ascontiguousarray(arr).tobytes(), zlib.crc32(meta))
+    raw = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)  # no copy
+    crc = zlib.crc32(memoryview(raw), zlib.crc32(meta))
     return f"crc32:{crc:08x}"
+
+
+def _checksum_pool() -> ThreadPoolExecutor:
+    """Threads for the checksums, which run beside the copies, writes and
+    reads of the other arrays (``zlib.crc32`` releases the GIL)."""
+    return ThreadPoolExecutor(max(1, min(8, os.cpu_count() or 1)))
+
+
+def _read_stored(f, info: zipfile.ZipInfo) -> Optional[np.ndarray]:
+    """The array of an uncompressed ``.npy`` member of the open npz file
+    ``f``, read in one piece from its offset (``np.load`` reads 256 KiB at
+    a time through ``zipfile``, and checks the zip's CRC, which the
+    manifest's checksum repeats); None for a member it cannot take."""
+    if info.compress_type != zipfile.ZIP_STORED:
+        return None
+    f.seek(info.header_offset)
+    head = f.read(30)
+    if len(head) != 30 or head[:4] != b"PK\x03\x04":
+        raise zipfile.BadZipFile(f"{info.filename}: no local header")
+    f.seek(info.header_offset + 30 + int.from_bytes(head[26:28], "little")
+           + int.from_bytes(head[28:30], "little"))
+    version = np.lib.format.read_magic(f)
+    if version not in ((1, 0), (2, 0)):
+        return None
+    shape, fortran, dtype = (np.lib.format.read_array_header_1_0(f)
+                             if version == (1, 0) else
+                             np.lib.format.read_array_header_2_0(f))
+    if dtype.hasobject:
+        return None
+    count = int(np.prod(shape, dtype=np.int64))
+    arr = np.fromfile(f, dtype, count)
+    if arr.size != count:
+        raise EOFError(f"{info.filename}: {arr.size} of {count} items")
+    return arr.reshape(shape, order="F" if fortran else "C")
+
+
+def _read_npz(path: str, checked, pool: ThreadPoolExecutor
+              ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """The arrays of the npz at ``path`` and futures of their checksums.
+    Arrays named in ``checked`` (the manifest's checksums, which verify
+    them) are read in one piece where they can be; the rest as
+    ``np.load`` reads them."""
+    flat, sums = {}, {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        for info in zf.infolist():
+            name = info.filename
+            k = name[:-4] if name.endswith(".npy") else name
+            arr = _read_stored(f, info) if k in checked else None
+            if arr is None:
+                with zf.open(info) as m:
+                    arr = np.lib.format.read_array(m)
+            flat[k] = arr
+            sums[k] = pool.submit(_checksum, arr)
+    return flat, sums
 
 
 def _fsync_path(path: str) -> None:
@@ -106,9 +162,11 @@ def _fsync_path(path: str) -> None:
         os.close(fd)
 
 
-def _write_attempt(tmp: str, flat: Dict[str, np.ndarray], manifest: Dict,
+def _write_attempt(tmp: str, flat: Dict[str, np.ndarray],
+                   manifest: Callable[[], Dict],
                    io_check: Optional[Callable[[], None]]) -> None:
-    """One durable write of arrays + manifest into ``tmp`` (no rename)."""
+    """One durable write of arrays + manifest into ``tmp`` (no rename);
+    ``manifest()`` is asked for once the arrays are written."""
     if io_check is not None:
         io_check()                 # the chaos engine's ckpt_io fault
     with open(os.path.join(tmp, "arrays.npz"), "wb") as f:
@@ -116,7 +174,7 @@ def _write_attempt(tmp: str, flat: Dict[str, np.ndarray], manifest: Dict,
         f.flush()
         os.fsync(f.fileno())
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f, indent=2, default=str)
+        json.dump(manifest(), f, indent=2, default=str)
         f.flush()
         os.fsync(f.fileno())
     _fsync_path(tmp)
@@ -159,10 +217,17 @@ def save(directory: str, step: int, tree: Mapping,
     re-raises."""
     os.makedirs(directory, exist_ok=True)
     final = step_dir(directory, step)
-    flat = {k: to_numpy(v) for k, v in _flatten_with_paths(tree).items()}
-    manifest = {"step": step, "arrays": sorted(flat),
-                "checksums": {k: _checksum(v) for k, v in flat.items()},
+    pool, flat, sums = _checksum_pool(), {}, {}
+    for k, v in _flatten_with_paths(tree).items():
+        flat[k] = to_numpy(v)
+        sums[k] = pool.submit(_checksum, flat[k])
+    pool.shutdown(wait=False)           # the queued checksums still run
+
+    def manifest() -> Dict:
+        return {"step": step, "arrays": sorted(flat),
+                "checksums": {k: f.result() for k, f in sums.items()},
                 **(metadata or {})}
+
     delays = retry_delays(retries, backoff_s, max_backoff_s=max_backoff_s,
                           jitter=jitter, seed=backoff_seed)
     attempt = 0
@@ -243,14 +308,16 @@ def _load_verified(directory: str, step: int
     """Load and checksum-verify one checkpoint; raises CheckpointCorruption
     on any integrity failure."""
     path = os.path.join(directory, f"step_{step:08d}")
-    try:
-        with open(os.path.join(path, "manifest.json")) as f:
-            manifest = json.load(f)
-        with np.load(os.path.join(path, "arrays.npz")) as z:
-            flat = {k: z[k] for k in z.files}
-    except (OSError, ValueError, json.JSONDecodeError, zipfile.BadZipFile,
-            zlib.error, EOFError) as e:
-        raise CheckpointCorruption(f"step {step}: {e}") from e
+    with _checksum_pool() as pool:
+        try:
+            with open(os.path.join(path, "manifest.json")) as f:
+                manifest = json.load(f)
+            flat, sums = _read_npz(os.path.join(path, "arrays.npz"),
+                                   manifest.get("checksums", {}), pool)
+        except (OSError, ValueError, json.JSONDecodeError,
+                zipfile.BadZipFile, zlib.error, EOFError) as e:
+            raise CheckpointCorruption(f"step {step}: {e}") from e
+        sums = {k: f.result() for k, f in sums.items()}
     missing = [k for k in manifest.get("arrays", []) if k not in flat]
     if missing:
         raise CheckpointCorruption(f"step {step}: arrays {missing} listed in "
@@ -259,7 +326,7 @@ def _load_verified(directory: str, step: int
         if k not in flat:
             raise CheckpointCorruption(f"step {step}: checksummed array "
                                        f"{k!r} missing")
-        got = _checksum(flat[k])
+        got = sums[k]
         if got != want:
             raise CheckpointCorruption(
                 f"step {step}: checksum mismatch for {k!r} "

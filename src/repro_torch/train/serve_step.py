@@ -5,8 +5,8 @@ Reference: ``src/repro/train/serve_step.py`` (``build_decode_step``,
 
 The models hold their weights, so the built steps take no ``params``.
 ``decode_input_specs`` / ``prefill_input_specs`` (``jax.ShapeDtypeStruct``s
-for the reference's dry run) have no counterpart here: the dry run is not
-ported (ROADMAP Queue 1 item 10).
+for the reference's dry run) have no counterpart here: the port's dry run
+(``launch/dryrun.py``) calls these steps on ``meta`` tensors.
 """
 from __future__ import annotations
 

@@ -332,23 +332,40 @@ def test_data_cfg_default_and_override(strategy):
 
 def test_runner_prints_the_reference_rows(monkeypatch, capsys):
     """Fig. 5's search is stubbed (its CPU cost is the steps); Fig. 6 runs
-    on its fit and Figs. 8/9 for 2 sync steps."""
+    on its fit, Fig. 2's runs stop after 2 updates, the lr sweep's after 2
+    steps and Figs. 8/9 run 2 sync steps; Figs. 3-4 and Table 1 run at
+    their quick sizes (host numpy)."""
+    from functools import partial
+    from repro_torch.benchmarks import bench_lr_sweep, bench_staleness
     monkeypatch.setattr(tfig5, "steps_to_target",
                         lambda n, target, max_steps, **kw: 40 + 400 // n)
+    monkeypatch.setattr(bench_staleness, "run",
+                        partial(bench_staleness.run, updates=2))
+    monkeypatch.setattr(bench_lr_sweep, "run",
+                        partial(bench_lr_sweep.run, steps=2))
     trun.main(["--device", "cpu", "--steps", "2"])
     lines = capsys.readouterr().out.splitlines()
     assert lines[0] == "name,us_per_call,derived"
     names = [line.split(",")[0] for line in lines[1:]]
     assert names == [
+        "straggler.sim_iter", "straggler.k98_cdf2s", "straggler.k100_cdf2s",
+        "straggler.mean_k100", "layer_staleness.sim_iter",
+        "layer_staleness.bottom_layer", "layer_staleness.top_layer",
+        "layer_staleness.bottom_over_top",
+        "layer_staleness.monotone_in_depth",
         "iters_vs_n.N1", "iters_vs_n.N2", "iters_vs_n.N4", "iters_vs_n.N8",
         "iters_vs_n.range_ratio", "time_to_converge.best_split",
         "time_to_converge.speedup_vs_b0", "time_to_converge.interior_optimum",
+        "staleness.tau0", "staleness.tau5", "staleness.tau10",
+        "staleness.tau15", "staleness.monotone_degradation",
+        "lr_sweep.g0.05", "lr_sweep.g0.2", "lr_sweep.g0.8",
+        "lr_sweep.best_gamma", "lr_sweep.small_lr_worse_optimum",
         "sync_vs_async.sync_backup", "sync_vs_async.sync_full",
         "sync_vs_async.async", "sync_vs_async.softsync",
         "sync_vs_async.backup_better_final_than_async",
         "sync_vs_async.backup_faster_than_fullsync"]
-    assert lines[1].endswith(",iters=440")
-    assert lines[5].endswith(",4.89x fewer iters at 8x workers")
+    assert lines[10].endswith(",iters=440")
+    assert lines[14].endswith(",4.89x fewer iters at 8x workers")
 
 
 def test_fig5_fit_recovers_a_plus_c_over_n(monkeypatch):
