@@ -12,6 +12,11 @@
     python3 chip_smoke.py --families-only # phase 29 alone
     python3 chip_smoke.py --hybrid-audio-only # phase 30 alone
     python3 chip_smoke.py --tooling-only  # phase 31 alone
+    python3 chip_smoke.py --harness-only  # the nine harness benches at the
+                                          # reference's settings, full-width
+                                          # serve fp and int8
+    python3 chip_smoke.py --spmd-mesh-only    # bench_spmd's mesh cells
+                                              # (four cards)
 
 Drives the port (``src/repro_torch``) through its own entry points and
 fails (non-zero exit, no result line) if any phase fails:
@@ -409,7 +414,31 @@ fails (non-zero exit, no result line) if any phase fails:
    predicted; the gradient and the mfu from grad_batch 1), and Fig. 2 and
    Table 2 / Fig. 7 on the card at the reference's quick sizes, their
    boolean rows held.
-32. A JSON line of per-kernel numbers (``launches`` is the count of one
+32. The harness benches (``repro_torch.benchmarks``), each run with
+   every launch counter set to 0 just before and read just after:
+   ``bench_serve --full-width --quick`` (its short trace: 16 requests,
+   prompts to 128 tokens, up to 32 new; qwen3-0.6b at full width, bf16,
+   fp pool, graph decode: three loads
+   calibrated from the measured decode step, the engine's static arm,
+   the toy arm of eager ``decode_step`` calls on a contiguous cache),
+   every arm completing every request, one decode capture, flash once a
+   layer an admission of its 6 engine runs and page gather at least twice
+   a layer a reported decode step, its tokens/s, p50 / p99 and occupancy
+   a load printed with the card's name and power limit; ``bench_router
+   --quick`` on the card, held to the reference's invariants (nothing
+   lost, the chaos replay identical, tokens equal to one engine's); a
+   fresh ``bench_spmd --quick`` payload (``HARNESS_SPMD``'s cells at
+   ``mesh_data`` 1: ``backup_reduce`` once a spmd step, counted exactly
+   a cell) and ``check_spmd_regression`` over it against itself (exit 0;
+   a second run would gate nothing: its bytes are 0 at one rank, its
+   ratios part by 15-24%). ``--harness-only``
+   runs the nine benches at the reference's settings (payloads to
+   ``build/harness/``) and ``bench_serve --full-width`` (32
+   requests) with both pools; ``--spmd-mesh-only`` bench_spmd's mesh
+   cells over NCCL worlds of 4 ranks (``SPMD_MESH_RUNS``), which
+   ``--harness-only`` runs in place of the ``mesh_data`` 1 cells on four
+   cards.
+33. A JSON line of per-kernel numbers (``launches`` is the count of one
    run of the main path that launches the kernel, named by
    ``launches_run``: the graph-decode serve runs, whose prefills stay
    eager, and the graph training runs; ``launches_batched_and_mesh``: those
@@ -420,16 +449,19 @@ fails (non-zero exit, no result line) if any phase fails:
    prefill; ``launches_moe``: phase 28's serve runs and training chunk;
    ``launches_families``: phase 29's training runs and TP decode runs;
    ``launches_hybrid_audio``: phase 30's hymba training graph run;
-   flash at head_dim 256 is its own row, with ``ptxas``), then, as the last
+   ``launches_harness``: phase 32's full-width serve run and one spmd
+   payload; flash at head_dim 256 is its own row, with ``ptxas``), then,
+   as the last
    line, ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero when ``torch.cuda.is_available()`` is false.
-A line ``[time] phase N: s`` follows each of phases 3-31.
+A line ``[time] phase N: s`` follows each of phases 3-32.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -682,6 +714,17 @@ EF_STEPS = 3
 STRAGGLER_ROWS = ("mean_k50=1.38s", "0.74", "0.17", "30.1s")
 LAYER_STALENESS_ROWS = ("workers=40,layers=19", "39.7", "14.0", "2.84x",
                         "True")
+# phase 32: the bench_spmd cells of the two payloads the regression guard
+# compares (mesh_data 1, M 1: one card); and --spmd-mesh-only's bench_spmd
+# runs on four cards (tag, argv)
+HARNESS_SPMD = dict(workers=(4,), chunks=(1, 32))
+SPMD_MESH_RUNS = (
+    ("w4_m1_d4", ["--workers", "4", "--mesh-models", "1"]),
+    ("w8_m1_d4", ["--workers", "8", "--mesh-models", "1", "--mesh-data",
+                  "4"]),
+    ("m2_d2", ["--workers", "4", "8", "--mesh-models", "2", "--mesh-data",
+               "2"]),
+)
 
 
 def _log(msg: str) -> None:
@@ -5590,6 +5633,222 @@ def _tooling_phase(torch, measured=None):
         _compression_check(torch, grad, cpu_steps)
     _figures(torch, on_card=measured is None)
 
+
+# ---------------------------------------------------------------------------
+# Phase 32: the harness benches on the card
+# ---------------------------------------------------------------------------
+
+_COUNTER_NAMES = ("page_gather", "flash_attention", "backup_reduce",
+                  "wkv6_fwd", "wkv6_fwd_states", "wkv6_bwd",
+                  "tp_all_reduces", "tp_all_gathers")
+
+
+def _bench_kernels(torch, tag, fn):
+    """``fn()`` with every launch counter set to 0 just before it and read
+    just after; logs the wall seconds and the launches. Returns (fn's
+    result, {counter: launches})."""
+    from repro_torch.kernels import counters
+    counters.write((0,) * len(counters.COUNTERS))
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    n = dict(zip(_COUNTER_NAMES, counters.read()))
+    _log(f"[harness {tag}] {time.perf_counter() - t0:.1f} s | launches "
+         + (", ".join(f"{k} {v}" for k, v in n.items() if v) or "none"))
+    return out, n
+
+
+def _log_serve(tag, payload, smi):
+    """bench_serve's loads, static and toy arms, one line each."""
+    for r in payload["results"]:
+        occ = (f" occupancy {r['mean_occupancy']:.3f}"
+               if "mean_occupancy" in r else "")
+        _log(f"[harness {tag}] {r['policy']:<10} rho {r['rho']:<4} "
+             f"offered {r['offered_rate']:.2f}/s: {r['tokens_per_s']:.1f} "
+             f"tok/s, latency p50 {r['p50_latency_s']:.4f} s p99 "
+             f"{r['p99_latency_s']:.4f} s{occ} | {smi}")
+    vs_engine = payload["continuous_vs_engine_static_tokens_per_s"]
+    _log(f"[harness {tag}] continuous vs toy "
+         f"{payload['continuous_vs_static_tokens_per_s']:.3f}x, vs the "
+         f"engine's static {vs_engine:.3f}x; prefill buckets "
+         f"{payload['prefill_compiles']}, decode captures "
+         f"{payload['decode_compiles']}")
+
+
+def _serve_bench(torch, smi, tag, argv):
+    """``bench_serve.main(argv)`` through ``_bench_kernels``, held to its
+    invariants: every arm completes every request, one decode capture,
+    occupancy in [0, 1], every rate > 0; flash once a layer an admission
+    (the 6 engine runs: warmup, calibration, 3 loads, static), page gather
+    twice a layer a decode step (at least the reported arms' steps)."""
+    from repro_torch import configs
+    from repro_torch.benchmarks import bench_serve
+    payload, n = _bench_kernels(torch, tag, lambda: bench_serve.main(argv))
+    layers = configs.get_config(bench_serve.FULL_ARCH).num_layers \
+        if "--full-width" in argv else \
+        configs.get_smoke_config(bench_serve.FULL_ARCH).num_layers
+    req = payload["requests"]
+    bad = [r["policy"] for r in payload["results"]
+           if r["completed"] != req or not r["tokens_per_s"] > 0
+           or not 0 <= r.get("mean_occupancy", 0) <= 1]
+    steps = sum(r.get("decode_steps", 0) for r in payload["results"])
+    if bad or payload["decode_compiles"] != 1:
+        raise AssertionError(f"[harness {tag}] arms {bad} failed, decode "
+                             f"captures {payload['decode_compiles']}")
+    if n["flash_attention"] != 6 * req * layers or \
+            n["page_gather"] < 2 * layers * steps or steps == 0:
+        raise AssertionError(
+            f"[harness {tag}] launches flash {n['flash_attention']} "
+            f"(expected {6 * req * layers}), page gather "
+            f"{n['page_gather']} (at least {2 * layers * steps})")
+    _log_serve(tag, payload, smi)
+    return payload, n
+
+
+def _spmd_bench(torch, tag, argv):
+    """``bench_spmd.main(argv)`` through ``_bench_kernels``: on the card
+    every spmd step of a rank launches ``backup_reduce`` once, so each spmd
+    cell's count (rank 0's for a world's cell) is its warmup's
+    ``max(chunk, 8)`` steps plus ``REPS`` timed runs of its steps, a sim
+    cell's 0, and this process's count the sum over its own cells; every
+    rate > 0."""
+    from repro_torch.benchmarks import bench_spmd
+    payload, n = _bench_kernels(torch, tag, lambda: bench_spmd.main(argv))
+    rows = payload["results"]
+
+    def want(r):
+        return 0 if r["backend"] == "sim" else \
+            max(r["chunk_size"], 8) + bench_spmd.REPS * r["steps"]
+
+    bad = [bench_spmd.cell_key(f"{r['backend']}_", r) for r in rows
+           if r["backup_reduce_launches"] != want(r)
+           or not r["steps_per_s"] > 0]
+    here = sum(want(r) for r in rows
+               if r["mesh_data"] * r["mesh_model"] == 1)
+    if bad or n["backup_reduce"] != here or not any(
+            r["backend"] == "spmd" for r in rows):
+        raise AssertionError(
+            f"[harness {tag}] cells {bad} launched backup_reduce "
+            f"{[r['backup_reduce_launches'] for r in rows]} times (expected "
+            f"{[want(r) for r in rows]}), this process "
+            f"{n['backup_reduce']} (expected {here})")
+    _log(f"[harness {tag}] backup_reduce a cell "
+         f"{[r['backup_reduce_launches'] for r in rows]}, as expected")
+    return payload, n
+
+
+def _spmd_guard(smi, tag, paths) -> None:
+    """``check_spmd_regression`` over bench_spmd payloads of this card:
+    the first against itself must exit 0 (its code read over a real
+    payload); with a second, the verdict over the two is printed, not
+    gated: at ``mesh_data`` 1 the bytes keys are 0 (one rank moves
+    nothing) and the timed ratios part by 15-24% run to run on one card,
+    past the guard's 20%."""
+    from repro_torch.benchmarks import check_spmd_regression as guard
+    if guard.main([paths[0], paths[0]]) != 0:
+        raise AssertionError(f"[harness {tag}] check_spmd_regression "
+                             f"flags a payload against itself")
+    verdict = f", over two runs exit {guard.main(paths)} (printed, not " \
+        f"gated)" if len(paths) > 1 else ""
+    _log(f"[harness {tag}] check_spmd_regression: a payload against itself "
+         f"exit 0{verdict} | {smi}")
+
+
+def _harness_phase(torch, smi):
+    """Phase 32: ``bench_serve --full-width --quick`` (its short trace, fp
+    pool), ``bench_router --quick`` held to
+    the reference's invariants, and ``check_spmd_regression`` over a
+    fresh ``bench_spmd`` payload of this card (``HARNESS_SPMD``'s cells at
+    ``mesh_data`` 1) against itself. Returns the main path's launches."""
+    from repro_torch.benchmarks import bench_router
+    serve, n_serve = _serve_bench(torch, smi, "serve full width fp",
+                                  ["--full-width", "--quick"])
+    del serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    router, n_router = _bench_kernels(
+        torch, "router", lambda: bench_router.main(["--quick"]))
+    if router["chaos_lost_requests"] != 0 or not router["replay_identical"] \
+            or not router["token_parity"] or not n_router["page_gather"]:
+        raise AssertionError(f"[harness router] lost "
+                             f"{router['chaos_lost_requests']}, replay "
+                             f"{router['replay_identical']}, parity "
+                             f"{router['token_parity']}")
+    _log(f"[harness router] virtual p99 hedged vs unhedged "
+         f"{router['hedged_vs_unhedged_p99']:.3f}x, goodput shed "
+         f"{router['goodput_shed']:.4f} unshed {router['goodput_unshed']:.4f}"
+         f", nothing lost, replay identical, tokens == one engine's")
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "spmd.json")
+        _, n_spmd = _spmd_bench(torch, "spmd", [
+            "--quick", "--mesh-data", "1", "--mesh-models", "1",
+            "--workers", *map(str, HARNESS_SPMD["workers"]),
+            "--chunks", *map(str, HARNESS_SPMD["chunks"]), "--out", path])
+        _spmd_guard(smi, "spmd", [path])
+    return {"serve": n_serve, "router": n_router, "spmd": n_spmd}
+
+
+def _harness_only(torch, smi) -> None:
+    """``--harness-only``: the nine benches at the reference's settings
+    (each payload to ``build/harness/<bench>.json``), then
+    ``bench_serve --full-width`` with the fp and the int8 pool. bench_spmd
+    runs its cells at ``mesh_data`` 1 on one card; with four cards,
+    ``--spmd-mesh-only``'s mesh cells."""
+    from repro_torch.benchmarks import (bench_event_loop,
+                                        bench_loop_overhead, bench_obs,
+                                        bench_recovery, bench_router,
+                                        bench_step_time)
+    out = os.path.join(ROOT, "build", "harness")
+    os.makedirs(out, exist_ok=True)
+
+    def to(name):
+        return ["--out", os.path.join(out, f"{name}.json")]
+
+    for name, fn in (("router", bench_router.main),
+                     ("recovery", bench_recovery.main),
+                     ("obs", bench_obs.main),
+                     ("loop", bench_loop_overhead.main),
+                     ("events", bench_event_loop.main),
+                     ("step_time", bench_step_time.main)):
+        t0 = time.perf_counter()
+        _bench_kernels(torch, name, lambda: fn(to(name)))
+        _log(f"[time] harness {name}: {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _serve_bench(torch, smi, "serve smoke", to("serve"))
+    _log(f"[time] harness serve: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    if torch.cuda.device_count() >= 4:
+        _spmd_mesh(torch, out)
+    else:
+        for i in range(2):
+            _spmd_bench(torch, f"spmd d1 {i}", ["--mesh-data", "1",
+                                                "--mesh-models", "1"]
+                        + to(f"spmd_d1_{i}"))
+        _spmd_guard(smi, "spmd d1", [
+            os.path.join(out, f"spmd_d1_{i}.json") for i in range(2)])
+    _log(f"[time] harness spmd: {time.perf_counter() - t0:.1f} s")
+    for pool, extra in (("fp", []), ("int8", ["--cache-int8"])):
+        t0 = time.perf_counter()
+        _serve_bench(torch, smi, f"serve full width {pool}",
+                     ["--full-width", *extra] + to(f"serve_full_{pool}"))
+        _log(f"[time] harness serve full width {pool}: "
+             f"{time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _spmd_mesh(torch, out) -> None:
+    """``--spmd-mesh-only`` (four cards): bench_spmd's mesh cells over
+    NCCL worlds of 4 ranks, a card each: the reference's ``mesh_data =
+    W`` at W = 4, M = 1; ``--mesh-data 4`` at W = 8, M = 1;
+    ``--mesh-data 2`` at W = 4 and 8, M = 2."""
+    for tag, argv in SPMD_MESH_RUNS:
+        _spmd_bench(torch, f"spmd {tag}", argv + [
+            "--out", os.path.join(out, f"spmd_{tag}.json")])
+
+
 def main(argv) -> int:
     started = time.perf_counter()
     # cuBLAS picks the same algorithms run to run (the kernel and plain
@@ -5597,7 +5856,8 @@ def main(argv) -> int:
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     entries = ("--mesh-only", "--faults-only", "--serve-only",
                "--tp-decode-only", "--flash-only", "--moe-only",
-               "--families-only", "--hybrid-audio-only", "--tooling-only")
+               "--families-only", "--hybrid-audio-only", "--tooling-only",
+               "--harness-only", "--spmd-mesh-only")
     if argv and (len(argv) > 1 or argv[0] not in entries):
         print(f"chip_smoke: unknown arguments {argv} (none, or one of "
               f"{', '.join(entries)})", file=sys.stderr)
@@ -5701,6 +5961,18 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         _tooling_phase(torch)
         _log(f"[time] phase 31: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if argv == ["--harness-only"]:      # the nine benches at full settings
+        t0 = time.perf_counter()
+        _harness_only(torch, smi)
+        _log(f"[time] harness: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if argv == ["--spmd-mesh-only"]:    # bench_spmd's mesh cells (4 cards)
+        t0 = time.perf_counter()
+        out = os.path.join(ROOT, "build", "harness")
+        os.makedirs(out, exist_ok=True)
+        _spmd_mesh(torch, out)
+        _log(f"[time] spmd mesh cells: {time.perf_counter() - t0:.1f} s")
         return 0
 
     lap = [time.perf_counter()]
@@ -5944,16 +6216,34 @@ def main(argv) -> int:
                                first_grad=first_grad))
     del first_grad
     _log(f"[time] phase 31: {time.perf_counter() - t0:.1f} s")
-    _log(f"[time] phases 1-31: {time.perf_counter() - started:.1f} s")
 
-    # 32. results
+    # 32. the harness benches: full-width serve, the router, the spmd
+    # regression guard
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    harness = _harness_phase(torch, smi)
+    for row in rows:
+        key = {"page_gather": ("serve", "page_gather",
+                               "bench_serve --full-width --quick, fp"),
+               "flash_attention": ("serve", "flash_attention",
+                                   "bench_serve --full-width --quick, fp"),
+               "backup_reduce": ("spmd", "backup_reduce",
+                                 "bench_spmd --quick, one payload's spmd "
+                                 "cells")}.get(row["name"])
+        if key:
+            row["launches_harness"] = {key[2]: harness[key[0]][key[1]]}
+    _log(f"[time] phase 32: {time.perf_counter() - t0:.1f} s")
+    _log(f"[time] phases 1-32: {time.perf_counter() - started:.1f} s")
+
+    # 33. results
     keys = ("name", "route", "source", "replaces", "launches", "launches_run",
             "launches_batched_and_mesh", "launches_faults",
             "launches_telemetry", "launches_router", "launches_dense",
             "launches_toy", "launches_moe", "launches_families",
-            "launches_hybrid_audio", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "by_s", "splits",
-            "capacity", "ptxas")
+            "launches_hybrid_audio", "launches_harness", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "by_s",
+            "splits", "capacity", "ptxas")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(json.dumps({"ok": True, "device": {

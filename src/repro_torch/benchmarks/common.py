@@ -1,14 +1,23 @@
 """Shared benchmark plumbing: the tiny-LM problem, SGD, the time to a
-target loss. Reference: ``benchmarks/common.py`` (``tiny_lm_config``,
-``tiny_lm_problem``, ``sgd_update_fn``, ``time_to_threshold``).
+target loss, the harness benches' timing and result file. Reference:
+``benchmarks/common.py`` (``tiny_lm_config``, ``tiny_lm_problem``,
+``sgd_update_fn``, ``time_to_threshold``, ``quick_mode``, ``write_bench``,
+``_provenance``).
 
-The reference's JSON writers have no counterpart: the port's benchmarks
-print their numbers.
+The port's benchmarks print their numbers and return the reference's
+payloads. They write no ``BENCH_*.json``: a harness bench writes its
+payload only to the path its caller passes (``--out PATH``,
+:func:`write_out`), stamped with a ``provenance`` block that names the
+commit, torch and the card (``nvidia-smi``'s name and power limit).
 """
 from __future__ import annotations
 
+import json
 import math
-from typing import Callable, Dict, Mapping, Optional
+import os
+import subprocess
+import time
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,6 +32,92 @@ from repro_torch.models.common import resolve_device
 # the held-out stream: a worker id no run draws from, and its batches
 HELDOUT_WORKER = 997
 HELDOUT_BATCHES = 4
+
+BENCH_SCHEMA_VERSION = 1
+_ROOT = os.path.join(os.path.dirname(__file__), "..", "..", "..")
+
+
+def quick_mode() -> bool:
+    return os.environ.get("REPRO_BENCH_FULL", "0") not in ("1", "true")
+
+
+def sync(device=None) -> None:
+    """Wait for the card (the reference's ``block_until_ready``); nothing
+    on the CPU."""
+    if torch.device(device or "cpu").type == "cuda":
+        torch.cuda.synchronize()
+
+
+def best_of(items: Sequence, run: Callable[[Any], None], reps: int,
+            device=None) -> List[float]:
+    """The interleaved best-of-``reps`` timing of the reference's
+    ``measure_all``: ``reps`` rounds of ``run(item)`` over every item in
+    turn (so drift does not penalize whichever is measured last), each
+    interval ending on the card (:func:`sync`); the least seconds per
+    item."""
+    best = [math.inf] * len(items)
+    for _ in range(reps):
+        for i, item in enumerate(items):
+            t0 = time.perf_counter()
+            run(item)
+            sync(device)
+            best[i] = min(best[i], time.perf_counter() - t0)
+    return best
+
+
+def card() -> Dict[str, Optional[str]]:
+    """``nvidia-smi --query-gpu=name,power.limit``'s first card (None for
+    each field where there is no ``nvidia-smi``)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return {"name": None, "power.limit": None}
+    name, limit = (f.strip() for f in out.rsplit(",", 1))
+    return {"name": name, "power.limit": limit}
+
+
+def provenance(device) -> Dict[str, Any]:
+    """{schema_version, git_sha, torch_version, device, name, power.limit}:
+    the reference's block with torch and the card in place of
+    ``jax_version`` / ``device_kind``. Outside a git checkout the sha
+    records as "unknown"."""
+    try:
+        sha = subprocess.run(
+            ["git", "rev-parse", "--short", "HEAD"], cwd=_ROOT,
+            capture_output=True, text=True, timeout=10).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        sha = ""
+    dev = torch.device(device)
+    return {"schema_version": BENCH_SCHEMA_VERSION,
+            "git_sha": sha or "unknown", "torch_version": torch.__version__,
+            "device": str(dev),
+            **(card() if dev.type == "cuda"
+               else {"name": None, "power.limit": None})}
+
+
+def write_out(path: Optional[str], payload: Dict, device) -> Optional[str]:
+    """Write ``payload`` with its ``provenance`` to ``path`` (JSON); no
+    path, no file. Returns the path written."""
+    if not path:
+        return None
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(dict(payload, provenance=provenance(device)), f, indent=2,
+                  default=float)
+    return path
+
+
+def add_harness_args(ap) -> None:
+    """The flags every harness bench takes besides the reference's:
+    ``--device`` and ``--out``."""
+    ap.add_argument("--device", default=None,
+                    help="'cpu', or the card (the default)")
+    ap.add_argument("--out", default=None, metavar="PATH",
+                    help="write the payload and its provenance here as "
+                         "JSON (nothing is written without it)")
 
 
 def tiny_lm_config(vocab: int = 64):

@@ -330,11 +330,35 @@ def test_data_cfg_default_and_override(strategy):
 # ---------------------------------------------------------------------------
 
 
+# the harness benches after the figures, in the runner's order
+HARNESS = ("event_loop", "spmd", "recovery", "serve", "obs", "step_time",
+           "router", "loop")
+_HARNESS_MODULES = dict(event_loop="bench_event_loop", spmd="bench_spmd",
+                        recovery="bench_recovery", serve="bench_serve",
+                        obs="bench_obs", step_time="bench_step_time",
+                        router="bench_router", loop="bench_loop_overhead")
+
+
+def _stub_harness(monkeypatch, fail=None):
+    """Each harness bench's ``run`` returns one row ``<name>.row`` (their
+    rows' names are held to the reference's in tests/test_torch_harness*.py);
+    ``fail``'s raises."""
+    import importlib
+    for name, mod in _HARNESS_MODULES.items():
+        def run(quick, device=None, name=name, **kw):
+            if name == fail:
+                raise RuntimeError("boom")
+            return [(f"{name}.row", 1.0, "ok")]
+        monkeypatch.setattr(importlib.import_module(
+            f"repro_torch.benchmarks.{mod}"), "run", run)
+
+
 def test_runner_prints_the_reference_rows(monkeypatch, capsys):
     """Fig. 5's search is stubbed (its CPU cost is the steps); Fig. 6 runs
     on its fit, Fig. 2's runs stop after 2 updates, the lr sweep's after 2
     steps and Figs. 8/9 run 2 sync steps; Figs. 3-4 and Table 1 run at
-    their quick sizes (host numpy)."""
+    their quick sizes (host numpy); the harness benches are stubbed, in
+    order after the figures."""
     from functools import partial
     from repro_torch.benchmarks import bench_lr_sweep, bench_staleness
     monkeypatch.setattr(tfig5, "steps_to_target",
@@ -343,6 +367,7 @@ def test_runner_prints_the_reference_rows(monkeypatch, capsys):
                         partial(bench_staleness.run, updates=2))
     monkeypatch.setattr(bench_lr_sweep, "run",
                         partial(bench_lr_sweep.run, steps=2))
+    _stub_harness(monkeypatch)
     trun.main(["--device", "cpu", "--steps", "2"])
     lines = capsys.readouterr().out.splitlines()
     assert lines[0] == "name,us_per_call,derived"
@@ -363,9 +388,93 @@ def test_runner_prints_the_reference_rows(monkeypatch, capsys):
         "sync_vs_async.sync_backup", "sync_vs_async.sync_full",
         "sync_vs_async.async", "sync_vs_async.softsync",
         "sync_vs_async.backup_better_final_than_async",
-        "sync_vs_async.backup_faster_than_fullsync"]
+        "sync_vs_async.backup_faster_than_fullsync"] + [
+        f"{name}.row" for name in HARNESS]
     assert lines[10].endswith(",iters=440")
     assert lines[14].endswith(",4.89x fewer iters at 8x workers")
+
+
+def test_runner_reports_a_failed_bench_and_exits_1(monkeypatch, capsys):
+    """As the reference's runner: ``<name>.ERROR`` and the rest still run,
+    then exit status 1 (the figures stubbed out)."""
+    from repro_torch.benchmarks import (bench_iterations_vs_n, bench_lr_sweep,
+                                        bench_staleness, bench_straggler,
+                                        bench_sync_vs_async,
+                                        bench_layer_staleness)
+    for mod in (bench_straggler, bench_layer_staleness, bench_staleness,
+                bench_lr_sweep, bench_sync_vs_async, tfig6):
+        monkeypatch.setattr(mod, "run", lambda *a, **kw: [])
+    monkeypatch.setattr(bench_iterations_vs_n, "run",
+                        lambda *a, **kw: ([], None))
+    _stub_harness(monkeypatch, fail="recovery")
+    with pytest.raises(SystemExit) as exit_:
+        trun.main(["--device", "cpu"])
+    assert exit_.value.code == 1
+    names = [line.split(",")[0]
+             for line in capsys.readouterr().out.splitlines()[1:]]
+    assert names == [f"{n}.ERROR" if n == "recovery" else f"{n}.row"
+                     for n in HARNESS]
+
+
+@pytest.mark.parametrize("argv,rc", [
+    (["--mesh-data", "1", "--mesh-models", "1"], None),
+    (["--mesh-data", "1"], 1),
+], ids=["m1", "m1_m2"])
+def test_runner_runs_bench_spmd_on_one_card(monkeypatch, capsys, argv, rc):
+    """The runner on one card (``device_count`` 1): ``--mesh-data 1
+    --mesh-models 1`` passes both to bench_spmd, whose cells then need one
+    card each; without ``--mesh-models`` its M = 2 cells need 2 cards and
+    the runner prints ``spmd.ERROR`` naming them, then exits 1. The other
+    benches are stubbed; bench_spmd's timing is stubbed (no card here),
+    its bytes planned as on the card."""
+    from repro_torch.benchmarks import (bench_iterations_vs_n, bench_lr_sweep,
+                                        bench_staleness, bench_straggler,
+                                        bench_sync_vs_async,
+                                        bench_layer_staleness)
+    from repro_torch.benchmarks import bench_spmd as tspmd
+    for mod in (bench_straggler, bench_layer_staleness, bench_staleness,
+                bench_lr_sweep, bench_sync_vs_async, tfig6):
+        monkeypatch.setattr(mod, "run", lambda *a, **kw: [])
+    monkeypatch.setattr(bench_iterations_vs_n, "run",
+                        lambda *a, **kw: ([], None))
+    spmd_run = tspmd.run
+    _stub_harness(monkeypatch)
+    monkeypatch.setattr(tspmd, "run", spmd_run)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    card = torch.device("cuda", 0)
+    monkeypatch.setattr(trun, "resolve_device", lambda d=None: card)
+    monkeypatch.setattr(tspmd, "resolve_device", lambda d=None: card)
+    timed = []
+
+    def time_cells(specs, steps, reps, device, tracer=None, metrics=None):
+        timed.extend(specs)
+        return [0.5] * len(specs), [0] * len(specs)
+
+    monkeypatch.setattr(tspmd, "_time_cells", time_cells)
+    if rc is None:
+        trun.main(argv)
+    else:
+        with pytest.raises(SystemExit) as exit_:
+            trun.main(argv)
+        assert exit_.value.code == rc
+    out = capsys.readouterr().out.splitlines()[1:]
+    spmd = [line for line in out if line.startswith("spmd.")]
+    if rc is None:
+        assert [(b, m, d) for b, _, _, m, d in timed] == \
+            [("sim", 1, w) for w in (4, 4, 8, 8)] + [("spmd", 1, 1)] * 4
+        assert [line.split(",")[0] for line in spmd] == [
+            "spmd.sim_w4_chunk1_m1", "spmd.sim_w4_chunk32_m1",
+            "spmd.sim_w8_chunk1_m1", "spmd.sim_w8_chunk32_m1",
+            "spmd.spmd_w4_chunk1_m1_d1", "spmd.spmd_w4_chunk32_m1_d1",
+            "spmd.spmd_w8_chunk1_m1_d1", "spmd.spmd_w8_chunk32_m1_d1",
+            "spmd.spmd_vs_sim_w4_chunk1_m1_d1",
+            "spmd.spmd_vs_sim_w4_chunk32_m1_d1",
+            "spmd.spmd_vs_sim_w8_chunk1_m1_d1",
+            "spmd.spmd_vs_sim_w8_chunk32_m1_d1"]
+    else:
+        assert not timed
+        assert len(spmd) == 1 and spmd[0].startswith("spmd.ERROR,0,")
+        assert "needs 2 cards" in spmd[0]
 
 
 def test_fig5_fit_recovers_a_plus_c_over_n(monkeypatch):
@@ -384,3 +493,9 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
         tcommon.tiny_lm_problem()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         trun.main([])
+    # the harness benches (check_spmd_regression runs nothing: host logic)
+    import importlib
+    for mod in _HARNESS_MODULES.values():
+        main = importlib.import_module(f"repro_torch.benchmarks.{mod}").main
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main([])
